@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (mxnet_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda).  Phases, each
+fatal on failure:
+
+1. build: compile the NormConv kernel (csrc/norm_conv.cu) for sm_90a;
+2. kernels: at every distinct NormConv geometry of ResNet-50 at batch 8,
+   224x224 (22 of them, read off the graph), hold the kernel against its
+   plain PyTorch version in float32 and bfloat16, with TF32 off; check the
+   statistics epilogue (float32, every geometry), the prologue off and the
+   ReLU off; time the kernel, the plain version and cuDNN's conv alone;
+3. serving: ResNet-50 at full width (1000 classes, 3x224x224, random
+   weights from a seed) behind ``ServedModel`` with MXNET_NORM_CONV=1,
+   max_batch 8, 24 requests from 4 client threads; every request answered,
+   the kernel launched 52 times per forward, and every served row equal
+   (within SERVE_TOL) to an unfused ``Predictor`` (cuDNN, TF32 off).
+
+Prints the card's name and power limit, per-geometry numbers, serving qps
+and latency, a JSON line of kernel numbers, and as its last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
+there is no CUDA device or the package is missing.
+"""
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+SEED = 0
+BATCH = 8
+IMAGE = 224
+CLASSES = 1000
+CLIENTS = 4
+REQUESTS_PER_CLIENT = 6
+# kernel vs plain version, max |y_kernel - y_plain| / max |y_plain|.
+# float32: both accumulate in float32, in different orders, over up to
+# 4608 products.  bfloat16: the prologue is bit-identical, the outputs are
+# each rounded once to bfloat16 (2^-8 relative) from float32 sums taken in
+# different orders: allow about two bfloat16 steps of the largest output.
+Y_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# float32 statistics epilogue vs the plain version's sums of y, relative to
+# the largest |sum| (the kernel adds per-block partials with atomics)
+STATS_TOL = 1e-4
+# served softmax rows vs the unfused reference, relative to the largest
+# probability: float32 throughout, so only summation order differs
+SERVE_TOL = 1e-4
+# H100 SXM published peaks (dense): float32 on the CUDA cores, bfloat16 on
+# the tensor cores, HBM3 bandwidth
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
+ITERS = 20
+
+
+def fail(msg):
+    print("FAIL: %s" % msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def time_ms(torch, fn, iters=ITERS):
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def resnet50_geometries(mt, batch):
+    """{(H, W, Cin, Cout, k, s, p): count} of the convolutions the NormConv
+    peephole fuses in ResNet-50 at ``batch`` x 3 x IMAGE x IMAGE."""
+    from mxnet_tpu_torch.executor import _Lowered
+    net = mt.models.resnet.get_symbol(CLASSES, 50, "3,%d,%d" % (IMAGE, IMAGE))
+    low = _Lowered(net)
+    internals = net.get_internals()
+    _, shapes, _ = internals.infer_shape(data=(batch, 3, IMAGE, IMAGE))
+    shape_of = {(id(n), i): s for (n, i), s in zip(internals._outputs, shapes)}
+    geoms = {}
+    for node in low.order:
+        if id(node) not in low.nc_conv:
+            continue
+        src, si = node.inputs[0]
+        _, cin, h, w = shape_of[(id(src), si)]
+        g = low._nc_conv_attrs(node)
+        cout = int(node.op.normalize_attrs(node.params)["num_filter"])
+        key = (h, w, cin, cout, g["k"], g["s"], g["p"])
+        geoms[key] = geoms.get(key, 0) + 1
+    return geoms
+
+
+def conv_work(n, h, w, cin, cout, k, s, p):
+    """(input elements read, multiply-adds) that the convolution needs: only
+    the input pixels some tap reaches (a 1x1 stride-2 conv reads a quarter
+    of x) and only in-bounds taps (a padded tap multiplies a zero)."""
+    def axis(size):
+        out = (size + 2 * p - k) // s + 1
+        taps = [o * s - p + t for o in range(out) for t in range(k)]
+        inside = [i for i in taps if 0 <= i < size]
+        return len(set(inside)), len(inside)
+    rows, row_taps = axis(h)
+    cols, col_taps = axis(w)
+    return n * rows * cols * cin, n * row_taps * col_taps * cin * cout
+
+
+def kernel_phase(torch, nc, geoms):
+    """Kernel vs plain version at every geometry; returns the float32
+    main-path totals (each geometry weighted by its count in a forward)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0}
+    for gi, (key, count) in enumerate(sorted(geoms.items())):
+        h, w, cin, cout, k, s, p = key
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            x = torch.randn(BATCH, h, w, cin, device=dev, generator=gen)
+            wt = torch.randn(k, k, cin, cout, device=dev, generator=gen) \
+                * (2.0 / (k * k * cin)) ** 0.5
+            x, wt = x.to(dt), wt.to(dt)
+            sc = torch.rand(cin, device=dev, generator=gen) + 0.5
+            sh = torch.randn(cin, device=dev, generator=gen) * 0.5
+            variants = [("main", dict(relu=True, prologue=True,
+                                      stats=dt == torch.float32))]
+            if gi == 0:
+                variants.append(("no_prologue", dict(relu=True,
+                                                     prologue=False,
+                                                     stats=False)))
+            if gi == 1:
+                variants.append(("no_relu", dict(relu=False, prologue=True,
+                                                 stats=False)))
+            for vname, kw in variants:
+                yk, sk, qk = nc.norm_conv(x, wt, sc, sh, k, s, p, **kw)
+                yp, spl, qp = nc.norm_conv_ref(x, wt, sc, sh, k, s, p, **kw)
+                torch.cuda.synchronize()
+                err = (yk.float() - yp.float()).abs().max().item()
+                ref = yp.float().abs().max().item()
+                if not torch.isfinite(yk).all() or err > Y_TOL[dname] * ref:
+                    fail("kernel %s %s %s: max|dy| %.3g > %g * %.3g"
+                         % (key, dname, vname, err, Y_TOL[dname], ref))
+                if kw["stats"]:
+                    for a, b, what in ((sk, spl, "sum"), (qk, qp, "sumsq")):
+                        serr = (a - b).abs().max().item()
+                        sref = b.abs().max().item()
+                        if serr > STATS_TOL * sref:
+                            fail("kernel %s stats %s: max err %.3g > %g * "
+                                 "%.3g" % (key, what, serr, STATS_TOL, sref))
+                if vname == "main":
+                    main_err = err
+                else:
+                    print("check geom=%s dtype=%s variant=%s max_abs_err=%r "
+                          "max_abs_ref=%r" % (key, dname, vname, err, ref))
+            main = dict(relu=True, prologue=True, stats=False)
+            kernel_ms = time_ms(torch, lambda: nc.norm_conv(
+                x, wt, sc, sh, k, s, p, **main))
+            plain_ms = time_ms(torch, lambda: nc.norm_conv_ref(
+                x, wt, sc, sh, k, s, p, **main))
+            xh = nc._apply(x, sc, sh, True).permute(0, 3, 1, 2)
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            library_ms = time_ms(torch, lambda: F.conv2d(
+                xh, w_oihw, stride=s, padding=p))
+            oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+            # bytes: x as read, w, scale, shift, y; operations: 2 per MAC
+            # (the prologue's 2-3 per input element are under 1% and left out)
+            x_read, macs = conv_work(BATCH, h, w, cin, cout, k, s, p)
+            nbytes = (x_read + wt.numel() + 2 * cin
+                      + BATCH * oh * ow * cout) * x.element_size()
+            ops = 2.0 * macs
+            ops_ms = ops / PEAK_OPS[dname] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            print("geom H=%d W=%d Cin=%d Cout=%d k=%d s=%d p=%d count=%d "
+                  "dtype=%s max_abs_err=%r kernel_ms=%r plain_ms=%r "
+                  "library_ms=%r bound_ms=%r bound_by=%s"
+                  % (h, w, cin, cout, k, s, p, count, dname, main_err,
+                     kernel_ms, plain_ms, library_ms, bound_ms,
+                     "operations" if ops_ms >= bytes_ms else "bytes"))
+            if dt == torch.float32:
+                tot["ms"] += count * kernel_ms
+                tot["plain_ms"] += count * plain_ms
+                tot["library_ms"] += count * library_ms
+                tot["bound_ms"] += count * bound_ms
+                tot["ops_ms"] += count * ops_ms
+                tot["bytes_ms"] += count * bytes_ms
+                tot["max_abs_err"] = max(tot["max_abs_err"], main_err)
+    return tot
+
+
+def resnet50_params(mt, net):
+    """Random ResNet-50 weights from SEED: He-scaled convolutions (the last
+    1x1 of each residual branch scaled by 0.2 so the stream stays O(1)),
+    BatchNorm with positive moving variances."""
+    rng = np.random.default_rng(SEED)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(1, 3, IMAGE, IMAGE))
+    args, aux = {}, {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_weight"):
+            fan_in = int(np.prod(shape[1:]))
+            gain = 1.0 if name == "fc1_weight" else 2.0
+            v = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32((gain / fan_in) ** 0.5)
+            if name.endswith("_conv3_weight"):
+                v *= np.float32(0.2)
+        elif name.endswith("_gamma"):
+            v = rng.uniform(0.8, 1.2, shape).astype(np.float32)
+        elif name.endswith("_beta"):
+            v = (rng.standard_normal(shape) * 0.05).astype(np.float32)
+        else:
+            v = np.zeros(shape, np.float32)
+        args[name] = v
+    for name, shape in zip(net.list_auxiliary_states(), aux_shapes):
+        if name.endswith("_moving_var"):
+            aux[name] = rng.uniform(0.8, 1.2, shape).astype(np.float32)
+        else:
+            aux[name] = (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    return mt.convert.params_from_numpy(args, aux, ctx=mt.gpu(0))
+
+
+def serving_phase(torch, mt, nc, launches_per_forward):
+    net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+    blob = resnet50_params(mt, net)
+    rng = np.random.default_rng(SEED + 1)
+    n_req = CLIENTS * REQUESTS_PER_CLIENT
+    images = rng.uniform(-1, 1, (n_req, 3, IMAGE, IMAGE)).astype(np.float32)
+
+    os.environ["MXNET_NORM_CONV"] = "1"
+    model = mt.serving.ServedModel(net, blob, {"data": (3, IMAGE, IMAGE)},
+                                   name="resnet50", max_batch=BATCH)
+    rows = [None] * n_req
+    lat = [None] * n_req
+    errors = []
+    nc.launches = 0
+    t_warm = time.perf_counter()
+    model.warm(timeout=600)
+    warm_s = time.perf_counter() - t_warm
+
+    def client(c):
+        try:
+            for j in range(REQUESTS_PER_CLIENT):
+                i = c * REQUESTS_PER_CLIENT + j
+                t0 = time.perf_counter()
+                rows[i] = model.predict({"data": images[i]}, timeout=600)[0]
+                lat[i] = time.perf_counter() - t0
+        except Exception as exc:   # reported below; the phase then fails
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    launches = nc.launches
+    stats = model.stats()
+    model.close()
+    if errors or any(t.is_alive() for t in threads) or \
+            any(r is None for r in rows):
+        fail("serving: not every request was answered: %s" % errors)
+    forwards = len(model.buckets) + stats["batches"]
+    print("serving requests=%d batches=%d by_bucket=%s warm_forwards=%d "
+          "norm_conv_launches=%d forwards=%d warm_s=%r"
+          % (stats["requests"], stats["batches"], stats["batches_by_bucket"],
+             len(model.buckets), launches, forwards, warm_s))
+    if launches != launches_per_forward * forwards:
+        fail("norm_conv launches %d != %d x %d forwards"
+             % (launches, launches_per_forward, forwards))
+
+    # reference: the unfused graph on cuDNN (TF32 off), same weights
+    os.environ["MXNET_NORM_CONV"] = "0"
+    ref = mt.Predictor(net, blob, {"data": (BATCH, 3, IMAGE, IMAGE)})
+    want = []
+    for i in range(0, n_req, BATCH):
+        ref.forward(data=images[i:i + BATCH])
+        want.append(ref.get_output(0))
+    want = np.concatenate(want)
+    if nc.launches != launches:
+        fail("the unfused reference launched the NormConv kernel")
+    got = np.stack(rows)
+    if got.shape != (n_req, CLASSES) or not np.isfinite(got).all():
+        fail("served rows: shape %s or non-finite values" % (got.shape,))
+    if np.abs(got.sum(axis=1) - 1).max() > 1e-4:
+        fail("served rows do not sum to 1")
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    print("serving check max_abs_diff=%r max_prob=%r tol=%g*max_prob "
+          "argmax_agree=%d/%d" % (err, scale, SERVE_TOL, agree, n_req))
+    if err > SERVE_TOL * scale or agree != n_req:
+        fail("served rows differ from the unfused reference")
+    lat_ms = np.array(lat) * 1e3
+    print("serving qps=%r p50_ms=%r p99_ms=%r (%d requests, %d clients, "
+          "closed loop, after warm)"
+          % (n_req / wall, float(np.percentile(lat_ms, 50)),
+             float(np.percentile(lat_ms, 99)), n_req, CLIENTS))
+    forward_breakdown(torch, mt, net, blob, images[:BATCH])
+    return launches
+
+
+def forward_breakdown(torch, mt, net, blob, x, reps=5):
+    """One batch-8 Predictor forward, unfused and fused: host time per
+    forward (input staging included, ending in a synchronize), and for the
+    fused one the device time by kernel from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for flag in ("0", "1"):
+        os.environ["MXNET_NORM_CONV"] = flag
+        pred = mt.Predictor(net, blob, {"data": x.shape})
+        pred.forward(data=x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pred.forward(data=x)
+        torch.cuda.synchronize()
+        print("forward batch=%d MXNET_NORM_CONV=%s host_ms=%r"
+              % (x.shape[0], flag, (time.perf_counter() - t0) / reps * 1e3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.forward(data=x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print("profile fused forward: wall_us=%r device_busy_us=%r "
+          "device_busy_share=%r kernels=%d"
+          % (wall_us, busy_us, busy_us / wall_us, len(kernels)))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print("profile kernel us=%r count=%d share=%r name=%s"
+              % (e.self_device_time_total, e.count,
+                 e.self_device_time_total / max(busy_us, 1e-9), e.key[:90]))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import mxnet_tpu_torch as mt
+        from mxnet_tpu_torch.ops import norm_conv as nc
+    except ImportError as exc:
+        fail("cannot import mxnet_tpu_torch: %s" % exc)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else "nvidia-smi failed: %s" % smi.stderr
+    print(card)
+    print("torch %s cuda %s device %s" % (torch.__version__,
+                                         torch.version.cuda,
+                                         torch.cuda.get_device_name(0)))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print("settings cudnn.allow_tf32=%s matmul.allow_tf32=%s "
+          "float32_matmul_precision=%s"
+          % (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision()))
+
+    t0 = time.perf_counter()
+    log = nc.build()
+    print("build norm_conv.cu seconds=%r" % (time.perf_counter() - t0))
+    for line in (log or "").splitlines():
+        if "registers" in line or "spill" in line:
+            print("ptxas %s" % line.strip())
+
+    geoms = resnet50_geometries(mt, BATCH)
+    per_forward = sum(geoms.values())
+    print("resnet50 norm_conv geometries=%d launches_per_forward=%d"
+          % (len(geoms), per_forward))
+    if len(geoms) != 22 or per_forward != 52:
+        fail("expected 22 geometries and 52 launches per forward")
+    tot = kernel_phase(torch, nc, geoms)
+    print("kernel totals per batch-%d float32 forward (52 launches): "
+          "kernel_ms=%r plain_ms=%r library_ms=%r bound_ms=%r"
+          % (BATCH, tot["ms"], tot["plain_ms"], tot["library_ms"],
+             tot["bound_ms"]))
+
+    launches = serving_phase(torch, mt, nc, per_forward)
+
+    print(json.dumps({"kernels": [{
+        "name": "norm_conv", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
+        "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
+        "launches": launches, "max_abs_err": tot["max_abs_err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"]
+        else "bytes",
+        "library_ms": tot["library_ms"]}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

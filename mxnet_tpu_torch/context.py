@@ -1,0 +1,86 @@
+"""Device context (counterpart: mxnet_tpu/context.py).
+
+A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i`` and ``cpu()`` is
+the host.  The default context is ``gpu(0)``: the port runs on the card unless
+the caller asks for the CPU.  Resolving a gpu context on a machine without a
+CUDA device raises :class:`MXNetError`; nothing ever falls back to the CPU.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["Context", "cpu", "gpu", "current_context"]
+
+_DEVICE_TYPES = ("cpu", "gpu")
+
+
+class Context(object):
+    """A device context: ``Context('gpu', 0)`` or ``gpu(0)``."""
+
+    _default_ctx = threading.local()
+
+    def __init__(self, device_type, device_id=0):
+        if isinstance(device_type, Context):
+            device_type, device_id = device_type.device_type, \
+                device_type.device_id
+        if device_type not in _DEVICE_TYPES:
+            raise MXNetError("unknown device type %s (the port has cpu and "
+                             "gpu)" % device_type)
+        self.device_type = device_type
+        self.device_id = int(device_id)
+        self._old_ctx = None
+
+    def torch_device(self):
+        """The ``torch.device`` of this context; raises for a gpu context
+        when no such CUDA device exists."""
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise MXNetError("%r needs a CUDA device and this machine has "
+                             "none; pass cpu() to run on the host" % self)
+        if self.device_id >= torch.cuda.device_count():
+            raise MXNetError("%r: only %d CUDA device(s)"
+                             % (self, torch.cuda.device_count()))
+        return torch.device("cuda", self.device_id)
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_type == other.device_type
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __str__ = __repr__
+
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
+
+
+def cpu(device_id=0):
+    """The host context."""
+    return Context("cpu", device_id)
+
+
+def gpu(device_id=0):
+    """CUDA device ``device_id``."""
+    return Context("gpu", device_id)
+
+
+def current_context():
+    """The active default context: ``gpu(0)`` unless a ``with ctx:`` block
+    says otherwise."""
+    ctx = getattr(Context._default_ctx, "value", None)
+    return ctx if ctx is not None else Context("gpu", 0)

@@ -1,0 +1,209 @@
+"""Operator registry (counterpart: mxnet_tpu/ops/registry.py).
+
+An operator is a plain function on tensors plus the metadata the symbol graph
+needs: argument names, attribute parsers and defaults, and shape and type
+inference.  Ops without their own shape rule are inferred by running the
+function on ``device="meta"`` tensors, which carry shapes and no data (the
+JAX package uses ``jax.eval_shape`` for the same job).
+"""
+from __future__ import annotations
+
+import ast
+
+import numpy as _np
+import torch
+
+from ..base import MXNetError, Registry
+
+__all__ = ["OpDef", "register", "get_op", "list_ops", "OPS", "parse_tuple",
+           "parse_int", "parse_float", "parse_bool", "parse_str",
+           "shape_unify", "eval_shape_infer"]
+
+OPS = Registry("operator")
+
+
+# ---------------------------------------------------------------- attr parsing
+def parse_tuple(v):
+    if v is None or isinstance(v, tuple):
+        return v
+    if isinstance(v, list):
+        return tuple(v)
+    if isinstance(v, (int, float)):
+        return (int(v),)
+    out = ast.literal_eval(v.strip())
+    if isinstance(out, (int, float)):
+        return (int(out),)
+    return tuple(int(x) for x in out)
+
+
+def parse_int(v):
+    if v is None:
+        return None
+    if isinstance(v, str) and v in ("None", ""):
+        return None
+    return int(v)
+
+
+def parse_float(v):
+    return None if v is None else float(v)
+
+
+def parse_bool(v):
+    if isinstance(v, str):
+        return v not in ("0", "False", "false", "")
+    return bool(v)
+
+
+def parse_str(v):
+    return None if v is None else str(v)
+
+
+class OpDef(object):
+    """One registered operator.
+
+    fn : fn(*inputs, is_train=False, **attrs) -> tensor | tuple.  With
+        ``aux_names`` the tuple carries the visible outputs followed by the
+        (unchanged, at inference) auxiliary states.
+    arg_names : input names, or callable(attrs) -> list
+    aux_names : trailing inputs that are auxiliary states (BatchNorm's
+        moving statistics)
+    infer_shape : optional callable(attrs, in_shapes) -> (in, out, aux);
+        the default runs ``fn`` on meta tensors (forward only)
+    layout_rule : how the executor's NHWC pass treats the op: None (rigid:
+        inputs restored to NCHW), 'aware' (``fn`` takes layout='NHWC' for
+        the inputs in ``layout_inputs``) or 'transparent' (shape-agnostic)
+    """
+
+    def __init__(self, name, fn, arg_names=("data",), aux_names=(),
+                 num_outputs=1, attr_types=None, defaults=None,
+                 infer_shape=None, train_aware=False, aliases=(), doc=None,
+                 layout_rule=None, layout_inputs=(0,)):
+        self.name = name
+        self.fn = fn
+        self._arg_names = arg_names
+        self.aux_names = tuple(aux_names)
+        self.num_aux = len(self.aux_names)
+        self._num_outputs = num_outputs
+        self.attr_types = dict(attr_types or {})
+        self.defaults = dict(defaults or {})
+        self._infer_shape = infer_shape
+        self.train_aware = train_aware
+        self.aliases = tuple(aliases)
+        self.doc = doc or (fn.__doc__ if fn is not None else None)
+        self.layout_rule = layout_rule
+        self.layout_inputs = tuple(layout_inputs)
+
+    # ------------------------------------------------------------------ meta
+    def arg_names_for(self, attrs):
+        names = self._arg_names(attrs) if callable(self._arg_names) \
+            else self._arg_names
+        return list(names)
+
+    def num_outputs_for(self, attrs):
+        no = self._num_outputs
+        return no(attrs) if callable(no) else no
+
+    def normalize_attrs(self, attrs):
+        """Apply defaults and parse string-valued attrs (JSON round-trip)."""
+        out = dict(self.defaults)
+        for k, v in attrs.items():
+            if k in self.attr_types:
+                try:
+                    out[k] = self.attr_types[k](v)
+                except (ValueError, SyntaxError, KeyError, TypeError):
+                    out[k] = v
+            else:
+                out[k] = v
+        return out
+
+    # ---------------------------------------------------------------- compute
+    def make_callable(self, attrs, is_train):
+        """A positional-args-only closure over normalized attrs."""
+        fn = self.fn
+        kw = {"is_train": is_train} if self.train_aware else {}
+
+        def call(*args):
+            return fn(*args, **kw, **attrs)
+        return call
+
+    # -------------------------------------------------------------- inference
+    def infer_shape(self, attrs, in_shapes):
+        if self._infer_shape is not None:
+            return self._infer_shape(attrs, list(in_shapes))
+        return eval_shape_infer(self, attrs, in_shapes)[:2] + (None,)
+
+    def infer_type(self, attrs, in_dtypes):
+        """Every input and output takes the first known input dtype."""
+        known = [d for d in in_dtypes if d is not None]
+        d = known[0] if known else _np.float32
+        n_in = len(in_dtypes)
+        return [d] * n_in, [d] * self.num_outputs_for(attrs), \
+            [d] * self.num_aux
+
+
+def eval_shape_infer(op, attrs, in_shapes):
+    """Forward-only inference by running the op on meta tensors."""
+    if any(s is None for s in in_shapes):
+        return list(in_shapes), [None] * op.num_outputs_for(attrs), \
+            [None] * op.num_aux
+    call = op.make_callable(op.normalize_attrs(attrs), is_train=False)
+    out = call(*[torch.empty(tuple(int(x) for x in s), device="meta")
+                 for s in in_shapes])
+    if not isinstance(out, (tuple, list)):
+        out = (out,)
+    shapes = [tuple(o.shape) for o in out]
+    n_out = op.num_outputs_for(attrs)
+    return (list(in_shapes), shapes[:n_out],
+            shapes[n_out:n_out + op.num_aux] if op.num_aux else None)
+
+
+def shape_unify(a, b):
+    """Merge two partially-known shapes (``None`` unknown, 0 an unknown
+    dim); raises ValueError on conflict."""
+    if a is None:
+        return None if b is None else tuple(b)
+    if b is None:
+        return tuple(a)
+    if len(a) != len(b):
+        raise ValueError("shape rank mismatch %r vs %r" % (a, b))
+    out = []
+    for x, y in zip(a, b):
+        if x == 0:
+            out.append(y)
+        elif y == 0 or x == y:
+            out.append(x)
+        else:
+            raise ValueError("shape conflict %r vs %r" % (a, b))
+    return tuple(out)
+
+
+def shape_is_complete(s):
+    return s is not None and 0 not in tuple(s)
+
+
+def register(name, **kwargs):
+    """Decorator: register ``fn`` as operator ``name``."""
+
+    def deco(fn):
+        op = OpDef(name, fn, **kwargs)
+        OPS.register(name, op)
+        for al in op.aliases:
+            OPS.register(al, op)
+        return fn
+
+    return deco
+
+
+def get_op(name):
+    return OPS.get(name)
+
+
+def list_ops():
+    return OPS.list_names()
+
+
+def raise_if_training(op_name, is_train):
+    """The port serves; training ops arrive with the training slice."""
+    if is_train:
+        raise MXNetError("%s: training mode is not ported yet (the port "
+                         "runs inference only)" % op_name)

@@ -1,0 +1,55 @@
+"""The port stands alone: no file of mxnet_tpu_torch (nor chip_smoke.py)
+imports jax or mxnet_tpu, importing the package loads neither, and triton is
+imported only inside the functions that launch a kernel."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mxnet_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(os.path.relpath(p, ROOT) for p in out)
+
+
+def _imported(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module or ""]
+    return []
+
+
+@pytest.mark.parametrize("rel", _sources())
+def test_no_jax_or_mxnet_tpu_import(rel):
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), rel)
+    for node in ast.walk(tree):
+        for name in _imported(node):
+            assert name.split(".")[0] not in FORBIDDEN, \
+                "%s:%d imports %s" % (rel, node.lineno, name)
+    # triton only inside functions: never at module level
+    for node in tree.body:
+        for name in _imported(node):
+            assert name.split(".")[0] != "triton", \
+                "%s:%d imports triton at module level" % (rel, node.lineno)
+
+
+def test_package_import_loads_neither():
+    code = ("import sys, mxnet_tpu_torch\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in %r + ('triton',))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
