@@ -6,7 +6,8 @@
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda).  Phases, each
 fatal on failure:
 
-1. build: compile the NormConv kernel (csrc/norm_conv.cu) for sm_90a;
+1. build: compile both kernels (csrc/norm_conv.cu, csrc/flash_attention.cu)
+   for sm_90a, one nvcc each, started together;
 2. kernels: at every distinct NormConv geometry of ResNet-50 at batch 8,
    224x224 (22 of them, read off the graph), hold the kernel against its
    plain PyTorch version in float32 and bfloat16, with TF32 off; check the
@@ -16,10 +17,24 @@ fatal on failure:
    weights from a seed) behind ``ServedModel`` with MXNET_NORM_CONV=1,
    max_batch 8, 24 requests from 4 client threads; every request answered,
    the kernel launched 52 times per forward, and every served row equal
-   (within SERVE_TOL) to an unfused ``Predictor`` (cuDNN, TF32 off).
+   (within SERVE_TOL) to an unfused ``Predictor`` (cuDNN, TF32 off);
+4. flash: the flash-attention forward kernel against its plain version
+   (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
+   LM makes it (strided slices of one QKV projection), causal, and at the
+   shapes of FLASH_CHECKS, each in float32 and bfloat16; at each, the
+   kernel, the plain version and PyTorch's scaled_dot_product_attention
+   (the yardstick; the port never calls it) are timed beside the bound;
+5. lm: the transformer LM at GPT-2-small widths (12 layers, 768 hidden,
+   12 heads, T=1024, vocab 50257, random weights from a seed) loaded
+   through its JSON into ``Predictor`` at batch 4; 3 batches after one
+   warm forward; the kernel launched 12 times per forward, and the
+   probabilities equal (within LM_TOL) to a second ``Predictor`` of the
+   same weights with ``attn_impl="xla"``, which launches it never; host
+   time per forward and a torch.profiler breakdown of one forward.
 
 Prints the card's name and power limit, per-geometry numbers, serving qps
-and latency, a JSON line of kernel numbers, and as its last line
+and latency, flash timings, LM checks and profile, a JSON line of kernel
+numbers, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -50,6 +65,30 @@ STATS_TOL = 1e-4
 # served softmax rows vs the unfused reference, relative to the largest
 # probability: float32 throughout, so only summation order differs
 SERVE_TOL = 1e-4
+# flash kernel vs plain version.  o: max |o_kernel - o_plain| / max |o_plain|;
+# float32 sums in another order over up to 2048 keys; bfloat16 rounds o once
+# (2^-8 relative) from float32 sums: about two bfloat16 steps.  lse is
+# float32 in both dtypes (the same upcast inputs): |dlse| / max(1, max|lse|).
+O_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+LSE_TOL = 1e-4
+# LM probabilities, flash graph vs attn_impl="xla" graph, relative to the
+# largest probability: float32 throughout, the two attentions differ only in
+# summation order (~1e-7 relative per layer, 12 layers)
+LM_TOL = 1e-4
+LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_hidden=768,
+          num_heads=12)
+LM_BATCH = 4
+LM_BATCHES = 3
+# (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
+# float32 and bfloat16
+FLASH_CHECKS = [
+    ((4, 12, 1024, 64), False, None),
+    ((1, 16, 2048, 128), True, None),
+    ((2, 4, 512, 72), True, None),
+    ((1, 4, 512, 256), False, None),
+    ((2, 2, 384, 64), True, None),          # three 128-blocks
+    ((2, 4, 512, 64), True, 0.3),
+]
 # H100 SXM published peaks (dense): float32 on the CUDA cores, bfloat16 on
 # the tensor cores, HBM3 bandwidth
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -346,6 +385,274 @@ def forward_breakdown(torch, mt, net, blob, x, reps=5):
                  e.self_device_time_total / max(busy_us, 1e-9), e.key[:90]))
 
 
+def lm_qkv(torch, gen, b, h, t, d, dtype):
+    """q, k, v as the LM's graph hands them to attention: (B, H, T, D)
+    strided views into one (B, T, 3, H, D) projection output."""
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen)
+    qkv = qkv.to(dtype).permute(2, 0, 3, 1, 4)
+    return qkv[0], qkv[1], qkv[2]
+
+
+def flash_work(b, h, t, d, causal, elem):
+    """(operations, bytes) the attention needs: 4·D per unmasked (q, k) pair
+    (q·k and p·v, a multiply and an add each); q, k, v and o once plus the
+    float32 lse."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 4.0 * b * h * d * pairs, 4.0 * b * h * t * d * elem + 4.0 * b * h * t
+
+
+def flash_check(torch, fa, q, k, v, causal, scale, label):
+    """Kernel vs plain version on the same inputs; returns (max |do|,
+    max |dlse|)."""
+    ok, lk = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    op, lp = fa.flash_attention_ref(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    dname = str(q.dtype).split(".")[1]
+    err = (ok.float() - op.float()).abs().max().item()
+    ref = op.float().abs().max().item()
+    lerr = (lk - lp).abs().max().item()
+    lref = max(1.0, lp.abs().max().item())
+    if not (torch.isfinite(ok).all() and torch.isfinite(lk).all()):
+        fail("flash %s: non-finite output" % label)
+    if ok.dtype != q.dtype or lk.dtype != torch.float32 or \
+            ok.shape != q.shape or lk.shape != q.shape[:3] + (1,):
+        fail("flash %s: outputs %s %s, %s %s" % (label, ok.dtype,
+                                                  tuple(ok.shape), lk.dtype,
+                                                  tuple(lk.shape)))
+    if err > O_TOL[dname] * ref or lerr > LSE_TOL * lref:
+        fail("flash %s: max|do| %.3g > %g * %.3g or max|dlse| %.3g > %g * "
+             "%.3g" % (label, err, O_TOL[dname], ref, lerr, LSE_TOL, lref))
+    return err, lerr
+
+
+def sdpa_backend(torch, fn):
+    """Names of the CUDA kernels one call of ``fn`` runs (which of SDPA's
+    backends ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("Memset")})
+
+
+def flash_phase(torch, fa):
+    """Kernel vs plain version, timed beside SDPA and the bound, at the LM's
+    shape (q, k, v made as the LM makes them) and at FLASH_CHECKS, in float32
+    and bfloat16.  Returns the float32 numbers per launch at the LM's
+    shape."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lm_shape = (LM_BATCH, LM["num_heads"], LM["seq_len"],
+                LM["num_hidden"] // LM["num_heads"])
+    out = {}
+    cases = [(lm_shape, True, None, True)] + [c + (False,)
+                                              for c in FLASH_CHECKS]
+    for shape, causal, scale, main in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            if main:
+                q, k, v = lm_qkv(torch, gen, *shape, dt)
+            else:
+                q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+                           .to(dt) for _ in range(3))
+            label = "shape=%s %s scale=%s dtype=%s%s" % (
+                shape, "causal" if causal else "full", scale, dname,
+                " lm-strided" if main else "")
+            err, lerr = flash_check(torch, fa, q, k, v, causal, scale,
+                                    label)
+            kernel_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal, scale=scale))
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_ref(
+                q, k, v, causal, scale))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, scale=scale)
+            library_ms = time_ms(torch, library)
+            ops, nbytes = flash_work(*shape, causal, q.element_size())
+            ops_ms = ops / PEAK_OPS[dname] * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            print("flash %s max_abs_err=%r lse_max_abs_err=%r kernel_ms=%r "
+                  "plain_ms=%r library_ms=%r bound_ms=%r bound_by=%s "
+                  "sdpa_kernels=%s"
+                  % (label, err, lerr, kernel_ms, plain_ms, library_ms,
+                     max(ops_ms, bytes_ms), bound_by,
+                     sdpa_backend(torch, library)))
+            if main and dt == torch.float32:
+                out = {"ms": kernel_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms,
+                       "bound_ms": max(ops_ms, bytes_ms),
+                       "bound_by": bound_by, "max_abs_err": err}
+    return out
+
+
+def lm_params(mt, net):
+    """GPT-2-style random weights from SEED: N(0, 0.02), the residual
+    projections (_proj, _mlp2) scaled by 1/sqrt(2 * layers), LayerNorm gamma
+    1 and beta 0, biases 0."""
+    rng = np.random.default_rng(SEED)
+    shapes = {"data": (1, LM["seq_len"]), "softmax_label": (1, LM["seq_len"])}
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    args = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("_weight"):
+            v = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(0.02)
+            if name.endswith(("_proj_weight", "_mlp2_weight")):
+                v *= np.float32((2.0 * LM["num_layers"]) ** -0.5)
+        elif name.endswith("_gamma"):
+            v = np.ones(shape, np.float32)
+        else:
+            v = np.zeros(shape, np.float32)
+        args[name] = v
+    print("lm parameters=%d" % sum(v.size for v in args.values()))
+    return mt.convert.params_from_numpy(args, {}, ctx=mt.gpu(0))
+
+
+def lm_phase(torch, mt, fa):
+    """The LM served through Predictor from its JSON; returns the kernel's
+    launches in the driven batches."""
+    net = mt.models.transformer.get_symbol(**LM)
+    ref_net = mt.models.transformer.get_symbol(attn_impl="xla", **LM)
+    blob = lm_params(mt, net)
+    shapes = {"data": (LM_BATCH, LM["seq_len"]),
+              "softmax_label": (LM_BATCH, LM["seq_len"])}
+    # both graphs reach Predictor as a checkpoint would: through JSON
+    pred = mt.Predictor(net.tojson(), blob, shapes, copy_params=False)
+    ref = mt.Predictor(ref_net.tojson(), blob, shapes, copy_params=False)
+    rng = np.random.default_rng(SEED + 2)
+    tokens = rng.integers(0, LM["vocab_size"],
+                          (LM_BATCH * LM_BATCHES, LM["seq_len"]))
+    pred.forward(data=tokens[:LM_BATCH])              # warm
+    torch.cuda.synchronize()
+    fa.launches = 0
+    host_ms, d2h_ms, worst, agree, counted = [], [], 0.0, 0, 0
+    for i in range(0, len(tokens), LM_BATCH):
+        batch = tokens[i:i + LM_BATCH]
+        t0 = time.perf_counter()
+        pred.forward(data=batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = pred.get_output(0)
+        host_ms.append((t1 - t0) * 1e3)
+        d2h_ms.append((time.perf_counter() - t1) * 1e3)
+        launched = fa.launches
+        ref.forward(data=batch)
+        want = ref.get_output(0)
+        if fa.launches != launched:
+            fail("the attn_impl='xla' graph launched the flash kernel")
+        n_rows = LM_BATCH * LM["seq_len"]
+        if got.shape != (n_rows, LM["vocab_size"]) or \
+                not np.isfinite(got).all():
+            fail("lm batch %d: shape %s or non-finite probabilities"
+                 % (i // LM_BATCH, got.shape))
+        if np.abs(got.sum(axis=1, dtype=np.float64) - 1).max() > 1e-4:
+            fail("lm batch %d: rows do not sum to 1" % (i // LM_BATCH))
+        err = float(np.abs(got - want).max())
+        top = float(want.max())
+        worst = max(worst, err / top)
+        top2 = np.partition(want, -2, axis=1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > LM_TOL * top
+        same = got.argmax(1) == want.argmax(1)
+        agree += int(same[clear].sum())
+        counted += int(clear.sum())
+        print("lm check batch=%d max_abs_diff=%r max_prob=%r tol=%g*max_prob "
+              "argmax_agree=%d/%d (positions with top-2 gap > tol; "
+              "%d of %d agree overall)"
+              % (i // LM_BATCH, err, top, LM_TOL, int(same[clear].sum()),
+                 int(clear.sum()), int(same.sum()), n_rows))
+        if err > LM_TOL * top or not same[clear].all():
+            fail("lm batch %d differs from the attn_impl='xla' graph"
+                 % (i // LM_BATCH))
+        del got, want
+    launches = fa.launches
+    forwards = LM_BATCHES
+    print("lm batches=%d sequences=%d flash_launches=%d forwards=%d "
+          "host_ms_per_forward=%r d2h_ms_per_batch=%r worst_rel_diff=%r "
+          "argmax_agree=%d/%d"
+          % (LM_BATCHES, len(tokens), launches, forwards,
+             float(np.mean(host_ms)), float(np.mean(d2h_ms)), worst, agree,
+             counted))
+    if launches != LM["num_layers"] * forwards:
+        fail("flash launches %d != %d x %d forwards"
+             % (launches, LM["num_layers"], forwards))
+    lm_breakdown(torch, pred, tokens[:LM_BATCH])
+    return launches
+
+
+def lm_breakdown(torch, pred, batch):
+    """Device time of one LM forward and its output's copy to the host, by
+    kernel and by group, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    groups = [("flash", ("flash_fwd_kernel",)),
+              ("cublas", ("gemm", "cutlass", "cublas", "xmma")),
+              ("softmax", ("softmax",)),
+              ("d2h", ("memcpy dtoh",)), ("h2d", ("memcpy htod",)),
+              ("copies", ("copy", "memcpy"))]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.forward(data=batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred.get_output(0)
+        t2 = time.perf_counter()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    wall_us = (t2 - t0) * 1e6
+    print("profile lm forward: forward_wall_us=%r d2h_wall_us=%r "
+          "device_busy_us=%r device_busy_share=%r kernels=%d"
+          % ((t1 - t0) * 1e6, (t2 - t1) * 1e6, busy_us, busy_us / wall_us,
+             len(kernels)))
+    by_group = {}
+    for e in kernels:
+        g = next((g for g, keys in groups
+                  if any(key in e.key.lower() for key in keys)), "other")
+        us, n = by_group.get(g, (0.0, 0))
+        by_group[g] = (us + e.self_device_time_total, n + e.count)
+    for g, (us, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
+        print("profile lm group=%s us=%r launches=%d share=%r"
+              % (g, us, n, us / max(busy_us, 1e-9)))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        print("profile lm kernel us=%r count=%d share=%r name=%s"
+              % (e.self_device_time_total, e.count,
+                 e.self_device_time_total / max(busy_us, 1e-9),
+                 e.key[:160]))
+
+
+def build_all(kernels):
+    """Build every kernel library at once (one nvcc each, in threads: the
+    compiler runs outside the GIL); fatal on any failure."""
+    results = {}
+
+    def one(name, mod):
+        t0 = time.perf_counter()
+        try:
+            results[name] = (mod.build(), time.perf_counter() - t0)
+        except Exception as exc:   # reported below; the phase then fails
+            results[name] = exc
+    threads = [threading.Thread(target=one, args=kv) for kv in kernels]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for name, _ in kernels:
+        res = results.get(name)
+        if not isinstance(res, tuple):
+            fail("build %s: %s" % (name, res))
+        log, secs = res
+        print("build %s.cu seconds=%r" % (name, secs))
+        for line in (log or "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("ptxas %s %s" % (name, line.strip()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -353,6 +660,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import mxnet_tpu_torch as mt
+        from mxnet_tpu_torch.ops import flash_attention as fa
         from mxnet_tpu_torch.ops import norm_conv as nc
     except ImportError as exc:
         fail("cannot import mxnet_tpu_torch: %s" % exc)
@@ -375,11 +683,8 @@ def main():
              torch.get_float32_matmul_precision()))
 
     t0 = time.perf_counter()
-    log = nc.build()
-    print("build norm_conv.cu seconds=%r" % (time.perf_counter() - t0))
-    for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas %s" % line.strip())
+    build_all([("norm_conv", nc), ("flash_attention", fa)])
+    print("build all seconds=%r" % (time.perf_counter() - t0))
 
     geoms = resnet50_geometries(mt, BATCH)
     per_forward = sum(geoms.values())
@@ -395,6 +700,10 @@ def main():
 
     launches = serving_phase(torch, mt, nc, per_forward)
 
+    fl = flash_phase(torch, fa)
+    fl_launches = lm_phase(torch, mt, fa)
+    per = LM["num_layers"]     # the launches of one float32 LM forward
+
     print(json.dumps({"kernels": [{
         "name": "norm_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
@@ -404,7 +713,14 @@ def main():
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"]
         else "bytes",
-        "library_ms": tot["library_ms"]}]}))
+        "library_ms": tot["library_ms"]}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:47",
+        "launches": fl_launches, "max_abs_err": fl["max_abs_err"],
+        "ms": per * fl["ms"], "plain_ms": per * fl["plain_ms"],
+        "bound_ms": per * fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": per * fl["library_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

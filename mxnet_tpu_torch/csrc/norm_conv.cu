@@ -242,6 +242,6 @@ extern "C" int nc_launch(const void* x, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* nc_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,4 +1,5 @@
 """Model symbol builders of the port (counterpart: mxnet_tpu/models)."""
 from . import resnet
+from . import transformer
 
 get_resnet = resnet.get_symbol

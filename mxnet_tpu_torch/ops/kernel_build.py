@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source in ``mxnet_tpu_torch/csrc/`` is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, at its first use,
+into ``.torch_kernels/`` beside the package, and loaded with ctypes.  The
+library's file name carries a hash of the source and the flags, so an edited
+source or a changed flag builds anew and an unchanged one is reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from ..base import MXNetError
+
+__all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise MXNetError("nvcc not found (PATH, $CUDA_HOME/bin or "
+                         "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                         "built")
+    return path
+
+
+class CudaLibrary(object):
+    """One kernel source and its loaded library.
+
+    name   : the source's stem in ``csrc/`` (``norm_conv`` ->
+             ``csrc/norm_conv.cu``)
+    bind   : bind(lib) sets the argtypes/restype of the C functions
+    """
+
+    def __init__(self, name, bind):
+        self.name = name
+        self.source = os.path.join(CSRC, name + ".cu")
+        self._bind = bind
+        self.lib = None
+        self.log = None
+        self._lock = threading.Lock()
+
+    def build(self):
+        """Compile (once per source and flags) and load the library.
+        Returns the compiler's output of this process's build, or None when
+        the library was already built."""
+        with self._lock:
+            if self.lib is not None:
+                return self.log
+            with open(self.source, "rb") as f:
+                digest = hashlib.sha256(
+                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            so = os.path.join(BUILD_DIR, "%s_%s.so" % (self.name, digest))
+            if not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = "%s.tmp-%d" % (so, os.getpid())
+                res = subprocess.run(
+                    [_nvcc()] + NVCC_FLAGS + ["-o", tmp, self.source],
+                    capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise MXNetError("nvcc failed on %s:\n%s%s"
+                                     % (self.source, res.stdout, res.stderr))
+                os.replace(tmp, so)
+                self.log = res.stdout + res.stderr
+            lib = ctypes.CDLL(so)
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            self._bind(lib)
+            self.lib = lib
+            return self.log
+
+    def get(self):
+        """The loaded library, built first if need be."""
+        if self.lib is None:
+            self.build()
+        return self.lib
+
+    def check(self, err, what):
+        """Raise on a launch's nonzero cudaGetLastError() code."""
+        if err != 0:
+            raise MXNetError("%s kernel launch failed: %s"
+                             % (what, self.lib.kernel_error_string(err)
+                                .decode()))

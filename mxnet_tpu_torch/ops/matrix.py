@@ -1,10 +1,11 @@
-"""Shape operators (counterpart: mxnet_tpu/ops/matrix.py): Reshape and
-Flatten."""
+"""Shape operators (counterpart: mxnet_tpu/ops/matrix.py): Reshape, Flatten,
+transpose and slice_axis.  transpose and slice_axis return views; the op that
+needs contiguous memory makes it (the attention wrapper passes strides)."""
 from __future__ import annotations
 
 import numpy as _np
 
-from .registry import register, parse_bool, parse_tuple
+from .registry import register, parse_bool, parse_int, parse_tuple
 
 
 def infer_reshape(shape, target):
@@ -80,3 +81,28 @@ def _reshape(data, shape=(), target_shape=None, keep_highest=False,
                     (ins[0][0], int(_np.prod(ins[0][1:])))], None))
 def _flatten(data):
     return data.reshape(data.shape[0], -1)
+
+
+@register("transpose", attr_types={"axes": parse_tuple}, defaults={"axes": ()})
+def _transpose(data, axes=()):
+    """Permute the axes; no axes reverses them (numpy's rule)."""
+    return data.permute(tuple(axes) if axes
+                        else tuple(range(data.dim() - 1, -1, -1)))
+
+
+@register("slice_axis",
+          attr_types={"axis": parse_int, "begin": parse_int, "end": parse_int},
+          defaults={"axis": 0, "begin": 0, "end": None})
+def _slice_axis(data, axis=0, begin=0, end=None):
+    """data[begin:end] along ``axis``; negative bounds count from the end and
+    ``end=None`` runs to it."""
+    n = data.shape[axis]
+    if end is None:
+        end = n
+    if begin < 0:
+        begin += n
+    if end < 0:
+        end += n
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]

@@ -7,23 +7,18 @@ version, and a CUDA tensor to the hand-written Hopper kernel in
 tensor the kernel cannot take raises; nothing falls back to the plain
 version.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first use, from
-the source in this package, into ``.torch_kernels/`` beside the package, and
-loaded with ctypes.  ``launches`` counts the kernel's launches.
+The kernel is compiled for ``sm_90a`` at its first use and loaded with ctypes
+(``kernel_build``).  ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .kernel_build import CudaLibrary
 
 __all__ = ["norm_conv", "norm_conv_ref", "norm_conv_available",
            "geometry_ok", "build", "launches"]
@@ -31,16 +26,16 @@ __all__ = ["norm_conv", "norm_conv_ref", "norm_conv_available",
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "norm_conv.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-_lib = None
-_build_log = None
-_build_lock = threading.Lock()
+
+def _bind(lib):
+    lib.nc_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 \
+        + [ctypes.c_void_p]
+    lib.nc_launch.restype = ctypes.c_int
+
+
+_kernel = CudaLibrary("norm_conv", _bind)
 
 
 def _geom(h, w, k, s, p):
@@ -98,46 +93,10 @@ def norm_conv_ref(x, w, scale, shift, kernel, stride, pad, relu=True,
     return y, y32.sum(dim=(0, 1, 2)), y32.square().sum(dim=(0, 1, 2))
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise MXNetError("nvcc not found (PATH, $CUDA_HOME/bin or "
-                         "/usr/local/cuda/bin): the NormConv kernel cannot "
-                         "be built")
-    return path
-
-
 def build():
-    """Compile (once per source and flags) and load the kernel library.
-    Returns the compiler's output of this process's build, or None when the
-    library was already built."""
-    global _lib, _build_log
-    with _build_lock:
-        if _lib is not None:
-            return _build_log
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, "norm_conv_%s.so" % digest)
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "%s.tmp-%d" % (so, os.getpid())
-            res = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise MXNetError("nvcc failed on %s:\n%s%s"
-                                 % (SOURCE, res.stdout, res.stderr))
-            os.replace(tmp, so)
-            _build_log = res.stdout + res.stderr
-        lib = ctypes.CDLL(so)
-        lib.nc_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 \
-            + [ctypes.c_void_p]
-        lib.nc_launch.restype = ctypes.c_int
-        lib.nc_error_string.argtypes = [ctypes.c_int]
-        lib.nc_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return _build_log
+    """Compile (once per source and flags) and load the kernel library;
+    returns the compiler's output of this process's build, or None."""
+    return _kernel.build()
 
 
 def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
@@ -163,8 +122,7 @@ def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
     if scale.shape != (cin,) or shift.shape != (cin,):
         raise MXNetError("norm_conv: scale and shift must be (Cin,)=(%d,)"
                          % cin)
-    if _lib is None:
-        build()
+    lib = _kernel.get()
     oh, ow = _geom(h, wd, kernel, stride, pad)
     sc = scale.to(x.dtype).contiguous()
     sh = shift.to(x.dtype).contiguous()
@@ -177,15 +135,13 @@ def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
         ysq = torch.zeros_like(ysum)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib.nc_launch(
+        err = lib.nc_launch(
             x.data_ptr(), w.data_ptr(), sc.data_ptr(), sh.data_ptr(),
             y.data_ptr(), ysum.data_ptr() if stats else None,
             ysq.data_ptr() if stats else None, n, h, wd, cin, cout, kernel,
             stride, pad, oh, ow, int(relu), int(prologue), int(stats),
             int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise MXNetError("norm_conv kernel launch failed: %s"
-                         % _lib.nc_error_string(err).decode())
+    _kernel.check(err, "norm_conv")
     launches += 1
     return y, ysum, ysq
 

@@ -45,7 +45,12 @@ def parse_int(v):
 
 
 def parse_float(v):
-    return None if v is None else float(v)
+    """``None``, ``"None"`` and ``""`` read as None, as in ``parse_int``: the
+    JSON writer stores a float attribute left at None (attention's
+    ``scale``) as the string ``"None"``."""
+    if v is None or (isinstance(v, str) and v in ("None", "")):
+        return None
+    return float(v)
 
 
 def parse_bool(v):

@@ -1,14 +1,16 @@
 """mxnet_tpu_torch NormConv: the plain version (what the wrapper runs for a
 CPU tensor) against mxnet_tpu's Pallas kernel in interpret mode over the
 geometries of test_norm_conv.py, the shape guard, and the CUDA kernel
-against the plain version on the card (skipped without one)."""
-import jax
-import jax.numpy as jnp
+against the plain version on the card (skipped without one).
+
+JAX is imported by the tests that compare with it, not by the module, so
+that the ``cuda`` tests also run where only the port is installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_norm_conv.py``.
+"""
 import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu.ops import pallas_conv as jnc
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import norm_conv as pnc
 
@@ -20,6 +22,13 @@ GEOMS = [
     (9, 1, 2, 0, 16, 24, True, True, True),
     (7, 3, 2, 1, 16, 16, True, True, True),
 ]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """(jax, jax.numpy, mxnet_tpu's pallas_conv)."""
+    return (pytest.importorskip("jax"), pytest.importorskip("jax.numpy"),
+            pytest.importorskip("mxnet_tpu.ops.pallas_conv"))
 
 
 def _inputs(geom, dtype=np.float32):
@@ -40,7 +49,8 @@ def _port(geom, arrays):
 
 
 @pytest.mark.parametrize("geom", GEOMS)
-def test_plain_vs_pallas_interpret(geom):
+def test_plain_vs_pallas_interpret(geom, jx):
+    _, jnp, jnc = jx
     h, k, s, p, cin, cout, relu, prologue, stats = geom
     arrays = _inputs(geom)
     yj, sj, qj = jnc.norm_conv(*[jnp.asarray(a) for a in arrays], kernel=k,
@@ -62,8 +72,9 @@ def test_plain_vs_pallas_interpret(geom):
 
 
 @pytest.mark.parametrize("geom", GEOMS)
-def test_plain_vs_reference_f64(geom):
+def test_plain_vs_reference_f64(geom, jx):
     """In float64 the plain version equals mxnet_tpu's XLA composition."""
+    jax, jnp, jnc = jx
     h, k, s, p, cin, cout, relu, prologue, stats = geom
     arrays = _inputs(geom, np.float64)
     jax.config.update("jax_enable_x64", True)
