@@ -6,8 +6,9 @@
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda).  Phases, each
 fatal on failure:
 
-1. build: compile both kernels (csrc/norm_conv.cu, csrc/flash_attention.cu)
-   for sm_90a, one nvcc each, started together;
+1. build: compile the three kernel sources (csrc/norm_conv.cu,
+   csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) for sm_90a, one
+   nvcc each, started together;
 2. kernels: at every distinct NormConv geometry of ResNet-50 at batch 8,
    224x224 (22 of them, read off the graph), hold the kernel against its
    plain PyTorch version in float32 and bfloat16, with TF32 off; check the
@@ -30,11 +31,32 @@ fatal on failure:
    warm forward; the kernel launched 12 times per forward, and the
    probabilities equal (within LM_TOL) to a second ``Predictor`` of the
    same weights with ``attn_impl="xla"``, which launches it never; host
-   time per forward and a torch.profiler breakdown of one forward.
+   time per forward and a torch.profiler breakdown of one forward;
+6. flash_bwd: the flash-attention backward kernels (dQ, dK/dV) against the
+   plain backward (TF32 off) at the LM's shape, causal, with q, k, v made
+   as the LM makes them and dO a permuted view of a contiguous (B, T, H, D)
+   tensor (the gradient of the LM's output transpose), and at the shapes of
+   FLASH_CHECKS, in float32 and bfloat16: within BWD_TOL, finite, bitwise
+   equal over two runs; the dQ kernel, the dK/dV kernel, the whole backward
+   (delta + both), the plain backward and SDPA's backward (the yardstick)
+   timed beside each kernel's bound;
+7. lm_train: the LM at GPT-2-small widths trained through the port.  (a)
+   One batch through ``Executor`` forward(is_train=True) + backward() on
+   the kernel graph and on the attn_impl="xla" graph: every parameter's
+   gradient within LM_GRAD_TOL (largest entry) and LM_GRAD_NORM_TOL
+   (norm) of the xla graph's, beside the same measures between the xla
+   graph in float32 and float64; 12 launches of each flash kernel on the
+   kernel graph, none on the other.  (b) ``TrainStep``
+   with Adam(1e-4) from those weights on one fixed batch: a warm step, 4
+   steps through ``__call__`` and ``run_steps(..., 3)``; the loss (from
+   the outputs, on the card) lower after the last step than after the
+   first, 36 flash launches per step, host ms per step and tokens/s, and a
+   torch.profiler breakdown of one step.
 
 Prints the card's name and power limit, per-geometry numbers, serving qps
-and latency, flash timings, LM checks and profile, a JSON line of kernel
-numbers, and as its last line
+and latency, flash timings, LM checks and profiles, flash backward timings,
+LM training checks, rates and profile, a JSON line of kernel numbers, and
+as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -75,8 +97,31 @@ LSE_TOL = 1e-4
 # largest probability: float32 throughout, the two attentions differ only in
 # summation order (~1e-7 relative per layer, 12 layers)
 LM_TOL = 1e-4
+# flash backward kernels vs the plain backward, per output max |d_kernel -
+# d_plain| / max |d_plain|.  float32: both sum float32 products in other
+# orders (up to 2048 keys, then 64-256 head columns), as for the forward's
+# O_TOL.  bfloat16: every input is the same bfloat16 value in both and all
+# arithmetic is float32; each output is rounded once to bfloat16 (2^-8
+# relative): about two bfloat16 steps of the largest output.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# LM parameter gradients, kernel graph vs attn_impl="xla" graph, both
+# float32 (TF32 off).  The two attentions differ by rounding (~1e-7
+# relative), which the ReLUs of the MLPs turn into O(1) changes: a
+# pre-activation within rounding of zero is on one side of the kink in one
+# graph and on the other in the second, and the gradient through that unit
+# at that token is then kept in one and dropped in the other; every
+# parameter upstream of such a flip sees it.  The same happens between the
+# xla graph in float32 and in float64, which the run measures beside the
+# check (the f32 floor).  So two measures per parameter: max |d| / max |g|
+# within LM_GRAD_TOL and ||d|| / ||g|| within LM_GRAD_NORM_TOL.  On an
+# H100 80GB HBM3 at 700 W the worst parameter measured 0.0134 and 0.00132,
+# against a floor of 0.0107 and 0.00087: the tolerances sit about 4x above
+# both.  A fault in a kernel or in its autograd wiring moves both by O(1).
+LM_GRAD_TOL = 5e-2
+LM_GRAD_NORM_TOL = 5e-3
 LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_hidden=768,
           num_heads=12)
+LM_LR = 1e-4
 LM_BATCH = 4
 LM_BATCHES = 3
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
@@ -401,6 +446,14 @@ def flash_work(b, h, t, d, causal, elem):
     return 4.0 * b * h * d * pairs, 4.0 * b * h * t * d * elem + 4.0 * b * h * t
 
 
+def bound(ops, nbytes, dname):
+    """(bound ms, what bounds it) at the card's published peaks."""
+    ops_ms = ops / PEAK_OPS[dname] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
 def flash_check(torch, fa, q, k, v, causal, scale, label):
     """Kernel vs plain version on the same inputs; returns (max |do|,
     max |dlse|)."""
@@ -470,28 +523,24 @@ def flash_phase(torch, fa):
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=causal, scale=scale)
             library_ms = time_ms(torch, library)
-            ops, nbytes = flash_work(*shape, causal, q.element_size())
-            ops_ms = ops / PEAK_OPS[dname] * 1e3
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            bound_ms, bound_by = bound(
+                *flash_work(*shape, causal, q.element_size()), dname)
             print("flash %s max_abs_err=%r lse_max_abs_err=%r kernel_ms=%r "
                   "plain_ms=%r library_ms=%r bound_ms=%r bound_by=%s "
                   "sdpa_kernels=%s"
                   % (label, err, lerr, kernel_ms, plain_ms, library_ms,
-                     max(ops_ms, bytes_ms), bound_by,
-                     sdpa_backend(torch, library)))
+                     bound_ms, bound_by, sdpa_backend(torch, library)))
             if main and dt == torch.float32:
                 out = {"ms": kernel_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms,
-                       "bound_ms": max(ops_ms, bytes_ms),
+                       "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "max_abs_err": err}
     return out
 
 
-def lm_params(mt, net):
-    """GPT-2-style random weights from SEED: N(0, 0.02), the residual
-    projections (_proj, _mlp2) scaled by 1/sqrt(2 * layers), LayerNorm gamma
-    1 and beta 0, biases 0."""
+def lm_weights(net):
+    """GPT-2-style random weights from SEED as numpy: N(0, 0.02), the
+    residual projections (_proj, _mlp2) scaled by 1/sqrt(2 * layers),
+    LayerNorm gamma 1 and beta 0, biases 0."""
     rng = np.random.default_rng(SEED)
     shapes = {"data": (1, LM["seq_len"]), "softmax_label": (1, LM["seq_len"])}
     arg_shapes, _, _ = net.infer_shape(**shapes)
@@ -510,7 +559,7 @@ def lm_params(mt, net):
             v = np.zeros(shape, np.float32)
         args[name] = v
     print("lm parameters=%d" % sum(v.size for v in args.values()))
-    return mt.convert.params_from_numpy(args, {}, ctx=mt.gpu(0))
+    return args
 
 
 def lm_phase(torch, mt, fa):
@@ -518,7 +567,7 @@ def lm_phase(torch, mt, fa):
     launches in the driven batches."""
     net = mt.models.transformer.get_symbol(**LM)
     ref_net = mt.models.transformer.get_symbol(attn_impl="xla", **LM)
-    blob = lm_params(mt, net)
+    blob = mt.convert.params_from_numpy(lm_weights(net), {}, ctx=mt.gpu(0))
     shapes = {"data": (LM_BATCH, LM["seq_len"]),
               "softmax_label": (LM_BATCH, LM["seq_len"])}
     # both graphs reach Predictor as a checkpoint would: through JSON
@@ -626,15 +675,290 @@ def lm_breakdown(torch, pred, batch):
                  e.key[:160]))
 
 
+def bwd_work(b, h, t, d, causal, elem):
+    """{kernel: (operations, bytes)} the backward needs: per unmasked (q, k)
+    pair the dQ kernel does 3 products of length D (q·k, dO·v, dS·k), a
+    multiply and an add each, and the dK/dV kernel 4 (q·k, dO·v, Pᵀ·dO,
+    dSᵀ·Q); bytes are the tensors each reads and writes once (dQ: q, k, v,
+    dO, lse, delta, dq; dK/dV: q, k, v, dO, lse, delta, dk, dv), lse and
+    delta in float32."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    act = b * h * t * d * elem
+    stats = 2 * 4 * b * h * t
+    return {"dq": (6.0 * d * pairs * b * h, 5.0 * act + stats),
+            "dkv": (8.0 * d * pairs * b * h, 6.0 * act + stats)}
+
+
+def lm_grad_out(torch, gen, b, h, t, d, dtype):
+    """dO as the LM's backward hands it to attention: the (B, H, T, D)
+    permuted view of a contiguous (B, T, H, D) gradient of the output
+    transpose."""
+    g = torch.randn(b, t, h, d, device="cuda", generator=gen)
+    return g.to(dtype).permute(0, 2, 1, 3)
+
+
+def flash_bwd_phase(torch, fa):
+    """Backward kernels vs the plain backward, timed beside SDPA's backward
+    and the bounds, at the LM's shape (q, k, v and dO made as the LM makes
+    them) and at FLASH_CHECKS, in float32 and bfloat16.  Returns the float32
+    numbers per launch at the LM's shape."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lm_shape = (LM_BATCH, LM["num_heads"], LM["seq_len"],
+                LM["num_hidden"] // LM["num_heads"])
+    out = {}
+    cases = [(lm_shape, True, None, True)] + [c + (False,)
+                                              for c in FLASH_CHECKS]
+    for shape, causal, scale, main in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[1]
+            if main:
+                q, k, v = lm_qkv(torch, gen, *shape, dt)
+                do = lm_grad_out(torch, gen, *shape, dt)
+            else:
+                q, k, v, do = (torch.randn(shape, device="cuda",
+                                           generator=gen).to(dt)
+                               for _ in range(4))
+            label = "shape=%s %s scale=%s dtype=%s%s" % (
+                shape, "causal" if causal else "full", scale, dname,
+                " lm-strided" if main else "")
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                            scale=scale)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                           scale)
+            want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                              scale)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b2, w in zip(("dq", "dk", "dv"), got, again, want):
+                if a.dtype != dt or a.shape != q.shape:
+                    fail("flash_bwd %s: %s is %s %s" % (label, name, a.dtype,
+                                                       tuple(a.shape)))
+                if not torch.isfinite(a).all():
+                    fail("flash_bwd %s: non-finite %s" % (label, name))
+                if not torch.equal(a, b2):
+                    fail("flash_bwd %s: %s differs between two runs"
+                         % (label, name))
+                err = (a.float() - w.float()).abs().max().item()
+                ref = w.float().abs().max().item()
+                if err > BWD_TOL[dname] * ref:
+                    fail("flash_bwd %s: max|d%s| %.3g > %g * %.3g"
+                         % (label, name, err, BWD_TOL[dname], ref))
+                errs[name] = (err, ref)
+            run = fa._BwdLaunch(q, k, v, o, lse, do, causal, scale)
+            dq_ms = time_ms(torch, run.dq_kernel)
+            dkv_ms = time_ms(torch, run.dkv_kernel)
+            whole_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, causal, scale))
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal, scale))
+            qs, ks, vs = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                scale=scale)
+            sdpa_ms = time_ms(torch, lambda: torch.autograd.grad(
+                so, (qs, ks, vs), do, retain_graph=True))
+            del so, qs, ks, vs
+            work = bwd_work(*shape, causal, q.element_size())
+            dq_bound, dq_by = bound(*work["dq"], dname)
+            dkv_bound, dkv_by = bound(*work["dkv"], dname)
+            print("flash_bwd %s max_abs_err dq=%r dk=%r dv=%r max_abs_ref "
+                  "dq=%r dk=%r dv=%r tol=%g*max_abs_ref repeat=bitwise"
+                  % ((label,) + tuple(errs[n][0] for n in ("dq", "dk", "dv"))
+                     + tuple(errs[n][1] for n in ("dq", "dk", "dv"))
+                     + (BWD_TOL[dname],)))
+            print("flash_bwd %s dq_ms=%r dq_bound_ms=%r dq_bound_by=%s "
+                  "dkv_ms=%r dkv_bound_ms=%r dkv_bound_by=%s whole_ms=%r "
+                  "plain_ms=%r sdpa_bwd_ms=%r"
+                  % (label, dq_ms, dq_bound, dq_by, dkv_ms, dkv_bound,
+                     dkv_by, whole_ms, plain_ms, sdpa_ms))
+            if main and dt == torch.float32:
+                out = {"dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                       "whole_ms": whole_ms, "plain_ms": plain_ms,
+                       "library_ms": sdpa_ms, "dq_bound_ms": dq_bound,
+                       "dq_bound_by": dq_by, "dkv_bound_ms": dkv_bound,
+                       "dkv_bound_by": dkv_by, "dq_err": errs["dq"][0],
+                       "dkv_err": max(errs["dk"][0], errs["dv"][0])}
+            del got, again, want, run
+    return out
+
+
+def flash_counts(fa):
+    return (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+
+
+def reset_flash_counts(fa):
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def lm_train_phase(torch, mt, fa):
+    """(a) the LM's gradients on the kernel graph against the xla graph's;
+    (b) TrainStep with Adam on one fixed batch.  Returns the backward
+    kernels' launches in the driven TrainStep steps."""
+    net = mt.models.transformer.get_symbol(**LM)
+    ref_net = mt.models.transformer.get_symbol(attn_impl="xla", **LM)
+    weights = lm_weights(net)
+    shapes = {"data": (LM_BATCH, LM["seq_len"]),
+              "softmax_label": (LM_BATCH, LM["seq_len"])}
+    rng = np.random.default_rng(SEED + 4)
+    toks = rng.integers(0, LM["vocab_size"], (LM_BATCH, LM["seq_len"] + 1))
+    batch = {"data": toks[:, :-1].astype(np.float32),
+             "softmax_label": toks[:, 1:].astype(np.float32)}
+    gpu = mt.gpu(0)
+    grads = {}
+    for name, sym, dt in (("flash", net, np.float32),
+                          ("xla", ref_net, np.float32),
+                          ("xla_f64", ref_net, np.float64)):
+        args = mt.convert.params_from_numpy(
+            {n: v.astype(dt) for n, v in dict(weights, **batch).items()}, {},
+            ctx=gpu)
+        ex = sym.bind(gpu, {k[4:]: v for k, v in args.items()}, args_grad={
+            n: mt.nd.zeros(v.shape, ctx=gpu, dtype=dt)
+            for n, v in weights.items()}, grad_req="write")
+        reset_flash_counts(fa)
+        ex.forward(is_train=True)
+        ex.backward()
+        torch.cuda.synchronize()
+        counts = flash_counts(fa)
+        print("lm_train grad graph=%s flash_fwd_launches=%d "
+              "flash_dq_launches=%d flash_dkv_launches=%d" % ((name,) + counts))
+        want = (LM["num_layers"],) * 3 if name == "flash" else (0, 0, 0)
+        if counts != want:
+            fail("lm_train: the %s graph launched %s flash kernels, want %s"
+                 % (name, counts, want))
+        grads[name] = {n: g.value.double() for n, g in ex.grad_dict.items()}
+        del ex, args
+
+    def dist(a, b):
+        return (((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                .item(), ((a - b).norm() / b.norm().clamp_min(1e-300)).item())
+    rows = []
+    for n, g in grads["xla"].items():
+        got = grads["flash"][n]
+        if not torch.isfinite(got).all():
+            fail("lm_train: non-finite gradient of %s" % n)
+        rows.append(dist(got, g) + dist(g, grads["xla_f64"][n]) + (n,))
+    rows.sort(reverse=True)
+    for row in rows[:8]:
+        print("lm_train grad param=%s max_rel=%r norm_rel=%r f32_floor "
+              "max_rel=%r norm_rel=%r" % ((row[4],) + row[:4]))
+    worst = {"check": [max(r[0] for r in rows), max(r[1] for r in rows)],
+             "floor": [max(r[2] for r in rows), max(r[3] for r in rows)]}
+    for rel, nrel, _, _, n in rows:
+        if rel > LM_GRAD_TOL or nrel > LM_GRAD_NORM_TOL:
+            fail("lm_train: gradient of %s differs from the xla graph's by "
+                 "%.3g of its largest entry (tol %g), %.3g in norm (tol %g)"
+                 % (n, rel, LM_GRAD_TOL, nrel, LM_GRAD_NORM_TOL))
+    print("lm_train grad_check parameters=%d worst max_rel=%r norm_rel=%r "
+          "(tol %g, %g); xla f32 vs f64 worst max_rel=%r norm_rel=%r"
+          % ((len(grads["xla"]),) + tuple(worst["check"])
+             + (LM_GRAD_TOL, LM_GRAD_NORM_TOL) + tuple(worst["floor"])))
+    del grads
+
+    ts = mt.TrainStep(net, mt.optimizer.Adam(learning_rate=LM_LR))
+    zeros = {n: (np.zeros(v.shape, np.float32), np.zeros(v.shape,
+                                                         np.float32))
+             for n, v in weights.items()}
+    params, state, aux = mt.convert.train_state_from_numpy(
+        weights, zeros, {}, ctx=gpu)
+    del zeros
+    dev_batch = ts.shard_batch(batch)
+    lab = dev_batch["softmax_label"].reshape(-1).long()
+    rows = torch.arange(lab.numel(), device=lab.device)
+
+    def loss(outs):
+        # mean -log p(label), reduced on the card
+        return -torch.log(outs[0][rows, lab]).mean().item()
+    params, state, aux, outs = ts(params, state, aux, dev_batch)   # warm
+    losses = [loss(outs)]
+    torch.cuda.synchronize()
+    reset_flash_counts(fa)
+    host_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        params, state, aux, outs = ts(params, state, aux, dev_batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss(outs))
+    t0 = time.perf_counter()
+    params, state, aux, outs = ts.run_steps(params, state, aux, dev_batch, 3)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3 / 4
+    losses.append(loss(outs))
+    counts = flash_counts(fa)
+    steps = 8
+    tokens = LM_BATCH * LM["seq_len"]
+    step_ms = float(np.mean(host_ms))
+    print("lm_train steps=9 (1 warm + 4 calls + run_steps(3)) losses=%s"
+          % [round(x, 6) for x in losses])
+    print("lm_train loss_first=%r loss_last=%r num_update=%d"
+          % (losses[0], losses[-1], ts.num_update))
+    print("lm_train host_ms_per_step calls=%r run_steps=%r (to a "
+          "synchronize) tokens_per_s calls=%r run_steps=%r"
+          % (step_ms, run_ms, tokens / step_ms * 1e3,
+             tokens / run_ms * 1e3))
+    print("lm_train launches over %d steps flash_fwd=%d flash_dq=%d "
+          "flash_dkv=%d" % ((steps,) + counts))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail("lm_train: the loss did not fall: %s" % losses)
+    if counts != (steps * LM["num_layers"],) * 3:
+        fail("lm_train: flash launches %s != 3 x %d x %d steps"
+             % (counts, LM["num_layers"], steps))
+    train_breakdown(torch, ts, params, state, aux, dev_batch)
+    return counts[1], counts[2]
+
+
+def train_breakdown(torch, ts, params, state, aux, batch):
+    """Device time of one TrainStep call by group, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    groups = [("flash fwd", ("flash_fwd_kernel",)),
+              ("flash dq", ("flash_bwd_dq_kernel",)),
+              ("flash dkv", ("flash_bwd_dkv_kernel",)),
+              ("cublas", ("gemm", "cutlass", "cublas", "xmma", "sm90_")),
+              ("softmax", ("softmax",)),
+              ("embedding backward", ("indexfunc", "index_add", "embedding",
+                                      "index_put", "scatter")),
+              ("copies", ("copy", "memcpy", "memset"))]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts(params, state, aux, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print("profile train step: wall_us=%r device_busy_us=%r "
+          "device_busy_share=%r kernels=%d"
+          % (wall_us, busy_us, busy_us / wall_us, len(kernels)))
+    by_group = {}
+    for e in kernels:
+        g = next((g for g, keys in groups
+                  if any(key in e.key.lower() for key in keys)),
+                 "elementwise/optimizer")
+        us, n = by_group.get(g, (0.0, 0))
+        by_group[g] = (us + e.self_device_time_total, n + e.count)
+    for g, (us, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
+        print("profile train group=%s us=%r launches=%d share=%r"
+              % (g, us, n, us / max(busy_us, 1e-9)))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        print("profile train kernel us=%r count=%d share=%r name=%s"
+              % (e.self_device_time_total, e.count,
+                 e.self_device_time_total / max(busy_us, 1e-9),
+                 e.key[:160]))
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
     results = {}
 
-    def one(name, mod):
+    def one(name, build):
         t0 = time.perf_counter()
         try:
-            results[name] = (mod.build(), time.perf_counter() - t0)
+            results[name] = (build(), time.perf_counter() - t0)
         except Exception as exc:   # reported below; the phase then fails
             results[name] = exc
     threads = [threading.Thread(target=one, args=kv) for kv in kernels]
@@ -683,7 +1007,8 @@ def main():
              torch.get_float32_matmul_precision()))
 
     t0 = time.perf_counter()
-    build_all([("norm_conv", nc), ("flash_attention", fa)])
+    build_all([("norm_conv", nc.build), ("flash_attention", fa.build),
+               ("flash_attention_bwd", fa.build_bwd)])
     print("build all seconds=%r" % (time.perf_counter() - t0))
 
     geoms = resnet50_geometries(mt, BATCH)
@@ -703,6 +1028,8 @@ def main():
     fl = flash_phase(torch, fa)
     fl_launches = lm_phase(torch, mt, fa)
     per = LM["num_layers"]     # the launches of one float32 LM forward
+    bw = flash_bwd_phase(torch, fa)
+    dq_launches, dkv_launches = lm_train_phase(torch, mt, fa)
 
     print(json.dumps({"kernels": [{
         "name": "norm_conv", "route": "cuda",
@@ -720,7 +1047,26 @@ def main():
         "launches": fl_launches, "max_abs_err": fl["max_abs_err"],
         "ms": per * fl["ms"], "plain_ms": per * fl["plain_ms"],
         "bound_ms": per * fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": per * fl["library_ms"]}]}))
+        "library_ms": per * fl["library_ms"]}, {
+        "name": "flash_attention_bwd_dq", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
+        "launches": dq_launches, "max_abs_err": bw["dq_err"],
+        "ms": per * bw["dq_ms"], "plain_ms": per * bw["plain_ms"],
+        "plain_covers": "dq+dk+dv",
+        "bound_ms": per * bw["dq_bound_ms"], "bound_by": bw["dq_bound_by"],
+        "library_ms": per * bw["library_ms"],
+        "library_covers": "dq+dk+dv"}, {
+        "name": "flash_attention_bwd_dkv", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:169",
+        "launches": dkv_launches, "max_abs_err": bw["dkv_err"],
+        "ms": per * bw["dkv_ms"], "plain_ms": per * bw["plain_ms"],
+        "plain_covers": "dq+dk+dv",
+        "bound_ms": per * bw["dkv_bound_ms"],
+        "bound_by": bw["dkv_bound_by"],
+        "library_ms": per * bw["library_ms"],
+        "library_covers": "dq+dk+dv"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

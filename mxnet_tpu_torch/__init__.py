@@ -3,10 +3,13 @@
 The same Symbol / NDArray / Executor / Predictor / ServedModel API, symbol
 JSON and ``.params`` format, and ``MXNET_*`` knobs as the JAX package, on
 ``torch`` tensors.  The TPU's Pallas kernels become hand-written Hopper
-kernels (``ops/norm_conv.py`` + ``csrc/norm_conv.cu``).  Entry points run on
-``gpu(0)`` unless the caller asks for ``cpu()``.
+kernels (``ops/norm_conv.py`` + ``csrc/norm_conv.cu``,
+``ops/flash_attention.py`` + ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``).  Entry points run on ``gpu(0)`` unless the
+caller asks for ``cpu()``.
 
-This slice ports ResNet-50 inference and serving.
+Ported so far: ResNet-50 inference and serving, the transformer LM's
+inference, and its training through ``train.TrainStep``.
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
@@ -22,7 +25,16 @@ from .predictor import Predictor
 from . import serving
 from . import convert
 from . import models
+from . import random
+from . import lr_scheduler
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import train
+from .train import TrainStep, EvalStep
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
-           "predictor", "serving", "convert", "models", "ops"]
+           "predictor", "serving", "convert", "models", "ops", "random",
+           "lr_scheduler", "initializer", "init", "optimizer", "train",
+           "TrainStep", "EvalStep"]

@@ -1,6 +1,5 @@
-"""Executor — runs a Symbol graph forward on tensors (counterpart:
-mxnet_tpu/executor.py, the inference half of ``_Lowered.run`` and
-``Executor``).
+"""Executor — runs a Symbol graph forward, and backward, on tensors
+(counterpart: mxnet_tpu/executor.py, ``_Lowered.run`` and ``Executor``).
 
 PyTorch runs eagerly, so the graph is walked op by op on every forward; the
 walk keeps the JAX package's three passes:
@@ -12,9 +11,14 @@ walk keeps the JAX package's three passes:
 - the NormConv peephole (``MXNET_NORM_CONV=1``, default off as in the JAX
   package): a BatchNorm[->ReLU] whose consumers are 1x1/3x3 convolutions
   becomes the prologue of those convolutions, run by ``ops.norm_conv`` —
-  the Hopper kernel on the card.
+  the Hopper kernel on the card.  It has no backward yet, so under
+  ``is_train`` it raises rather than drop the gradients of what lies below.
 
-Only inference is ported: ``forward(is_train=True)`` raises.
+The gradient pass is autograd over the walk, where the JAX package takes
+``jax.vjp`` of it: ``forward(is_train=True)`` runs the walk with gradients
+enabled on the arguments bound with a grad_req other than 'null', and
+``backward`` runs ``torch.autograd.grad`` from the outputs and writes or adds
+into the bound gradient arrays.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from .context import Context
 from . import ndarray as nd
 from .ops.nn import bn_scale_shift
 from .ops.norm_conv import _apply, geometry_ok, norm_conv
-from .ops.registry import get_op
+from .ops.registry import RESNET_TRAINING, get_op
 from .symbol import _topo
 
 __all__ = ["Executor"]
@@ -191,20 +195,37 @@ class _Lowered(object):
         values[(id(node), 0)] = y
         nhwc.add((id(node), 0))
 
-    def run(self, arg_vals, aux_vals):
-        """Walk the graph forward: {name: tensor} in, list of outputs (in
-        logical layout) out."""
+    def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=()):
+        """Walk the graph: {name: tensor} in, (outputs in logical layout,
+        {aux name: updated value}) out.  Autograd records the walk only
+        under ``is_train``; inputs named in ``no_grad_inputs`` (data and
+        labels) enter it detached."""
+        with torch.set_grad_enabled(bool(is_train)):
+            return self._run(arg_vals, aux_vals, bool(is_train),
+                             frozenset(no_grad_inputs))
+
+    def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
+        if nc_on and is_train:
+            raise MXNetError("MXNET_NORM_CONV=1: the NormConv peephole has "
+                             "no backward yet and would drop the gradients "
+                             "below it; training it arrives with %s (set "
+                             "MXNET_NORM_CONV=0 to train unfused)"
+                             % RESNET_TRAINING)
         nc_ctx = {}
         values = {}
         nhwc = set()      # value keys currently stored channel-last
         skip = set()
+        aux_updates = {}
         for node in self.order:
             if node.is_var:
                 if node.name in arg_vals:
-                    values[(id(node), 0)] = arg_vals[node.name]
+                    v = arg_vals[node.name]
+                    if v.requires_grad and node.name in no_grad_inputs:
+                        v = v.detach()
+                    values[(id(node), 0)] = v
                 elif node.name in aux_vals:
                     values[(id(node), 0)] = aux_vals[node.name]
                 else:
@@ -256,10 +277,11 @@ class _Lowered(object):
             else:
                 ins = [_to_cf(v) if in_keys[j] in nhwc else v
                        for j, v in enumerate(ins)]
-            out = op.make_callable(params, False)(*ins)
+            out = op.make_callable(params, is_train)(*ins)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
-            for i in range(op.num_outputs_for(node.params)):
+            n_vis = op.num_outputs_for(node.params)
+            for i in range(n_vis):
                 values[(id(node), i)] = out[i]
                 if out_cl and _is_arr(out[i]):
                     nhwc.add((id(node), i))
@@ -269,27 +291,55 @@ class _Lowered(object):
                 if out_cl and _is_arr(out[0]):
                     nhwc.add((id(fused_act), 0))
                 skip.add(id(fused_act))
-        return [_to_cf(values[k]) if k in nhwc else values[k]
-                for k in self.out_keys]
+            if op.num_aux and is_train:
+                names = op.arg_names_for(node.params)
+                aux_pos = [i for i, nm in enumerate(names)
+                           if nm in op.aux_names]
+                for k, pos in enumerate(aux_pos):
+                    child = node.inputs[pos][0]
+                    if child.is_var:
+                        aux_updates[child.name] = out[n_vis + k]
+        outputs = [_to_cf(values[k]) if k in nhwc else values[k]
+                   for k in self.out_keys]
+        return outputs, aux_updates
 
 
 class Executor(object):
-    """Bound forward computation (parity: mx.executor.Executor, inference)."""
+    """Bound computation (parity: mx.executor.Executor).
 
-    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="null",
+    grad_req : 'write', 'add' or 'null', as one string for every argument,
+        a list in argument order or a dict by name (missing names: 'null').
+        Gradients are computed for the arguments whose request is not
+        'null' and that have an array in ``args_grad``."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self._low = _Lowered(symbol)
         self.arg_names = self._low.arg_names
         self.aux_names = self._low.aux_names
-        if args_grad or (isinstance(grad_req, string_types)
-                         and grad_req != "null"):
-            raise MXNetError("gradients are not ported yet: bind with "
-                             "grad_req='null'")
         self.arg_dict = self._dictify(args, self.arg_names, "args")
         self.aux_dict = self._dictify(aux_states, self.aux_names,
                                       "aux_states", allow_none=True)
+        if isinstance(grad_req, string_types):
+            self.grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self.grad_req = {n: grad_req.get(n, "null")
+                             for n in self.arg_names}
+        bad = {n: r for n, r in self.grad_req.items()
+               if r not in ("null", "write", "add")}
+        if bad:
+            raise MXNetError("grad_req must be 'null', 'write' or 'add', "
+                             "got %s" % bad)
+        self.grad_dict = self._dictify(args_grad, self.arg_names,
+                                       "args_grad", allow_none=True,
+                                       partial=True)
+        for n, req in self.grad_req.items():
+            if req == "null":
+                self.grad_dict.pop(n, None)
         shapes = {n: a.shape for n, a in self.arg_dict.items()}
         _, out_shapes, _ = symbol.infer_shape_partial(**shapes)
         types = {n: a.dtype for n, a in self.arg_dict.items()
@@ -299,9 +349,13 @@ class Executor(object):
             nd.zeros(s if s else (1,), ctx=self._ctx,
                      dtype=t if t is not None else _np.float32)
             for s, t in zip(out_shapes, out_types)]
+        # the last forward(is_train=True) with gradients: (outputs still in
+        # the autograd graph, {name: leaf tensor})
+        self._graph = None
+        self._warned_default_heads = False
 
     @staticmethod
-    def _dictify(data, names, what, allow_none=False):
+    def _dictify(data, names, what, allow_none=False, partial=False):
         if data is None:
             if allow_none:
                 return {}
@@ -311,33 +365,97 @@ class Executor(object):
             for n in names:
                 if n in data:
                     out[n] = data[n]
-                elif not allow_none:
+                elif not (allow_none or partial):
                     raise MXNetError("missing %s entry %s" % (what, n))
             return out
         data = list(data)
-        if len(data) != len(names):
+        if len(data) != len(names) and not partial:
             raise MXNetError("%s length %d != expected %d"
                              % (what, len(data), len(names)))
-        return dict(zip(names, data))
+        return {n: a for n, a in zip(names, data) if a is not None}
 
     @property
     def outputs(self):
         return self._output_nds
 
+    def _grad_arg_names(self):
+        return [n for n in self.arg_names
+                if self.grad_req.get(n, "null") != "null"
+                and n in self.grad_dict]
+
     def forward(self, is_train=False, **kwargs):
         """Run the graph forward (parity: Executor::Forward).  Keyword
-        arguments replace bound inputs first."""
-        if is_train:
-            raise MXNetError("forward(is_train=True) is not ported yet: the "
-                             "port runs inference only")
+        arguments replace bound inputs first.  With ``is_train`` and
+        gradient arguments the walk is recorded for :meth:`backward`;
+        otherwise it runs without autograd."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward input %s" % k)
             self.arg_dict[k][:] = v
-        with torch.no_grad():
-            outs = self._low.run(
-                {n: a.value for n, a in self.arg_dict.items()},
-                {n: a.value for n, a in self.aux_dict.items()})
+        self._graph = None
+        args = {n: a.value for n, a in self.arg_dict.items()}
+        gnames = self._grad_arg_names() if is_train else []
+        leaves = {n: args[n].detach().requires_grad_(True) for n in gnames}
+        args.update(leaves)
+        outs, aux_upd = self._low.run(
+            args, {n: a.value for n, a in self.aux_dict.items()}, is_train,
+            no_grad_inputs=[n for n in self.arg_names if n not in leaves])
+        if leaves:
+            self._graph = (outs, leaves)
         for ndarr, v in zip(self._output_nds, outs):
-            ndarr._set_value(v)
+            ndarr._set_value(v.detach())
+        for name, v in aux_upd.items():
+            if name in self.aux_dict:
+                self.aux_dict[name]._set_value(v.detach())
         return self._output_nds
+
+    def _check_default_heads(self):
+        """Warn once when implicit all-ones head gradients reach outputs that
+        are not loss heads (the reference requires explicit out_grads
+        there)."""
+        if self._warned_default_heads:
+            return
+        bad = [node.name for node, _ in self._symbol._outputs
+               if node.is_var or not (node.op.is_loss
+                                      or node.op.name == "BlockGrad")]
+        if bad:
+            import warnings
+            warnings.warn(
+                "backward() without out_grads on non-loss output(s) %s: "
+                "gradients use implicit all-ones head gradients (the "
+                "reference requires explicit out_grads here)" % bad,
+                stacklevel=3)
+        self._warned_default_heads = True
+
+    def backward(self, out_grads=None):
+        """Gradients of the last forward(is_train=True) into the bound
+        gradient arrays, written or added per grad_req (parity:
+        Executor::Backward).  Without ``out_grads`` every output is seeded
+        with ones (the loss heads ignore it).  The recorded graph is kept,
+        so backward may run again until the next forward."""
+        gnames = self._grad_arg_names()
+        if not gnames:
+            return
+        if self._graph is None:
+            raise MXNetError(
+                "backward() requires a preceding forward(is_train=True)")
+        outs, leaves = self._graph
+        if out_grads is None:
+            self._check_default_heads()
+            ogs = [torch.ones((), dtype=o.dtype, device=o.device)
+                   .expand(o.shape) for o in outs]
+        else:
+            if isinstance(out_grads, nd.NDArray):
+                out_grads = [out_grads]
+            ogs = [(g.value if isinstance(g, nd.NDArray) else g)
+                   .to(o.device, o.dtype) for g, o in zip(out_grads, outs)]
+        grads = torch.autograd.grad(outs, [leaves[n] for n in gnames], ogs,
+                                    retain_graph=True, allow_unused=True)
+        for name, g in zip(gnames, grads):
+            tgt = self.grad_dict[name]
+            if g is None:        # the output does not depend on it
+                g = torch.zeros_like(leaves[name])
+            if self.grad_req[name] == "add":
+                tgt._set_value(tgt.value + g)
+            else:
+                tgt._set_value(g)

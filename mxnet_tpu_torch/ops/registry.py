@@ -77,12 +77,14 @@ class OpDef(object):
     layout_rule : how the executor's NHWC pass treats the op: None (rigid:
         inputs restored to NCHW), 'aware' (``fn`` takes layout='NHWC' for
         the inputs in ``layout_inputs``) or 'transparent' (shape-agnostic)
+    is_loss : a loss head whose backward ignores the incoming gradient
+        (the executor seeds such outputs with implicit ones silently)
     """
 
     def __init__(self, name, fn, arg_names=("data",), aux_names=(),
                  num_outputs=1, attr_types=None, defaults=None,
                  infer_shape=None, train_aware=False, aliases=(), doc=None,
-                 layout_rule=None, layout_inputs=(0,)):
+                 layout_rule=None, layout_inputs=(0,), is_loss=False):
         self.name = name
         self.fn = fn
         self._arg_names = arg_names
@@ -97,6 +99,7 @@ class OpDef(object):
         self.doc = doc or (fn.__doc__ if fn is not None else None)
         self.layout_rule = layout_rule
         self.layout_inputs = tuple(layout_inputs)
+        self.is_loss = is_loss
 
     # ------------------------------------------------------------------ meta
     def arg_names_for(self, attrs):
@@ -207,8 +210,12 @@ def list_ops():
     return OPS.list_names()
 
 
+RESNET_TRAINING = "the ResNet-50 training slice (ROADMAP A3, B1)"
+
+
 def raise_if_training(op_name, is_train):
-    """The port serves; training ops arrive with the training slice."""
+    """Ops whose training mode is not ported yet raise under is_train: it
+    arrives with the ResNet-50 training slice."""
     if is_train:
-        raise MXNetError("%s: training mode is not ported yet (the port "
-                         "runs inference only)" % op_name)
+        raise MXNetError("%s: training mode is not ported yet; it arrives "
+                         "with %s" % (op_name, RESNET_TRAINING))

@@ -132,6 +132,19 @@ class Symbol(object):
                 out.append("%s_output%d" % (node.name, idx))
         return out
 
+    def attr_dict(self):
+        """{node name: {attribute: string}} over the graph (parity:
+        Symbol.attr_dict): variables' attributes (``__init__``,
+        ``__lr_mult__``, ...) and operators' parameters."""
+        ret = {}
+        for node in _topo([n for n, _ in self._outputs]):
+            d = dict(node.attr)
+            if not node.is_var:
+                d.update({k: _attr_str(v) for k, v in node.params.items()})
+            if d:
+                ret[node.name] = d
+        return ret
+
     def get_internals(self):
         """Every node output as a Group (parity: symbol.get_internals)."""
         return Symbol([(node, i) for node in self._nodes()
@@ -218,10 +231,12 @@ class Symbol(object):
         return "<Symbol %s>" % (name if name else "Grouped")
 
     # --------------------------------------------------------------- binding
-    def bind(self, ctx=None, args=None, args_grad=None, grad_req="null",
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
-        """Bind arguments and aux states into an :class:`Executor`
-        (forward only: gradients arrive with the training slice)."""
+        """Bind arguments, gradient arrays and aux states into an
+        :class:`Executor` (parity: Symbol.bind); gradients are computed
+        for the arguments with an array in ``args_grad`` and a grad_req
+        other than 'null'."""
         from .executor import Executor
         return Executor(self, ctx or current_context(), args, args_grad,
                         grad_req, aux_states)
