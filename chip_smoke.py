@@ -51,12 +51,29 @@ fatal on failure:
    steps through ``__call__`` and ``run_steps(..., 3)``; the loss (from
    the outputs, on the card) lower after the last step than after the
    first, 36 flash launches per step, host ms per step and tokens/s, and a
-   torch.profiler breakdown of one step.
+   torch.profiler breakdown of one step;
+8. imperative: the LM's 163,087,441 float32 parameters as NDArrays on the
+   card with gradients drawn on the card (``mx.nd.normal`` from the card's
+   generator); three ``Updater`` passes with Adam over every parameter, and
+   three with SGD-momentum, each held within IMPERATIVE_TOL to TrainStep's
+   fused rule (``_FunctionalOptimizer``) on copies of the same tensors; host
+   ms per pass, device ms and launches of one profiled pass, and the fused
+   rule's ms per pass;
+9. rtc: four user kernels written in CUDA C (``rtc_kernels.py``) pushed
+   through ``rtc.Rtc`` once each (the path whose launches are counted):
+   axpb over 163,087,441 floats, exp5_shared over 10, transpose_tiled of
+   the LM's (50257, 768) lm_head weight, sgd_mom in place over one buffer
+   holding every LM parameter (the parameters are views of it); each held
+   to its plain version (axpb and transpose bitwise, exp5 within EXP5_TOL
+   relative, sgd_mom within IMPERATIVE_TOL of the largest |w|); first-push
+   seconds (nvcc), ``rtc.builds`` unchanged on a second push, host us per
+   push, kernel / plain / ``torch.add`` / bound ms of axpb; a source with
+   a syntax error must raise MXNetError carrying nvcc's log.
 
 Prints the card's name and power limit, per-geometry numbers, serving qps
 and latency, flash timings, LM checks and profiles, flash backward timings,
-LM training checks, rates and profile, a JSON line of kernel numbers, and
-as its last line
+LM training checks, rates and profile, Updater and Rtc numbers, a JSON line
+of kernel numbers, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -134,6 +151,16 @@ FLASH_CHECKS = [
     ((2, 2, 384, 64), True, None),          # three 128-blocks
     ((2, 4, 512, 64), True, 0.3),
 ]
+# Updater vs the fused rule on the same tensors (float32), and the Rtc
+# sgd_mom kernel vs the registered op: max |d| over the largest |w|.  The
+# Updater keeps Adam's step scalars in float64 where the fused rule rounds
+# them to float32, as the JAX package's Updater and TrainStep do: a relative
+# 1e-7 of each update, orders below this bound.
+IMPERATIVE_TOL = 1e-6
+IMP_PASSES = 3
+# exp5_shared vs torch.exp(5 x), relative: expf and torch's exp are each
+# within 2 ulp of exp
+EXP5_TOL = 2e-6
 # H100 SXM published peaks (dense): float32 on the CUDA cores, bfloat16 on
 # the tensor cores, HBM3 bandwidth
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -950,6 +977,229 @@ def train_breakdown(torch, ts, params, state, aux, batch):
                  e.key[:160]))
 
 
+def device_profile(torch, fn):
+    """(device us, launches) of the CUDA kernels one call of ``fn`` runs,
+    from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels),
+            sum(e.count for e in kernels))
+
+
+def imperative_phase(torch, mt, weights):
+    """Updater passes over every LM parameter against the fused rule."""
+    from mxnet_tpu_torch.train import _FunctionalOptimizer
+    gpu = mt.gpu(0)
+    names = sorted(weights)
+    idx2name = dict(enumerate(names))
+    mt.random.seed(SEED + 5)
+    grads = [mt.nd.normal(loc=0.0, scale=1e-2, shape=weights[n].shape,
+                          ctx=gpu) for n in names]
+    common = dict(wd=1e-2, rescale_grad=0.5, clip_gradient=4e-3,
+                  param_idx2name=idx2name)
+    opts = (("adam", lambda: mt.optimizer.Adam(learning_rate=1e-3,
+                                                **common)),
+            ("sgd_momentum", lambda: mt.optimizer.SGD(
+                learning_rate=0.1, momentum=0.9, **common)))
+    for label, make in opts:
+        params = [mt.nd.array(weights[n], ctx=gpu) for n in names]
+        updater = mt.optimizer.get_updater(make())
+
+        def one_pass():
+            for i, (g, w) in enumerate(zip(grads, params)):
+                updater(i, g, w)
+        host_ms = []
+        for _ in range(IMP_PASSES - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_pass()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_us, n_launch = device_profile(torch, one_pass)
+
+        fopt = _FunctionalOptimizer(make(), names)
+        fw = {n: torch.from_numpy(weights[n]).cuda() for n in names}
+        state = fopt.init_state(fw)
+        fused_ms = []
+        for t in range(1, IMP_PASSES + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hyper = fopt.hyper(t - 1)
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    nw, ns = fopt.update(n, fw[n], g.value, state[n], hyper,
+                                         t)
+                    fw[n].copy_(nw)
+                    for s, v in zip(state[n], ns):
+                        s.copy_(v)
+            torch.cuda.synchronize()
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+        err, scale, serr = 0.0, 0.0, 0.0
+        for i, n in enumerate(names):
+            w = params[i].value
+            if not torch.isfinite(w).all():
+                fail("imperative %s: non-finite %s" % (label, n))
+            err = max(err, (w - fw[n]).abs().max().item())
+            scale = max(scale, fw[n].abs().max().item())
+            st = updater.states[i]
+            st = st if isinstance(st, tuple) else (st,)
+            for a, b in zip(st, state[n]):
+                serr = max(serr, ((a.value - b).abs().max()
+                                  / b.abs().max().clamp_min(1e-30)).item())
+        print("imperative %s parameters=%d arrays=%d passes=%d "
+              "max_abs_diff_vs_fused=%r max_abs_w=%r tol=%g*max_abs_w "
+              "state_max_rel_diff=%r" % (label, sum(w.size for w in params),
+                                          len(params), IMP_PASSES, err, scale,
+                                          IMPERATIVE_TOL, serr))
+        print("imperative %s host_ms_per_pass=%s (to a synchronize; pass 1 "
+              "creates the states) profiled_pass device_ms=%r launches=%d "
+              "fused_rule host_ms_per_pass=%s"
+              % (label, [round(x, 3) for x in host_ms], dev_us / 1e3,
+                 n_launch, [round(x, 3) for x in fused_ms]))
+        if err > IMPERATIVE_TOL * scale or serr > IMPERATIVE_TOL:
+            fail("imperative %s: the Updater differs from the fused rule"
+                 % label)
+        del params, updater, fw, state
+
+
+def rtc_phase(torch, mt, weights):
+    """The four user kernels pushed through Rtc; returns the axpb numbers
+    and its launches in the counted run."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch import rtc_kernels as rk
+    gpu = mt.gpu(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    names = sorted(weights)
+    n = sum(weights[k].size for k in names)
+
+    def card(t):
+        return mt.nd.NDArray(t, ctx=gpu)
+    x = card(torch.randn(n, device="cuda", generator=gen))
+    y = card(torch.randn(n, device="cuda", generator=gen))
+    out = mt.nd.zeros((n,), ctx=gpu)
+    x10 = card(torch.rand(10, device="cuda", generator=gen) * 2 - 1)
+    y10 = mt.nd.zeros((10,), ctx=gpu)
+    head = mt.nd.array(weights["lm_head_weight"], ctx=gpu)
+    head_t = mt.nd.zeros(head.shape[::-1], ctx=gpu)
+    # one buffer holding every parameter; each parameter is a view of it
+    w_all = mt.nd.zeros((n,), ctx=gpu)
+    views, spans, at = {}, {}, 0
+    for k in names:
+        size = weights[k].size
+        views[k] = w_all[at:at + size].reshape(weights[k].shape)
+        views[k][:] = weights[k]
+        spans[k] = (at, at + size)
+        at += size
+    g_all = card(torch.randn(n, device="cuda", generator=gen) * 1e-2)
+    m_all = card(torch.randn(n, device="cuda", generator=gen) * 1e-3)
+    sgd = dict(lr=0.1, momentum=0.9, wd=1e-4, rescale_grad=0.5,
+               clip_gradient=4e-3)
+    w_want, m_want = rk.sgd_mom_plain(w_all, g_all, m_all, **sgd)
+    kernels = [("axpb", rk.make_axpb(n), [x, y], [out]),
+               ("exp5_shared", rk.make_exp5_shared(), [x10], [y10]),
+               ("transpose_tiled", rk.make_transpose_tiled(*head.shape),
+                [head], [head_t]),
+               ("sgd_mom", rk.make_sgd_mom(n, **sgd), [w_all, g_all, m_all],
+                [w_all, m_all])]
+    torch.cuda.synchronize()
+    rtc.launches = 0
+    builds0 = rtc.builds
+    per_kernel = {}
+    for name, (r, launch), ins, outs in kernels:
+        before = rtc.launches
+        t0 = time.perf_counter()
+        r.push(ins, outs, **launch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        per_kernel[name] = rtc.launches - before
+        print("rtc first_push kernel=%s seconds=%r (nvcc build, load, "
+              "launch) launch=%s" % (name, secs, launch))
+    main_launches = rtc.launches
+    builds1 = rtc.builds
+    print("rtc counted run launches=%d by_kernel=%s builds=%d"
+          % (main_launches, per_kernel, builds1 - builds0))
+    if any(v != 1 for v in per_kernel.values()):
+        fail("rtc: each user kernel must launch once, got %s" % per_kernel)
+
+    axpb_err = (out.value - rk.axpb_plain(x.value, y.value)).abs().max() \
+        .item()
+    if axpb_err != 0.0:
+        fail("rtc axpb differs from x * 2 + y by %r" % axpb_err)
+    want = rk.exp5_plain(x10.value)
+    exp_err = ((y10.value - want).abs() / want.abs()).max().item()
+    if not exp_err <= EXP5_TOL:
+        fail("rtc exp5_shared: max rel err %r > %g" % (exp_err, EXP5_TOL))
+    if not torch.equal(head_t.value, rk.transpose_plain(head.value)):
+        fail("rtc transpose_tiled differs from x.t()")
+    scale = w_want.value.abs().max().item()
+    sgd_err = max((w_all.value - w_want.value).abs().max().item(),
+                  (m_all.value - m_want.value).abs().max().item())
+    a, b = spans["lm_head_weight"]
+    view_err = (views["lm_head_weight"].value
+                - w_want.value[a:b].reshape(head.shape)).abs().max().item()
+    print("rtc check axpb max_abs_err=%r exp5_shared max_rel_err=%r (tol %g) "
+          "transpose_tiled=bitwise sgd_mom max_abs_err=%r max_abs_w=%r "
+          "(tol %g*max_abs_w) view lm_head_weight max_abs_err=%r"
+          % (axpb_err, exp_err, EXP5_TOL, sgd_err, scale, IMPERATIVE_TOL,
+             view_err))
+    if not torch.isfinite(w_all.value).all() or \
+            max(sgd_err, view_err) > IMPERATIVE_TOL * scale:
+        fail("rtc sgd_mom differs from sgd_mom_update")
+
+    for name, (r, launch), ins, outs in kernels:
+        r.push(ins, outs, **launch)
+    torch.cuda.synchronize()
+    print("rtc second push builds=%d (unchanged: %s)"
+          % (rtc.builds - builds0, rtc.builds == builds1))
+    if rtc.builds != builds1:
+        fail("rtc: a second push built again")
+
+    r, launch = kernels[1][1]
+    reps = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        r.push([x10], [y10], **launch)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    print("rtc exp5_shared host_us_per_push=%r (%d pushes, before a "
+          "synchronize)" % (host_us, reps))
+
+    for name, (r, launch), ins, outs in kernels[1:]:
+        ms = time_ms(torch, lambda: r.push(ins, outs, **launch))
+        print("rtc time kernel=%s ms=%r" % (name, ms))
+    r, launch = kernels[0][1]
+    res = {"ms": time_ms(torch, lambda: r.push([x, y], [out], **launch)),
+           "plain_ms": time_ms(torch, lambda: rk.axpb_plain(x.value,
+                                                            y.value)),
+           "library_ms": time_ms(torch, lambda: torch.add(
+               y.value, x.value, alpha=2.0)),
+           "bound_ms": 12.0 * n / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "max_abs_err": axpb_err, "launches": per_kernel["axpb"]}
+    print("rtc axpb n=%d kernel_ms=%r plain_ms=%r library_ms=%r bound_ms=%r "
+          "bound_by=bytes" % (n, res["ms"], res["plain_ms"],
+                              res["library_ms"], res["bound_ms"]))
+
+    bad = rtc.Rtc("broken", ["x"], ["y"], "  y[0] = x[0] +;")
+    try:
+        bad.push([x10], [y10], block_dim_x=1)
+    except mt.MXNetError as exc:
+        msg = str(exc)
+        if "nvcc failed" not in msg or "error" not in msg:
+            fail("rtc: a syntax error raised without nvcc's log: %s" % msg)
+        print("rtc syntax error raised MXNetError with nvcc's log (%d "
+              "chars): %s" % (len(msg), msg.strip().splitlines()[-1][:160]))
+    else:
+        fail("rtc: a source with a syntax error built")
+    return res
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -1030,6 +1280,9 @@ def main():
     per = LM["num_layers"]     # the launches of one float32 LM forward
     bw = flash_bwd_phase(torch, fa)
     dq_launches, dkv_launches = lm_train_phase(torch, mt, fa)
+    weights = lm_weights(mt.models.transformer.get_symbol(**LM))
+    imperative_phase(torch, mt, weights)
+    rt = rtc_phase(torch, mt, weights)
 
     print(json.dumps({"kernels": [{
         "name": "norm_conv", "route": "cuda",
@@ -1066,7 +1319,14 @@ def main():
         "bound_ms": per * bw["dkv_bound_ms"],
         "bound_by": bw["dkv_bound_by"],
         "library_ms": per * bw["library_ms"],
-        "library_covers": "dq+dk+dv"}]}))
+        "library_covers": "dq+dk+dv"}, {
+        "name": "rtc_axpb", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc_kernels.py",
+        "replaces": "mxnet_tpu/rtc.py:55",
+        "launches": rt["launches"], "max_abs_err": rt["max_abs_err"],
+        "ms": rt["ms"], "plain_ms": rt["plain_ms"],
+        "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
+        "library_ms": rt["library_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,14 @@ JSON and ``.params`` format, and ``MXNET_*`` knobs as the JAX package, on
 ``torch`` tensors.  The TPU's Pallas kernels become hand-written Hopper
 kernels (``ops/norm_conv.py`` + ``csrc/norm_conv.cu``,
 ``ops/flash_attention.py`` + ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``).  Entry points run on ``gpu(0)`` unless the
-caller asks for ``cpu()``.
+``csrc/flash_attention_bwd.cu``), and ``rtc.Rtc`` compiles a user's CUDA C
+kernel for the card.  Entry points run on ``gpu(0)`` unless the caller asks
+for ``cpu()``.
 
 Ported so far: ResNet-50 inference and serving, the transformer LM's
-inference, and its training through ``train.TrainStep``.
+inference, its training through ``train.TrainStep``, and the imperative
+entry point: ``mx.nd`` ops and views, the optimizers' ``update`` and
+``Updater``, and ``rtc``.
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
@@ -30,11 +33,12 @@ from . import lr_scheduler
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import rtc
 from . import train
 from .train import TrainStep, EvalStep
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
-           "lr_scheduler", "initializer", "init", "optimizer", "train",
+           "lr_scheduler", "initializer", "init", "optimizer", "rtc", "train",
            "TrainStep", "EvalStep"]

@@ -1,15 +1,19 @@
 """Base utilities of the PyTorch/CUDA port (counterpart: mxnet_tpu/base.py).
 
-The error type, the env reader and the name registry the op library and the
-symbol graph are built on.  Kept as the port's own copy: the port never
-imports the JAX package.
+The error type, the env reader, the name registry the op library and the
+symbol graph are built on, and the numpy <-> torch dtype tables.  Kept as the
+port's own copy: the port never imports the JAX package.
 """
 from __future__ import annotations
 
 import os
 import threading
 
-__all__ = ["MXNetError", "string_types", "get_env", "Registry"]
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "string_types", "get_env", "Registry",
+           "torch_dtype", "numpy_dtype"]
 
 string_types = (str,)
 
@@ -51,3 +55,34 @@ class Registry(object):
 
     def list_names(self):
         return sorted(self._entries)
+
+
+_NP2TORCH = {np.dtype("float32"): torch.float32,
+             np.dtype("float64"): torch.float64,
+             np.dtype("float16"): torch.float16,
+             np.dtype("uint8"): torch.uint8,
+             np.dtype("int32"): torch.int32,
+             np.dtype("int8"): torch.int8,
+             np.dtype("int64"): torch.int64}
+_TORCH2NP = {v: k for k, v in _NP2TORCH.items()}
+
+
+def torch_dtype(dtype):
+    """A ``torch.dtype`` from a torch dtype, a numpy dtype or a name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return torch.bfloat16
+    dt = np.dtype(dtype)
+    if dt.name == "bfloat16":          # ml_dtypes' numpy bfloat16
+        return torch.bfloat16
+    try:
+        return _NP2TORCH[dt]
+    except KeyError:
+        raise MXNetError("unsupported dtype %s" % dt)
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype (``torch.bfloat16`` stays as it
+    is: numpy has none)."""
+    return _TORCH2NP.get(dtype, dtype)

@@ -1,8 +1,14 @@
 """NDArray over ``torch.Tensor`` (counterpart: mxnet_tpu/ndarray.py).
 
-An NDArray owns one tensor on its context's device.  ``x[:] = v`` and
-``copyto`` rebind or fill that tensor; there are no views yet (the serving
-path never takes one).
+An NDArray holds one tensor on its context's device.  Every imperative op
+runs eagerly through ``ops.registry.imperative_invoke``, and ``mx.nd.<op>``
+exists for every registered op.  Writes are in place: ``x[:] = v``,
+``x[key] = v``, ``+=`` and the optimizers' updates copy into the tensor's
+storage (``_set_value``), so a *view* (``x[1:3]``, ``x[2]``,
+``x.reshape(...)``, a torch view of the same storage, as the reference's
+Slice/At/Reshape are views of one chunk) sees every write to its base, and a
+write through it lands in the base.  An op never hands back a tensor that
+shares memory with its inputs: such an output is copied.
 
 The ``.params`` framing (``_write_entry`` / ``_read_entries``) is the same
 byte format as the JAX package's: a file written by either package loads in
@@ -18,20 +24,18 @@ import struct
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, _TORCH2NP, numpy_dtype, torch_dtype
 from .context import Context, current_context
+from . import ops as _ops  # noqa: F401  (every op, before the frontends)
+from .ops import registry as _reg
 
-__all__ = ["NDArray", "array", "zeros", "load", "save", "serialize_arrays",
-           "deserialize_arrays", "torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "load", "save", "onehot_encode", "waitall",
+           "maximum", "minimum", "serialize_arrays", "deserialize_arrays",
+           "torch_dtype"]
 
-_NP2TORCH = {np.dtype("float32"): torch.float32,
-             np.dtype("float64"): torch.float64,
-             np.dtype("float16"): torch.float16,
-             np.dtype("uint8"): torch.uint8,
-             np.dtype("int32"): torch.int32,
-             np.dtype("int8"): torch.int8,
-             np.dtype("int64"): torch.int64}
-_TORCH2NP = {v: k for k, v in _NP2TORCH.items()}
+# the builtins the op frontends below shadow (slice, sum, max, ...)
+_pyslice = slice
 
 # .params dtype codes (parity: mxnet_tpu/ndarray.py _DTYPE_CODE/_BF16_CODE)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
@@ -41,19 +45,8 @@ _CODE_DTYPE = {v: k for k, v in _DTYPE_CODE.items()}
 _MAGIC = 0xF993FAC9
 
 
-def torch_dtype(dtype):
-    """A ``torch.dtype`` from a torch dtype, a numpy dtype or a name."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    if isinstance(dtype, str) and dtype == "bfloat16":
-        return torch.bfloat16
-    dt = np.dtype(dtype)
-    if dt.name == "bfloat16":          # ml_dtypes' numpy bfloat16
-        return torch.bfloat16
-    try:
-        return _NP2TORCH[dt]
-    except KeyError:
-        raise MXNetError("unsupported dtype %s" % dt)
+def _shares_memory(a, b):
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 class NDArray(object):
@@ -71,15 +64,31 @@ class NDArray(object):
 
     @property
     def value(self):
-        """The underlying ``torch.Tensor``."""
+        """The underlying ``torch.Tensor`` (a view's is a torch view of its
+        base's storage)."""
         return self._data
 
     def _set_value(self, t):
-        """Rebind the contents; the array stays on its own device."""
+        """Write ``t`` into this array, in place when the shapes agree (at
+        this array's dtype when it is a view); a whole array of another
+        shape or dtype is rebound to ``t`` on its own device.  A view
+        cannot change shape."""
         if not self.writable:
             raise MXNetError("trying to write to a read-only NDArray")
-        if t.device != self._data.device:
-            t = t.to(self._data.device)
+        cur = self._data
+        if tuple(t.shape) == tuple(cur.shape) and (
+                t.dtype == cur.dtype or cur._base is not None):
+            if t is not cur:
+                if t.device == cur.device and _shares_memory(t, cur):
+                    t = t.clone()
+                cur.copy_(t)
+            return
+        if cur._base is not None:
+            raise MXNetError("cannot write an array of shape %s into a view "
+                             "of shape %s" % (tuple(t.shape),
+                                              tuple(cur.shape)))
+        if t.device != cur.device:
+            t = t.to(cur.device)
         self._data = t
 
     @property
@@ -97,7 +106,7 @@ class NDArray(object):
     @property
     def dtype(self):
         """numpy dtype of the contents (``torch.bfloat16`` for bfloat16)."""
-        return _TORCH2NP.get(self._data.dtype, self._data.dtype)
+        return numpy_dtype(self._data.dtype)
 
     @property
     def context(self):
@@ -107,6 +116,11 @@ class NDArray(object):
         return Context("gpu", dev.index or 0) if dev.type == "cuda" \
             else Context("cpu", 0)
 
+    @property
+    def T(self):
+        return _invoke("transpose", [self], {})
+
+    # ------------------------------------------------------------ conversions
     def asnumpy(self):
         """Blocking copy to host numpy (bfloat16 comes back as float32)."""
         t = self._data.detach()
@@ -114,10 +128,24 @@ class NDArray(object):
             t = t.float()
         return t.cpu().numpy()
 
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError("the current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def astype(self, dtype):
+        return _invoke("Cast", [self], {"dtype": dtype})
+
+    def copy(self):
+        return _invoke("_copy", [self], {})
+
     def copyto(self, other):
-        """Copy into another NDArray or onto a Context."""
+        """Copy into another NDArray (at its dtype) or onto a Context."""
         if isinstance(other, NDArray):
-            other._set_value(self._data.to(other._data.dtype).clone())
+            if self.shape == other.shape:
+                other._set_value(self._data)
+            else:
+                other._set_value(self._data.to(other._data.dtype).clone())
             return other
         if isinstance(other, Context):
             return NDArray(self._data.to(other.torch_device(), copy=True),
@@ -129,27 +157,158 @@ class NDArray(object):
             return self
         return self.copyto(context)
 
+    def wait_to_read(self):
+        """Block until the array's pending work on its card is done."""
+        if self._data.device.type == "cuda":
+            torch.cuda.synchronize(self._data.device)
+
+    # ------------------------------------------------------------------ views
+    def _view(self, t):
+        return NDArray(t, ctx=self._ctx, writable=self.writable)
+
+    def reshape(self, shape):
+        """Memory-sharing reshape view (parity: MXNDArrayReshape), with
+        MXNet's special codes 0, -1, -2, -3, -4."""
+        from .ops.matrix import infer_reshape
+        return self._view(self._data.view(
+            infer_reshape(self.shape, tuple(shape))))
+
+    def _slice(self, start, stop):
+        start = 0 if start is None else int(start)
+        stop = self.shape[0] if stop is None else int(stop)
+        return self._view(self._data[start:stop])
+
+    def _at(self, idx):
+        return self._view(self._data[int(idx)])
+
+    def __getitem__(self, key):
+        if isinstance(key, int):
+            if key >= self.shape[0]:
+                raise IndexError("index out of range")
+            return self._at(key)
+        if isinstance(key, _pyslice):
+            if key.step is not None and key.step != 1:
+                raise MXNetError("slice step is not supported")
+            return self._slice(key.start, key.stop)
+        raise MXNetError("NDArray only supports int/slice indexing for reads")
+
     def __setitem__(self, key, value):
+        """``x[:] = v`` fills the whole array (v broadcast); ``x[key] = v``
+        writes the part ``key`` selects.  In place either way."""
         if not self.writable:
             raise MXNetError("NDArray is not writable")
+        cur = self._data
         if isinstance(value, NDArray):
             value = value.value
-        if not isinstance(value, torch.Tensor):
-            value = _host_tensor(np.asarray(value), self._data.dtype)
-        value = value.to(self._data.device, self._data.dtype)
-        if isinstance(key, slice) and key == slice(None):
-            if tuple(value.shape) == self.shape:
-                self._set_value(value.clone())
-            else:
-                self._set_value(value.expand(self.shape).clone())
-            return
-        new = self._data.clone()
-        new[key] = value
-        self._set_value(new)
+        if isinstance(value, torch.Tensor):
+            value = value.to(cur.device, cur.dtype)
+            if _shares_memory(value, cur):
+                value = value.clone()
+        elif isinstance(value, np.ndarray):
+            value = _host_tensor(value, cur.dtype).to(cur.device)
+        else:
+            value = torch.as_tensor(value, dtype=cur.dtype, device=cur.device)
+        if isinstance(key, _pyslice) and key.start is None \
+                and key.stop is None:
+            cur.copy_(value)
+        else:
+            cur[key] = value
+
+    # ------------------------------------------------------------- arithmetic
+    def __add__(self, other):
+        return _binary("_plus", "_plus_scalar", self, other)
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __iadd__(self, other):
+        self._set_value(self.__add__(other).value)
+        return self
+
+    def __sub__(self, other):
+        return _binary("_minus", "_minus_scalar", self, other)
+
+    def __rsub__(self, other):
+        return _scalar("_rminus_scalar", self, other)
+
+    def __isub__(self, other):
+        self._set_value(self.__sub__(other).value)
+        return self
+
+    def __mul__(self, other):
+        return _binary("_mul", "_mul_scalar", self, other)
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __imul__(self, other):
+        self._set_value(self.__mul__(other).value)
+        return self
+
+    def __truediv__(self, other):
+        return _binary("_div", "_div_scalar", self, other)
+
+    def __rtruediv__(self, other):
+        return _scalar("_rdiv_scalar", self, other)
+
+    def __itruediv__(self, other):
+        self._set_value(self.__truediv__(other).value)
+        return self
+
+    def __pow__(self, other):
+        return _binary("_power", "_power_scalar", self, other)
+
+    def __rpow__(self, other):
+        return _scalar("_rpower_scalar", self, other)
+
+    def __neg__(self):
+        return _invoke("negative", [self], {})
+
+    def __eq__(self, other):
+        return _binary("_equal", "_equal_scalar", self, other)
+
+    def __ne__(self, other):
+        return _binary("_not_equal", "_not_equal_scalar", self, other)
+
+    def __gt__(self, other):
+        return _binary("_greater", "_greater_scalar", self, other)
+
+    def __ge__(self, other):
+        return _binary("_greater_equal", "_greater_equal_scalar", self, other)
+
+    def __lt__(self, other):
+        return _binary("_lesser", "_lesser_scalar", self, other)
+
+    def __le__(self, other):
+        return _binary("_lesser_equal", "_lesser_equal_scalar", self, other)
+
+    def __hash__(self):
+        return id(self)
+
+    def __bool__(self):
+        raise MXNetError("The truth value of an NDArray is ambiguous; "
+                         "use asscalar()")
+
+    def __len__(self):
+        return self.shape[0]
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(str(d) for d in self.shape),
                                      self.context)
+
+    def broadcast_to(self, shape):
+        return _invoke("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def __reduce__(self):
+        # pickling copies a view out; the optimizer states travel this way
+        ctx = self.context
+        return (_rebuild_ndarray, (self.asnumpy(), str(self._data.dtype),
+                                   ctx.device_type, ctx.device_id))
+
+
+def _rebuild_ndarray(npv, dtype, device_type, device_id):
+    return array(npv, ctx=Context(device_type, device_id),
+                 dtype=getattr(torch, dtype.split(".")[-1]))
 
 
 def _host_tensor(npv, dtype):
@@ -165,13 +324,98 @@ def _host_tensor(npv, dtype):
         np.array(npv, dtype=_TORCH2NP[dtype], copy=True, order="C"))
 
 
-def zeros(shape, ctx=None, dtype=np.float32):
-    """(parity: mx.nd.zeros)"""
-    ctx = ctx or current_context()
+# ---------------------------------------------------------- invoke helpers
+def _own(t, inputs):
+    """``t`` as a contiguous tensor of its own: copied when it shares
+    memory with an input (a view op's output)."""
+    if any(_shares_memory(t, i) for i in inputs if i.device == t.device):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.contiguous()
+
+
+def _invoke(op_name, nds, attrs, ctx=None, out=None):
+    """Run one op on NDArrays (parity: mxnet_tpu/ndarray.py ``_invoke``):
+    the visible outputs come back as new NDArrays, or are written into
+    ``out``; the aux updates are written back into the trailing aux
+    inputs.  An op with inputs runs on their device; ``ctx`` places an op
+    without any."""
+    ctx = nds[0].context if nds else (ctx or current_context())
+    arrays = [a.value for a in nds]
+    outs, op = _reg.imperative_invoke(
+        op_name, arrays, attrs, device=None if nds else ctx.torch_device())
+    n_vis = op.num_outputs_for(op.normalize_attrs(attrs or {}))
+    vis = [_own(v, arrays) for v in outs[:n_vis]]
+    if op.num_aux:
+        for aux_nd, new_val in zip(nds[-op.num_aux:],
+                                   outs[n_vis:n_vis + op.num_aux]):
+            aux_nd._set_value(new_val)
+    if out is not None:
+        outs_nd = out if isinstance(out, (list, tuple)) else [out]
+        for o, v in zip(outs_nd, vis):
+            o._set_value(v)
+        return out
+    wrapped = [NDArray(v, ctx=ctx) for v in vis]
+    return wrapped[0] if len(wrapped) == 1 else tuple(wrapped)
+
+
+def _binary(op, scalar_op, lhs, rhs):
+    if isinstance(rhs, NDArray):
+        if lhs.shape == rhs.shape:
+            return _invoke(op, [lhs, rhs], {})
+        return _invoke(_bcast_name(op), [lhs, rhs], {})
+    return _scalar(scalar_op, lhs, rhs)
+
+
+def _bcast_name(op):
+    return {"_plus": "broadcast_add", "_minus": "broadcast_sub",
+            "_mul": "broadcast_mul", "_div": "broadcast_div",
+            "_power": "broadcast_power", "_equal": "broadcast_equal",
+            "_not_equal": "broadcast_not_equal",
+            "_greater": "broadcast_greater",
+            "_greater_equal": "broadcast_greater_equal",
+            "_lesser": "broadcast_lesser",
+            "_lesser_equal": "broadcast_lesser_equal",
+            "_maximum": "broadcast_maximum",
+            "_minimum": "broadcast_minimum"}[op]
+
+
+def _scalar(scalar_op, data, scalar):
+    return _invoke(scalar_op, [data], {"scalar": float(scalar)})
+
+
+# ------------------------------------------------------------- constructors
+def _creation(op, shape, ctx, dtype, **extra):
     if isinstance(shape, int):
         shape = (shape,)
-    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
-                               device=ctx.torch_device()), ctx=ctx)
+    return _invoke(op, [], dict(shape=tuple(shape),
+                                dtype=_reg.parse_dtype(dtype), **extra),
+                   ctx=ctx)
+
+
+def empty(shape, ctx=None, dtype=np.float32):
+    """(parity: mx.nd.empty; zero-filled, as the JAX package's)"""
+    return zeros(shape, ctx, dtype)
+
+
+def zeros(shape, ctx=None, dtype=np.float32):
+    """(parity: mx.nd.zeros)"""
+    return _creation("_zeros", shape, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=np.float32):
+    return _creation("_ones", shape, ctx, dtype)
+
+
+def full(shape, val, ctx=None, dtype=np.float32):
+    return _creation("_full", shape, ctx, dtype, value=float(val))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=np.float32):
+    """(parity: mx.nd.arange, with MXNet's ``repeat``)"""
+    return _invoke("_arange", [], {
+        "start": float(start), "stop": None if stop is None else float(stop),
+        "step": float(step), "repeat": int(repeat),
+        "dtype": _reg.parse_dtype(dtype)}, ctx=ctx)
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -190,6 +434,48 @@ def array(source_array, ctx=None, dtype=None):
         dtype = {np.dtype(np.float64): np.float32,
                  np.dtype(np.int64): np.int32}.get(arr.dtype, arr.dtype)
     return NDArray(_host_tensor(arr, dtype).to(ctx.torch_device()), ctx=ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Join arrays along ``axis`` on the first array's device."""
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
+    ctx = arrays[0].context
+    dev = arrays[0].value.device
+    return NDArray(torch.cat([a.value.to(dev) for a in arrays], dim=axis),
+                   ctx=ctx)
+
+
+def onehot_encode(indices, out):
+    """(parity: mx.nd.onehot_encode)"""
+    return _invoke("one_hot", [indices], {"depth": out.shape[1]}, out=out)
+
+
+def waitall():
+    """Block until the pending work of every card in use is done (parity:
+    MXNDArrayWaitAll)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def maximum(lhs, rhs):
+    """Elementwise max of two arrays or an array and a scalar (parity:
+    reference python/mxnet/ndarray.py maximum)."""
+    if isinstance(lhs, NDArray):
+        return _binary("_maximum", "_maximum_scalar", lhs, rhs)
+    if isinstance(rhs, NDArray):
+        return _binary("_maximum", "_maximum_scalar", rhs, lhs)
+    return np.maximum(lhs, rhs)
+
+
+def minimum(lhs, rhs):
+    """Elementwise min of two arrays or an array and a scalar."""
+    if isinstance(lhs, NDArray):
+        return _binary("_minimum", "_minimum_scalar", lhs, rhs)
+    if isinstance(rhs, NDArray):
+        return _binary("_minimum", "_minimum_scalar", rhs, lhs)
+    return np.minimum(lhs, rhs)
 
 
 # ------------------------------------------------------------- serialization
@@ -302,3 +588,49 @@ def load(fname, ctx=None):
     if any(names):
         return dict(zip(names, arrays))
     return arrays
+
+
+# ------------------------------------------------- autogenerated op frontends
+def _make_ndarray_function(op):
+    def fn(*args, **kwargs):
+        out = kwargs.pop("out", None)
+        kwargs.pop("name", None)
+        ctx = kwargs.pop("ctx", None)
+        nds = []
+        for a in args:
+            if isinstance(a, (list, tuple)):
+                nds.extend(a)
+            else:
+                nds.append(a)
+        # non-NDArray inputs go where the first NDArray lives
+        place = next((a.context for a in nds if isinstance(a, NDArray)),
+                     ctx)
+        nds = [a if isinstance(a, NDArray) else array(a, ctx=place)
+               for a in nds]
+        if op.key_var_num_args and op.key_var_num_args not in kwargs:
+            kwargs[op.key_var_num_args] = len(nds)
+        return _invoke(op.name, nds, kwargs, ctx, out=out)
+
+    fn.__name__ = op.name
+    fn.__doc__ = op.doc
+    return fn
+
+
+def _init_ndarray_module(target):
+    """Expose every registered op as a function (parity:
+    _init_ndarray_module); the hand-written helpers (zeros, ones, ...) are
+    never shadowed."""
+    seen = {}
+    for name in _reg.list_ops():
+        if name in target:
+            continue
+        op = _reg.get_op(name)
+        fn = seen.get(id(op))
+        if fn is None:
+            fn = _make_ndarray_function(op)
+            seen[id(op)] = fn
+        target[name] = fn
+
+
+# mx.nd.relu, mx.nd.dot, mx.nd.sgd_mom_update, ...
+_init_ndarray_module(globals())

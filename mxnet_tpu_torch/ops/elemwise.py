@@ -1,11 +1,22 @@
-"""Elementwise operators (counterpart: mxnet_tpu/ops/elemwise.py).
+"""Elementwise operators (counterpart: mxnet_tpu/ops/elemwise.py): the unary
+table, BlockGrad, Cast, the binary, broadcast and scalar tables, smooth_l1,
+add_n and clip.
 
-Only the residual add is on the serving path: ``_plus``, which
-``Symbol.__add__`` builds, with its aliases.
+Result dtypes follow the JAX package's (without 64-bit mode): a comparison
+returns its left input's dtype, not bool; an integer array with a float
+scalar, true division of integers and the transcendental functions of
+integers give float32; maximum and minimum with a scalar cast the scalar to
+the array's dtype.
 """
 from __future__ import annotations
 
-from .registry import register, shape_unify
+import math
+
+import numpy as _np
+import torch
+
+from ..base import torch_dtype
+from .registry import register, parse_dtype, parse_int, shape_unify
 
 
 def _same_shape_infer(attrs, in_shapes):
@@ -15,8 +26,224 @@ def _same_shape_infer(attrs, in_shapes):
     return [unified for _ in in_shapes], [unified], None
 
 
+def _inexact(x):
+    """``x`` itself when floating, else as float32 (jnp's promotion of
+    integers to the default float type)."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _float_fn(f):
+    """A function of floats that also takes integers, as jnp's do."""
+    return lambda x: f(_inexact(x))
+
+
+# ------------------------------------------------------------------ unary ops
+def _gamma(x):
+    """Gamma through exp(lgamma) with the sign of Γ for negative x (parity:
+    the JAX package's ``_gamma``)."""
+    x = _inexact(x)
+    c = torch.cos(math.pi * x)
+    return torch.exp(torch.lgamma(x)) * torch.where(x > 0, 1.0, c / c.abs())
+
+
+_UNARY = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "_copy": lambda x: x,
+    "negative": torch.neg,
+    "reciprocal": torch.reciprocal,
+    "abs": torch.abs,
+    "sign": torch.sign,
+    "round": torch.round,
+    "ceil": torch.ceil,
+    "floor": torch.floor,
+    "rint": _float_fn(torch.round),
+    "fix": torch.trunc,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "exp": torch.exp,
+    "log": torch.log,
+    "log10": torch.log10,
+    "log2": torch.log2,
+    "log1p": torch.log1p,
+    "expm1": torch.expm1,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.arcsin, "arccos": torch.arccos, "arctan": torch.arctan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.arcsinh, "arccosh": torch.arccosh,
+    "arctanh": torch.arctanh,
+    "gamma": _gamma,
+    "gammaln": _float_fn(torch.lgamma),
+    "degrees": _float_fn(torch.rad2deg),
+    "radians": _float_fn(torch.deg2rad),
+}
+
+for _name, _f in _UNARY.items():
+    register(_name, aliases=("identity",) if _name == "_copy" else ())(
+        (lambda f: lambda data: f(data))(_f))
+
+register("BlockGrad", aliases=("stop_gradient",))(
+    lambda data: data.detach())
+
+
+@register("Cast", aliases=("cast",),
+          attr_types={"dtype": parse_dtype}, defaults={"dtype": _np.float32},
+          infer_type=lambda attrs, in_dt: (
+              in_dt, [attrs.get("dtype", _np.float32)], []))
+def _cast(data, dtype=_np.float32):
+    """Cast to dtype (parity: elemwise_unary_op.cc Cast)."""
+    return data.to(torch_dtype(dtype))
+
+
+@register("_identity_with_attr_like_rhs", arg_names=("lhs", "rhs"),
+          hidden=True)
+def _identity_like_rhs(lhs, rhs):
+    return lhs
+
+
+# ----------------------------------------------------------------- binary ops
+def _maximum_f(a, b):
+    # where-form so ties route the full gradient to lhs (the reference's
+    # mshadow_op::ge; torch.maximum splits it at ties)
+    return torch.where(a >= b, a, b)
+
+
+def _minimum_f(a, b):
+    return torch.where(a <= b, a, b)
+
+
+def _hypot(a, b):
+    return torch.hypot(_inexact(a), _inexact(b))
+
+
+def _cmp(f):
+    """A comparison returning its left input's dtype."""
+    return lambda a, b: f(a, b).to(a.dtype)
+
+
+_EQ = _cmp(torch.eq)
+_NE = _cmp(torch.ne)
+_GT = _cmp(torch.gt)
+_GE = _cmp(torch.ge)
+_LT = _cmp(torch.lt)
+_LE = _cmp(torch.le)
+
+_BINARY = {
+    "_minus": (torch.sub, ("_sub", "elemwise_sub")),
+    "_mul": (torch.mul, ("elemwise_mul",)),
+    "_div": (torch.true_divide, ("elemwise_div",)),
+    "_power": (torch.pow, ()),
+    "_maximum": (_maximum_f, ()),
+    "_minimum": (_minimum_f, ()),
+    "_hypot": (_hypot, ()),
+    "_grad_add": (torch.add, ()),
+    "_equal": (_EQ, ()),
+    "_not_equal": (_NE, ()),
+    "_greater": (_GT, ()),
+    "_greater_equal": (_GE, ()),
+    "_lesser": (_LT, ()),
+    "_lesser_equal": (_LE, ()),
+}
+
+
 @register("_plus", arg_names=("lhs", "rhs"), aliases=("_add", "elemwise_add"),
           infer_shape=_same_shape_infer, layout_rule="transparent")
 def _plus(lhs, rhs):
-    """lhs + rhs (parity: elemwise_binary_op_basic.cc _plus)."""
+    """lhs + rhs (parity: elemwise_binary_op_basic.cc _plus); the residual
+    add of ResNet, which the NHWC layout pass lets through."""
     return lhs + rhs
+
+
+for _name, (_f, _al) in _BINARY.items():
+    register(_name, arg_names=("lhs", "rhs"), aliases=_al,
+             infer_shape=_same_shape_infer)(
+        (lambda f: lambda lhs, rhs: f(lhs, rhs))(_f))
+
+# broadcast variants (parity: elemwise_binary_broadcast_op_*.cc)
+_BCAST = {
+    "broadcast_add": (torch.add, ("broadcast_plus",)),
+    "broadcast_sub": (torch.sub, ("broadcast_minus",)),
+    "broadcast_mul": (torch.mul, ()),
+    "broadcast_div": (torch.true_divide, ()),
+    "broadcast_power": (torch.pow, ()),
+    "broadcast_maximum": (_maximum_f, ()),
+    "broadcast_minimum": (_minimum_f, ()),
+    "broadcast_hypot": (_hypot, ()),
+    "broadcast_equal": (_EQ, ()),
+    "broadcast_not_equal": (_NE, ()),
+    "broadcast_greater": (_GT, ()),
+    "broadcast_greater_equal": (_GE, ()),
+    "broadcast_lesser": (_LT, ()),
+    "broadcast_lesser_equal": (_LE, ()),
+}
+for _name, (_f, _al) in _BCAST.items():
+    register(_name, arg_names=("lhs", "rhs"), aliases=_al)(
+        (lambda f: lambda lhs, rhs: f(lhs, rhs))(_f))
+
+
+# ----------------------------------------------------------------- scalar ops
+def _as(x, s):
+    """The scalar cast to x's dtype, on x's device (jnp.asarray(s,
+    x.dtype): a float scalar truncates toward zero for an integer x)."""
+    return torch.tensor(s, dtype=torch.float64, device=x.device).to(x.dtype)
+
+
+_SCALAR = {
+    "_plus_scalar": lambda x, s: x + s,
+    "_minus_scalar": lambda x, s: x - s,
+    "_rminus_scalar": lambda x, s: s - x,
+    "_mul_scalar": lambda x, s: x * s,
+    "_div_scalar": lambda x, s: x / s,
+    "_rdiv_scalar": lambda x, s: s / x,
+    "_power_scalar": lambda x, s: torch.pow(x, s),
+    "_rpower_scalar": lambda x, s: torch.pow(s, x),
+    "_maximum_scalar": lambda x, s: _maximum_f(x, _as(x, s)),
+    "_minimum_scalar": lambda x, s: _minimum_f(x, _as(x, s)),
+    "_hypot_scalar": lambda x, s: _hypot(x, _as(x, s)),
+    "_equal_scalar": lambda x, s: (x == s).to(x.dtype),
+    "_not_equal_scalar": lambda x, s: (x != s).to(x.dtype),
+    "_greater_scalar": lambda x, s: (x > s).to(x.dtype),
+    "_greater_equal_scalar": lambda x, s: (x >= s).to(x.dtype),
+    "_lesser_scalar": lambda x, s: (x < s).to(x.dtype),
+    "_lesser_equal_scalar": lambda x, s: (x <= s).to(x.dtype),
+}
+for _name, _f in _SCALAR.items():
+    register(_name, attr_types={"scalar": float}, defaults={"scalar": 0.0})(
+        (lambda f: lambda data, scalar=0.0: f(data, scalar))(_f))
+
+
+@register("smooth_l1", attr_types={"scalar": float}, defaults={"scalar": 1.0})
+def _smooth_l1(data, scalar=1.0):
+    """Smooth-L1 (parity: mshadow_op.h smooth_l1_loss)."""
+    s2 = scalar * scalar
+    data = _inexact(data)
+    absd = data.abs()
+    return torch.where(absd < 1.0 / s2, 0.5 * s2 * data * data,
+                       absd - 0.5 / s2)
+
+
+# ---------------------------------------------------------------- variadic sum
+@register("add_n", aliases=("ElementWiseSum", "_sum"),
+          arg_names=lambda attrs: ["arg%d" % i
+                                   for i in range(int(attrs.get("num_args",
+                                                                1)))],
+          key_var_num_args="num_args",
+          attr_types={"num_args": parse_int},
+          infer_shape=lambda attrs, ins: (
+              [next((s for s in ins if s is not None), None)] * len(ins),
+              [next((s for s in ins if s is not None), None)], None))
+def _add_n(*args, num_args=None):
+    """Variadic sum (parity: elemwise_sum.cc ElementWiseSum)."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+# --------------------------------------------------------------------- clip
+@register("clip", attr_types={"a_min": float, "a_max": float},
+          defaults={"a_min": 0.0, "a_max": 0.0})
+def _clip(data, a_min=0.0, a_max=0.0):
+    """Clip to [a_min, a_max] (parity: matrix_op.cc clip)."""
+    return torch.clamp(data, a_min, a_max)

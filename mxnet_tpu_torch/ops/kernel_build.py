@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source in ``mxnet_tpu_torch/csrc/`` is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at its first use,
-into ``.torch_kernels/`` beside the package, and loaded with ctypes.  The
-library's file name carries a hash of the source and the flags, so an edited
-source or a changed flag builds anew and an unchanged one is reused.
+Each kernel source, a file in ``mxnet_tpu_torch/csrc/`` or a source text
+generated at run time (``rtc.Rtc``), is compiled with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, at its first use, into
+``.torch_kernels/`` beside the package, and loaded with ctypes.  The
+library's file name carries a hash of the source text and the flags, so an
+edited source or a changed flag builds anew and an unchanged one is reused,
+by this process and by the next.
 """
 from __future__ import annotations
 
@@ -40,38 +42,57 @@ class CudaLibrary(object):
     """One kernel source and its loaded library.
 
     name   : the source's stem in ``csrc/`` (``norm_conv`` ->
-             ``csrc/norm_conv.cu``)
+             ``csrc/norm_conv.cu``), or the name of a generated source
     bind   : bind(lib) sets the argtypes/restype of the C functions
+    text   : the source text, when it is generated rather than a file of
+             ``csrc/``; it is written beside the library it builds
     """
 
-    def __init__(self, name, bind):
+    def __init__(self, name, bind, text=None):
         self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
+        self.text = text
+        self.source = os.path.join(CSRC, name + ".cu") if text is None \
+            else None
         self._bind = bind
         self.lib = None
         self.log = None
         self._lock = threading.Lock()
 
+    def _source_bytes(self):
+        if self.text is not None:
+            return self.text.encode()
+        with open(self.source, "rb") as f:
+            return f.read()
+
+    def so_path(self):
+        """The library's file: ``.torch_kernels/<name>_<hash>.so``, the hash
+        over the source text and the flags (the one cache rule)."""
+        digest = hashlib.sha256(self._source_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return os.path.join(BUILD_DIR, "%s_%s.so" % (self.name, digest[:16]))
+
     def build(self):
-        """Compile (once per source and flags) and load the library.
+        """Compile (once per source text and flags) and load the library.
         Returns the compiler's output of this process's build, or None when
         the library was already built."""
         with self._lock:
             if self.lib is not None:
                 return self.log
-            with open(self.source, "rb") as f:
-                digest = hashlib.sha256(
-                    f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-            so = os.path.join(BUILD_DIR, "%s_%s.so" % (self.name, digest))
+            so = self.so_path()
             if not os.path.exists(so):
                 os.makedirs(BUILD_DIR, exist_ok=True)
+                src = self.source
+                if src is None:
+                    src = so[:-len(".so")] + ".cu"
+                    with open(src, "wb") as f:
+                        f.write(self._source_bytes())
                 tmp = "%s.tmp-%d" % (so, os.getpid())
                 res = subprocess.run(
-                    [_nvcc()] + NVCC_FLAGS + ["-o", tmp, self.source],
+                    [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
                     capture_output=True, text=True)
                 if res.returncode != 0:
                     raise MXNetError("nvcc failed on %s:\n%s%s"
-                                     % (self.source, res.stdout, res.stderr))
+                                     % (src, res.stdout, res.stderr))
                 os.replace(tmp, so)
                 self.log = res.stdout + res.stderr
             lib = ctypes.CDLL(so)

@@ -1,10 +1,15 @@
 """Operator registry (counterpart: mxnet_tpu/ops/registry.py).
 
 An operator is a plain function on tensors plus the metadata the symbol graph
-needs: argument names, attribute parsers and defaults, and shape and type
-inference.  Ops without their own shape rule are inferred by running the
-function on ``device="meta"`` tensors, which carry shapes and no data (the
-JAX package uses ``jax.eval_shape`` for the same job).
+and the ``mx.nd`` frontends need: argument names, attribute parsers and
+defaults, and shape and type inference.  Ops without their own shape rule are
+inferred by running the function on ``device="meta"`` tensors, which carry
+shapes and no data (the JAX package uses ``jax.eval_shape`` for the same
+job).
+
+``imperative_invoke`` runs one op eagerly on tensors: PyTorch dispatches each
+call as it comes, so the JAX package's per-(op, attrs) jit cache has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -13,11 +18,12 @@ import ast
 import numpy as _np
 import torch
 
-from ..base import MXNetError, Registry
+from ..base import MXNetError, Registry, get_env
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "OPS", "parse_tuple",
            "parse_int", "parse_float", "parse_bool", "parse_str",
-           "shape_unify", "eval_shape_infer"]
+           "parse_dtype", "shape_unify", "eval_shape_infer",
+           "imperative_invoke"]
 
 OPS = Registry("operator")
 
@@ -63,6 +69,14 @@ def parse_str(v):
     return None if v is None else str(v)
 
 
+def parse_dtype(v):
+    """A dtype attribute: names become numpy dtypes (``"bfloat16"`` becomes
+    ``torch.bfloat16``, which numpy lacks); dtype objects pass through."""
+    if v is None or not isinstance(v, str):
+        return v
+    return torch.bfloat16 if v == "bfloat16" else _np.dtype(v)
+
+
 class OpDef(object):
     """One registered operator.
 
@@ -79,12 +93,23 @@ class OpDef(object):
         the inputs in ``layout_inputs``) or 'transparent' (shape-agnostic)
     is_loss : a loss head whose backward ignores the incoming gradient
         (the executor seeds such outputs with implicit ones silently)
+    infer_type : optional callable(attrs, in_dtypes) -> (in, out, aux)
+    needs_rng : ``fn`` takes ``rng=``, a ``torch.Generator`` on the device
+        the op runs on
+    key_var_num_args : the attr naming the input count of a variadic op
+        ('num_args'); the ``mx.nd`` frontend fills it in
+    hidden : marks an internal op (metadata: as in the JAX package,
+        nothing filters on it)
+    env_attrs : {attr: (MXNET_* variable, default string)}: an attr the
+        caller leaves unset is read from the environment at dispatch
     """
 
     def __init__(self, name, fn, arg_names=("data",), aux_names=(),
                  num_outputs=1, attr_types=None, defaults=None,
-                 infer_shape=None, train_aware=False, aliases=(), doc=None,
-                 layout_rule=None, layout_inputs=(0,), is_loss=False):
+                 infer_shape=None, infer_type=None, train_aware=False,
+                 needs_rng=False, key_var_num_args=None, aliases=(),
+                 hidden=False, doc=None, layout_rule=None, layout_inputs=(0,),
+                 is_loss=False, env_attrs=None):
         self.name = name
         self.fn = fn
         self._arg_names = arg_names
@@ -94,7 +119,12 @@ class OpDef(object):
         self.attr_types = dict(attr_types or {})
         self.defaults = dict(defaults or {})
         self._infer_shape = infer_shape
+        self._infer_type = infer_type
         self.train_aware = train_aware
+        self.needs_rng = needs_rng
+        self.key_var_num_args = key_var_num_args
+        self.hidden = hidden
+        self.env_attrs = dict(env_attrs or {})
         self.aliases = tuple(aliases)
         self.doc = doc or (fn.__doc__ if fn is not None else None)
         self.layout_rule = layout_rule
@@ -124,14 +154,36 @@ class OpDef(object):
                 out[k] = v
         return out
 
+    def resolve_env_attrs(self, attrs):
+        """Fill the env-backed attrs (``env_attrs``) the caller left unset
+        from their MXNET_* variables; an attr passed explicitly wins.  An
+        on/off lever is on for exactly "1", as everywhere in the repo."""
+        if not self.env_attrs:
+            return attrs
+        out = dict(attrs)
+        for a, (env, dflt) in self.env_attrs.items():
+            if out.get(a) is None:
+                v = get_env(env, dflt)
+                parser = self.attr_types.get(a)
+                if parser is parse_bool:
+                    out[a] = v == "1"
+                else:
+                    out[a] = parser(v) if parser is not None else v
+        return out
+
     # ---------------------------------------------------------------- compute
     def make_callable(self, attrs, is_train):
-        """A positional-args-only closure over normalized attrs."""
+        """A positional-args-only closure over normalized attrs; an op with
+        ``needs_rng`` takes its generator first: ``call(rng, *args)``."""
+        attrs = self.resolve_env_attrs(attrs)
         fn = self.fn
         kw = {"is_train": is_train} if self.train_aware else {}
-
-        def call(*args):
-            return fn(*args, **kw, **attrs)
+        if self.needs_rng:
+            def call(rng, *args):
+                return fn(*args, rng=rng, **kw, **attrs)
+        else:
+            def call(*args):
+                return fn(*args, **kw, **attrs)
         return call
 
     # -------------------------------------------------------------- inference
@@ -141,7 +193,10 @@ class OpDef(object):
         return eval_shape_infer(self, attrs, in_shapes)[:2] + (None,)
 
     def infer_type(self, attrs, in_dtypes):
-        """Every input and output takes the first known input dtype."""
+        """The op's own rule, else every input and output takes the first
+        known input dtype."""
+        if self._infer_type is not None:
+            return self._infer_type(attrs, list(in_dtypes))
         known = [d for d in in_dtypes if d is not None]
         d = known[0] if known else _np.float32
         n_in = len(in_dtypes)
@@ -208,6 +263,38 @@ def get_op(name):
 
 def list_ops():
     return OPS.list_names()
+
+
+def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
+                      device=None):
+    """Run one op eagerly on tensors (parity: MXImperativeInvoke).  Returns
+    (tuple of tensors: the visible outputs, then the aux updates; the
+    OpDef).
+
+    ``device`` is where the op runs when it has no inputs (creation and
+    sampling ops build their tensors there); an op with inputs runs where
+    its inputs are.  An op with ``needs_rng`` draws from ``rng``, by default
+    the generator of that device (``random.generator``).  The JAX package's
+    NaiveEngine, profiler and sanitizer hooks are not ported here (ROADMAP
+    A11)."""
+    op = get_op(op_name) if isinstance(op_name, str) else op_name
+    attrs = op.normalize_attrs(attrs or {})
+    dev = inputs[0].device if inputs else torch.device(device or "cpu")
+    call = op.make_callable(attrs, is_train)
+    args = tuple(inputs)
+    if op.needs_rng:
+        if rng is None:
+            from .. import random as _random
+            rng = _random.generator(dev)
+        args = (rng,) + args
+    if inputs:
+        out = call(*args)
+    else:
+        with torch.device(dev):
+            out = call(*args)
+    if not isinstance(out, (tuple, list)):
+        out = (out,)
+    return tuple(out), op
 
 
 RESNET_TRAINING = "the ResNet-50 training slice (ROADMAP A3, B1)"

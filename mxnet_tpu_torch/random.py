@@ -1,9 +1,12 @@
 """RNG state (counterpart: mxnet_tpu/random.py).
 
-``seed(s)`` seeds one explicit host ``torch.Generator`` (``generator()``),
-which the initializers draw from; ``uniform`` and ``normal`` sample from it.
-Its bits are not the JAX package's threefry bits: parity tests carry weights
-across as numpy arrays and never compare initial draws.
+One explicit ``torch.Generator`` per device: the host's (``generator()``),
+which the initializers draw from, and one on each CUDA card
+(``generator(device)``), which the sampling ops and SGLD's noise draw from,
+so a sample for ``gpu(0)`` is drawn on the card, never on the host and
+copied over.  ``seed(s)`` seeds every one of them, those made later
+included.  Their bits are not the JAX package's threefry bits: parity tests
+carry weights across as numpy arrays and compare samples by statistics.
 """
 from __future__ import annotations
 
@@ -17,18 +20,35 @@ _state = threading.local()
 _DEFAULT_SEED = 0
 
 
-def generator():
-    """The generator of this thread (seeded with 0 until ``seed``)."""
-    gen = getattr(_state, "gen", None)
+def _gens():
+    """{device: generator} of this thread."""
+    gens = getattr(_state, "gens", None)
+    if gens is None:
+        gens = _state.gens = {}
+    return gens
+
+
+def generator(device=None):
+    """The generator of ``device`` (a ``torch.device`` or its string; the
+    host when None) in this thread, seeded with the last ``seed`` (0 until
+    one is given)."""
+    dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    gens = _gens()
+    gen = gens.get(dev)
     if gen is None:
-        gen = torch.Generator().manual_seed(_DEFAULT_SEED)
-        _state.gen = gen
+        gen = torch.Generator(device=dev).manual_seed(
+            getattr(_state, "seed", _DEFAULT_SEED))
+        gens[dev] = gen
     return gen
 
 
 def seed(seed_state):
-    """Seed the generator (parity: mx.random.seed)."""
-    _state.gen = torch.Generator().manual_seed(int(seed_state))
+    """Seed every device's generator (parity: mx.random.seed)."""
+    _state.seed = int(seed_state)
+    for gen in _gens().values():
+        gen.manual_seed(_state.seed)
 
 
 def uniform(low, high, shape, dtype=torch.float32):

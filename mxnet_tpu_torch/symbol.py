@@ -439,5 +439,18 @@ def _make_symbol_function(op):
     return fn
 
 
-for _nm in _reg.list_ops():
-    globals()[_nm] = _make_symbol_function(_reg.get_op(_nm))
+def _init_symbol_module(target):
+    """One constructor per registered op; a name the module defines itself
+    (load, Variable, ...) is never shadowed."""
+    seen = {}
+    for nm in _reg.list_ops():
+        if nm in target:
+            continue
+        op = _reg.get_op(nm)
+        fn = seen.get(id(op))
+        if fn is None:
+            fn = seen[id(op)] = _make_symbol_function(op)
+        target[nm] = fn
+
+
+_init_symbol_module(globals())

@@ -17,7 +17,8 @@ to float32, and Adam's bias correction is computed in float32 from a
 float32 step count, so a float64 run still matches the JAX package's to
 1e-9.  Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (ROADMAP
 A10), ``policy``, ``dtype`` and ``remat`` (A5), and the monitor, telemetry
-and sanitize hooks (A11); SGLD, DCASGD and Test wait for the Module slice.
+and sanitize hooks (A11); SGLD, DCASGD and Test run through the imperative
+``optimizer.Updater``, not here.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from . import ndarray as nd
 from . import random as _random
 from .executor import _Lowered
 from .ops.registry import get_op
+from .optimizer import adadelta_rule, adagrad_rule, nag_rule
 
 __all__ = ["TrainStep", "EvalStep"]
 
@@ -98,8 +100,9 @@ class _FunctionalOptimizer(object):
         self.kind = type(optimizer).__name__.lower()
         if self.kind not in self.KINDS:
             raise MXNetError("TrainStep supports %s; got %s (SGLD, DCASGD "
-                             "and Test arrive with the Module slice, ROADMAP "
-                             "A6)" % ("/".join(self.KINDS), self.kind))
+                             "and Test run through optimizer.Updater; their "
+                             "fused rules are ROADMAP A5)"
+                             % ("/".join(self.KINDS), self.kind))
 
     def init_state(self, params):
         """Zero state tensors beside each parameter (same dtype and
@@ -154,14 +157,9 @@ class _FunctionalOptimizer(object):
                 return nw, (nm,)
             return get_op("sgd_update").fn(w, g, **common), ()
         if self.kind == "nag":
-            grad = self._clipped(g)
-            if state:
-                mom = state[0] * o.momentum
-                grad = grad + wd * w
-                mom = mom + grad
-                grad = grad + o.momentum * mom
-                return w - lr * grad, (mom,)
-            return w - lr * (grad + wd * w), ()
+            nw, nm = nag_rule(w, self._clipped(g), state[0] if state else None,
+                              lr, wd, o.momentum)
+            return nw, (() if nm is None else (nm,))
         if self.kind == "adam":
             nw, nm, nv = get_op("adam_update").fn(
                 w, g, state[0], state[1], beta1=o.beta1, beta2=o.beta2,
@@ -181,17 +179,12 @@ class _FunctionalOptimizer(object):
                 clip_weights=cw, **common)
             return nw, (nn,)
         if self.kind == "adagrad":
-            grad = self._clipped(g)
-            hist = state[0] + torch.square(grad)
-            return w - lr * (grad / torch.sqrt(hist + o.float_stable_eps)
-                             + wd * w), (hist,)
-        # adadelta
-        grad = self._clipped(g)
-        acc_g = o.rho * state[0] + (1.0 - o.rho) * torch.square(grad)
-        delta = (torch.sqrt(state[1] + o.epsilon)
-                 / torch.sqrt(acc_g + o.epsilon)) * grad
-        acc_d = o.rho * state[1] + (1.0 - o.rho) * torch.square(delta)
-        return w - delta - wd * w, (acc_g, acc_d)
+            nw, hist = adagrad_rule(w, self._clipped(g), state[0], lr, wd,
+                                    o.float_stable_eps)
+            return nw, (hist,)
+        nw, acc_g, acc_d = adadelta_rule(w, self._clipped(g), state[0],
+                                         state[1], wd, o.rho, o.epsilon)
+        return nw, (acc_g, acc_d)
 
 
 def _to_device(batch, dev):

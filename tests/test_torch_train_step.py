@@ -302,7 +302,7 @@ def test_unported_rules_and_ops_refuse():
     the NormConv peephole under is_train all raise MXNetError."""
     class SGLD(mt.optimizer.Optimizer):
         pass
-    with pytest.raises(mt.MXNetError, match="Module slice"):
+    with pytest.raises(mt.MXNetError, match="optimizer.Updater"):
         mt.TrainStep(_psym(), SGLD(), ctx=mt.cpu())
     S = mt.sym
     bn = S.BatchNorm(S.Variable("data"), fix_gamma=False, name="bn")
