@@ -52,6 +52,9 @@ fatal on failure:
    the outputs, on the card) lower after the last step than after the
    first, 36 flash launches per step, host ms per step and tokens/s, and a
    torch.profiler breakdown of one step;
+   graph_device: a graph of ``_ones`` plus a data variable, and one of a
+   uniform sampler plus a data variable, bound to gpu(0), forward on the
+   card with the right values;
 8. imperative: the LM's 163,087,441 float32 parameters as NDArrays on the
    card with gradients drawn on the card (``mx.nd.normal`` from the card's
    generator); three ``Updater`` passes with Adam over every parameter, and
@@ -977,6 +980,30 @@ def train_breakdown(torch, ts, params, state, aux, batch):
                  e.key[:160]))
 
 
+def graph_device_phase(torch, mt):
+    """Ops with no input inside a graph bound to gpu(0): ``_ones`` plus a
+    data variable, and a sampler plus a data variable, forward on the card
+    with the right values."""
+    gpu = mt.gpu(0)
+    data = mt.sym.Variable("data")
+    ex = (mt.sym._ones(shape=(4, 8)) + data).bind(gpu, {
+        "data": mt.nd.array(np.full((4, 8), 2, np.float32), ctx=gpu)})
+    out = ex.forward()[0].value
+    if not out.is_cuda or not bool((out == 3).all()):
+        fail("graph_device: _ones + data gave %s on %s"
+             % (out.flatten()[:4].tolist(), out.device))
+    n = 1 << 16
+    ex = (mt.sym.uniform(shape=(n,), low=2.0, high=3.0) + data).bind(gpu, {
+        "data": mt.nd.zeros((n,), ctx=gpu)})
+    u = ex.forward()[0].value
+    if not u.is_cuda or not bool(((u >= 2) & (u < 3)).all()) \
+            or abs(u.mean().item() - 2.5) > 0.01:
+        fail("graph_device: uniform(2, 3) + data gave mean %r on %s"
+             % (u.mean().item(), u.device))
+    print("graph_device _ones+data device=%s ok; uniform(2,3)+data "
+          "device=%s mean=%r" % (out.device, u.device, u.mean().item()))
+
+
 def device_profile(torch, fn):
     """(device us, launches) of the CUDA kernels one call of ``fn`` runs,
     from torch.profiler."""
@@ -1280,6 +1307,7 @@ def main():
     per = LM["num_layers"]     # the launches of one float32 LM forward
     bw = flash_bwd_phase(torch, fa)
     dq_launches, dkv_launches = lm_train_phase(torch, mt, fa)
+    graph_device_phase(torch, mt)
     weights = lm_weights(mt.models.transformer.get_symbol(**LM))
     imperative_phase(torch, mt, weights)
     rt = rtc_phase(torch, mt, weights)

@@ -28,6 +28,7 @@ import torch
 from .base import MXNetError, get_env, string_types
 from .context import Context
 from . import ndarray as nd
+from . import random as _random
 from .ops.nn import bn_scale_shift
 from .ops.norm_conv import _apply, geometry_ok, norm_conv
 from .ops.registry import RESNET_TRAINING, get_op
@@ -195,16 +196,34 @@ class _Lowered(object):
         values[(id(node), 0)] = y
         nhwc.add((id(node), 0))
 
-    def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=()):
+    def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
+            device=None):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
-        labels) enter it detached."""
+        labels) enter it detached.
+
+        ``device`` (a Context or ``torch.device``; by default the device of
+        the first bound value) is where an op with no input runs, as in
+        ``registry.imperative_invoke``: creation and sampling ops build
+        their tensors there, and a sampling op draws from that device's
+        generator (``random.generator``)."""
         with torch.set_grad_enabled(bool(is_train)):
             return self._run(arg_vals, aux_vals, bool(is_train),
-                             frozenset(no_grad_inputs))
+                             frozenset(no_grad_inputs), device)
 
-    def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs):
+    @staticmethod
+    def _device(device, arg_vals, aux_vals):
+        if isinstance(device, Context):
+            return device.torch_device()
+        if device is not None:
+            return torch.device(device)
+        for v in list(arg_vals.values()) + list(aux_vals.values()):
+            if isinstance(v, torch.Tensor):
+                return v.device
+        return torch.device("cpu")
+
+    def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
@@ -219,6 +238,7 @@ class _Lowered(object):
         nhwc = set()      # value keys currently stored channel-last
         skip = set()
         aux_updates = {}
+        dev = None        # resolved at the first op with no input
         for node in self.order:
             if node.is_var:
                 if node.name in arg_vals:
@@ -277,7 +297,16 @@ class _Lowered(object):
             else:
                 ins = [_to_cf(v) if in_keys[j] in nhwc else v
                        for j, v in enumerate(ins)]
-            out = op.make_callable(params, is_train)(*ins)
+            call = op.make_callable(params, is_train)
+            if not ins and dev is None:
+                dev = self._device(device, arg_vals, aux_vals)
+            at = ins[0].device if ins else dev
+            args = ([_random.generator(at)] if op.needs_rng else []) + ins
+            if ins:
+                out = call(*args)
+            else:
+                with torch.device(dev):
+                    out = call(*args)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
             n_vis = op.num_outputs_for(node.params)
@@ -391,7 +420,15 @@ class Executor(object):
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward input %s" % k)
-            self.arg_dict[k][:] = v
+            arr = self.arg_dict[k]
+            if isinstance(v, nd.NDArray) and v.shape != arr.shape:
+                # rebound, as the reference rebinds it: the bound array
+                # takes a copy of v on its own device (writing in place
+                # cannot change its shape)
+                arr._data = v.value.detach().to(arr.value.device,
+                                                copy=True)
+            else:
+                arr[:] = v
         self._graph = None
         args = {n: a.value for n, a in self.arg_dict.items()}
         gnames = self._grad_arg_names() if is_train else []
@@ -399,7 +436,8 @@ class Executor(object):
         args.update(leaves)
         outs, aux_upd = self._low.run(
             args, {n: a.value for n, a in self.aux_dict.items()}, is_train,
-            no_grad_inputs=[n for n in self.arg_names if n not in leaves])
+            no_grad_inputs=[n for n in self.arg_names if n not in leaves],
+            device=self._ctx)
         if leaves:
             self._graph = (outs, leaves)
         for ndarr, v in zip(self._output_nds, outs):

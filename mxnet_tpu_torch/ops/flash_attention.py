@@ -36,7 +36,7 @@ from .kernel_build import CudaLibrary
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref", "FlashAttention",
            "flash_available", "build", "build_bwd", "launches",
-           "bwd_dq_launches", "bwd_dkv_launches"]
+           "bwd_dq_launches", "bwd_dkv_launches", "aligned16"]
 
 # kernel launches since import (or since a caller reset them to 0): the
 # forward, the dQ kernel and the dK/dV kernel
@@ -58,11 +58,13 @@ def _bind(lib):
 
 
 def _bind_bwd(lib):
-    for fn, n_out in ((lib.flash_bwd_dq_launch, 1),
-                      (lib.flash_bwd_dkv_launch, 2)):
+    # the dK/dV launch takes one more int: the 16-byte alignment flag
+    for fn, n_out, n_flags in ((lib.flash_bwd_dq_launch, 1, 2),
+                               (lib.flash_bwd_dkv_launch, 2, 3)):
         fn.argtypes = [ctypes.c_void_p] * (6 + n_out) \
             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 \
-            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * n_flags \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
@@ -139,6 +141,15 @@ def _check(what, q, *others):
 def _unit_last(*xs):
     # strides are passed; only a non-unit last stride needs a copy
     return [x if x.stride(3) == 1 else x.contiguous() for x in xs]
+
+
+def aligned16(*xs):
+    """Whether every (B, H, T, D) tensor's base and (b, h, t) strides are
+    multiples of 16 bytes, so that the dK/dV kernel may read each row in
+    16-byte pieces; otherwise it reads them element by element."""
+    return all(x.data_ptr() % 16 == 0
+               and all(s * x.element_size() % 16 == 0
+                       for s in x.stride()[:3]) for x in xs)
 
 
 def _launch(q, k, v, causal, scale):
@@ -228,6 +239,7 @@ class _BwdLaunch(object):
         self._tail = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                       *do.stride()[:3], b, h, t, d, _scale(d, scale),
                       int(causal), int(q.dtype == torch.bfloat16))
+        self.vec = aligned16(q, k, v, do)
         self._lib = _bwd_kernel.get()
 
     def _stream(self):
@@ -246,7 +258,7 @@ class _BwdLaunch(object):
         with torch.cuda.device(self.device):
             err = self._lib.flash_bwd_dkv_launch(
                 *self._ins, self.dk.data_ptr(), self.dv.data_ptr(),
-                *self._tail, self._stream())
+                *self._tail, int(self.vec), self._stream())
         _bwd_kernel.check(err, "flash_attention_bwd (dK/dV)")
         bwd_dkv_launches += 1
 

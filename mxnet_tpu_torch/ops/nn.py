@@ -1,6 +1,7 @@
-"""Neural-network layers, forward and inference only (counterpart:
-mxnet_tpu/ops/nn.py): FullyConnected, Activation, Convolution, Pooling,
-BatchNorm and the executor-fused _BatchNormReLU.
+"""Neural-network layers (counterpart: mxnet_tpu/ops/nn.py):
+FullyConnected, Activation, Convolution, Pooling, BatchNorm (inference) and
+the executor-fused _BatchNormReLU.  Their backward is autograd's, except the
+max-pool equality-mask backward of ``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
 
 Convolution and pooling call PyTorch's own (cuDNN on the card), as the JAX
 package leaves them to XLA.  With ``layout='NHWC'`` (set by the executor's
@@ -8,6 +9,8 @@ layout pass) the activation arrives channel-last; it is handed to PyTorch as
 a permuted view, which PyTorch treats as a ``channels_last`` tensor.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as _np
 import torch
@@ -159,6 +162,48 @@ _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
+def _pad_widths(pads):
+    """F.pad's widths (last axis first) of per-axis (low, high) pads."""
+    widths = []
+    for lo, hi in reversed(pads):
+        widths += [lo, hi]
+    return widths
+
+
+class MaxPoolMask(torch.autograd.Function):
+    """Max pooling whose backward is the equality mask (parity:
+    mxnet_tpu/ops/nn.py ``_max_pool_core``, the reference's unpool): every
+    element equal to its window's maximum takes that window's gradient,
+    where PyTorch's own backward routes it to one of the tied maxima only.
+    x is channel-first (N, C, *spatial); pads are per-axis (low, high),
+    filled with -inf.  Taken for ``mask_bwd`` (MXNET_POOL_MASK_BWD=1)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, pads):
+        xp = F.pad(x, _pad_widths(pads), value=float("-inf"))
+        out = _MAX_POOL[len(kernel)](xp, kernel, stride)
+        ctx.save_for_backward(xp, out)
+        ctx.geom = (kernel, stride, pads, tuple(x.shape))
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        """dx[i] = sum over the windows w holding i of dy[w] * (x[i] ==
+        max[w]), one kernel tap at a time: the tap's strided view of the
+        padded input is compared with the pooled maxima."""
+        xp, out = ctx.saved_tensors
+        kernel, stride, pads, shape = ctx.geom
+        dxp = torch.zeros_like(xp)
+        for tap in itertools.product(*[range(k) for k in kernel]):
+            idx = (Ellipsis,) + tuple(
+                slice(t, t + s * (o - 1) + 1, s)
+                for t, s, o in zip(tap, stride, out.shape[2:]))
+            dxp[idx] += torch.where(xp[idx] == out, dy, 0.0)
+        crop = (Ellipsis,) + tuple(slice(lo, lo + n)
+                                   for (lo, _), n in zip(pads, shape[2:]))
+        return dxp[crop], None, None, None
+
+
 @register("Pooling", aliases=("Pooling_v1",),
           attr_types={"kernel": parse_tuple, "stride": parse_tuple,
                       "pad": parse_tuple, "pool_type": parse_str,
@@ -167,6 +212,7 @@ _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
                       "mask_bwd": parse_bool},
           defaults={"stride": (), "pad": (), "pool_type": "max",
                     "global_pool": False, "pooling_convention": "valid"},
+          env_attrs={"mask_bwd": ("MXNET_POOL_MASK_BWD", "0")},
           infer_shape=_pool_infer, layout_rule="aware")
 def _pooling(data, kernel=None, stride=(), pad=(), pool_type="max",
              global_pool=False, pooling_convention="valid", layout=None,
@@ -190,15 +236,18 @@ def _pooling(data, kernel=None, stride=(), pad=(), pool_type="max",
             for i, k, s, p in zip(sp_shape, kernel, stride, pad)]
     highs = [max((o - 1) * s + k - i - p, p)
              for i, k, s, p, o in zip(sp_shape, kernel, stride, pad, outs)]
-    if pool_type == "max" and highs == list(pad) \
+    if pool_type == "max" and mask_bwd and not global_pool \
+            and x.is_floating_point():
+        # the reference's tie semantics in the backward (MXNET_POOL_MASK_BWD,
+        # resolved to the mask_bwd attr at dispatch)
+        out = MaxPoolMask.apply(x, kernel, stride, tuple(zip(pad, highs)))
+    elif pool_type == "max" and highs == list(pad) \
             and all(2 * p <= k for p, k in zip(pad, kernel)):
         # symmetric pad: PyTorch's pooling pads with -inf itself
         out = _MAX_POOL[nd](x, kernel, stride, padding=pad)
     else:
         fill = float("-inf") if pool_type == "max" else 0.0
-        widths = []
-        for p, hi in zip(reversed(pad), reversed(highs)):
-            widths += [p, hi]
+        widths = _pad_widths(list(zip(pad, highs)))
         xp = F.pad(x, widths, value=fill) if any(widths) else x
         if pool_type == "max":
             out = _MAX_POOL[nd](xp, kernel, stride)

@@ -259,7 +259,8 @@ class TrainStep(object):
         vals = dict(batch)
         vals.update(leaves)
         outs, aux_upd = self._low.run(vals, aux, True,
-                                      no_grad_inputs=self._inputs)
+                                      no_grad_inputs=self._inputs,
+                                      device=self.ctx)
         seeds = [torch.ones((), dtype=o.dtype, device=o.device)
                  .expand(o.shape) for o in outs]
         grads = torch.autograd.grad(outs, [leaves[n] for n in

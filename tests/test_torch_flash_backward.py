@@ -152,6 +152,13 @@ ON_CARD = [
     ((1, 2, 256, 8), False, None, torch.float32),
     ((2, 3, 256, 64), True, None, torch.bfloat16),
     ((1, 2, 128, 256), False, None, torch.bfloat16),
+    # the dK/dV kernel's D buckets (<= 64, <= 128, <= 256), each below and
+    # at its top
+    ((1, 2, 256, 32), True, None, torch.float32),
+    ((1, 2, 256, 128), True, None, torch.float32),
+    ((1, 2, 256, 128), False, None, torch.bfloat16),
+    ((1, 2, 256, 136), True, None, torch.float32),
+    ((1, 2, 384, 72), False, None, torch.bfloat16),
 ]
 
 
@@ -181,6 +188,49 @@ def test_kernels_vs_plain_on_card(case):
     for a, b, w in zip(got, again, want):
         assert a.dtype == dtype and torch.equal(a, b)   # no atomics
         torch.testing.assert_close(a, w, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernels_on_card_unaligned_rows(d, dtype):
+    """q, k, v and dO as views whose row stride (D + 2 elements) is not a
+    multiple of 16 bytes: the dK/dV kernel reads them element by element
+    (``aligned16`` is false) and still equals the plain version."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    base = torch.randn(4, 2, 3, 256, d + 2, device=dev,
+                       generator=gen).to(dtype)
+    q, k, v, g = (base[i, ..., :d] for i in range(4))
+    assert not pfa.aligned16(q, k, v, g)
+    o, lse = pfa.flash_attention_fwd(q, k, v, causal=True)
+    got = pfa.flash_attention_bwd(q, k, v, o, lse, g, True)
+    again = pfa.flash_attention_bwd(q, k, v, o, lse, g, True)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = pfa.flash_attention_bwd_ref(q, k, v, o, lse, g, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.synchronize()
+    tol = dict(rtol=RTOL, atol=ATOL) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+        torch.testing.assert_close(a, w, **tol)
+
+
+def test_aligned16_reads_base_and_strides():
+    """The dK/dV kernel's 16-byte flag: true for contiguous and LM-strided
+    tensors, false when the base or a row stride breaks 16 bytes."""
+    x = torch.zeros(2, 3, 128, 64)
+    qkv = torch.zeros(2, 128, 3, 3, 64).permute(2, 0, 3, 1, 4)
+    assert pfa.aligned16(x) and pfa.aligned16(qkv[1], qkv[2])
+    assert pfa.aligned16(x.to(torch.bfloat16))
+    assert not pfa.aligned16(torch.zeros(2, 3, 128, 66)[..., :64])
+    assert not pfa.aligned16(torch.zeros(2, 3, 128, 65)[..., 1:])
+    assert not pfa.aligned16(torch.zeros(2, 3, 128, 68,
+                                         dtype=torch.bfloat16)[..., :64])
 
 
 @pytest.mark.cuda
