@@ -1,0 +1,120 @@
+// Host emulation of the CUDA subset that the port's backward kernels use,
+// so that their source compiles with a host C++20 compiler and runs on the
+// CPU (host_emu.py).  A launch runs its blocks one after another; a block
+// runs one std::thread per CUDA thread, and __syncthreads is a barrier.
+// Dynamic shared memory is one static buffer, filled with NaN bytes before
+// each block so that a read of an unwritten element shows in the output.
+// Float arithmetic is the host's: fmaf is a fused multiply-add as on the
+// card, but the compiler contracts no other a * b + c (-ffp-contract=off),
+// where nvcc may, so results agree with the card's to rounding, not bits.
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __launch_bounds__(...)
+
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+template <typename T> inline T __ldg(const T* p) { return *p; }
+
+struct __nv_bfloat16 { uint16_t bits; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const uint32_t u = (uint32_t)h.bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {   // finite inputs
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return {(uint16_t)((u + 0x7fff + ((u >> 16) & 1)) >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 h) {
+  return {__bfloat162float(h.x), __bfloat162float(h.y)};
+}
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+};
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+// the emulated card has 4 SMs, so that small test grids fall on both sides
+// of a kernel's choice by grid size
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 4;
+  return cudaSuccess;
+}
+constexpr size_t EMU_SMEM = 232448;   // an H100 block's shared-memory limit
+inline int emu_error = 0;
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline cudaError_t cudaGetLastError() {
+  const int e = emu_error;
+  emu_error = 0;
+  return e;
+}
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
+  return bytes > (int)EMU_SMEM ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
+inline std::barrier<>* emu_barrier = nullptr;
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+alignas(16) inline float4 emu_smem[EMU_SMEM / 16];
+
+// kernel<<<grid, threads, smem, stream>>>(args...) is rewritten into
+// emu_launch(kernel, grid, threads, smem, stream, args...)
+template <typename K, typename... A>
+inline void emu_launch(K kernel, dim3 grid, unsigned threads, size_t smem,
+                       cudaStream_t, A... args) {
+  if (smem > EMU_SMEM || threads > 1024) {
+    emu_error = cudaErrorInvalidValue;
+    return;
+  }
+  gridDim = grid;
+  blockDim = dim3(threads);
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::memset(emu_smem, 0xff, smem);
+      std::barrier<> bar(threads);
+      emu_barrier = &bar;
+      std::vector<std::thread> pool;
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([&, t] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          kernel(args...);
+        });
+      for (auto& th : pool) th.join();
+    }
+}

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Run the flash-attention backward kernels' CUDA source on the CPU.
+
+    python3 mxnet_tpu_torch/bench/host_emu.py [--against OTHER.cu]
+
+``host_library`` rewrites a source of ``csrc/`` into host C++ (each
+``kernel<<<...>>>(...)`` launch into ``emu_launch``, each ``extern
+__shared__`` array onto one static buffer), compiles it with the host's
+C++20 compiler against ``host_emu.h`` and loads it with ctypes, every
+``extern "C"`` launcher bound from its own source text.  The kernels then
+run on CPU tensors, one std::thread per CUDA thread: their indexing,
+tiling, masks and sum order can be checked where there is no card, at
+small shapes.  What only the card shows (timing, registers, the
+shared-memory banks) it does not.
+
+Run as a script, it launches both backward kernels of
+``csrc/flash_attention_bwd.cu`` at small shapes of every D bucket (float32
+and bfloat16, causal and full, contiguous, LM-strided and unaligned rows),
+prints each output's error against the plain backward, relative to its
+largest entry, and with ``--against`` whether each output equals bit for
+bit that of another source of the same kernels.
+"""
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from mxnet_tpu_torch.base import MXNetError  # noqa: E402
+from mxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from mxnet_tpu_torch.ops.kernel_build import c_argtypes  # noqa: E402
+
+__all__ = ["translate", "host_library", "bwd_on_host"]
+
+
+def translate(text):
+    """The CUDA source text as host C++ for ``host_emu.h``."""
+    text = re.sub(r"(\w+<[^<>]*(?:<[^<>]*>[^<>]*)*>)<<<([^>]*)>>>\(",
+                  r"emu_launch(\1, \2, ", text)
+    text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                  r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", text)
+    return text.replace("#include <cuda_runtime.h>", '#include "host_emu.h"') \
+        .replace("#include <cuda_bf16.h>\n", "")
+
+
+def host_library(cu, out_dir):
+    """Compile the source file ``cu`` for the host into ``out_dir`` and load
+    it, with the argtypes of every ``extern "C"`` int launcher set."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise MXNetError("host_emu: no host C++ compiler (g++ or c++)")
+    with open(cu) as f:
+        text = f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.join(out_dir, os.path.basename(cu)[:-len(".cu")])
+    with open(stem + ".cpp", "w") as f:
+        f.write(translate(text))
+    res = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-pthread", "-I", HERE, "-o", stem + ".so", stem + ".cpp"],
+        capture_output=True, text=True)
+    if res.returncode:
+        raise MXNetError("host_emu: %s failed on %s:\n%s"
+                         % (cxx, cu, res.stderr[-4000:]))
+    lib = ctypes.CDLL(stem + ".so")
+    for name in re.findall(r'extern "C" int (\w+)\(', text):
+        fn = getattr(lib, name)
+        fn.argtypes = c_argtypes(text, name)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_on_host(lib, q, k, v, o, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of the two backward kernels of ``lib`` on CPU tensors,
+    launched as ``ops/flash_attention._BwdLaunch`` launches them on the
+    card (a dQ launcher without the alignment flag, an older source's,
+    takes one int fewer)."""
+    q, k, v, do = (x if x.stride(3) == 1 else x.contiguous()
+                   for x in (q, k, v, do))
+    b, h, t, d = q.shape
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    outs = [torch.full(q.shape, float("nan"), dtype=q.dtype)
+            for _ in range(3)]
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    tail = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], b, h, t, d, fa._scale(d, scale), int(causal),
+            int(q.dtype == torch.bfloat16))
+    vec = int(fa.aligned16(q, k, v, do))
+    dq_flag = (vec,) if len(lib.flash_bwd_dq_launch.argtypes) == 28 else ()
+    for err in (lib.flash_bwd_dq_launch(*ins, outs[0].data_ptr(), *tail,
+                                        *dq_flag, None),
+                lib.flash_bwd_dkv_launch(*ins, outs[1].data_ptr(),
+                                         outs[2].data_ptr(), *tail, vec,
+                                         None)):
+        if err:
+            raise MXNetError("host_emu: launch refused (%d)" % err)
+    return tuple(outs)
+
+
+# (B, H, T, D), causal, dtype, layout: every D bucket of both kernels
+CASES = [((1, 2, 128, 64), True, torch.float32, "contiguous"),
+         ((1, 1, 256, 64), False, torch.float32, "contiguous"),
+         ((1, 1, 128, 8), True, torch.float32, "contiguous"),
+         ((1, 1, 128, 16), True, torch.float32, "contiguous"),
+         ((1, 1, 256, 72), True, torch.float32, "contiguous"),
+         ((1, 1, 128, 96), False, torch.float32, "contiguous"),
+         ((1, 1, 128, 128), True, torch.float32, "contiguous"),
+         ((1, 1, 128, 136), True, torch.float32, "contiguous"),
+         ((1, 1, 256, 256), True, torch.float32, "contiguous"),
+         ((1, 1, 128, 64), True, torch.bfloat16, "contiguous"),
+         ((1, 1, 128, 96), True, torch.bfloat16, "contiguous"),
+         ((1, 1, 128, 256), False, torch.bfloat16, "contiguous"),
+         ((1, 2, 256, 64), True, torch.float32, "lm-strided"),
+         ((1, 1, 128, 64), True, torch.float32, "unaligned"),
+         ((1, 1, 128, 128), True, torch.bfloat16, "unaligned"),
+         ((1, 1, 128, 16), False, torch.float32, "unaligned")]
+
+
+def inputs(shape, dtype, layout, gen):
+    """q, k, v, dO on the CPU: contiguous, strided as the LM makes them, or
+    views whose row stride is not a multiple of 16 bytes"""
+    b, h, t, d = shape
+    if layout == "lm-strided":
+        qkv = torch.randn(b, t, 3, h, d, generator=gen).to(dtype)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        do = torch.randn(b, t, h, d, generator=gen).to(dtype)
+        return qkv[0], qkv[1], qkv[2], do.permute(0, 2, 1, 3)
+    if layout == "unaligned":
+        base = torch.randn(4, b, h, t, d + 2, generator=gen).to(dtype)
+        return tuple(base[i, ..., :d] for i in range(4))
+    return tuple(torch.randn(shape, generator=gen).to(dtype)
+                 for _ in range(4))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", help="another flash_attention_bwd.cu whose "
+                    "outputs are compared bit for bit")
+    args = ap.parse_args()
+    out = os.path.join(ROOT, "build", "host_emu")
+    lib = host_library(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
+                                    "flash_attention_bwd.cu"), out)
+    other = args.against and host_library(args.against,
+                                          os.path.join(out, "against"))
+    gen = torch.Generator().manual_seed(0)
+    for shape, causal, dtype, layout in CASES:
+        q, k, v, do = inputs(shape, dtype, layout, gen)
+        o, lse = fa.flash_attention_ref(q, k, v, causal)
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        got = bwd_on_host(lib, q, k, v, o, lse, do, causal)
+        errs = ["%s=%.3g" % (n, ((a.float() - w.float()).abs().max()
+                                 / w.float().abs().max()).item())
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+        line = "host_emu shape=%s %s %s %s rel_err %s" % (
+            shape, "causal" if causal else "full", str(dtype).split(".")[1],
+            layout, " ".join(errs))
+        if other:
+            theirs = bwd_on_host(other, q, k, v, o, lse, do, causal)
+            line += " bitwise_equal_to_against=%s" % all(
+                torch.equal(a, b) for a, b in zip(got, theirs))
+        print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,14 +22,12 @@
 // VMEM and walk the other operand as a sequential grid.  A Hopper block has
 // at most 227 KB of shared memory and blocks run in parallel, in no order,
 // so here:
-//   - dQ kernel: one block owns one (b*h, Q tile).  Q, dO, lse and delta are
-//     loaded once (float32 in shared memory); K and V tiles stream through
-//     shared memory.  Per K tile each of the 256 threads (16 x 16) computes
-//     an R x R block of S = Q.K^T and dP = dO.V^T (rows ty + 16i, columns
-//     tx + 16j), forms dS into shared memory, and then adds dS.K to its R x
-//     ceil(D/16) float32 accumulator of dQ held in registers.  Causal
-//     blocks stop at the diagonal K tile; the grid issues the longest Q
-//     tiles first.
+//   - dQ kernel: one block owns one (b*h, Q tile of BQ queries).  Q, dO,
+//     lse and delta are loaded once; K and V tiles of BK keys stream.  Per
+//     K tile, phase 1 forms dS^T (keys x queries) into shared memory, and
+//     phase 2 adds dS.K to a float32 register accumulator of dQ.  P is not
+//     stored.  Causal blocks stop at the K tile that holds their last
+//     query, and the grid issues the longest Q tiles (the last ones) first.
 //   - dK/dV kernel: one block owns one (b*h, K/V tile of BK keys).  K and
 //     V are loaded once; Q, dO, lse and delta tiles of BQ queries stream.
 //     Per Q tile, phase 1 forms P^T and dS^T (keys x queries) into shared
@@ -39,45 +37,67 @@
 //     longest K tiles (the first ones) first.
 //   - Each output tile belongs to exactly one block and every sum is taken
 //     in a fixed order: no atomics, so the backward is bitwise repeatable.
+//     Each sum runs in index order (over d inside a product, over keys or
+//     queries across tiles and inside a tile), the order of the plain
+//     backward's float32 matrix products on this card.
 //   q, k, v and dO are read through their (b, h, t) strides with a unit last
 //   stride, so the strided views of the LM's fused QKV projection and the
 //   permuted gradient of its attention-output transpose need no copy.
 //
-// dQ tiles: 64 rows (R = 4) up to D = 128 and 32 rows (R = 2) for D <= 256,
-// float32 Q, dO, K, V tiles with an odd row stride D + 1 (row and column
-// reads free of bank conflicts) plus the dS tile: 84 KB at D = 64, 149 KB at
-// D = 128, 136 KB at D = 256.
+// Both kernels are register-tiled and fed by 16-byte shared loads.  Every
+// tile in shared memory is float32, row-major, with row stride D + 4 (the
+// dS and P tiles: their width + 4), so each operand is read as a float4
+// along the axis being summed (d in phase 1, keys or queries in phase 2)
+// and 8 consecutive rows fall in 8 distinct 4-bank groups.  On an H100 a
+// warp-wide 16-byte shared load costs 2 wavefronts when each quarter-warp
+// (8 lanes) reads at most 2 distinct addresses and 4 otherwise
+// (bench/shared_load_bench.cu), so a quarter-warp shares one row of the
+// operand a thread holds most of: queries in dQ, keys in dK/dV.  Rows whose
+// base or stride is not a multiple of 16 bytes (the flag `vec`) are loaded
+// element by element.
 //
-// dK/dV tiles (register-tiled, fed by 16-byte shared loads).  Every tile in
-// shared memory is float32, row-major, with row stride D + 4 (P and dS:
-// BK + 4), so each operand is read as a float4 along the axis being summed
-// (d in phase 1, queries in phase 2) and 8 consecutive rows fall in 8
-// distinct 4-bank groups.  Thread (tk, tq), tk < 8, tq < NTH / 8; a warp
-// spans 4 tk, one to each quarter-warp, x 8 tq:
+// dQ tiles.  Thread (tq, tk), tq < 8, tk < NTH / 8; a warp spans 4 tq, one
+// to each quarter-warp, x 8 tk:
+//   phase 1: queries tq + 8i x keys tk + (NTH / 8) j of S = Q.K^T and
+//     dP = dO.V^T (rows_dot_f4), the causal mask on global positions;
+//   phase 2: queries 4 (tq + 8m) .. + 3 x head columns 4 (tk + (NTH / 8) n)
+//     .. + 3 of dQ += dS.K (cols_outer_f4).
+// D buckets (threads, BQ, BK, blocks an SM): D <= 64 (128, 64, 32, 3), 61.4
+// KB of shared memory, 151 registers, or (128, 32, 64, 3) for a grid that
+// would leave SMs idle; D <= 128 (256, 64, 64, 1), 153.1 KB; D <= 256
+// (256, 32, 64, 1), 209.2 KB.  Loads per FFMA, one warp, D <= 64:
+// phase 1 reads 8 query rows (2 wavefronts each) and 2 key rows (4 each)
+// as float4 for 8 x 2 x 4 FFMA a thread, 24 wavefronts for 64 warp-FFMA
+// (2.7 a wavefront); phase 2 reads 2 float4 of dS^T (2 each) and 1 of K (4)
+// a key for 32, 8 wavefronts (4 a wavefront).  The first dQ kernel's
+// scalar loads issued 2 in both phases (16 for 32 FFMA, then 8 for 16).
+// 32-key tiles and three blocks an SM beat 64-key tiles (8 x 4 blocks in
+// phase 1, 4 a wavefront) at two blocks an SM, as for dK/dV.
+//
+// dK/dV tiles.  Thread (tk, tq), tk < 8, tq < NTH / 8; a warp spans 4 tk,
+// one to each quarter-warp, x 8 tq:
 //   phase 1: keys tk + 8i x queries tq + (NTH / 8) j of S^T = K.Q^T and
 //     dP^T = V.dO^T (rows_dot_f4), the causal mask on global positions;
 //   phase 2: keys 4 (tk + 8m) .. + 3 x head columns 4 (tq + (NTH / 8) n)
 //     .. + 3 of dV and dK, both products in one loop (cols_outer_f4).
-// The keys are the operand a quarter-warp shares: on an H100 a warp-wide
-// 16-byte shared load costs 2 wavefronts when each quarter-warp reads at
-// most 2 distinct addresses and 4 otherwise (bench/shared_load_bench.cu),
-// so in the D <= 64 bucket phase 2's 8 x 4 blocks issue 4 FFMA per
-// wavefront and phase 1's 8 x 2 blocks 2.7, where the first kernel's scalar
-// loads issued 2.  D buckets (threads, BK, BQ, blocks an SM):
-// D <= 64 (128, 64, 32, 3), 69.6 KB of shared memory; D <= 128 (128, 32,
-// 32, 2), 75.3 KB; D <= 256 (256, 32, 32, 1), 139.3 KB.  Rows whose base or
-// stride is not a multiple of 16 bytes (the flag `vec`) are loaded element
-// by element.
+// In the D <= 64 bucket phase 2's 8 x 4 blocks issue 4 FFMA per wavefront
+// and phase 1's 8 x 2 blocks 2.7, where the first kernel's scalar loads
+// issued 2.  D buckets (threads, BK, BQ, blocks an SM): D <= 64 (128, 64,
+// 32, 3), 69.6 KB of shared memory; D <= 128 (128, 32, 32, 2), 75.3 KB;
+// D <= 256 (256, 32, 32, 1), 139.3 KB.
 //
 // What bounds it.  Per unmasked (q, k) pair the dQ kernel does 3 products of
 // length D (q.k, dO.v, ds.k) and the dK/dV kernel 4 (q.k, dO.v, p.dO, ds.q):
 // at the LM's shapes (T = 1024, D = 64) far more operations than bytes, so
 // both are bound by arithmetic on this card.  Both run it on the CUDA cores
-// in float32 FFMA fed from shared memory, with no overlap of tile loads and
-// math; at the dK/dV kernel's tiles the shared-memory wavefronts, not the
-// FFMA, are the nearer limit.  Tensor cores (mma.sync / wgmma on bfloat16
-// tiles), double-buffered tiles and delta folded into a kernel are later
-// work.
+// in float32 FFMA fed from shared memory; the SM issues 4 warp-FFMA per
+// shared-memory wavefront, so at 2.7-4 FFMA a wavefront the shared-memory
+// pipe is as near a limit as the FFMA.  A block does not overlap its tile
+// loads with its math; the SM's other blocks hide most of them (streamed
+// tiles loaded once instead of per tile save under 10% of either kernel,
+// bench/dq_variants.py, bench/dkv_variants.py), and a second buffer would
+// cost a block an SM.  Tensor cores (mma.sync / wgmma on bfloat16 tiles)
+// and delta folded into a kernel are later work.
 //
 // Interface: plain C, loaded with ctypes.  Each *_launch returns the
 // cudaGetLastError() code of the launch (or of the shared-memory attribute
@@ -88,184 +108,13 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads per block, 16 x 16
 constexpr float NEG_INF = -1e30f;
-
-// MIN_BLOCKS: the blocks per SM that a bucket's shared memory allows,
-// given to the compiler as __launch_bounds__' minimum so that registers
-// never halve it: two up to D = 64 (84 KB for dQ, 100 KB for dK/dV), one
-// above.  With the minimum left at one, ptxas gave the D = 64 dK/dV kernel
-// 143 registers a thread, so only one 256-thread block fitted an SM.
-#define MIN_BLOCKS ((R == 4 && NC <= 4) ? 2 : 1)
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, gb, gh, gt;
 };
 
-// rows of `BT` starting at row0 of one (b, h) slice into shared memory as
-// float32, row stride ld
-template <typename T, int BT>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long st, int row0, int D,
-                                          int ld, int tx, int ty) {
-  for (int r = ty; r < BT; r += 16) {
-    const T* row = src + (long long)(row0 + r) * st;
-    for (int c = tx; c < D; c += 16) dst[r * ld + c] = to_f(row[c]);
-  }
-}
-
-// S = A.B^T and dP = G.V^T over D for one R x R block per thread:
-// rows ty + 16i of A/G, rows tx + 16j of B/V
-template <int R>
-__device__ __forceinline__ void two_products(
-    const float* A, const float* Bm, const float* G, const float* V, int D,
-    int ld, int tx, int ty, float (&s)[R][R], float (&dp)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      s[i][j] = 0.f;
-      dp[i][j] = 0.f;
-    }
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[R], gv[R], bv[R], vv[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      av[i] = A[(ty + 16 * i) * ld + d];
-      gv[i] = G[(ty + 16 * i) * ld + d];
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      bv[j] = Bm[(tx + 16 * j) * ld + d];
-      vv[j] = V[(tx + 16 * j) * ld + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-}
-
-size_t dq_smem_bytes(int d, int bt) {
-  return sizeof(float) * ((size_t)4 * bt * (d + 1) + (size_t)bt * (bt + 1) +
-                          2 * (size_t)bt);
-}
-
-// NC: accumulator columns per thread (D <= 16 * NC); R: rows per thread,
-// tiles of BT = 16 * R rows
-template <typename T, int NC, int R>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, Strides st, int H, int T_, int D, float scale,
-    int causal) {
-  constexpr int BT = 16 * R;
-  constexpr int LDS = BT + 1;
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* Qs = smem;               // BT x ld
-  float* Gs = Qs + BT * ld;       // dO, BT x ld
-  float* Ks = Gs + BT * ld;       // BT x ld
-  float* Vs = Ks + BT * ld;       // BT x ld
-  float* Ss = Vs + BT * ld;       // dS, BT x LDS
-  float* Ls = Ss + BT * LDS;      // lse, BT
-  float* Es = Ls + BT;            // delta, BT
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal tiles first
-  const int q0 = qt * BT;
-
-  const T* kp = k + b * st.kb + h * st.kh;
-  const T* vp = v + b * st.vb + h * st.vh;
-  load_tile<T, BT>(Qs, q + b * st.qb + h * st.qh, st.qt, q0, D, ld, tx, ty);
-  load_tile<T, BT>(Gs, g + b * st.gb + h * st.gh, st.gt, q0, D, ld, tx, ty);
-  for (int r = tid; r < BT; r += NT) {
-    Ls[r] = lse[(long long)bh * T_ + q0 + r];
-    Es[r] = delta[(long long)bh * T_ + q0 + r];
-  }
-
-  float acc[R][NC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-
-  const int nkb = causal ? qt + 1 : T_ / BT;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * BT;
-    __syncthreads();   // the previous step is done with Ks, Vs and Ss
-    load_tile<T, BT>(Ks, kp, st.kt, k0, D, ld, tx, ty);
-    load_tile<T, BT>(Vs, vp, st.vt, k0, D, ld, tx, ty);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-    two_products<R>(Qs, Ks, Gs, Vs, D, ld, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = ty + 16 * i;
-      const float l = Ls[row], e = Es[row];
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (causal && k0 + col > q0 + row) x = NEG_INF;
-        const float p = expf(x - l);
-        Ss[row * LDS + col] = p * (dp[i][j] - e) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BT; ++c) {
-      float ds[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) ds[i] = Ss[(ty + 16 * i) * LDS + c];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float kk = Ks[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < R; ++i) acc[i][j] = fmaf(ds[i], kk, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const long long row = (long long)bh * T_ + q0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dq[row * D + d] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- dK / dV
+// ------------------------------------------------- shared building blocks
 // Building blocks of the register-tiled kernels: every shared-memory tile
 // is float32, row-major, with a row stride that is a multiple of 4 floats
 // (16 bytes), so each operand is read as float4.
@@ -420,6 +269,129 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* x) {
   d2[1] = __floats2bfloat162_rn(x[2], x[3]);
 }
 
+// ------------------------------------------------------------------ dQ
+// The dQ kernel's tiling: NTH threads, BQ queries a block, BK keys a
+// streamed tile, head columns up to DMAX.  Thread (tq, tk), tq < 8 and
+// tk < TK = NTH / 8, a warp spanning 4 tq (one a quarter-warp) x 8 tk:
+//   phase 1 (S, dP): queries tq + 8i (i < RQ, uniform) x keys tk + TK j
+//     (j < RK);
+//   phase 2 (dQ): queries 4 (tq + 8m) .. + 3 (m < MQ, uniform) x head
+//     columns 4 (tk + TK n) .. + 3 (n < NB).
+template <int NTH_, int BQ_, int BK_, int DMAX_, int BLOCKS_>
+struct DqTile {
+  static constexpr int NTH = NTH_, BQ = BQ_, BK = BK_, DMAX = DMAX_;
+  static constexpr int TK = NTH / 8;
+  static constexpr int RQ = BQ / 8, RK = BK / TK;
+  static constexpr int MQ = BQ / 32, NB = DMAX / (4 * TK);
+  static constexpr int LDS = BQ + 4;         // dS^T row stride
+  static constexpr int BLOCKS_PER_SM = BLOCKS_;
+  static_assert(RQ * 8 == BQ && RK * TK == BK && MQ * 32 == BQ &&
+                NB * 4 * TK == DMAX && RK >= 1 && NB >= 1, "tiling");
+};
+
+size_t dq_smem_bytes(int d, int bq, int bk) {
+  return sizeof(float) * ((size_t)(2 * bq + 2 * bk) * (d + 4) +
+                          (size_t)bk * (bq + 4) + 2 * (size_t)bq);
+}
+
+template <typename T, typename Tile>
+__global__ void __launch_bounds__(Tile::NTH, Tile::BLOCKS_PER_SM)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    Strides st, int H, int T_, int D, float scale,
+                    int causal, int vec) {
+  constexpr int NTH = Tile::NTH, BQ = Tile::BQ, BK = Tile::BK;
+  constexpr int TK = Tile::TK, RQ = Tile::RQ, RK = Tile::RK;
+  constexpr int MQ = Tile::MQ, NB = Tile::NB, LDS = Tile::LDS;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ld = D + 4, D4 = D >> 2;
+  float* Qs = smem;               // BQ x ld
+  float* Gs = Qs + BQ * ld;       // dO, BQ x ld
+  float* Ks = Gs + BQ * ld;       // BK x ld
+  float* Vs = Ks + BK * ld;       // BK x ld
+  float* Ds = Vs + BK * ld;       // dS^T, BK (k) x LDS (q)
+  float* Ls = Ds + BK * LDS;      // lse, BQ
+  float* Es = Ls + BQ;            // delta, BQ
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int tq = (w & 1) * 4 + (lane >> 3);
+  const int tk = (w >> 1) * 8 + (lane & 7);
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal tiles first
+  const int q0 = qt * BQ;
+
+  const T* kp = k + b * st.kb + h * st.kh;
+  const T* vp = v + b * st.vb + h * st.vh;
+  load_rows<NTH>(Qs, q + b * st.qb + h * st.qh, st.qt, q0, BQ, D, ld, vec,
+                 tid);
+  load_rows<NTH>(Gs, g + b * st.gb + h * st.gh, st.gt, q0, BQ, D, ld, vec,
+                 tid);
+  for (int r = tid; r < BQ; r += NTH) {
+    Ls[r] = lse[(long long)bh * T_ + q0 + r];
+    Es[r] = delta[(long long)bh * T_ + q0 + r];
+  }
+
+  float acc[1][4 * MQ][4 * NB];   // dQ
+#pragma unroll
+  for (int i = 0; i < 4 * MQ; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NB; ++j) acc[0][i][j] = 0.f;
+
+  // causal: up to the K tile that holds the block's last query
+  const int nkb = causal ? (q0 + BQ + BK - 1) / BK : T_ / BK;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * BK;
+    __syncthreads();   // the previous step is done with Ks, Vs and Ds
+    load_rows<NTH>(Ks, kp, st.kt, k0, BK, D, ld, vec, tid);
+    load_rows<NTH>(Vs, vp, st.vt, k0, BK, D, ld, vec, tid);
+    __syncthreads();
+
+    // phase 1: S = Q.K^T -> P in place, then dP = dO.V^T -> dS^T
+    float s[RQ][RK], dp[RQ][RK];
+    rows_dot_f4<RQ, 8, RK, TK>(Qs, ld, tq, Ks, ld, tk, D4, s);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const int qq = tq + 8 * i, key = tk + TK * j;
+        float x = s[i][j] * scale;
+        if (causal && k0 + key > q0 + qq) x = NEG_INF;
+        s[i][j] = expf(x - Ls[qq]);
+      }
+    rows_dot_f4<RQ, 8, RK, TK>(Gs, ld, tq, Vs, ld, tk, D4, dp);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) {
+        const int qq = tq + 8 * i, key = tk + TK * j;
+        Ds[key * LDS + qq] = s[i][j] * (dp[i][j] - Es[qq]) * scale;
+      }
+    __syncthreads();
+
+    // phase 2: dQ += dS.K over this tile's keys
+    const float* const pa[1] = {Ds};
+    const float* const pb[1] = {Ks};
+    cols_outer_f4<1, BK, MQ, 8, NB, TK>(pa, LDS, tq, pb, ld, tk, D4, acc);
+  }
+
+#pragma unroll
+  for (int m = 0; m < MQ; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long row = (long long)bh * T_ + q0 + 4 * (tq + 8 * m) + i;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const int c4 = tk + TK * n;
+        if (c4 < D4) store4(dq + row * D + 4 * c4, &acc[0][4 * m + i][4 * n]);
+      }
+    }
+}
+
+// ------------------------------------------------------------- dK / dV
 // The dK/dV kernel's tiling: NTH threads, BK keys a block, BQ queries a
 // streamed tile, head columns up to DMAX.  Thread (tk, tq), tk < 8 and
 // tq < TQ = NTH / 8, a warp spanning 4 tk (one a quarter-warp) x 8 tq:
@@ -549,22 +521,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int NC, int R>
+template <typename T, typename Tile>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const float* lse, const float* delta, void* dq,
               const Strides& st, int B, int H, int T_, int D, float scale,
-              int causal, cudaStream_t stream) {
-  constexpr int BT = 16 * R;
-  const size_t smem = dq_smem_bytes(D, BT);
+              int causal, int vec, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes(D, Tile::BQ, Tile::BK);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, NC, R>,
+      flash_bwd_dq_kernel<T, Tile>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)(T_ / BT));
-  flash_bwd_dq_kernel<T, NC, R><<<grid, NT, smem, stream>>>(
+  const dim3 grid((unsigned)(B * H), (unsigned)(T_ / Tile::BQ));
+  flash_bwd_dq_kernel<T, Tile><<<grid, Tile::NTH, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dq), st, H, T_, D, scale, causal);
+      static_cast<T*>(dq), st, H, T_, D, scale, causal, vec);
   return (int)cudaGetLastError();
 }
 
@@ -587,24 +558,35 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
-// D buckets: (columns per thread, rows per thread) = (2, 4), (4, 4),
-// (8, 4), (16, 2)
+// dQ D buckets, (threads, queries a block, keys a tile, D bucket, blocks
+// an SM): (128, 64, 32, 64, 3), (256, 64, 64, 128, 1), (256, 32, 64, 256,
+// 1); shared memory 61.4 KB at D = 64, 153.1 KB at D = 128, 209.2 KB at
+// D = 256 (bench/dq_variants.py times the tilings that lost).  At D <= 64
+// a grid of 64-query tiles with fewer blocks than the card has SMs takes
+// 32-query tiles instead (128, 32, 64, 64, 3), twice the blocks: they win
+// where SMs would idle and lose at the LM's 768 blocks.
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* g,
                 const float* lse, const float* delta, void* dq,
                 const Strides& st, int B, int H, int T_, int D, float scale,
-                int causal, cudaStream_t s) {
-  if (D <= 32)
-    return launch_dq<T, 2, 4>(q, k, v, g, lse, delta, dq, st, B, H, T_, D,
-                              scale, causal, s);
-  if (D <= 64)
-    return launch_dq<T, 4, 4>(q, k, v, g, lse, delta, dq, st, B, H, T_, D,
-                              scale, causal, s);
+                int causal, int vec, cudaStream_t s) {
+  if (D <= 64) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (B * H * (T_ / 64) < sms)
+      return launch_dq<T, DqTile<128, 32, 64, 64, 3>>(
+          q, k, v, g, lse, delta, dq, st, B, H, T_, D, scale, causal, vec, s);
+    return launch_dq<T, DqTile<128, 64, 32, 64, 3>>(
+        q, k, v, g, lse, delta, dq, st, B, H, T_, D, scale, causal, vec, s);
+  }
   if (D <= 128)
-    return launch_dq<T, 8, 4>(q, k, v, g, lse, delta, dq, st, B, H, T_, D,
-                              scale, causal, s);
-  return launch_dq<T, 16, 2>(q, k, v, g, lse, delta, dq, st, B, H, T_, D,
-                             scale, causal, s);
+    return launch_dq<T, DqTile<256, 64, 64, 128, 1>>(
+        q, k, v, g, lse, delta, dq, st, B, H, T_, D, scale, causal, vec, s);
+  return launch_dq<T, DqTile<256, 32, 64, 256, 1>>(
+      q, k, v, g, lse, delta, dq, st, B, H, T_, D, scale, causal, vec, s);
 }
 
 // dK/dV D buckets, (threads, keys a block, queries a tile, D bucket,
@@ -634,6 +616,7 @@ bool bad_shape(int B, int H, int T_, int D) {
          B * H < 1;
 }
 
+
 }  // namespace
 
 extern "C" int flash_bwd_dq_launch(
@@ -642,16 +625,16 @@ extern "C" int flash_bwd_dq_launch(
     long long qsh, long long qst, long long ksb, long long ksh,
     long long kst, long long vsb, long long vsh, long long vst,
     long long gsb, long long gsh, long long gst, int B, int H, int T_, int D,
-    float scale, int causal, int bf16, void* stream) {
+    float scale, int causal, int bf16, int vec, void* stream) {
   if (bad_shape(B, H, T_, D)) return (int)cudaErrorInvalidValue;
   const Strides st = {qsb, qsh, qst, ksb, ksh, kst,
                       vsb, vsh, vst, gsb, gsh, gst};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch_dq<__nv_bfloat16>(q, k, v, g, lse, delta, dq, st, B, H,
-                                      T_, D, scale, causal, s);
+                                      T_, D, scale, causal, vec, s);
   return dispatch_dq<float>(q, k, v, g, lse, delta, dq, st, B, H, T_, D,
-                            scale, causal, s);
+                            scale, causal, vec, s);
 }
 
 extern "C" int flash_bwd_dkv_launch(

@@ -58,13 +58,13 @@ def _bind(lib):
 
 
 def _bind_bwd(lib):
-    # the dK/dV launch takes one more int: the 16-byte alignment flag
-    for fn, n_out, n_flags in ((lib.flash_bwd_dq_launch, 1, 2),
-                               (lib.flash_bwd_dkv_launch, 2, 3)):
+    # q, k, v, dO, lse, delta and the outputs (dq; dk, dv), 12 strides,
+    # B, H, T, D, scale, then causal, bf16 and the 16-byte alignment flag
+    for fn, n_out in ((lib.flash_bwd_dq_launch, 1),
+                      (lib.flash_bwd_dkv_launch, 2)):
         fn.argtypes = [ctypes.c_void_p] * (6 + n_out) \
             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 \
-            + [ctypes.c_float] + [ctypes.c_int] * n_flags \
-            + [ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
 
@@ -145,8 +145,8 @@ def _unit_last(*xs):
 
 def aligned16(*xs):
     """Whether every (B, H, T, D) tensor's base and (b, h, t) strides are
-    multiples of 16 bytes, so that the dK/dV kernel may read each row in
-    16-byte pieces; otherwise it reads them element by element."""
+    multiples of 16 bytes, so that the backward kernels may read each row
+    in 16-byte pieces; otherwise they read them element by element."""
     return all(x.data_ptr() % 16 == 0
                and all(s * x.element_size() % 16 == 0
                        for s in x.stride()[:3]) for x in xs)
@@ -249,7 +249,8 @@ class _BwdLaunch(object):
         global bwd_dq_launches
         with torch.cuda.device(self.device):
             err = self._lib.flash_bwd_dq_launch(
-                *self._ins, self.dq.data_ptr(), *self._tail, self._stream())
+                *self._ins, self.dq.data_ptr(), *self._tail, int(self.vec),
+                self._stream())
         _bwd_kernel.check(err, "flash_attention_bwd (dQ)")
         bwd_dq_launches += 1
 

@@ -13,13 +13,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
 from ..base import MXNetError
 
-__all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["CudaLibrary", "BUILD_DIR", "NVCC_FLAGS", "c_argtypes"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +37,30 @@ def _nvcc():
                          "/usr/local/cuda/bin): the CUDA kernels cannot be "
                          "built")
     return path
+
+
+def c_argtypes(text, name):
+    """The ctypes types of the parameters of ``extern "C"`` function
+    ``name`` in the source text: c_void_p for a pointer, c_longlong,
+    c_int and c_float for ``long long``, ``int`` and ``float``."""
+    m = re.search(r'extern "C"[^(;]*\b%s\s*\(([^)]*)\)' % re.escape(name),
+                  text)
+    if m is None:
+        raise MXNetError('no extern "C" function %s in the source' % name)
+    types = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()[:-1]   # drop the name
+        if "*" in words:
+            types.append(ctypes.c_void_p)
+        elif words[-2:] == ["long", "long"]:
+            types.append(ctypes.c_longlong)
+        elif words[-1:] in (["int"], ["float"]):
+            types.append(ctypes.c_int if words[-1] == "int"
+                         else ctypes.c_float)
+        else:
+            raise MXNetError("%s: parameter type not known: %r"
+                             % (name, param.strip()))
+    return types
 
 
 class CudaLibrary(object):

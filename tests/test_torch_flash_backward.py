@@ -9,13 +9,19 @@ JAX is imported by the tests that compare with it, not by the module, so
 that the ``cuda`` tests also run where only the port is installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_backward.py``.
 """
+import os
+import types
+
 import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.bench import host_emu
 from mxnet_tpu_torch.ops import attention as pattn
 from mxnet_tpu_torch.ops import flash_attention as pfa
+from mxnet_tpu_torch.ops import norm_conv as pnc
+from mxnet_tpu_torch.ops.kernel_build import CSRC, c_argtypes
 
 # float32 on both sides, sums taken in other orders (the JAX suite's
 # forward tolerance, test_pallas.py)
@@ -159,6 +165,17 @@ ON_CARD = [
     ((1, 2, 256, 128), False, None, torch.bfloat16),
     ((1, 2, 256, 136), True, None, torch.float32),
     ((1, 2, 384, 72), False, None, torch.bfloat16),
+    # the dQ kernel's tilings: D = 16 (fewer 4-column pieces than the 16
+    # thread columns), D = 96 (inside the D <= 128 bucket), and causal
+    # T = 128 (two 64-query tiles, the diagonal inside each; at D = 256,
+    # above, 32-query tiles against 64-key tiles)
+    ((1, 2, 256, 16), True, None, torch.float32),
+    ((1, 2, 256, 16), False, None, torch.bfloat16),
+    ((1, 2, 256, 96), True, None, torch.float32),
+    ((1, 2, 256, 96), False, 0.3, torch.bfloat16),
+    ((2, 3, 128, 64), True, None, torch.float32),
+    ((2, 3, 128, 64), True, None, torch.bfloat16),
+    ((1, 2, 128, 128), True, None, torch.float32),
 ]
 
 
@@ -195,8 +212,8 @@ def test_kernels_vs_plain_on_card(case):
 @pytest.mark.parametrize("d", [64, 128])
 def test_kernels_on_card_unaligned_rows(d, dtype):
     """q, k, v and dO as views whose row stride (D + 2 elements) is not a
-    multiple of 16 bytes: the dK/dV kernel reads them element by element
-    (``aligned16`` is false) and still equals the plain version."""
+    multiple of 16 bytes: the dQ and the dK/dV kernels read them element by
+    element (``aligned16`` is false) and still equal the plain version."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
     base = torch.randn(4, 2, 3, 256, d + 2, device=dev,
@@ -221,7 +238,7 @@ def test_kernels_on_card_unaligned_rows(d, dtype):
 
 
 def test_aligned16_reads_base_and_strides():
-    """The dK/dV kernel's 16-byte flag: true for contiguous and LM-strided
+    """The backward kernels' 16-byte flag: true for contiguous and LM-strided
     tensors, false when the base or a row stride breaks 16 bytes."""
     x = torch.zeros(2, 3, 128, 64)
     qkv = torch.zeros(2, 128, 3, 3, 64).permute(2, 0, 3, 1, 4)
@@ -231,6 +248,61 @@ def test_aligned16_reads_base_and_strides():
     assert not pfa.aligned16(torch.zeros(2, 3, 128, 65)[..., 1:])
     assert not pfa.aligned16(torch.zeros(2, 3, 128, 68,
                                          dtype=torch.bfloat16)[..., :64])
+
+
+@pytest.fixture(scope="module")
+def host_bwd(tmp_path_factory):
+    """``csrc/flash_attention_bwd.cu`` compiled for the CPU through
+    ``bench/host_emu.h``."""
+    return host_emu.host_library(os.path.join(CSRC, "flash_attention_bwd.cu"),
+                                 str(tmp_path_factory.mktemp("host_emu")))
+
+
+@pytest.mark.parametrize("case", host_emu.CASES, ids=[
+    "%s-%s-%s-%s" % (c[0], "causal" if c[1] else "full",
+                     str(c[2]).split(".")[1], c[3]) for c in host_emu.CASES])
+def test_bwd_kernels_on_host_emulation(case, host_bwd):
+    """The CUDA source of the dQ and dK/dV kernels, run on the CPU (one
+    thread per CUDA thread, ``bench/host_emu.py``), against the plain
+    backward: every D bucket of both tilings and both sides of the dQ
+    kernel's choice by grid size (the emulated card has 4 SMs), causal and
+    full, float32 and bfloat16, rows read in 16-byte pieces and element by
+    element."""
+    shape, causal, dtype, layout = case
+    q, k, v, g = host_emu.inputs(shape, dtype, layout,
+                                 torch.Generator().manual_seed(5))
+    o, lse = pfa.flash_attention_ref(q, k, v, causal)
+    got = host_emu.bwd_on_host(host_bwd, q, k, v, o, lse, g, causal)
+    want = pfa.flash_attention_bwd_ref(q, k, v, o, lse, g, causal)
+    tol = dict(rtol=RTOL, atol=ATOL) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, w, **tol)
+
+
+LAUNCHERS = [(pfa._bind, "flash_attention", "flash_fwd_launch"),
+             (pfa._bind_bwd, "flash_attention_bwd", "flash_bwd_dq_launch"),
+             (pfa._bind_bwd, "flash_attention_bwd", "flash_bwd_dkv_launch"),
+             (pnc._bind, "norm_conv", "nc_launch")]
+
+
+@pytest.mark.parametrize("bind,stem,name", LAUNCHERS,
+                         ids=[c[2] for c in LAUNCHERS])
+def test_ctypes_binding_matches_the_launcher(bind, stem, name):
+    """The argtypes that a wrapper's bind function sets equal, in number and
+    type, the parameters of the ``extern "C"`` launcher in its source: with
+    a parameter too many or too few ctypes passes garbage silently (the dQ
+    launcher's alignment flag, added after the dK/dV one's, is such a
+    parameter)."""
+    with open(os.path.join(CSRC, stem + ".cu")) as f:
+        want = c_argtypes(f.read(), name)
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                   for _, _, n in LAUNCHERS})
+    bind(lib)
+    got = getattr(lib, name).argtypes
+    assert len(got) == len(want)
+    assert [t.__name__ for t in got] == [t.__name__ for t in want]
 
 
 @pytest.mark.cuda
