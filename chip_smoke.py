@@ -13,7 +13,10 @@ fatal on failure:
    224x224 (22 of them, read off the graph), hold the kernel against its
    plain PyTorch version in float32 and bfloat16, with TF32 off; check the
    statistics epilogue (float32, every geometry), the prologue off and the
-   ReLU off; time the kernel, the plain version and cuDNN's conv alone;
+   ReLU off, and y bitwise equal over two launches (split-K sums its
+   slices in a fixed order); print the tile, the split-K slices and the
+   16-byte load flags the kernel took; time the kernel, the plain version
+   and cuDNN's conv alone;
 3. serving: ResNet-50 at full width (1000 classes, 3x224x224, random
    weights from a seed) behind ``ServedModel`` with MXNET_NORM_CONV=1,
    max_batch 8, 24 requests from 4 client threads; every request answered,
@@ -102,7 +105,7 @@ REQUESTS_PER_CLIENT = 6
 # different orders: allow about two bfloat16 steps of the largest output.
 Y_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # float32 statistics epilogue vs the plain version's sums of y, relative to
-# the largest |sum| (the kernel adds per-block partials with atomics)
+# the largest |sum| (the kernel adds per-tile partials with atomics)
 STATS_TOL = 1e-4
 # served softmax rows vs the unfused reference, relative to the largest
 # probability: float32 throughout, so only summation order differs
@@ -255,8 +258,12 @@ def kernel_phase(torch, nc, geoms):
                                                  stats=False)))
             for vname, kw in variants:
                 yk, sk, qk = nc.norm_conv(x, wt, sc, sh, k, s, p, **kw)
+                yk2, _, _ = nc.norm_conv(x, wt, sc, sh, k, s, p, **kw)
                 yp, spl, qp = nc.norm_conv_ref(x, wt, sc, sh, k, s, p, **kw)
                 torch.cuda.synchronize()
+                if not torch.equal(yk, yk2):
+                    fail("kernel %s %s %s: y differs between two launches"
+                         % (key, dname, vname))
                 err = (yk.float() - yp.float()).abs().max().item()
                 ref = yp.float().abs().max().item()
                 if not torch.isfinite(yk).all() or err > Y_TOL[dname] * ref:
@@ -293,12 +300,17 @@ def kernel_phase(torch, nc, geoms):
             ops_ms = ops / PEAK_OPS[dname] * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             bound_ms = max(ops_ms, bytes_ms)
+            _, bm, bn, splits, _ = nc.plan(nc._kernel.get(), x.shape,
+                                           wt.shape, s, p, device_index=0)
+            vec_x, vec_w = nc.vec_flags(x, wt, sc.to(dt), sh.to(dt))
             print("geom H=%d W=%d Cin=%d Cout=%d k=%d s=%d p=%d count=%d "
                   "dtype=%s max_abs_err=%r kernel_ms=%r plain_ms=%r "
-                  "library_ms=%r bound_ms=%r bound_by=%s"
+                  "library_ms=%r bound_ms=%r bound_by=%s tile=%dx%d "
+                  "splits=%d vec16_x=%d vec16_w=%d bitwise_repeat=True"
                   % (h, w, cin, cout, k, s, p, count, dname, main_err,
                      kernel_ms, plain_ms, library_ms, bound_ms,
-                     "operations" if ops_ms >= bytes_ms else "bytes"))
+                     "operations" if ops_ms >= bytes_ms else "bytes",
+                     bm, bn, splits, vec_x, vec_w))
             if dt == torch.float32:
                 tot["ms"] += count * kernel_ms
                 tot["plain_ms"] += count * plain_ms

@@ -1,13 +1,18 @@
-// Host emulation of the CUDA subset that the port's backward kernels use,
-// so that their source compiles with a host C++20 compiler and runs on the
-// CPU (host_emu.py).  A launch runs its blocks one after another; a block
-// runs one std::thread per CUDA thread, and __syncthreads is a barrier.
+// Host emulation of the CUDA subset that the port's flash-attention
+// backward and NormConv kernels use, so that their source compiles with a
+// host C++20 compiler and runs on the CPU (host_emu.py).  A launch runs its
+// blocks one after another (x fastest, then y, then z); a block runs one
+// std::thread per CUDA thread, and __syncthreads is a barrier.  Atomics are
+// std::atomic_ref operations and __threadfence a sequentially consistent
+// fence; as blocks run in order, the last of a tile's split-K slices is
+// always the block with the highest z.
 // Dynamic shared memory is one static buffer, filled with NaN bytes before
 // each block so that a read of an unwritten element shows in the output.
 // Float arithmetic is the host's: fmaf is a fused multiply-add as on the
 // card, but the compiler contracts no other a * b + c (-ffp-contract=off),
 // where nvcc may, so results agree with the card's to rounding, not bits.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
@@ -26,10 +31,29 @@
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 template <typename T> inline T __ldg(const T* p) { return *p; }
+template <typename T> inline T __ldcg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+template <typename T> inline T atomicAdd(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_add(v);
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 
 struct __nv_bfloat16 { uint16_t bits; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -43,6 +67,9 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {   // finite inputs
   uint32_t u;
   std::memcpy(&u, &f, 4);
   return {(uint16_t)((u + 0x7fff + ((u >> 16) & 1)) >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) {
+  return h.bits;
 }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
@@ -103,18 +130,19 @@ inline void emu_launch(K kernel, dim3 grid, unsigned threads, size_t smem,
   }
   gridDim = grid;
   blockDim = dim3(threads);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::memset(emu_smem, 0xff, smem);
-      std::barrier<> bar(threads);
-      emu_barrier = &bar;
-      std::vector<std::thread> pool;
-      for (unsigned t = 0; t < threads; ++t)
-        pool.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          kernel(args...);
-        });
-      for (auto& th : pool) th.join();
-    }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::memset(emu_smem, 0xff, smem);
+        std::barrier<> bar(threads);
+        emu_barrier = &bar;
+        std::vector<std::thread> pool;
+        for (unsigned t = 0; t < threads; ++t)
+          pool.emplace_back([&, t] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(bx, by, bz);
+            kernel(args...);
+          });
+        for (auto& th : pool) th.join();
+      }
 }

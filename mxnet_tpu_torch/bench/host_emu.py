@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the flash-attention backward kernels' CUDA source on the CPU.
+"""Run the port's CUDA kernel sources on the CPU.
 
-    python3 mxnet_tpu_torch/bench/host_emu.py [--against OTHER.cu]
+    python3 mxnet_tpu_torch/bench/host_emu.py [--kernel bwd|nc|all]
+                                              [--against OTHER.cu]
 
 ``host_library`` rewrites a source of ``csrc/`` into host C++ (each
 ``kernel<<<...>>>(...)`` launch into ``emu_launch``, each ``extern
@@ -18,7 +19,12 @@ Run as a script, it launches both backward kernels of
 and bfloat16, causal and full, contiguous, LM-strided and unaligned rows),
 prints each output's error against the plain backward, relative to its
 largest entry, and with ``--against`` whether each output equals bit for
-bit that of another source of the same kernels.
+bit that of another source of the same kernels.  ``--kernel nc`` launches
+``csrc/norm_conv.cu`` at the small shapes of ``NC_CASES`` (split-K on
+and off, both tiles, 16-byte and element-wise loads, float32 and
+bfloat16)
+and prints the plan it took and y's and the statistics' errors against
+``norm_conv_ref``.
 """
 import argparse
 import ctypes
@@ -37,9 +43,10 @@ if ROOT not in sys.path:
 
 from mxnet_tpu_torch.base import MXNetError  # noqa: E402
 from mxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from mxnet_tpu_torch.ops import norm_conv as nc  # noqa: E402
 from mxnet_tpu_torch.ops.kernel_build import c_argtypes  # noqa: E402
 
-__all__ = ["translate", "host_library", "bwd_on_host"]
+__all__ = ["translate", "host_library", "bwd_on_host", "nc_on_host"]
 
 
 def translate(text):
@@ -108,6 +115,77 @@ def bwd_on_host(lib, q, k, v, o, lse, do, causal=False, scale=None):
     return tuple(outs)
 
 
+def nc_on_host(lib, x, w, scale, shift, kernel, stride, pad, relu=True,
+               prologue=True, stats=False, tile=-1, splits=0):
+    """(y, ysum, ysq, plan) of the NormConv kernel of ``lib`` on CPU
+    tensors, planned and launched as ``ops/norm_conv._launch`` does on the
+    card (``tile`` >= 0 and ``splits`` >= 1 force a plan; the emulated card
+    has 4 SMs)."""
+    sc = scale.to(x.dtype).contiguous()
+    sh = shift.to(x.dtype).contiguous()
+    n, h, wd, _ = x.shape
+    oh, ow = nc._geom(h, wd, kernel, stride, pad)
+    y = torch.full((n, oh, ow, w.shape[3]), float("nan"), dtype=x.dtype)
+    ysum = ysq = None
+    if stats:
+        ysum = torch.zeros(w.shape[3])
+        ysq = torch.zeros(w.shape[3])
+    p = nc.plan(lib, x.shape, w.shape, stride, pad, tile, splits)
+    err = nc.launch(lib, x, w, sc, sh, y, ysum, ysq, kernel, stride, pad,
+                    relu, prologue, stats, p, None)
+    if err:
+        raise MXNetError("host_emu: launch refused (%d)" % err)
+    return y, ysum, ysq, p
+
+
+# (N, H, Cin, Cout, K, S, P, dtype, relu, prologue, stats, tile, splits):
+# tile -1 and splits 0 take nc_plan's choice (the emulated card has 4 SMs,
+# so tile 1 needs 8 tiles of 64 x 128, and grids of fewer than 8 tiles of
+# 64 x 64 are split).  Cin 10 (float32) and 12 or 36 (bfloat16) read x
+# element by element, Cout 22 and 70 also w; ragged M and Cout throughout;
+# split-K chosen (S 2 and 4) and not chosen (few steps, or a grid of 10
+# tiles), tile 1 chosen and forced, and S forced to uneven slices and to
+# one step a slice
+NC_CASES = [
+    (2, 6, 64, 24, 3, 1, 1, torch.float32, True, True, True, -1, 0),
+    (2, 9, 128, 24, 3, 2, 1, torch.bfloat16, True, True, True, -1, 0),
+    (2, 6, 64, 24, 3, 1, 1, torch.float32, False, True, False, -1, 0),
+    (2, 6, 64, 24, 3, 1, 1, torch.float32, True, False, True, -1, 0),
+    (2, 7, 10, 22, 3, 1, 1, torch.float32, True, True, True, -1, 0),
+    (2, 7, 12, 24, 3, 2, 1, torch.bfloat16, True, True, False, -1, 0),
+    (2, 8, 16, 24, 1, 1, 0, torch.float32, True, True, True, -1, 0),
+    (2, 9, 16, 40, 1, 2, 0, torch.bfloat16, True, True, True, -1, 0),
+    (2, 12, 64, 72, 3, 1, 1, torch.bfloat16, True, True, True, -1, 0),
+    (2, 16, 16, 128, 1, 1, 0, torch.float32, True, True, True, -1, 0),
+    (2, 15, 16, 256, 1, 1, 0, torch.bfloat16, True, True, True, -1, 0),
+    (2, 6, 40, 72, 3, 1, 1, torch.float32, True, True, True, 0, 3),
+    (2, 6, 36, 70, 3, 2, 1, torch.bfloat16, True, True, True, 1, 5),
+    (2, 6, 20, 136, 3, 1, 1, torch.float32, True, True, True, 1, 1),
+    (1, 4, 16, 8, 3, 1, 1, torch.float32, True, True, True, 0, 9),
+]
+
+
+def nc_inputs(n, h, cin, cout, k, dtype, gen):
+    """x, w, scale, shift on the CPU, from ``gen``"""
+    x = torch.randn(n, h, h, cin, generator=gen).to(dtype)
+    w = (torch.randn(k, k, cin, cout, generator=gen)
+         * (2.0 / (k * k * cin)) ** 0.5).to(dtype)
+    sc = torch.rand(cin, generator=gen) + 0.5
+    sh = torch.randn(cin, generator=gen) * 0.5
+    return x, w, sc, sh
+
+
+def nc_errors(case, got, gen):
+    """(relative error of y, of the sums, of the sums of squares) of one
+    NC_CASES launch against ``norm_conv_ref`` on the same inputs"""
+    n, h, cin, cout, k, s, p, dtype, relu, pro, stats = case[:11]
+    x, w, sc, sh = nc_inputs(n, h, cin, cout, k, dtype, gen)
+    want = nc.norm_conv_ref(x, w, sc, sh, k, s, p, relu, pro, stats)
+    return [None if b is None else
+            ((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item() for a, b in zip(got, want)]
+
+
 # (B, H, T, D), causal, dtype, layout: every D bucket of both kernels
 CASES = [((1, 2, 128, 64), True, torch.float32, "contiguous"),
          ((1, 1, 256, 64), False, torch.float32, "contiguous"),
@@ -145,12 +223,32 @@ def inputs(shape, dtype, layout, gen):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("bwd", "nc", "all"), default="all")
     ap.add_argument("--against", help="another flash_attention_bwd.cu whose "
                     "outputs are compared bit for bit")
     args = ap.parse_args()
     out = os.path.join(ROOT, "build", "host_emu")
-    lib = host_library(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
-                                    "flash_attention_bwd.cu"), out)
+    csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
+    if args.kernel in ("nc", "all"):
+        lib = host_library(os.path.join(csrc, "norm_conv.cu"), out)
+        for i, case in enumerate(NC_CASES):
+            n, h, cin, cout, k, s, p, dtype, relu, pro, stats, t, sp = case
+            x, w, sc, sh = nc_inputs(n, h, cin, cout, k, dtype,
+                                     torch.Generator().manual_seed(i))
+            *got, plan = nc_on_host(lib, x, w, sc, sh, k, s, p, relu, pro,
+                                    stats, t, sp)
+            errs = nc_errors(case, got, torch.Generator().manual_seed(i))
+            print("host_emu nc case=%d x=%s w=%s s=%d p=%d %s relu=%d "
+                  "prologue=%d tile=%dx%d splits=%d vec=%s rel_err y=%.3g "
+                  "sum=%s sumsq=%s" % (
+                      i, tuple(x.shape), tuple(w.shape), s, p,
+                      str(dtype).split(".")[1], relu, pro, plan[1], plan[2],
+                      plan[3], nc.vec_flags(x, w, sc.to(dtype),
+                                            sh.to(dtype)),
+                      errs[0], errs[1], errs[2]), flush=True)
+    if args.kernel == "nc":
+        return
+    lib = host_library(os.path.join(csrc, "flash_attention_bwd.cu"), out)
     other = args.against and host_library(args.against,
                                           os.path.join(out, "against"))
     gen = torch.Generator().manual_seed(0)

@@ -8,7 +8,9 @@ tensor the kernel cannot take raises; nothing falls back to the plain
 version.
 
 The kernel is compiled for ``sm_90a`` at its first use and loaded with ctypes
-(``kernel_build``).  ``launches`` counts the kernel's launches.
+(``kernel_build``).  ``launches`` counts ``norm_conv`` calls that launched the
+kernel: one launch each, split-K included (the slice blocks of a tile sum
+their partials inside that launch).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from ..base import MXNetError
 from .kernel_build import CudaLibrary
 
 __all__ = ["norm_conv", "norm_conv_ref", "norm_conv_available",
-           "geometry_ok", "build", "launches"]
+           "geometry_ok", "build", "launches", "plan", "vec_flags"]
 
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
@@ -30,12 +32,19 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib):
-    lib.nc_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 \
+    lib.nc_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.nc_plan.restype = ctypes.c_int
+    lib.nc_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 \
         + [ctypes.c_void_p]
     lib.nc_launch.restype = ctypes.c_int
 
 
 _kernel = CudaLibrary("norm_conv", _bind)
+# {(device index, n, oh, ow, cin, cout, k, forced tile and S):
+#  (tile, bm, bn, S, tiles)}
+_plans = {}
+# {(device index, stream): int32 counters, all 0 between launches}
+_counters = {}
 
 
 def _geom(h, w, k, s, p):
@@ -57,9 +66,13 @@ def norm_conv_available(x_shape, w_shape, stride, pad, dtype=torch.float32):
     """Shape guard of the CUDA kernel.
 
     x_shape: (N, H, W, Cin) channel-last; w_shape: (K, K, Cin, Cout) HWIO.
-    The kernel streams fixed 64 x 64 output tiles through 16-channel steps,
-    so its shared memory does not grow with the image: unlike the TPU
-    guard's VMEM budget there is no size limit.  It admits every geometry
+    The kernel streams 64 x 64 or 64 x 128 output tiles (pixels x output
+    channels, chosen by grid size) through steps of one tap and 16 input
+    channels, and splits the reduction over several blocks (split-K) where
+    the grid has fewer than two tiles an SM; its shared memory does not
+    grow with the image, so unlike the TPU guard's VMEM budget there is no
+    size limit.  Channel counts need not be multiples of 4 or of a tile
+    (ragged pieces are read element by element).  It admits every geometry
     of :func:`geometry_ok` in float32 and bfloat16."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
@@ -99,6 +112,79 @@ def build():
     return _kernel.build()
 
 
+def vec_flags(x, w, scale, shift):
+    """(vec_x, vec_w): whether the kernel may read x, scale and shift in
+    16-byte pieces along channels (Cin a multiple of 16 bytes' elements and
+    every base 16-byte aligned), and w along Cout; otherwise it reads them
+    element by element."""
+    per = 16 // x.element_size()
+    vec_x = x.shape[3] % per == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, scale, shift))
+    vec_w = w.shape[3] % per == 0 and w.data_ptr() % 16 == 0
+    return int(vec_x), int(vec_w)
+
+
+def plan(lib, x_shape, w_shape, stride, pad, tile=-1, splits=0,
+         device_index=None):
+    """(tile, BM, BN, S, tiles) of the kernel for these shapes: the output
+    tile (0: 64 x 64, 1: 64 x 128) and S, the split-K slices, chosen by
+    ``nc_plan`` from the grid and the current device's SM count (or forced,
+    ``tile`` >= 0, ``splits`` >= 1), and the number of output tiles."""
+    n, h, wd, cin = x_shape
+    k, cout = w_shape[0], w_shape[3]
+    oh, ow = _geom(h, wd, k, stride, pad)
+    key = (device_index, n, oh, ow, cin, cout, k, tile, splits)
+    got = _plans.get(key)
+    if got is None:
+        out = (ctypes.c_int * 5)()
+        if lib.nc_plan(n, oh, ow, cin, cout, k, tile, splits, out):
+            raise MXNetError("norm_conv: no kernel plan for x %s, w %s "
+                             "(tile %d, splits %d)" % (tuple(x_shape),
+                                                       tuple(w_shape), tile,
+                                                       splits))
+        got = _plans[key] = tuple(out)
+    return got
+
+
+def scratch(p, device, stream=None):
+    """(workspace, counters) of a launch with plan ``p``: S partial tiles
+    for each output tile, from the caching allocator on the current stream,
+    and the int32 tile counters, which the kernel leaves at 0 (one zeroed
+    buffer for each device and stream, grown as needed); (None, None)
+    without split-K."""
+    _, bm, bn, splits, tiles = p
+    if splits == 1:
+        return None, None
+    ws = torch.empty(tiles * splits * bm * bn, dtype=torch.float32,
+                     device=device)
+    key = (device, stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = _counters[key] = torch.zeros(max(tiles, 1024),
+                                           dtype=torch.int32, device=device)
+    return ws, cnt
+
+
+def launch(lib, x, w, sc, sh, y, ysum, ysq, kernel, stride, pad, relu,
+           prologue, stats, p, stream):
+    """One ``nc_launch`` of ``lib`` with plan ``p`` on the given stream
+    (None on the CPU, where ``bench/host_emu.py`` runs the source); returns
+    its error code."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    oh, ow = _geom(h, wd, kernel, stride, pad)
+    ws, cnt = scratch(p, x.device, stream)
+    vec_x, vec_w = vec_flags(x, w, sc, sh)
+    return lib.nc_launch(
+        x.data_ptr(), w.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+        y.data_ptr(), ysum.data_ptr() if stats else None,
+        ysq.data_ptr() if stats else None,
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), n, h, wd, cin, cout, kernel,
+        stride, pad, oh, ow, int(relu), int(prologue), int(stats),
+        int(x.dtype == torch.bfloat16), vec_x, vec_w, p[0], p[3], stream)
+
+
 def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
     global launches
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
@@ -134,13 +220,11 @@ def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
         ysum = torch.zeros(cout, dtype=torch.float32, device=x.device)
         ysq = torch.zeros_like(ysum)
     with torch.cuda.device(x.device):
+        p = plan(lib, x.shape, w.shape, stride, pad,
+                 device_index=x.device.index)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nc_launch(
-            x.data_ptr(), w.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-            y.data_ptr(), ysum.data_ptr() if stats else None,
-            ysq.data_ptr() if stats else None, n, h, wd, cin, cout, kernel,
-            stride, pad, oh, ow, int(relu), int(prologue), int(stats),
-            int(x.dtype == torch.bfloat16), stream)
+        err = launch(lib, x, w, sc, sh, y, ysum, ysq, kernel, stride, pad,
+                     relu, prologue, stats, p, stream)
     _kernel.check(err, "norm_conv")
     launches += 1
     return y, ysum, ysq
