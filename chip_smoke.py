@@ -25,9 +25,12 @@ fatal on failure:
 4. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
-   shapes of FLASH_CHECKS, each in float32 and bfloat16; at each, the
-   kernel, the plain version and PyTorch's scaled_dot_product_attention
-   (the yardstick; the port never calls it) are timed beside the bound;
+   shapes of FLASH_CHECKS, each in float32 and bfloat16: within O_TOL and
+   LSE_TOL, finite, o and lse bitwise equal over two launches; the tile
+   the kernel took (``fwd_plan``) and whether it read rows in 16-byte
+   pieces are printed; the kernel, the plain version and PyTorch's
+   scaled_dot_product_attention (the yardstick; the port never calls it)
+   are timed beside the bound;
 5. lm: the transformer LM at GPT-2-small widths (12 layers, 768 hidden,
    12 heads, T=1024, vocab 50257, random weights from a seed) loaded
    through its JSON into ``Predictor`` at batch 4; 3 batches after one
@@ -497,11 +500,14 @@ def bound(ops, nbytes, dname):
 
 
 def flash_check(torch, fa, q, k, v, causal, scale, label):
-    """Kernel vs plain version on the same inputs; returns (max |do|,
-    max |dlse|)."""
+    """Kernel vs plain version on the same inputs, and the kernel against
+    itself over two launches; returns (max |do|, max |dlse|)."""
     ok, lk = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    ok2, lk2 = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     op, lp = fa.flash_attention_ref(q, k, v, causal, scale)
     torch.cuda.synchronize()
+    if not (torch.equal(ok, ok2) and torch.equal(lk, lk2)):
+        fail("flash %s: o or lse differs between two launches" % label)
     dname = str(q.dtype).split(".")[1]
     err = (ok.float() - op.float()).abs().max().item()
     ref = op.float().abs().max().item()
@@ -545,6 +551,16 @@ def flash_phase(torch, fa):
     out = {}
     cases = [(lm_shape, True, None, True)] + [c + (False,)
                                               for c in FLASH_CHECKS]
+    # the card's clocks drop in the earlier phases' idle gaps; 0.2 s of the
+    # kernel first, so that the phase's first timing is not taken on the
+    # way back up
+    q, k, v = lm_qkv(torch, torch.Generator(device="cuda").manual_seed(SEED),
+                     *lm_shape, torch.float32)
+    t_end = time.perf_counter() + 0.2
+    while time.perf_counter() < t_end:
+        for _ in range(ITERS):
+            fa.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
     for shape, causal, scale, main in cases:
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[1]
@@ -558,6 +574,7 @@ def flash_phase(torch, fa):
                 " lm-strided" if main else "")
             err, lerr = flash_check(torch, fa, q, k, v, causal, scale,
                                     label)
+            tile, nth, bq, bk, dmax, blocks, bufs = fa.fwd_plan(shape)
             kernel_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
                 q, k, v, causal=causal, scale=scale))
             plain_ms = time_ms(torch, lambda: fa.flash_attention_ref(
@@ -569,9 +586,13 @@ def flash_phase(torch, fa):
                 *flash_work(*shape, causal, q.element_size()), dname)
             print("flash %s max_abs_err=%r lse_max_abs_err=%r kernel_ms=%r "
                   "plain_ms=%r library_ms=%r bound_ms=%r bound_by=%s "
-                  "sdpa_kernels=%s"
+                  "tile=%d threads=%d bq=%d bk=%d d_bucket=%d "
+                  "blocks_per_sm=%d kv_buffers=%d vec16=%d "
+                  "bitwise_repeat=True sdpa_kernels=%s"
                   % (label, err, lerr, kernel_ms, plain_ms, library_ms,
-                     bound_ms, bound_by, sdpa_backend(torch, library)))
+                     bound_ms, bound_by, tile, nth, bq, bk, dmax, blocks,
+                     bufs, fa.aligned16(q, k, v),
+                     sdpa_backend(torch, library)))
             if main and dt == torch.float32:
                 out = {"ms": kernel_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
@@ -751,6 +772,16 @@ def flash_bwd_phase(torch, fa):
     out = {}
     cases = [(lm_shape, True, None, True)] + [c + (False,)
                                               for c in FLASH_CHECKS]
+    # the card's clocks drop in the earlier phases' idle gaps; 0.2 s of the
+    # kernel first, so that the phase's first timing is not taken on the
+    # way back up
+    q, k, v = lm_qkv(torch, torch.Generator(device="cuda").manual_seed(SEED),
+                     *lm_shape, torch.float32)
+    t_end = time.perf_counter() + 0.2
+    while time.perf_counter() < t_end:
+        for _ in range(ITERS):
+            fa.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
     for shape, causal, scale, main in cases:
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[1]

@@ -1,11 +1,14 @@
-// Host emulation of the CUDA subset that the port's flash-attention
-// backward and NormConv kernels use, so that their source compiles with a
-// host C++20 compiler and runs on the CPU (host_emu.py).  A launch runs its
-// blocks one after another (x fastest, then y, then z); a block runs one
-// std::thread per CUDA thread, and __syncthreads is a barrier.  Atomics are
-// std::atomic_ref operations and __threadfence a sequentially consistent
-// fence; as blocks run in order, the last of a tile's split-K slices is
-// always the block with the highest z.
+// Host emulation of the CUDA subset that the port's flash-attention and
+// NormConv kernels use, so that their source compiles with a host C++20
+// compiler and runs on the CPU (host_emu.py).  A launch runs its blocks
+// one after another (x fastest, then y, then z) on one std::thread per
+// CUDA thread, and __syncthreads is a barrier.  A warp shuffle
+// (__shfl_xor_sync, full mask, blocks of whole warps) posts each lane's
+// value to a slot of its warp, waits at the warp's barrier, reads its
+// partner's slot and waits again before the slots are reused.
+// Atomics are std::atomic_ref operations and __threadfence a sequentially
+// consistent fence; as blocks run in order, the last of a tile's split-K
+// slices is always the block with the highest z.
 // Dynamic shared memory is one static buffer, filled with NaN bytes before
 // each block so that a read of an unwritten element shows in the output.
 // Float arithmetic is the host's: fmaf is a fused multiply-add as on the
@@ -17,6 +20,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <math.h>
 #include <thread>
 #include <vector>
@@ -119,6 +123,22 @@ inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 alignas(16) inline float4 emu_smem[EMU_SMEM / 16];
 
+inline std::deque<std::barrier<>>* emu_warp_barriers = nullptr;
+inline uint64_t emu_shfl_slots[1024];
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "shuffle of a wide type");
+  const unsigned t = threadIdx.x, base = t & ~31u;
+  std::barrier<>& bar = (*emu_warp_barriers)[t / 32];
+  std::memcpy(&emu_shfl_slots[t], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &emu_shfl_slots[base + ((t - base) ^ (unsigned)lane_mask)],
+              sizeof(T));
+  bar.arrive_and_wait();
+  return r;
+}
+
 // kernel<<<grid, threads, smem, stream>>>(args...) is rewritten into
 // emu_launch(kernel, grid, threads, smem, stream, args...)
 template <typename K, typename... A>
@@ -130,19 +150,27 @@ inline void emu_launch(K kernel, dim3 grid, unsigned threads, size_t smem,
   }
   gridDim = grid;
   blockDim = dim3(threads);
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::memset(emu_smem, 0xff, smem);
-        std::barrier<> bar(threads);
-        emu_barrier = &bar;
-        std::vector<std::thread> pool;
-        for (unsigned t = 0; t < threads; ++t)
-          pool.emplace_back([&, t] {
-            threadIdx = dim3(t);
+  std::barrier<> bar(threads);
+  emu_barrier = &bar;
+  std::deque<std::barrier<>> warps;
+  for (unsigned w = 0; w < threads; w += 32)
+    warps.emplace_back(threads - w < 32 ? threads - w : 32);
+  emu_warp_barriers = &warps;
+  // one std::thread per CUDA thread for the whole launch, walking the
+  // blocks in order; thread 0 refills shared memory between two blocks
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned bz = 0; bz < grid.z; ++bz)
+        for (unsigned by = 0; by < grid.y; ++by)
+          for (unsigned bx = 0; bx < grid.x; ++bx) {
+            if (t == 0) std::memset(emu_smem, 0xff, smem);
+            bar.arrive_and_wait();
             blockIdx = dim3(bx, by, bz);
             kernel(args...);
-          });
-        for (auto& th : pool) th.join();
-      }
+            bar.arrive_and_wait();
+          }
+    });
+  for (auto& th : pool) th.join();
 }

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's CUDA kernel sources on the CPU.
 
-    python3 mxnet_tpu_torch/bench/host_emu.py [--kernel bwd|nc|all]
+    python3 mxnet_tpu_torch/bench/host_emu.py [--kernel fwd|bwd|nc|all]
                                               [--against OTHER.cu]
 
 ``host_library`` rewrites a source of ``csrc/`` into host C++ (each
@@ -14,7 +14,13 @@ tiling, masks and sum order can be checked where there is no card, at
 small shapes.  What only the card shows (timing, registers, the
 shared-memory banks) it does not.
 
-Run as a script, it launches both backward kernels of
+Run as a script, it launches the forward kernel of
+``csrc/flash_attention.cu`` at the small shapes of ``FWD_CASES`` (every D
+bucket and both sides of the tile choice by grid size, float32 and
+bfloat16, causal and full, a given scale, contiguous, LM-strided and
+unaligned rows) and prints the plan it took, o's and lse's errors against
+``flash_attention_ref`` and whether both are bitwise equal over two
+launches; then both backward kernels of
 ``csrc/flash_attention_bwd.cu`` at small shapes of every D bucket (float32
 and bfloat16, causal and full, contiguous, LM-strided and unaligned rows),
 prints each output's error against the plain backward, relative to its
@@ -46,7 +52,8 @@ from mxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxnet_tpu_torch.ops import norm_conv as nc  # noqa: E402
 from mxnet_tpu_torch.ops.kernel_build import c_argtypes  # noqa: E402
 
-__all__ = ["translate", "host_library", "bwd_on_host", "nc_on_host"]
+__all__ = ["translate", "host_library", "fwd_on_host", "bwd_on_host",
+           "nc_on_host"]
 
 
 def translate(text):
@@ -84,6 +91,24 @@ def host_library(cu, out_dir):
         fn.argtypes = c_argtypes(text, name)
         fn.restype = ctypes.c_int
     return lib
+
+
+def fwd_on_host(lib, q, k, v, causal=False, scale=None):
+    """(o, lse, plan) of the forward kernel of ``lib`` on CPU tensors,
+    launched as ``ops/flash_attention._launch`` launches it on the card;
+    plan is ``fwd_plan``'s tuple (the emulated card has 4 SMs)."""
+    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    b, h, t, d = q.shape
+    o = torch.full(q.shape, float("nan"), dtype=q.dtype)
+    lse = torch.full((b, h, t, 1), float("nan"))
+    err = lib.flash_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, h, t, d, fa._scale(d, scale), int(causal),
+        int(q.dtype == torch.bfloat16), int(fa.aligned16(q, k, v)), None)
+    if err:
+        raise MXNetError("host_emu: launch refused (%d)" % err)
+    return o, lse, fa.fwd_plan(q.shape, lib)
 
 
 def bwd_on_host(lib, q, k, v, o, lse, do, causal=False, scale=None):
@@ -205,6 +230,29 @@ CASES = [((1, 2, 128, 64), True, torch.float32, "contiguous"),
          ((1, 1, 128, 16), False, torch.float32, "unaligned")]
 
 
+# (B, H, T, D), causal, dtype, layout, scale: the forward's six tiles (the
+# emulated card has 4 SMs, so a grid of fewer than 4 64-query blocks takes
+# the small-grid tile of its D bucket), D 8 to 256 with 72, 96 and 136
+# between the buckets' edges, rows read in 16-byte pieces (contiguous,
+# LM-strided) and element by element (unaligned)
+FWD_CASES = [((1, 1, 256, 64), True, torch.float32, "contiguous", None),
+             ((1, 1, 128, 64), False, torch.float32, "contiguous", None),
+             ((1, 1, 128, 8), True, torch.float32, "contiguous", None),
+             ((1, 1, 128, 16), False, torch.bfloat16, "unaligned", None),
+             ((1, 2, 256, 64), True, torch.float32, "lm-strided", None),
+             ((1, 1, 256, 64), True, torch.bfloat16, "lm-strided", None),
+             ((1, 1, 256, 64), False, torch.float32, "contiguous", 0.3),
+             ((1, 1, 128, 64), True, torch.float32, "unaligned", None),
+             ((1, 1, 256, 72), True, torch.float32, "contiguous", None),
+             ((1, 1, 128, 72), False, torch.bfloat16, "contiguous", None),
+             ((1, 1, 256, 128), True, torch.float32, "contiguous", None),
+             ((1, 1, 128, 96), False, torch.bfloat16, "contiguous", None),
+             ((1, 1, 128, 128), True, torch.bfloat16, "unaligned", None),
+             ((1, 1, 128, 136), True, torch.float32, "contiguous", None),
+             ((1, 1, 256, 256), True, torch.bfloat16, "contiguous", None),
+             ((1, 1, 128, 256), False, torch.float32, "lm-strided", None)]
+
+
 def inputs(shape, dtype, layout, gen):
     """q, k, v, dO on the CPU: contiguous, strided as the LM makes them, or
     views whose row stride is not a multiple of 16 bytes"""
@@ -223,7 +271,8 @@ def inputs(shape, dtype, layout, gen):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("bwd", "nc", "all"), default="all")
+    ap.add_argument("--kernel", choices=("fwd", "bwd", "nc", "all"),
+                    default="all")
     ap.add_argument("--against", help="another flash_attention_bwd.cu whose "
                     "outputs are compared bit for bit")
     args = ap.parse_args()
@@ -246,7 +295,27 @@ def main():
                       plan[3], nc.vec_flags(x, w, sc.to(dtype),
                                             sh.to(dtype)),
                       errs[0], errs[1], errs[2]), flush=True)
-    if args.kernel == "nc":
+    if args.kernel in ("fwd", "all"):
+        lib = host_library(os.path.join(csrc, "flash_attention.cu"), out)
+        for i, (shape, causal, dtype, layout, scale) in enumerate(FWD_CASES):
+            q, k, v, _ = inputs(shape, dtype, layout,
+                                torch.Generator().manual_seed(i))
+            o, lse, plan = fwd_on_host(lib, q, k, v, causal, scale)
+            o2, lse2, _ = fwd_on_host(lib, q, k, v, causal, scale)
+            want, wlse = fa.flash_attention_ref(q, k, v, causal, scale)
+            print("host_emu fwd shape=%s %s %s %s scale=%s tile=%d "
+                  "threads=%d bq=%d bk=%d vec=%s rel_err o=%.3g lse=%.3g "
+                  "bitwise_repeat=%s" % (
+                      shape, "causal" if causal else "full",
+                      str(dtype).split(".")[1], layout, scale, plan[0],
+                      plan[1], plan[2], plan[3], fa.aligned16(q, k, v),
+                      ((o.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item(),
+                      ((lse - wlse).abs().max()
+                       / wlse.abs().max().clamp_min(1)).item(),
+                      torch.equal(o, o2) and torch.equal(lse, lse2)),
+                  flush=True)
+    if args.kernel not in ("bwd", "all"):
         return
     lib = host_library(os.path.join(csrc, "flash_attention_bwd.cu"), out)
     other = args.against and host_library(args.against,

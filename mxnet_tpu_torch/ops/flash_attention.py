@@ -20,6 +20,8 @@ be the last axis), so the (B, H, T, D) views that the transformer's
 ``slice_axis`` over ``transpose`` produces, and the permuted gradient of its
 output transpose, reach them without a copy.  They are compiled for
 ``sm_90a`` at their first use and loaded with ctypes (``kernel_build``).
+Each reads rows in 16-byte pieces where ``aligned16`` holds and element by
+element otherwise; ``fwd_plan`` reports the forward's tile for a shape.
 ``launches``, ``bwd_dq_launches`` and ``bwd_dkv_launches`` count the
 launches of the three kernels.
 """
@@ -36,7 +38,7 @@ from .kernel_build import CudaLibrary
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref", "FlashAttention",
            "flash_available", "build", "build_bwd", "launches",
-           "bwd_dq_launches", "bwd_dkv_launches", "aligned16"]
+           "bwd_dq_launches", "bwd_dkv_launches", "aligned16", "fwd_plan"]
 
 # kernel launches since import (or since a caller reset them to 0): the
 # forward, the dQ kernel and the dK/dV kernel
@@ -51,10 +53,14 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib):
+    # q, k, v and the outputs (o, lse), 9 strides, B, H, T, D, scale, then
+    # causal, bf16 and the 16-byte alignment flag
     lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 5 \
         + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.flash_fwd_launch.restype = ctypes.c_int
+    lib.flash_fwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.flash_fwd_plan.restype = ctypes.c_int
 
 
 def _bind_bwd(lib):
@@ -86,11 +92,12 @@ def build_bwd():
 
 def flash_available(q_shape, k_shape=None, v_shape=None,
                     dtype=torch.float32):
-    """Shape guard of the kernel: the JAX guard's clauses (self-attention,
+    """Shape guard of the kernels: the JAX guard's clauses (self-attention,
     rank 4, T a multiple of 128 and at least 128, D a multiple of 8 and at
-    most 256) without its VMEM budget, which is the TPU's: the kernel
-    stages 64-row tiles of K and V, so its shared memory does not grow with
-    T.  float32 and bfloat16."""
+    most 256) without its VMEM budget, which is the TPU's: each kernel
+    streams one operand through shared memory in tiles of 32 or 64 rows,
+    sized by D alone, so its shared memory does not grow with T.  float32
+    and bfloat16."""
     if len(q_shape) != 4 or dtype not in _KERNEL_DTYPES:
         return False
     for other in (k_shape, v_shape):
@@ -145,11 +152,25 @@ def _unit_last(*xs):
 
 def aligned16(*xs):
     """Whether every (B, H, T, D) tensor's base and (b, h, t) strides are
-    multiples of 16 bytes, so that the backward kernels may read each row
-    in 16-byte pieces; otherwise they read them element by element."""
+    multiples of 16 bytes, so that the kernels may read each row in 16-byte
+    pieces; otherwise they read them element by element."""
     return all(x.data_ptr() % 16 == 0
                and all(s * x.element_size() % 16 == 0
                        for s in x.stride()[:3]) for x in xs)
+
+
+def fwd_plan(shape, lib=None):
+    """(tile, threads, BQ, BK, D bucket, blocks an SM, K/V buffers) that the
+    forward kernel takes for a (B, H, T, D) shape on the current device
+    (``flash_fwd_plan``: the tile by D bucket, and the bucket's small-grid
+    tile where a grid of 64-query tiles has fewer blocks than the card has
+    SMs).  ``lib``: the library to ask, by default the forward's."""
+    lib = lib or _kernel.get()
+    out = (ctypes.c_int * 7)()
+    if lib.flash_fwd_plan(*(int(n) for n in shape), out):
+        raise MXNetError("flash_attention: no kernel plan for %s"
+                         % (tuple(shape),))
+    return tuple(out)
 
 
 def _launch(q, k, v, causal, scale):
@@ -166,7 +187,7 @@ def _launch(q, k, v, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], b, h, t, d, _scale(d, scale), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            int(q.dtype == torch.bfloat16), int(aligned16(q, k, v)), stream)
     _kernel.check(err, "flash_attention")
     launches += 1
     return o, lse

@@ -282,6 +282,7 @@ def test_bwd_kernels_on_host_emulation(case, host_bwd):
 
 
 LAUNCHERS = [(pfa._bind, "flash_attention", "flash_fwd_launch"),
+             (pfa._bind, "flash_attention", "flash_fwd_plan"),
              (pfa._bind_bwd, "flash_attention_bwd", "flash_bwd_dq_launch"),
              (pfa._bind_bwd, "flash_attention_bwd", "flash_bwd_dkv_launch"),
              (pnc._bind, "norm_conv", "nc_launch"),
