@@ -22,7 +22,21 @@ fatal on failure:
    max_batch 8, 24 requests from 4 client threads; every request answered,
    the kernel launched 52 times per forward, and every served row equal
    (within SERVE_TOL) to an unfused ``Predictor`` (cuDNN, TF32 off);
-4. flash: the flash-attention forward kernel against its plain version
+4. resnet50_train: ResNet-50 at full width and depth (1000 classes,
+   3x224x224) trained through ``TrainStep`` unfused (MXNET_NORM_CONV=0, so
+   no port kernel runs; the NormConv kernel must launch 0 times).  (a) One
+   SGD-momentum step at batch 4 from a seed-0 state, float32 on the card,
+   against the same step in float64 on the CPU: every parameter's gradient
+   (its first momentum) and every moving statistic within RESNET_FLOOR_X
+   times its own float32 floor (float32 steps on the CPU against float64,
+   by largest entry and by norm), and the same step in float64 on the
+   card within RESNET_F64_TOL; (b) the loss lower after 9
+   steps on that batch than after the first; (c) batch 32 through
+   ``bench/resnet50_train.py``'s ``setup`` and ``timed_chunks`` (fewer
+   rounds than its default): img/s, host ms a step, peak memory, and a
+   torch.profiler breakdown of one step (convolutions and the FC's GEMM,
+   BatchNorm and the other elementwise work, the SGD rule);
+5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
    shapes of FLASH_CHECKS, each in float32 and bfloat16: within O_TOL and
@@ -31,14 +45,14 @@ fatal on failure:
    pieces are printed; the kernel, the plain version and PyTorch's
    scaled_dot_product_attention (the yardstick; the port never calls it)
    are timed beside the bound;
-5. lm: the transformer LM at GPT-2-small widths (12 layers, 768 hidden,
+6. lm: the transformer LM at GPT-2-small widths (12 layers, 768 hidden,
    12 heads, T=1024, vocab 50257, random weights from a seed) loaded
    through its JSON into ``Predictor`` at batch 4; 3 batches after one
    warm forward; the kernel launched 12 times per forward, and the
    probabilities equal (within LM_TOL) to a second ``Predictor`` of the
    same weights with ``attn_impl="xla"``, which launches it never; host
    time per forward and a torch.profiler breakdown of one forward;
-6. flash_bwd: the flash-attention backward kernels (dQ, dK/dV) against the
+7. flash_bwd: the flash-attention backward kernels (dQ, dK/dV) against the
    plain backward (TF32 off) at the LM's shape, causal, with q, k, v made
    as the LM makes them and dO a permuted view of a contiguous (B, T, H, D)
    tensor (the gradient of the LM's output transpose), and at the shapes of
@@ -46,7 +60,7 @@ fatal on failure:
    equal over two runs; the dQ kernel, the dK/dV kernel, the whole backward
    (delta + both), the plain backward and SDPA's backward (the yardstick)
    timed beside each kernel's bound;
-7. lm_train: the LM at GPT-2-small widths trained through the port.  (a)
+8. lm_train: the LM at GPT-2-small widths trained through the port.  (a)
    One batch through ``Executor`` forward(is_train=True) + backward() on
    the kernel graph and on the attn_impl="xla" graph: every parameter's
    gradient within LM_GRAD_TOL (largest entry) and LM_GRAD_NORM_TOL
@@ -61,14 +75,14 @@ fatal on failure:
    graph_device: a graph of ``_ones`` plus a data variable, and one of a
    uniform sampler plus a data variable, bound to gpu(0), forward on the
    card with the right values;
-8. imperative: the LM's 163,087,441 float32 parameters as NDArrays on the
+9. imperative: the LM's 163,087,441 float32 parameters as NDArrays on the
    card with gradients drawn on the card (``mx.nd.normal`` from the card's
    generator); three ``Updater`` passes with Adam over every parameter, and
    three with SGD-momentum, each held within IMPERATIVE_TOL to TrainStep's
    fused rule (``_FunctionalOptimizer``) on copies of the same tensors; host
    ms per pass, device ms and launches of one profiled pass, and the fused
    rule's ms per pass;
-9. rtc: four user kernels written in CUDA C (``rtc_kernels.py``) pushed
+10. rtc: four user kernels written in CUDA C (``rtc_kernels.py``) pushed
    through ``rtc.Rtc`` once each (the path whose launches are counted):
    axpb over 163,087,441 floats, exp5_shared over 10, transpose_tiled of
    the LM's (50257, 768) lm_head weight, sgd_mom in place over one buffer
@@ -80,7 +94,8 @@ fatal on failure:
    a syntax error must raise MXNetError carrying nvcc's log.
 
 Prints the card's name and power limit, per-geometry numbers, serving qps
-and latency, flash timings, LM checks and profiles, flash backward timings,
+and latency, the ResNet-50 training check, rate and profile, flash
+timings, LM checks and profiles, flash backward timings,
 LM training checks, rates and profile, Updater and Rtc numbers, a JSON line
 of kernel numbers, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -145,6 +160,43 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # both.  A fault in a kernel or in its autograd wiring moves both by O(1).
 LM_GRAD_TOL = 5e-2
 LM_GRAD_NORM_TOL = 5e-3
+# ResNet-50 training: one SGD-momentum step at full width and depth
+# (224x224, 1000 classes), batch RESNET_CHECK_BATCH, float32 on the card
+# (TF32 off) against the same step in float64 on the CPU, from one state.
+# wd is 0 in the check, so each parameter's first momentum is -lr *
+# rescale_grad * its gradient (one float32 rounding of it).  Per gradient
+# and moving statistic, the LM phase's two measures: max |d| / max |g| and
+# ||d|| / ||g||.  BatchNorm's E[x^2] - mean^2 cancels in float32 and ReLU
+# gates flip where the pre-activation sits within rounding of 0 (at batch
+# 4 a flip moves a channel's statistics and every gradient below it), so
+# each leaf has a float32 floor of its own, small for the moving
+# statistics and up to 0.37 by max for stage 4's weights.  The phase
+# measures it beside the check: the float32 step on the CPU against
+# float64, from the state and from RESNET_FLOOR_SAMPLES - 1 nudges of it
+# (each value times 1 + u *
+# RESNET_FLOOR_NUDGE, u uniform in [-1, 1]; 2^-18 is about the rounding a
+# float32 convolution accumulates over its ~2,000-term sums, so the card's
+# own rounding moves a leaf about as far as a nudge does); a leaf's floor
+# is the largest of these, per measure.  Each leaf is held to
+# RESNET_FLOOR_X times its floor, or times RESNET_FLOOR_MIN where the
+# floor is smaller.  On an H100 80GB HBM3 at 700 W the card's worst leaf
+# stood at 0.95x its floor by max and 0.65x in norm; BatchNorm's
+# statistics, dx or dgamma/dbeta cast to bfloat16, or cuDNN's TF32, each
+# put some leaf at 22-3600x (mxnet_tpu_torch/bench/resnet_check_faults.py).
+# The same step in float64 on the card has no such floor and is held to
+# RESNET_F64_TOL (max |d| / max |g|).
+RESNET_CHECK_BATCH = 4
+RESNET_FLOOR_SAMPLES = 4
+RESNET_FLOOR_NUDGE = 2.0 ** -18
+RESNET_FLOOR_X = 4.0
+RESNET_FLOOR_MIN = 1e-6
+RESNET_F64_TOL = 1e-9
+RESNET_LR = 0.1
+# the timed run: resnet50_train.py's function at its batch (32), with
+# fewer rounds than its default, so the phase fits the script's limit
+RESNET_TRAIN_BATCH = 32
+RESNET_TRAIN_CHUNK = 4
+RESNET_TRAIN_ROUNDS = 2
 LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_hidden=768,
           num_heads=12)
 LM_LR = 1e-4
@@ -180,6 +232,15 @@ ITERS = 20
 def fail(msg):
     print("FAIL: %s" % msg, file=sys.stderr)
     sys.exit(1)
+
+
+def is_kernel(e, device_type):
+    """A profile row of work on the card: a CUDA event that is not a
+    user annotation (``TrainStep.update`` is recorded on the card's
+    timeline too, spanning the kernels it launched)."""
+    return (e.device_type == device_type.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key != "TrainStep.update")
 
 
 def time_ms(torch, fn, iters=ITERS):
@@ -440,13 +501,256 @@ def serving_phase(torch, mt, nc, launches_per_forward):
     return launches
 
 
-def forward_breakdown(torch, mt, net, blob, x, reps=5):
-    """One batch-8 Predictor forward, unfused and fused: host time per
-    forward (input staging included, ending in a synchronize), and for the
-    fused one the device time by kernel from torch.profiler."""
+def resnet50_state(mt, net, batch):
+    """Seed-SEED parameters (the TrainStep initializer on the host), zero
+    momenta, moving statistics and a batch, as float64 numpy."""
+    ts = mt.TrainStep(net, mt.optimizer.SGD(learning_rate=RESNET_LR,
+                                            momentum=0.9), ctx=mt.cpu())
+    p, s, a = ts.init({"data": (batch, 3, IMAGE, IMAGE)},
+                      {"softmax_label": (batch,)}, seed=SEED)
+    rng = np.random.default_rng(SEED + 5)
+    aux = {n: v.double().numpy() + rng.uniform(-0.1, 0.1, v.shape)
+           for n, v in a.items()}
+    data = {"data": rng.uniform(-1, 1, (batch, 3, IMAGE, IMAGE)),
+            "softmax_label": rng.integers(0, CLASSES, batch).astype(
+                np.float64)}
+    return ({n: v.double().numpy() for n, v in p.items()},
+            {n: tuple(x.double().numpy() for x in st) for n, st in s.items()},
+            aux, data)
+
+
+def nudged(state, seed):
+    """``state`` with each float value times 1 + u * RESNET_FLOOR_NUDGE, u
+    uniform in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+
+    def nudge(v):
+        return v * (1 + RESNET_FLOOR_NUDGE * rng.uniform(-1, 1, np.shape(v)))
+    params, opt_state, aux, data = state
+    return ({n: nudge(v) for n, v in params.items()},
+            {n: tuple(nudge(x) for x in st) for n, st in opt_state.items()},
+            {n: nudge(v) for n, v in aux.items()},
+            {"data": nudge(data["data"]),
+             "softmax_label": data["softmax_label"]})
+
+
+def resnet50_trainer(mt, net, state, ctx, dtype, batch):
+    """A TrainStep with the check's optimizer on ``ctx`` and its state,
+    parameters and batch at ``dtype``."""
+    params, opt_state, aux, data = state
+    ts = mt.TrainStep(net, mt.optimizer.SGD(
+        learning_rate=RESNET_LR, momentum=0.9, rescale_grad=1.0 / batch),
+        ctx=ctx)
+    p, s, a = mt.convert.train_state_from_numpy(
+        {n: v.astype(dtype) for n, v in params.items()},
+        {n: tuple(x.astype(dtype) for x in st)
+         for n, st in opt_state.items()},
+        {n: v.astype(dtype) for n, v in aux.items()}, ctx=ctx)
+    return ts, p, s, a, ts.shard_batch(
+        {k: v.astype(dtype) for k, v in data.items()})
+
+
+def resnet50_step(mt, net, state, ctx, dtype, batch):
+    """One step of the check's trainer from ``state`` at ``dtype`` on
+    ``ctx``: ((first momenta, moving statistics) as float64 CPU tensors,
+    (TrainStep, params, opt_state, aux, batch, outputs) after it)."""
+    ts, p, s, a, data = resnet50_trainer(mt, net, state, ctx, dtype, batch)
+    p, s, a, outs = ts(p, s, a, data)
+    return (({n: st[0].double().cpu() for n, st in s.items()},
+             {n: v.double().cpu() for n, v in a.items()}),
+            (ts, p, s, a, data, outs))
+
+
+def resnet50_reference(mt, net, state, batch):
+    """The check's references on the CPU: (the float64 step, the
+    RESNET_FLOOR_SAMPLES float32 steps that give each leaf its floor: from
+    ``state`` and from nudges of it)."""
+    t0 = time.perf_counter()
+    want = resnet50_step(mt, net, state, mt.cpu(), np.float64, batch)[0]
+    floors = [resnet50_step(mt, net, nudged(state, SEED + 100 + i)
+                            if i else state, mt.cpu(), np.float32, batch)[0]
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    print("resnet50_train steps=cpu_f64+%d cpu_f32 seconds=%r"
+          % (RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
+    return want, floors
+
+
+def resnet_dist(got, want):
+    """(max |d| / max |w|, ||d|| / ||w||)."""
+    d = got - want
+    return ((d.abs().max() / want.abs().max().clamp_min(1e-300)).item(),
+            (d.norm() / want.norm().clamp_min(1e-300)).item())
+
+
+def resnet50_leaf_rows(torch, got, want, floors):
+    """Per gradient and moving statistic of the step ``got`` against
+    ``want``: (max_rel, norm_rel, floor max_rel, floor norm_rel, max_rel
+    and norm_rel as multiples of max(floor, RESNET_FLOOR_MIN), kind,
+    name)."""
+    rows = []
+    for k, kind in enumerate(("grad", "aux")):
+        for n, ref in want[k].items():
+            if not torch.isfinite(got[k][n]).all():
+                fail("resnet50_train: non-finite %s of %s" % (kind, n))
+            d = resnet_dist(got[k][n], ref)
+            floor = [max(m) for m in zip(*(resnet_dist(f[k][n], ref)
+                                           for f in floors))]
+            rows.append(d + tuple(floor)
+                        + tuple(x / max(f, RESNET_FLOOR_MIN)
+                                for x, f in zip(d, floor)) + (kind, n))
+    return rows
+
+
+def resnet50_train_phase(torch, mt):
+    """(a) one step on the card against the float64 step on the CPU, each
+    leaf within a multiple of its float32 floor; (b) the loss over 9 steps
+    on one batch; (c) batch 32 timed through bench/resnet50_train.py's
+    functions and one step profiled."""
+    from mxnet_tpu_torch.bench import resnet50_train as rt
+    os.environ["MXNET_NORM_CONV"] = "0"
+    net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+    b = RESNET_CHECK_BATCH
+    state = resnet50_state(mt, net, b)
+    card = {}
+    for dt in (np.float32, np.float64):
+        t0 = time.perf_counter()
+        card[dt] = resnet50_step(mt, net, state, mt.gpu(0), dt, b)
+        print("resnet50_train step=card_%s seconds=%r"
+              % (np.dtype(dt).name, time.perf_counter() - t0))
+    got, trainer = card[np.float32]
+    want, floors = resnet50_reference(mt, net, state, b)
+    rows = resnet50_leaf_rows(torch, got, want, floors)
+    f64 = max(resnet_dist(card[np.float64][0][k][n], ref)[0]
+              for k in (0, 1) for n, ref in want[k].items())
+    for col, what in ((4, "max_rel"), (5, "norm_rel")):
+        for row in sorted(rows, key=lambda r: -r[col])[:4]:
+            print("resnet50_train worst_by=floor_x_%s %s=%s max_rel=%r "
+                  "norm_rel=%r f32_floor max_rel=%r norm_rel=%r "
+                  "floor_x max=%r norm=%r" % ((what, row[6], row[7])
+                                             + row[:6]))
+    worst = [max(r[i] for r in rows) for i in range(6)]
+    print("resnet50_train check grads=%d aux=%d floor_samples=%d card_f32 "
+          "worst max_rel=%r norm_rel=%r, f32 floor worst max_rel=%r "
+          "norm_rel=%r; card_f32 worst times its leaf's floor max=%r "
+          "norm=%r (tol %g x max(floor, %g)); card_f64 worst max_rel=%r "
+          "(tol %g)"
+          % ((len(want[0]), len(want[1]), len(floors)) + tuple(worst)
+             + (RESNET_FLOOR_X, RESNET_FLOOR_MIN, f64, RESNET_F64_TOL)))
+    if f64 > RESNET_F64_TOL:
+        fail("resnet50_train: the float64 step on the card differs from "
+             "the CPU's by %.3g of the largest entry (tol %g)"
+             % (f64, RESNET_F64_TOL))
+    for rel, nrel, frel, fnrel, xr, xn, kind, n in rows:
+        if xr > RESNET_FLOOR_X or xn > RESNET_FLOOR_X:
+            fail("resnet50_train: %s of %s differs from the float64 step by "
+                 "%.3g of its largest entry and %.3g in norm, %.3g and %.3g "
+                 "times its float32 floor (%.3g, %.3g; tol %g x)"
+                 % (kind, n, rel, nrel, xr, xn, frel, fnrel,
+                    RESNET_FLOOR_X))
+
+    ts, p, s, a, batch, outs = trainer
+    lab = batch["softmax_label"].long()
+    rows_idx = torch.arange(lab.numel(), device=lab.device)
+
+    def loss(outs):
+        return -torch.log(outs[0][rows_idx, lab]).mean().item()
+    losses = [loss(outs)]
+    for _ in range(4):
+        p, s, a, outs = ts(p, s, a, batch)
+        losses.append(loss(outs))
+    p, s, a, outs = ts.run_steps(p, s, a, batch, 3)
+    losses.append(loss(outs))
+    print("resnet50_train steps=9 (1 checked + 4 calls + run_steps(3)) "
+          "batch=%d losses=%s" % (b, [round(x, 6) for x in losses]))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail("resnet50_train: the loss did not fall: %s" % losses)
+    del trainer, card, ts, p, s, a, batch, outs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, p, s, a, batch = rt.setup(batch=RESNET_TRAIN_BATCH, image=IMAGE,
+                                  num_layers=50, num_classes=CLASSES,
+                                  ctx=mt.gpu(0))
+    img_s, dt, outs = rt.timed_chunks(ts, p, s, a, batch,
+                                      chunk=RESNET_TRAIN_CHUNK,
+                                      rounds=RESNET_TRAIN_ROUNDS)
+    steps = RESNET_TRAIN_ROUNDS * (RESNET_TRAIN_CHUNK + 1)
+    if not torch.isfinite(outs[0]).all():
+        fail("resnet50_train: non-finite outputs at batch %d"
+             % RESNET_TRAIN_BATCH)
+    print("resnet50_train batch=%d img_per_s=%r host_ms_per_step=%r "
+          "(run_steps(%d) x %d after one warm chunk, one scalar fetched; "
+          "setup and warm seconds=%r) peak_mem_gb=%r (this run's)"
+          % (RESNET_TRAIN_BATCH, img_s, dt / steps * 1e3, RESNET_TRAIN_CHUNK,
+             RESNET_TRAIN_ROUNDS, time.perf_counter() - t0 - dt,
+             torch.cuda.max_memory_allocated() / 2 ** 30))
+    resnet_train_breakdown(torch, ts, p, s, a, batch)
+    return img_s
+
+
+def resnet_train_breakdown(torch, ts, params, state, aux, batch):
+    """Device time of one TrainStep call by group, from torch.profiler:
+    cuDNN's convolutions (forward, data and weight gradients, with their
+    layout transposes) and the FC's GEMM by kernel name, the SGD rule by
+    the ``TrainStep.update`` range that holds its launches, and the rest
+    (BatchNorm, ReLU gates, residual adds, pooling, the loss head)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for flag in ("0", "1"):
+    conv_keys = ("conv", "cudnn", "implicit", "dgrad", "wgrad", "xmma",
+                 "sm90_", "sm80_", "cutlass", "winograd", "fft")
+    ts(params, state, aux, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts(params, state, aux, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if is_kernel(e, DeviceType)]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    conv_us = sum(e.self_device_time_total for e in kernels
+                  if any(k in e.key.lower() for k in conv_keys))
+    sgd_us, sgd_n, sgd_host_us = 0.0, 0, 0.0
+    for e in prof.events():
+        if e.name == "TrainStep.update" and e.device_type == DeviceType.CPU:
+            sgd_host_us += e.cpu_time_total
+        if not e.kernels:
+            continue
+        up = e
+        while up is not None and up.name != "TrainStep.update":
+            up = up.cpu_parent
+        if up is not None:
+            sgd_us += sum(k.duration for k in e.kernels)
+            sgd_n += len(e.kernels)
+    print("profile resnet50 train step: wall_us=%r device_busy_us=%r "
+          "device_busy_share=%r kernels=%d launches=%d"
+          % (wall_us, busy_us, busy_us / wall_us, len(kernels),
+             sum(e.count for e in kernels)))
+    print("profile resnet50 train group=conv_gemm us=%r share=%r"
+          % (conv_us, conv_us / max(busy_us, 1e-9)))
+    print("profile resnet50 train group=bn_elementwise_other us=%r share=%r"
+          % (busy_us - conv_us - sgd_us,
+             (busy_us - conv_us - sgd_us) / max(busy_us, 1e-9)))
+    print("profile resnet50 train group=sgd us=%r launches=%d share=%r "
+          "host_us=%r (the TrainStep.update range on the host, profiled)"
+          % (sgd_us, sgd_n, sgd_us / max(busy_us, 1e-9), sgd_host_us))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print("profile resnet50 train kernel us=%r count=%d share=%r name=%s"
+              % (e.self_device_time_total, e.count,
+                 e.self_device_time_total / max(busy_us, 1e-9),
+                 e.key[:120]))
+
+
+def forward_breakdown(torch, mt, net, blob, x, reps=5):
+    """One batch-8 Predictor forward, unfused and fused: host time per
+    forward (input staging included, ending in a synchronize), the device
+    time and launches of one profiled forward each, and for the fused one
+    the device time by kernel from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for flag, label in (("0", "unfused"), ("1", "fused")):
         os.environ["MXNET_NORM_CONV"] = flag
         pred = mt.Predictor(net, blob, {"data": x.shape})
         pred.forward(data=x)
@@ -457,18 +761,19 @@ def forward_breakdown(torch, mt, net, blob, x, reps=5):
         torch.cuda.synchronize()
         print("forward batch=%d MXNET_NORM_CONV=%s host_ms=%r"
               % (x.shape[0], flag, (time.perf_counter() - t0) / reps * 1e3))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred.forward(data=x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print("profile fused forward: wall_us=%r device_busy_us=%r "
-          "device_busy_share=%r kernels=%d"
-          % (wall_us, busy_us, busy_us / wall_us, len(kernels)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pred.forward(data=x)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if is_kernel(e, DeviceType)]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        print("profile %s forward: wall_us=%r device_busy_us=%r "
+              "device_busy_share=%r kernels=%d launches=%d"
+              % (label, wall_us, busy_us, busy_us / wall_us, len(kernels),
+                 sum(e.count for e in kernels)))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print("profile kernel us=%r count=%d share=%r name=%s"
               % (e.self_device_time_total, e.count,
@@ -715,7 +1020,7 @@ def lm_breakdown(torch, pred, batch):
         pred.get_output(0)
         t2 = time.perf_counter()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if is_kernel(e, DeviceType)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_us = (t2 - t0) * 1e6
     print("profile lm forward: forward_wall_us=%r d2h_wall_us=%r "
@@ -1001,7 +1306,7 @@ def train_breakdown(torch, ts, params, state, aux, batch):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if is_kernel(e, DeviceType)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     print("profile train step: wall_us=%r device_busy_us=%r "
           "device_busy_share=%r kernels=%d"
@@ -1057,7 +1362,7 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if is_kernel(e, DeviceType)]
     return (sum(e.self_device_time_total for e in kernels),
             sum(e.count for e in kernels))
 
@@ -1344,6 +1649,13 @@ def main():
              tot["bound_ms"]))
 
     launches = serving_phase(torch, mt, nc, per_forward)
+    nc.launches = 0
+    resnet50_train_phase(torch, mt)
+    print(card)
+    if nc.launches:
+        fail("resnet50_train: the unfused training path launched the "
+             "NormConv kernel %d times" % nc.launches)
+    torch.cuda.empty_cache()
 
     fl = flash_phase(torch, fa)
     fl_launches = lm_phase(torch, mt, fa)

@@ -1,0 +1,93 @@
+"""ResNet-50 training throughput of the port on one card, in float32 (the
+twin of ``bench.py``'s ``bench_resnet50_train``).
+
+    python -m mxnet_tpu_torch.bench.resnet50_train
+
+The setup is ``bench.py``'s: ResNet-50 v2 (1000 classes, 3x224x224), batch
+32 of synthetic data from ``RandomState(0)``, ``TrainStep`` with
+``SGD(0.1, momentum 0.9, wd 1e-4, rescale_grad 1/batch)``.  One warm
+``run_steps(chunk)`` (chunk + 1 steps), then ``rounds`` timed ones, and one
+scalar of the outputs fetched at the end.  Float32 throughout with TF32
+off; the unfused graph (``MXNET_NORM_CONV`` left at its default, 0).
+Runs on ``gpu(0)``.  Prints one JSON line with ``bench.py``'s keys:
+``metric`` (``resnet50_train_img_per_sec_b32_f32``, so that it is never
+read as ``bench.py``'s bfloat16 number), ``value`` (img/s), ``unit`` and
+``vs_baseline`` (against the published P100 figure ``bench.py`` uses,
+181.53 img/s), plus the ``config``.
+"""
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+BASELINE_P100 = 181.53
+METRIC = "resnet50_train_img_per_sec_b32_f32"
+
+
+def setup(batch=32, image=224, num_layers=50, num_classes=1000, ctx=None):
+    """The trainer and its state as ``bench.py`` builds them: returns
+    (TrainStep, params, opt_state, aux, the batch on the step's device)."""
+    import mxnet_tpu_torch as mt
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = mt.models.resnet.get_symbol(num_classes, num_layers,
+                                      "3,%d,%d" % (image, image))
+    opt = mt.optimizer.SGD(learning_rate=0.1, momentum=0.9,
+                           rescale_grad=1.0 / batch, wd=1e-4)
+    ts = mt.TrainStep(net, opt, ctx=ctx)
+    params, state, aux = ts.init({"data": (batch, 3, image, image)},
+                                 {"softmax_label": (batch,)})
+    rng = np.random.RandomState(0)
+    data = rng.uniform(-1, 1, (batch, 3, image, image)).astype(np.float32)
+    label = rng.randint(0, num_classes, (batch,)).astype(np.float32)
+    dev_batch = ts.shard_batch({"data": data, "softmax_label": label})
+    return ts, params, state, aux, dev_batch
+
+
+def timed_chunks(ts, params, state, aux, batch, chunk=40, rounds=10):
+    """One warm ``run_steps(chunk)``, then ``rounds`` timed ones ending in
+    the fetch of one scalar.  Returns (img/s, host seconds of the timed
+    rounds, the last outputs)."""
+    params, state, aux, outs = ts.run_steps(params, state, aux, batch, chunk)
+    float(outs[0][0, 0])
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        params, state, aux, outs = ts.run_steps(params, state, aux, batch,
+                                                chunk)
+    float(outs[0][0, 0])
+    dt = time.perf_counter() - t0
+    n = batch["data"].shape[0]
+    return n * (chunk + 1) * rounds / dt, dt, outs
+
+
+def bench_resnet50_train(batch=32, image=224, chunk=40, rounds=10,
+                         num_layers=50, num_classes=1000, ctx=None):
+    """img/s of ``TrainStep`` over ``rounds`` timed chunks of ``chunk`` + 1
+    steps (``ctx``: the device, ``gpu(0)`` by default)."""
+    ts, params, state, aux, dev_batch = setup(batch, image, num_layers,
+                                              num_classes, ctx)
+    img_per_sec, _, _ = timed_chunks(ts, params, state, aux, dev_batch,
+                                     chunk, rounds)
+    return img_per_sec
+
+
+def record(img_per_sec, config):
+    """The JSON record of one run."""
+    return {"metric": METRIC, "value": round(img_per_sec, 2), "unit": "img/s",
+            "vs_baseline": round(img_per_sec / BASELINE_P100, 3),
+            "config": config}
+
+
+def main():
+    import mxnet_tpu_torch as mt
+    config = dict(batch=32, image=224, chunk=40, rounds=10, num_layers=50,
+                  num_classes=1000, dtype="float32", device="gpu(0)")
+    img_per_sec = bench_resnet50_train(ctx=mt.gpu(0))
+    print(json.dumps(record(img_per_sec, config)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

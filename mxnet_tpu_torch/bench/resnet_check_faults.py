@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""How tight chip_smoke.py's ResNet-50 training check is, on one card.
+
+    python3 mxnet_tpu_torch/bench/resnet_check_faults.py
+
+Builds the check of chip_smoke.py's resnet50_train phase (ResNet-50 at
+224x224, 1000 classes, batch RESNET_CHECK_BATCH, one SGD-momentum step
+from the seed-0 state) and its references on the CPU: the float64 step and
+the float32 steps that give each leaf its floor.  Then it runs the float32
+step on the card as it is, and once with each planted float32-only fault:
+
+- ``bn_stats_bf16``: BatchNorm's batch mean and var rounded to bfloat16;
+- ``bn_dx_bf16``: BatchNorm's dx rounded to bfloat16;
+- ``bn_dgamma_dbeta_bf16``: BatchNorm's dgamma and dbeta rounded to
+  bfloat16;
+- ``cudnn_tf32``: cuDNN's convolutions in TF32.
+
+Each fault acts only on float32 tensors on the card, so the references are
+untouched.  For each run it prints the worst leaf as a multiple of its
+floor (by largest entry and in norm) and whether the check fails it.
+Exits with 1 if the clean step fails the check or a fault passes it.
+"""
+import contextlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+import mxnet_tpu_torch as mt  # noqa: E402
+from mxnet_tpu_torch.ops import nn as pnn  # noqa: E402
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _on_card_f32(x):
+    return x.is_cuda and x.dtype == torch.float32
+
+
+@contextlib.contextmanager
+def _patched(name, fn):
+    old = getattr(pnn, name)
+    setattr(pnn, name, fn(old))
+    try:
+        yield
+    finally:
+        setattr(pnn, name, old)
+
+
+def _stats_bf16(fwd):
+    def planted(x, g, b, eps, caxis):
+        out, mean, var, inv = fwd(x, g, b, eps, caxis)
+        if _on_card_f32(x):
+            mean, var = _bf16(mean), _bf16(var)
+            inv = torch.rsqrt(var + eps)
+            _, cshape = pnn._bn_axes(x.dim(), caxis)
+            scale = g * inv
+            out = x * scale.reshape(cshape) \
+                + (b - mean * scale).reshape(cshape)
+        return out, mean, var, inv
+    return planted
+
+
+def _bwd_bf16(which):
+    def wrap(bwd):
+        def planted(caxis, x, g, mean, inv, dy, dmean, dvar):
+            dx, dg, db = bwd(caxis, x, g, mean, inv, dy, dmean, dvar)
+            if _on_card_f32(x):
+                if which == "dx":
+                    dx = _bf16(dx)
+                else:
+                    dg, db = _bf16(dg), _bf16(db)
+            return dx, dg, db
+        return planted
+    return wrap
+
+
+@contextlib.contextmanager
+def _tf32():
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+FAULTS = (
+    ("clean", contextlib.nullcontext),
+    ("bn_stats_bf16", lambda: _patched("_bn_train_fwd", _stats_bf16)),
+    ("bn_dx_bf16", lambda: _patched("_bn_bwd_shared", _bwd_bf16("dx"))),
+    ("bn_dgamma_dbeta_bf16",
+     lambda: _patched("_bn_bwd_shared", _bwd_bf16("dgdb"))),
+    ("cudnn_tf32", _tf32),
+)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["MXNET_NORM_CONV"] = "0"
+    net = mt.models.resnet.get_symbol(cs.CLASSES, 50,
+                                      "3,%d,%d" % (cs.IMAGE, cs.IMAGE))
+    b = cs.RESNET_CHECK_BATCH
+    state = cs.resnet50_state(mt, net, b)
+    want, floors = cs.resnet50_reference(mt, net, state, b)
+    bad = []
+    for name, planted in FAULTS:
+        with planted():
+            got = cs.resnet50_step(mt, net, state, mt.gpu(0), np.float32,
+                                   b)[0]
+        rows = cs.resnet50_leaf_rows(torch, got, want, floors)
+        over = [r for r in rows if max(r[4], r[5]) > cs.RESNET_FLOOR_X]
+        for col, what in ((4, "max"), (5, "norm")):
+            r = max(rows, key=lambda r: r[col])
+            print("fault=%s worst_by=%s %s=%s floor_x max=%r norm=%r "
+                  "max_rel=%r norm_rel=%r f32_floor max_rel=%r norm_rel=%r"
+                  % ((name, what, r[6], r[7]) + r[4:6] + r[:4]))
+        print("fault=%s leaves_over_tol=%d of %d (tol %g x max(floor, %g)) "
+              "check=%s" % (name, len(over), len(rows), cs.RESNET_FLOOR_X,
+                            cs.RESNET_FLOOR_MIN,
+                            "fails" if over else "passes"))
+        if bool(over) != (name != "clean"):
+            bad.append(name)
+    print(_card())
+    if bad:
+        print("unexpected: %s" % bad)
+    return 1 if bad else 0
+
+
+def _card():
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip() or "nvidia-smi failed: %s" % smi.stderr
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,13 @@ The gradient pass is autograd over the walk, where the JAX package takes
 ``jax.vjp`` of it: ``forward(is_train=True)`` runs the walk with gradients
 enabled on the arguments bound with a grad_req other than 'null', and
 ``backward`` runs ``torch.autograd.grad`` from the outputs and writes or adds
-into the bound gradient arrays.
+into the bound gradient arrays.  In training, BatchNorm normalises with the
+batch statistics and its updated moving statistics land in ``aux_dict``.
+
+``Executor.simple_bind`` (and ``Symbol.simple_bind``) allocates the argument,
+gradient and aux arrays from inferred shapes; ``copy_params_from`` loads
+parameters into them and ``reshape`` rebinds to new input shapes, sharing
+every array whose shape is unchanged.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from . import ndarray as nd
 from . import random as _random
 from .ops.nn import bn_scale_shift
 from .ops.norm_conv import _apply, geometry_ok, norm_conv
-from .ops.registry import RESNET_TRAINING, get_op
+from .ops.registry import get_op
 from .symbol import _topo
 
 __all__ = ["Executor"]
@@ -230,9 +236,9 @@ class _Lowered(object):
         if nc_on and is_train:
             raise MXNetError("MXNET_NORM_CONV=1: the NormConv peephole has "
                              "no backward yet and would drop the gradients "
-                             "below it; training it arrives with %s (set "
-                             "MXNET_NORM_CONV=0 to train unfused)"
-                             % RESNET_TRAINING)
+                             "below it; NormConv training arrives with the "
+                             "NormConv training slice (set MXNET_NORM_CONV=0 "
+                             "to train unfused)")
         nc_ctx = {}
         values = {}
         nhwc = set()      # value keys currently stored channel-last
@@ -403,9 +409,112 @@ class Executor(object):
                              % (what, len(data), len(names)))
         return {n: a for n, a in zip(names, data) if a is not None}
 
+    @staticmethod
+    def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """Allocate zeroed argument, gradient and aux arrays on ``ctx`` from
+        the shapes inferred from ``kwargs`` (the input shapes) and bind
+        (parity: Executor.simple_bind).  ``type_dict`` gives argument
+        dtypes (default float32); the gradient of every argument whose
+        request is not 'null' is allocated.  One device only:
+        ``group2ctx`` arrives with the parallel slice; ``shared_exec``
+        (memory shared between bucketed executors) with the Module slice."""
+        if group2ctx:
+            raise MXNetError("simple_bind(group2ctx=...) is not ported yet: "
+                             "it arrives with the parallel slice")
+        if shared_exec is not None:
+            raise MXNetError("simple_bind(shared_exec=...) is not ported yet: "
+                             "it arrives with the Module slice")
+        ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("simple_bind: could not infer all shapes from %s"
+                             % kwargs)
+        arg_types = dict(type_dict or {})
+        arg_names = symbol.list_arguments()
+        args, grads = {}, {}
+        for i, (name, shape) in enumerate(zip(arg_names, arg_shapes)):
+            dt = arg_types.get(name, _np.float32)
+            args[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+            if isinstance(grad_req, string_types):
+                req = grad_req
+            elif isinstance(grad_req, (list, tuple)):
+                req = grad_req[i]
+            else:
+                req = grad_req.get(name, "null")
+            if req != "null":
+                grads[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+        _, _, aux_types = symbol.infer_type(
+            **{n: arg_types.get(n, _np.float32) for n in arg_names})
+        auxs = {name: nd.zeros(shape, ctx=ctx, dtype=at if at is not None
+                               else _np.float32)
+                for name, shape, at in zip(symbol.list_auxiliary_states(),
+                                           aux_shapes, aux_types)}
+        return Executor(symbol, ctx, args, grads, grad_req, auxs)
+
     @property
     def outputs(self):
         return self._output_nds
+
+    @property
+    def arg_arrays(self):
+        """The argument arrays in ``list_arguments`` order."""
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def grad_arrays(self):
+        """The gradient arrays in ``list_arguments`` order (None where an
+        argument has none)."""
+        return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def aux_arrays(self):
+        """The aux-state arrays in ``list_auxiliary_states`` order."""
+        return [self.aux_dict[n] for n in self.aux_names]
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy ``{name: NDArray or array-like}`` parameters and aux states
+        into the bound arrays, each at the bound array's dtype and device
+        (parity: Executor.copy_params_from).  A name the graph lacks raises
+        unless ``allow_extra_params``."""
+        for what, params, bound in (("arg", arg_params, self.arg_dict),
+                                    ("aux", aux_params or {},
+                                     self.aux_dict)):
+            for name, arr in params.items():
+                if name not in bound:
+                    if allow_extra_params:
+                        continue
+                    raise MXNetError("unknown %s %s" % (what, name))
+                dst = bound[name]
+                if isinstance(arr, nd.NDArray):
+                    src = arr.value
+                else:
+                    arr = _np.asarray(arr)
+                    src = nd._host_tensor(arr, arr.dtype)
+                dst._set_value(src.detach().to(dst.value.device,
+                                               dst.value.dtype))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """A new Executor for the input shapes in ``kwargs`` (parity:
+        Executor.reshape): every argument, gradient and aux array whose
+        shape is unchanged is shared with this one (the parameters), the
+        others are new zeroed arrays on the same device and dtype."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("reshape: cannot infer shapes")
+        arg_shape = dict(zip(self.arg_names, arg_shapes))
+
+        def keep(arr, shape):
+            if tuple(arr.shape) == tuple(shape):
+                return arr
+            return nd.zeros(shape, ctx=arr.context, dtype=arr.dtype)
+        args = {n: keep(a, arg_shape[n]) for n, a in self.arg_dict.items()}
+        grads = {n: keep(a, arg_shape[n]) for n, a in self.grad_dict.items()}
+        auxs = {n: keep(self.aux_dict[n], s)
+                for n, s in zip(self.aux_names, aux_shapes)}
+        return Executor(self._symbol, self._ctx, args, grads, self.grad_req,
+                        auxs)
 
     def _grad_arg_names(self):
         return [n for n in self.arg_names

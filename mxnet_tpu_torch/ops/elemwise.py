@@ -7,6 +7,11 @@ returns its left input's dtype, not bool; an integer array with a float
 scalar, true division of integers and the transcendental functions of
 integers give float32; maximum and minimum with a scalar cast the scalar to
 the array's dtype.
+
+Gradients at kinks follow the JAX package's too: relu and clip are
+maximum/minimum, whose ties split the gradient (0.5 at relu's 0 and at a
+clip bound); abs takes the sign of x >= 0 (1 at 0); hypot is jnp.hypot's
+formula (0.5 to each side at (0, 0)).
 """
 from __future__ import annotations
 
@@ -46,13 +51,39 @@ def _gamma(x):
     return torch.exp(torch.lgamma(x)) * torch.where(x > 0, 1.0, c / c.abs())
 
 
+def relu(x):
+    """max(x, 0) as the JAX package's ``jnp.maximum(x, 0)``: a tie splits
+    the gradient, so it is 0.5 at x = 0 (``torch.relu`` gives 0).  The 0 is
+    a 0-dim host tensor, which a CUDA ``x`` takes as a scalar: one launch."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype))
+
+
+class _Abs(torch.autograd.Function):
+    """|x| whose gradient is 1 at x = 0, as ``jnp.abs``'s (sign of x >= 0;
+    ``torch.abs`` gives 0 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x):
+    return _Abs.apply(x) if x.is_floating_point() else torch.abs(x)
+
+
 _UNARY = {
-    "relu": torch.relu,
+    "relu": relu,
     "sigmoid": torch.sigmoid,
     "_copy": lambda x: x,
     "negative": torch.neg,
     "reciprocal": torch.reciprocal,
-    "abs": torch.abs,
+    "abs": _abs,
     "sign": torch.sign,
     "round": torch.round,
     "ceil": torch.ceil,
@@ -114,7 +145,16 @@ def _minimum_f(a, b):
 
 
 def _hypot(a, b):
-    return torch.hypot(_inexact(a), _inexact(b))
+    """jnp.hypot's formula: hi * sqrt(1 + (lo / hi)^2) of |a| and |b|, 0
+    where both are 0 and inf where either is; its gradient at (0, 0) is 0.5
+    to each side (``torch.hypot``'s is NaN)."""
+    a, b = _abs(_inexact(a)), _abs(_inexact(b))
+    inf = torch.isposinf(a) | torch.isposinf(b)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    zero = hi == 0
+    ratio = lo / torch.where(zero, torch.ones_like(hi), hi)
+    h = torch.where(zero, hi, hi * torch.sqrt(1 + ratio * ratio))
+    return torch.where(inf, torch.full_like(h, math.inf), h)
 
 
 def _cmp(f):
@@ -245,5 +285,11 @@ def _add_n(*args, num_args=None):
 @register("clip", attr_types={"a_min": float, "a_max": float},
           defaults={"a_min": 0.0, "a_max": 0.0})
 def _clip(data, a_min=0.0, a_max=0.0):
-    """Clip to [a_min, a_max] (parity: matrix_op.cc clip)."""
-    return torch.clamp(data, a_min, a_max)
+    """Clip to [a_min, a_max] (parity: matrix_op.cc clip): jnp.clip's
+    minimum(maximum(x, a_min), a_max) for floats, so a value at a bound
+    takes half the gradient."""
+    if not data.is_floating_point():
+        return torch.clamp(data, a_min, a_max)
+    lo = torch.full((), a_min, dtype=data.dtype)
+    hi = torch.full((), a_max, dtype=data.dtype)
+    return torch.minimum(torch.maximum(data, lo), hi)

@@ -1,7 +1,10 @@
 """Neural-network layers (counterpart: mxnet_tpu/ops/nn.py):
-FullyConnected, Activation, Convolution, Pooling, BatchNorm (inference) and
-the executor-fused _BatchNormReLU.  Their backward is autograd's, except the
-max-pool equality-mask backward of ``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
+FullyConnected, Activation, Convolution, Pooling, BatchNorm, the
+executor-fused _BatchNormReLU and Dropout.  Their backward is autograd's,
+except where the JAX package writes its own: BatchNorm and BatchNorm+ReLU in
+training (``BatchNormTrain``, ``BatchNormReLUTrain``, counterparts of its
+custom VJPs ``_bn_train_core`` and ``_bn_relu_train_core``) and the max-pool
+equality-mask backward of ``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
 
 Convolution and pooling call PyTorch's own (cuDNN on the card), as the JAX
 package leaves them to XLA.  With ``layout='NHWC'`` (set by the executor's
@@ -17,9 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import relu
 from .registry import (register, parse_bool, parse_float, parse_int,
-                       parse_str, parse_tuple, raise_if_training,
-                       shape_is_complete)
+                       parse_str, parse_tuple, shape_is_complete)
 
 
 def _to_cf(x):
@@ -66,7 +69,7 @@ def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False):
           defaults={"act_type": "relu"}, layout_rule="transparent")
 def _activation(data, act_type="relu"):
     if act_type == "relu":
-        return torch.relu(data)
+        return relu(data)
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
@@ -281,6 +284,130 @@ def bn_scale_shift(gamma, beta, mean, var, eps, fix_gamma, dtype):
     return scale, shift
 
 
+def _bn_axes(ndim, caxis):
+    """(the reduced axes, the per-channel broadcast shape) for channel axis
+    ``caxis``."""
+    caxis %= ndim
+    axes = tuple(a for a in range(ndim) if a != caxis)
+    return axes, [-1 if a == caxis else 1 for a in range(ndim)]
+
+
+def _bn_train_fwd(x, g, b, eps, caxis):
+    """Batch statistics and the normalised output (parity:
+    ``_bn_train_fwd_impl``): the statistics accumulate in at least float32,
+    var = E[x^2] - mean^2 clamped at 0, and the affine step runs in x's
+    dtype with scale and shift cast down.  Returns (out, mean, var, inv)."""
+    axes, cshape = _bn_axes(x.dim(), caxis)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
+    mean = x32.mean(dim=axes)
+    var = (x32 * x32).mean(dim=axes) - mean * mean
+    var = var.clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    scale = g.to(acc) * inv
+    shift = b.to(acc) - mean * scale
+    out = x * scale.reshape(cshape).to(x.dtype) \
+        + shift.reshape(cshape).to(x.dtype)
+    return out, mean, var, inv
+
+
+def _bn_bwd_shared(caxis, x, g, mean, inv, dy, dmean_ct, dvar_ct):
+    """BatchNorm's training backward (parity: ``_bn_bwd_shared``): per-channel
+    reductions of dy and dy*x in at least float32, folded with the
+    cotangents of the mean and var outputs into dx = A*dy + B*x + C.
+    Returns (dx, dgamma, dbeta)."""
+    axes, cshape = _bn_axes(x.dim(), caxis)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    n = 1
+    for a in axes:
+        n *= x.shape[a]
+    g32 = g.to(acc)
+    sum_dy = dy.to(acc).sum(dim=axes)
+    sum_dy_x = (dy * x).to(acc).sum(dim=axes)
+    sum_dy_xhat = inv * (sum_dy_x - mean * sum_dy)
+    # dL/dvar = -1/2 inv^2 g sum(dy*xhat): inv^2, because xhat carries one
+    # factor of inv already
+    dvar = -0.5 * inv ** 2 * g32 * sum_dy_xhat
+    dmean = -inv * g32 * sum_dy
+    if dvar_ct is not None:
+        dvar = dvar + dvar_ct.to(acc)
+    if dmean_ct is not None:
+        dmean = dmean + dmean_ct.to(acc)
+    coef_dy = g32 * inv
+    coef_x = 2.0 * dvar / n
+    coef_1 = dmean / n - coef_x * mean
+    dx = dy * coef_dy.reshape(cshape).to(x.dtype) \
+        + x * coef_x.reshape(cshape).to(x.dtype) \
+        + coef_1.reshape(cshape).to(x.dtype)
+    return dx, sum_dy_xhat.to(g.dtype), sum_dy.to(g.dtype)
+
+
+class BatchNormTrain(torch.autograd.Function):
+    """Training-mode BatchNorm with the JAX package's hand-written backward
+    (counterpart: ``_bn_train_core``): ``apply(x, g, b, eps, caxis)`` ->
+    (out, mean, var), mean and var in at least float32.  The only
+    activation-sized tensor saved is x."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps, caxis):
+        out, mean, var, inv = _bn_train_fwd(x, g, b, eps, caxis)
+        ctx.save_for_backward(x, g, mean, inv)
+        ctx.caxis = caxis
+        ctx.set_materialize_grads(False)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, g, mean, inv = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy, dmean,
+                                    dvar)
+        return dx, dg, db, None, None
+
+
+class BatchNormReLUTrain(torch.autograd.Function):
+    """Training-mode BatchNorm followed by ReLU (counterpart:
+    ``_bn_relu_train_core``): saves x, g, b, mean and inv, not the BN
+    output; the backward recomputes the pre-activation in x's dtype, gates
+    dy with ``pre > 0`` (the gradient is 0 at 0, as in the JAX package's
+    fused op) and reuses the shared backward."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps, caxis):
+        out, mean, var, inv = _bn_train_fwd(x, g, b, eps, caxis)
+        ctx.save_for_backward(x, g, b, mean, inv)
+        ctx.caxis = caxis
+        ctx.set_materialize_grads(False)
+        return torch.relu(out), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, g, b, mean, inv = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        _, cshape = _bn_axes(x.dim(), ctx.caxis)
+        acc = mean.dtype
+        scale = g.to(acc) * inv
+        shift = b.to(acc) - mean * scale
+        pre = x * scale.reshape(cshape).to(x.dtype) \
+            + shift.reshape(cshape).to(x.dtype)
+        dy = torch.where(pre > 0, dy, 0.0)
+        dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy, dmean,
+                                    dvar)
+        return dx, dg, db, None, None
+
+
+def _bn_moving(moving, stat, momentum):
+    """moving * mom + stat * (1 - mom), with mom rounded to float32 first
+    as the JAX package's ``jnp.float32(momentum)`` is (so a float64 run
+    matches it), in promote(moving, float32)."""
+    mom = _np.float32(momentum)
+    moving = moving.to(torch.promote_types(moving.dtype, torch.float32))
+    return moving * float(mom) \
+        + stat.detach().to(moving.dtype) * float(_np.float32(1) - mom)
+
+
 def _bn_infer(attrs, in_shapes):
     data = in_shapes[0]
     c = None if data is None else (data[1],)
@@ -297,6 +424,19 @@ _BN_DEFAULTS = {"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
                 "use_global_stats": False, "output_mean_var": False}
 
 
+def _bn_train(fn, data, gamma, beta, moving_mean, moving_var, eps, momentum,
+              fix_gamma, layout):
+    """The training branch of BatchNorm and _BatchNormReLU: ``fn`` (one of
+    the two Functions) on the batch statistics, and the moving statistics
+    updated from them, detached.  Returns (out, mean, var, new moving_mean,
+    new moving_var)."""
+    caxis = data.dim() - 1 if layout == "NHWC" else 1
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    out, mean, var = fn.apply(data, g, beta, float(eps), caxis)
+    return (out, mean, var, _bn_moving(moving_mean, mean, momentum),
+            _bn_moving(moving_var, var, momentum))
+
+
 @register("BatchNorm", arg_names=("data", "gamma", "beta", "moving_mean",
                                   "moving_var"),
           aux_names=("moving_mean", "moving_var"),
@@ -307,10 +447,19 @@ _BN_DEFAULTS = {"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, is_train=False,
                 eps=1e-3, momentum=0.9, fix_gamma=True, use_global_stats=False,
                 output_mean_var=False, layout=None):
-    """Inference batch norm from the moving statistics.  Returns
-    (out[, mean, var], moving_mean, moving_var): the aux states come back
-    unchanged."""
-    raise_if_training("BatchNorm", is_train and not use_global_stats)
+    """Batch normalization (parity: mxnet_tpu/ops/nn.py _batch_norm).
+    Returns (out[, mean, var], moving_mean, moving_var): in training, the
+    batch statistics normalise and the trailing two are the updated moving
+    statistics, which the executor collects; otherwise the moving statistics
+    normalise and come back unchanged.  ``fix_gamma`` normalises with a
+    gamma of ones, so gamma's gradient is zero."""
+    if is_train and not use_global_stats:
+        out, mean, var, new_mm, new_mv = _bn_train(
+            BatchNormTrain, data, gamma, beta, moving_mean, moving_var, eps,
+            momentum, fix_gamma, layout)
+        if output_mean_var:
+            return out, mean, var, new_mm, new_mv
+        return out, new_mm, new_mv
     caxis = data.dim() - 1 if layout == "NHWC" else 1
     cshape = [1] * data.dim()
     cshape[caxis] = -1
@@ -334,9 +483,32 @@ def _batch_norm_relu(data, gamma, beta, moving_mean, moving_var,
                      is_train=False, eps=1e-3, momentum=0.9, fix_gamma=True,
                      use_global_stats=False, output_mean_var=False,
                      layout=None):
-    """Executor-fused BatchNorm + ReLU."""
+    """Executor-fused BatchNorm + ReLU.  In training its backward
+    recomputes the ReLU gate from the saved input (``BatchNormReLUTrain``)
+    instead of keeping the BatchNorm output alive."""
+    if is_train and not use_global_stats:
+        out, _, _, new_mm, new_mv = _bn_train(
+            BatchNormReLUTrain, data, gamma, beta, moving_mean, moving_var,
+            eps, momentum, fix_gamma, layout)
+        return out, new_mm, new_mv
     res = _batch_norm(data, gamma, beta, moving_mean, moving_var,
                       is_train=is_train, eps=eps, momentum=momentum,
                       fix_gamma=fix_gamma, use_global_stats=use_global_stats,
                       layout=layout)
-    return (torch.relu(res[0]),) + tuple(res[1:])
+    return (relu(res[0]),) + tuple(res[1:])
+
+
+# --------------------------------------------------------------------- Dropout
+@register("Dropout", attr_types={"p": parse_float}, defaults={"p": 0.5},
+          needs_rng=True, train_aware=True,
+          infer_shape=lambda attrs, ins: (list(ins), [ins[0]], None))
+def _dropout(data, rng=None, is_train=False, p=0.5):
+    """Inverted dropout (parity: mxnet_tpu/ops/nn.py _dropout): the identity
+    unless training; in training each element is kept with probability
+    1 - p and scaled by 1 / (1 - p), the mask drawn from ``rng``, the
+    generator of the device the op runs on."""
+    if not is_train or p <= 0.0:
+        return data
+    keep = 1.0 - p
+    mask = torch.rand(data.shape, generator=rng, device=data.device) < keep
+    return torch.where(mask, data / keep, 0.0).to(data.dtype)

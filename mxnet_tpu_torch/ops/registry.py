@@ -275,8 +275,8 @@ def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
     sampling ops build their tensors there); an op with inputs runs where
     its inputs are.  An op with ``needs_rng`` draws from ``rng``, by default
     the generator of that device (``random.generator``).  The JAX package's
-    NaiveEngine, profiler and sanitizer hooks are not ported here (ROADMAP
-    A11)."""
+    NaiveEngine, profiler and sanitizer hooks are not ported here: they
+    arrive with the observability slice."""
     op = get_op(op_name) if isinstance(op_name, str) else op_name
     attrs = op.normalize_attrs(attrs or {})
     dev = inputs[0].device if inputs else torch.device(device or "cpu")
@@ -295,14 +295,3 @@ def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
     if not isinstance(out, (tuple, list)):
         out = (out,)
     return tuple(out), op
-
-
-RESNET_TRAINING = "the ResNet-50 training slice (ROADMAP A3, B1)"
-
-
-def raise_if_training(op_name, is_train):
-    """Ops whose training mode is not ported yet raise under is_train: it
-    arrives with the ResNet-50 training slice."""
-    if is_train:
-        raise MXNetError("%s: training mode is not ported yet; it arrives "
-                         "with %s" % (op_name, RESNET_TRAINING))

@@ -10,7 +10,7 @@ in place, so a view of a weight sees the step.  SGD, Adam and RMSProp run
 the registered update ops (``mx.nd.sgd_mom_update``, ...); NAG, AdaGrad and
 AdaDelta run the tensor rules below, which ``train._FunctionalOptimizer``
 (TrainStep's fused path) shares.  The ``Updater``'s ``MXNET_OPT_STATS``
-telemetry is not ported (ROADMAP A11).
+telemetry is not ported: it arrives with the observability slice.
 """
 from __future__ import annotations
 

@@ -231,6 +231,17 @@ class Symbol(object):
         return "<Symbol %s>" % (name if name else "Grouped")
 
     # --------------------------------------------------------------- binding
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """Bind with argument, gradient and aux arrays allocated from the
+        shapes inferred from ``kwargs`` (parity: Symbol.simple_bind; see
+        ``Executor.simple_bind``)."""
+        from .executor import Executor
+        return Executor.simple_bind(self, ctx or current_context(),
+                                    grad_req=grad_req, type_dict=type_dict,
+                                    group2ctx=group2ctx,
+                                    shared_exec=shared_exec, **kwargs)
+
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
         """Bind arguments, gradient arrays and aux states into an

@@ -15,10 +15,10 @@ dicts come back.  ``run_steps`` is a Python loop over the same step
 The step's scalars follow JAX's float32 arithmetic: ``hyper`` rounds the lr
 to float32, and Adam's bias correction is computed in float32 from a
 float32 step count, so a float64 run still matches the JAX package's to
-1e-9.  Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (ROADMAP
-A10), ``policy``, ``dtype`` and ``remat`` (A5), and the monitor, telemetry
-and sanitize hooks (A11); SGLD, DCASGD and Test run through the imperative
-``optimizer.Updater``, not here.
+1e-9.  Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the
+parallel slice), ``policy``, ``dtype`` and ``remat`` (the AMP slice), and the
+monitor, telemetry and sanitize hooks (the observability slice); SGLD, DCASGD
+and Test run through the imperative ``optimizer.Updater``, not here.
 """
 from __future__ import annotations
 
@@ -35,18 +35,20 @@ from .optimizer import adadelta_rule, adagrad_rule, nag_rule
 
 __all__ = ["TrainStep", "EvalStep"]
 
-# TrainStep/EvalStep arguments not ported yet -> the ROADMAP item that
+# TrainStep/EvalStep arguments not ported yet -> the slice of the port that
 # brings them
-_NOT_PORTED = (("mesh", "A10"), ("param_shardings", "A10"), ("zero", "A10"),
-               ("policy", "A5"), ("dtype", "A5"), ("remat", "A5"))
+_NOT_PORTED = (("mesh", "the parallel slice"),
+               ("param_shardings", "the parallel slice"),
+               ("zero", "the parallel slice"), ("policy", "the AMP slice"),
+               ("dtype", "the AMP slice"), ("remat", "the AMP slice"))
 
 
 def _refuse(who, **given):
     for name, item in _NOT_PORTED:
         if given.get(name, None):
-            raise MXNetError("%s(%s=...) is not ported yet (ROADMAP %s): "
-                             "the port trains on one device in the "
-                             "parameters' dtype" % (who, name, item))
+            raise MXNetError("%s(%s=...) is not ported yet (it arrives "
+                             "with %s): the port trains on one device in "
+                             "the parameters' dtype" % (who, name, item))
 
 
 def _host_init(symbol, low, param_names, aux_names, data_shapes,
@@ -101,7 +103,7 @@ class _FunctionalOptimizer(object):
         if self.kind not in self.KINDS:
             raise MXNetError("TrainStep supports %s; got %s (SGLD, DCASGD "
                              "and Test run through optimizer.Updater; their "
-                             "fused rules are ROADMAP A5)"
+                             "fused rules arrive with the Module slice)"
                              % ("/".join(self.KINDS), self.kind))
 
     def init_state(self, params):
@@ -267,7 +269,9 @@ class TrainStep(object):
                                            self.param_names],
                                     seeds, allow_unused=True)
         del leaves
-        with torch.no_grad():
+        # the range names the optimizer rule's kernels in a profile
+        with torch.no_grad(), torch.profiler.record_function(
+                "TrainStep.update"):
             for n, g in zip(self.param_names, grads):
                 w = params[n]
                 g = torch.zeros_like(w) if g is None else g.to(w.dtype)
@@ -284,8 +288,9 @@ class TrainStep(object):
     def __call__(self, params, opt_state, aux, batch, rng=None):
         """One step.  Returns (params, opt_state, aux, outputs); the first
         three are the dicts passed in, updated in place.  ``rng`` is
-        accepted for the JAX signature: no op of the ported paths draws
-        random numbers."""
+        accepted for the JAX signature: an op that draws random numbers
+        (Dropout, the samplers) draws from the generator of the step's
+        device (``random.generator``)."""
         hyper = self.fopt.hyper(self.num_update)
         self.num_update += 1
         return self._step(params, opt_state, aux, batch, hyper,

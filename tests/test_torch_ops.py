@@ -119,9 +119,18 @@ def test_infer_shape_matches_mxnet_tpu(case):
     assert pin == jin
 
 
-def test_training_mode_raises():
-    from mxnet_tpu_torch import MXNetError
-    ins = [torch.from_numpy(a) for a in _inputs("BatchNorm", BN_IN, 0)]
-    op = pget_op("BatchNorm")
-    with pytest.raises(MXNetError, match="training"):
-        op.make_callable(op.normalize_attrs({}), True)(*ins)
+def test_training_mode_raises(f64):
+    """BatchNorm's training mode no longer raises: it normalises with the
+    batch statistics and returns the updated moving statistics, equal to
+    mxnet_tpu's training mode in float64."""
+    ins = _inputs("BatchNorm", BN_IN, 0)
+    jop, pop = jget_op("BatchNorm"), pget_op("BatchNorm")
+    jout = jop.make_callable(jop.normalize_attrs({}), True)(
+        *[jnp.asarray(a) for a in ins])
+    pout = pop.make_callable(pop.normalize_attrs({}), True)(
+        *[torch.from_numpy(a) for a in ins])
+    assert len(pout) == len(jout) == 3
+    for p, j in zip(pout, jout):
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-9,
+                                   atol=1e-9)
+    assert not np.allclose(pout[1].numpy(), ins[3])     # moving_mean moved

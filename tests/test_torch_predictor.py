@@ -89,10 +89,19 @@ def test_resnet50_bind_forward_f64(norm_conv, layout, f64, monkeypatch):
     # plus the 3x3 stem conv0 of the 32x32 variant (bn_data is its prologue)
     fused = norm_conv == "1" and layout == "NHWC"
     assert len(calls) == (53 if fused else 0)
-    # BatchNorm training, and the NormConv peephole under is_train, arrive
-    # with the ResNet-50 training slice: both refuse rather than drop grads
-    with pytest.raises(mt.MXNetError, match="ResNet-50 training slice"):
-        pex.forward(is_train=True)
+    # training: the NormConv peephole has no backward yet and refuses
+    # rather than drop gradients; unfused, the training forward (batch
+    # statistics, moving statistics updated) equals mxnet_tpu's
+    if fused:
+        with pytest.raises(mt.MXNetError, match="NormConv training slice"):
+            pex.forward(is_train=True)
+        return
+    want = jex.forward(is_train=True)[0].asnumpy()
+    got = pex.forward(is_train=True)[0].asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    for n, v in jex.aux_dict.items():
+        np.testing.assert_allclose(pex.aux_dict[n].asnumpy(), v.asnumpy(),
+                                   rtol=1e-9, atol=1e-9, err_msg=n)
 
 
 def _bind_both(jsym, shapes, seed):
