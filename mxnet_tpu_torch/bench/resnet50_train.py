@@ -2,18 +2,24 @@
 twin of ``bench.py``'s ``bench_resnet50_train``).
 
     python -m mxnet_tpu_torch.bench.resnet50_train
+    MXNET_NORM_CONV=1 python -m mxnet_tpu_torch.bench.resnet50_train
 
 The setup is ``bench.py``'s: ResNet-50 v2 (1000 classes, 3x224x224), batch
 32 of synthetic data from ``RandomState(0)``, ``TrainStep`` with
 ``SGD(0.1, momentum 0.9, wd 1e-4, rescale_grad 1/batch)``.  One warm
 ``run_steps(chunk)`` (chunk + 1 steps), then ``rounds`` timed ones, and one
 scalar of the outputs fetched at the end.  Float32 throughout with TF32
-off; the unfused graph (``MXNET_NORM_CONV`` left at its default, 0).
-Runs on ``gpu(0)``.  Prints one JSON line with ``bench.py``'s keys:
-``metric`` (``resnet50_train_img_per_sec_b32_f32``, so that it is never
-read as ``bench.py``'s bfloat16 number), ``value`` (img/s), ``unit`` and
-``vs_baseline`` (against the published P100 figure ``bench.py`` uses,
-181.53 img/s), plus the ``config``.
+off.  The graph is the one ``MXNET_NORM_CONV`` selects: unfused by default
+(0, as in the JAX package), or the fused NormConv path (1: the NormConv
+kernel runs 52 convolutions of each step's forward, 32 of them with the
+statistics of the next BatchNorm).  The stem fuse (``MXNET_STEM_FUSE``,
+default on as in the JAX package) runs in both.  Runs on ``gpu(0)``.
+Prints one JSON line with ``bench.py``'s keys: ``metric``
+(``resnet50_train_img_per_sec_b32_f32`` unfused,
+``resnet50_train_img_per_sec_b32_f32_normconv`` fused, so that neither is
+read as ``bench.py``'s bfloat16 number nor as the other), ``value``
+(img/s), ``unit`` and ``vs_baseline`` (against the published P100 figure
+``bench.py`` uses, 181.53 img/s), plus the ``config``.
 """
 import json
 import sys
@@ -24,6 +30,7 @@ import torch
 
 BASELINE_P100 = 181.53
 METRIC = "resnet50_train_img_per_sec_b32_f32"
+METRIC_NORMCONV = METRIC + "_normconv"
 
 
 def setup(batch=32, image=224, num_layers=50, num_classes=1000, ctx=None):
@@ -73,9 +80,10 @@ def bench_resnet50_train(batch=32, image=224, chunk=40, rounds=10,
     return img_per_sec
 
 
-def record(img_per_sec, config):
-    """The JSON record of one run."""
-    return {"metric": METRIC, "value": round(img_per_sec, 2), "unit": "img/s",
+def record(img_per_sec, config, fused=False):
+    """The JSON record of one run (``fused``: MXNET_NORM_CONV=1)."""
+    return {"metric": METRIC_NORMCONV if fused else METRIC,
+            "value": round(img_per_sec, 2), "unit": "img/s",
             "vs_baseline": round(img_per_sec / BASELINE_P100, 3),
             "config": config}
 
@@ -85,7 +93,8 @@ def main():
     config = dict(batch=32, image=224, chunk=40, rounds=10, num_layers=50,
                   num_classes=1000, dtype="float32", device="gpu(0)")
     img_per_sec = bench_resnet50_train(ctx=mt.gpu(0))
-    print(json.dumps(record(img_per_sec, config)))
+    fused = mt.base.get_env("MXNET_NORM_CONV", "0") == "1"
+    print(json.dumps(record(img_per_sec, config, fused)))
     return 0
 
 

@@ -5,15 +5,23 @@
 
 Builds the check of chip_smoke.py's resnet50_train phase (ResNet-50 at
 224x224, 1000 classes, batch RESNET_CHECK_BATCH, one SGD-momentum step
-from the seed-0 state) and its references on the CPU: the float64 step and
-the float32 steps that give each leaf its floor.  Then it runs the float32
-step on the card as it is, and once with each planted float32-only fault:
+from the seed-0 state) and its references on the CPU, for each graph: the
+float64 step and the float32 steps that give each leaf its floor.  Then it
+runs the float32 step on the card as it is, and once with each planted
+float32-only fault.  On the unfused graph (MXNET_NORM_CONV=0):
 
 - ``bn_stats_bf16``: BatchNorm's batch mean and var rounded to bfloat16;
 - ``bn_dx_bf16``: BatchNorm's dx rounded to bfloat16;
 - ``bn_dgamma_dbeta_bf16``: BatchNorm's dgamma and dbeta rounded to
   bfloat16;
 - ``cudnn_tf32``: cuDNN's convolutions in TF32.
+
+On the fused graph (MXNET_NORM_CONV=1), in the ``NormConv`` Function:
+
+- ``nc_fold_no_dsq``: the backward's fold of the statistics' cotangents
+  without its 2 y d(sum y^2) term;
+- ``nc_stats_bf16_y``: the statistics taken from y rounded to bfloat16;
+- ``nc_gate_ge0``: the prologue ReLU's backward gated with ``xh >= 0``.
 
 Each fault acts only on float32 tensors on the card, so the references are
 untouched.  For each run it prints the worst leaf as a multiple of its
@@ -35,6 +43,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.ops import nn as pnn  # noqa: E402
+from mxnet_tpu_torch.ops import norm_conv as pnc  # noqa: E402
 
 
 def _bf16(t):
@@ -46,13 +55,13 @@ def _on_card_f32(x):
 
 
 @contextlib.contextmanager
-def _patched(name, fn):
-    old = getattr(pnn, name)
-    setattr(pnn, name, fn(old))
+def _patched(name, fn, module=pnn):
+    old = getattr(module, name)
+    setattr(module, name, fn(old))
     try:
         yield
     finally:
-        setattr(pnn, name, old)
+        setattr(module, name, old)
 
 
 def _stats_bf16(fwd):
@@ -83,6 +92,33 @@ def _bwd_bf16(which):
     return wrap
 
 
+def _fold_no_dsq(fold):
+    def planted(dy, dsum, dsq, y):
+        return fold(dy, dsum, None if _on_card_f32(y) else dsq, y)
+    return planted
+
+
+def _stats_from_bf16_y(norm_conv):
+    def planted(x, w, scale, shift, kernel, stride, pad, relu=True,
+                prologue=True, stats=False):
+        y, ysum, ysq = norm_conv(x, w, scale, shift, kernel, stride, pad,
+                                 relu, prologue, stats)
+        if stats and _on_card_f32(y):
+            y16 = _bf16(y)
+            ysum, ysq = y16.sum(dim=(0, 1, 2)), \
+                y16.square().sum(dim=(0, 1, 2))
+        return y, ysum, ysq
+    return planted
+
+
+def _gate_ge0(gate):
+    def planted(xh, dxh):
+        if _on_card_f32(xh):
+            return torch.where(xh >= 0, dxh, 0.0)
+        return gate(xh, dxh)
+    return planted
+
+
 @contextlib.contextmanager
 def _tf32():
     torch.backends.cudnn.allow_tf32 = True
@@ -92,14 +128,22 @@ def _tf32():
         torch.backends.cudnn.allow_tf32 = False
 
 
-FAULTS = (
-    ("clean", contextlib.nullcontext),
-    ("bn_stats_bf16", lambda: _patched("_bn_train_fwd", _stats_bf16)),
-    ("bn_dx_bf16", lambda: _patched("_bn_bwd_shared", _bwd_bf16("dx"))),
-    ("bn_dgamma_dbeta_bf16",
-     lambda: _patched("_bn_bwd_shared", _bwd_bf16("dgdb"))),
-    ("cudnn_tf32", _tf32),
-)
+# {MXNET_NORM_CONV: (fault name, context that plants it)}
+FAULTS = {
+    "0": (("clean", contextlib.nullcontext),
+          ("bn_stats_bf16", lambda: _patched("_bn_train_fwd", _stats_bf16)),
+          ("bn_dx_bf16",
+           lambda: _patched("_bn_bwd_shared", _bwd_bf16("dx"))),
+          ("bn_dgamma_dbeta_bf16",
+           lambda: _patched("_bn_bwd_shared", _bwd_bf16("dgdb"))),
+          ("cudnn_tf32", _tf32)),
+    "1": (("clean", contextlib.nullcontext),
+          ("nc_fold_no_dsq",
+           lambda: _patched("_fold", _fold_no_dsq, pnc)),
+          ("nc_stats_bf16_y",
+           lambda: _patched("norm_conv", _stats_from_bf16_y, pnc)),
+          ("nc_gate_ge0", lambda: _patched("_gate", _gate_ge0, pnc))),
+}
 
 
 def main():
@@ -108,30 +152,34 @@ def main():
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.environ["MXNET_NORM_CONV"] = "0"
     net = mt.models.resnet.get_symbol(cs.CLASSES, 50,
                                       "3,%d,%d" % (cs.IMAGE, cs.IMAGE))
     b = cs.RESNET_CHECK_BATCH
     state = cs.resnet50_state(mt, net, b)
-    want, floors = cs.resnet50_reference(mt, net, state, b)
     bad = []
-    for name, planted in FAULTS:
-        with planted():
-            got = cs.resnet50_step(mt, net, state, mt.gpu(0), np.float32,
-                                   b)[0]
-        rows = cs.resnet50_leaf_rows(torch, got, want, floors)
-        over = [r for r in rows if max(r[4], r[5]) > cs.RESNET_FLOOR_X]
-        for col, what in ((4, "max"), (5, "norm")):
-            r = max(rows, key=lambda r: r[col])
-            print("fault=%s worst_by=%s %s=%s floor_x max=%r norm=%r "
-                  "max_rel=%r norm_rel=%r f32_floor max_rel=%r norm_rel=%r"
-                  % ((name, what, r[6], r[7]) + r[4:6] + r[:4]))
-        print("fault=%s leaves_over_tol=%d of %d (tol %g x max(floor, %g)) "
-              "check=%s" % (name, len(over), len(rows), cs.RESNET_FLOOR_X,
-                            cs.RESNET_FLOOR_MIN,
-                            "fails" if over else "passes"))
-        if bool(over) != (name != "clean"):
-            bad.append(name)
+    for norm_conv, faults in sorted(FAULTS.items()):
+        os.environ["MXNET_NORM_CONV"] = norm_conv
+        want, floors = cs.resnet50_reference(mt, net, state, b)
+        for name, planted in faults:
+            with planted():
+                got = cs.resnet50_step(mt, net, state, mt.gpu(0),
+                                       np.float32, b)[0]
+            rows = cs.resnet50_leaf_rows(torch, got, want, floors)
+            over = [r for r in rows if max(r[4], r[5]) > cs.RESNET_FLOOR_X]
+            for col, what in ((4, "max"), (5, "norm")):
+                r = max(rows, key=lambda r: r[col])
+                print("MXNET_NORM_CONV=%s fault=%s worst_by=%s %s=%s "
+                      "floor_x max=%r norm=%r max_rel=%r norm_rel=%r "
+                      "f32_floor max_rel=%r norm_rel=%r"
+                      % ((norm_conv, name, what, r[6], r[7]) + r[4:6]
+                         + r[:4]))
+            print("MXNET_NORM_CONV=%s fault=%s leaves_over_tol=%d of %d "
+                  "(tol %g x max(floor, %g)) check=%s"
+                  % (norm_conv, name, len(over), len(rows),
+                     cs.RESNET_FLOOR_X, cs.RESNET_FLOOR_MIN,
+                     "fails" if over else "passes"))
+            if bool(over) != (name != "clean"):
+                bad.append((norm_conv, name))
     print(_card())
     if bad:
         print("unexpected: %s" % bad)

@@ -2,7 +2,7 @@
 (counterpart: mxnet_tpu/executor.py, ``_Lowered.run`` and ``Executor``).
 
 PyTorch runs eagerly, so the graph is walked op by op on every forward; the
-walk keeps the JAX package's three passes:
+walk keeps the JAX package's four passes:
 
 - the NHWC layout pass (``MXNET_CONV_LAYOUT``, default NHWC): activations
   flow channel-last between layout-aware ops (Convolution, Pooling,
@@ -11,8 +11,15 @@ walk keeps the JAX package's three passes:
 - the NormConv peephole (``MXNET_NORM_CONV=1``, default off as in the JAX
   package): a BatchNorm[->ReLU] whose consumers are 1x1/3x3 convolutions
   becomes the prologue of those convolutions, run by ``ops.norm_conv`` —
-  the Hopper kernel on the card.  It has no backward yet, so under
-  ``is_train`` it raises rather than drop the gradients of what lies below.
+  the Hopper kernel on the card.  In training the convolutions run through
+  the ``NormConv`` autograd Function, and a BatchNorm whose input a fused
+  convolution produced takes its batch statistics from that convolution's
+  epilogue;
+- the stem peephole (``MXNET_STEM_FUSE``, default on as in the JAX
+  package): in training, a fix_gamma BatchNorm on a gradient-free graph
+  input whose one consumer is a convolution (ResNet's bn_data -> conv0)
+  runs as ``ops.nn.input_bn_conv`` (``MXNET_STEM_S2D=1``: the stride-2
+  stem by space-to-depth), unless NormConv has taken either node.
 
 The gradient pass is autograd over the walk, where the JAX package takes
 ``jax.vjp`` of it: ``forward(is_train=True)`` runs the walk with gradients
@@ -35,8 +42,8 @@ from .base import MXNetError, get_env, string_types
 from .context import Context
 from . import ndarray as nd
 from . import random as _random
-from .ops.nn import bn_scale_shift
-from .ops.norm_conv import _apply, geometry_ok, norm_conv
+from .ops.nn import _bn_moving, bn_scale_shift, input_bn_conv
+from .ops.norm_conv import NormConv, _apply, geometry_ok, norm_conv
 from .ops.registry import get_op
 from .symbol import _topo
 
@@ -45,10 +52,12 @@ __all__ = ["Executor"]
 
 def _hwio(w):
     """The (k, k, Cin, Cout) copy of an (O, I, k, k) weight that the NormConv
-    kernel reads.  It is made once and kept on the weight tensor itself, so
-    forwards reuse it and every binding that shares the weight (the rungs of
-    a ServedModel) shares one copy; a rebound weight is a new tensor, and an
-    in-place write bumps its version, so neither reads a stale copy."""
+    kernel reads in inference.  It is made once and kept on the weight
+    tensor itself, so forwards reuse it and every binding that shares the
+    weight (the rungs of a ServedModel) shares one copy; a rebound weight
+    is a new tensor, and an in-place write bumps its version, so neither
+    reads a stale copy.  Training never reads it: the ``NormConv``
+    Function makes its own copy under autograd."""
     cached = getattr(w, "_nc_hwio", None)
     if cached is None or cached[0] != w._version:
         cached = (w._version, w.permute(2, 3, 1, 0).contiguous())
@@ -105,6 +114,48 @@ class _Lowered(object):
                     == "relu":
                 self.fused_relu[id(n)] = act
         self._init_norm_conv(consumers, outs)
+        self._init_stem(consumers, outs)
+
+    def _init_stem(self, consumers, outs):
+        """Stem map (parity: the JAX package's ``stem_fuse``): a training
+        BatchNorm(fix_gamma) applied to a graph input and consumed by one
+        ungrouped, undilated, bias-free 2-D Convolution fuses to
+        ``input_bn_conv``, whose backward takes d(beta) without the data
+        gradient of the conv.  It fires at run time only when the input is
+        declared gradient-free."""
+        self.stem_fuse = {}    # bn id -> {var, conv, eps, momentum, geometry}
+        for b in self.order:
+            if b.is_var or b.op.name != "BatchNorm":
+                continue
+            a = b.op.normalize_attrs(b.params)
+            if (not a.get("fix_gamma", True) or a.get("output_mean_var")
+                    or a.get("use_global_stats")
+                    or a.get("layout") not in (None, "NCHW")):
+                continue
+            src, si = b.inputs[0]
+            if not src.is_var or si != 0 or (id(b), 0) in outs:
+                continue
+            cons = consumers.get((id(b), 0), [])
+            if len(cons) != 1 or cons[0].is_var:
+                continue
+            conv = cons[0]
+            if conv.op.name != "Convolution" or conv.inputs[0] != (b, 0):
+                continue
+            ca = conv.op.normalize_attrs(conv.params)
+            kernel = tuple(ca.get("kernel") or ())
+            dilate = tuple(ca.get("dilate") or ()) or (1,) * len(kernel)
+            if (len(kernel) != 2 or not ca.get("no_bias")
+                    or int(ca.get("num_group") or 1) != 1
+                    or any(d != 1 for d in dilate)
+                    or ca.get("layout") not in (None, "NCHW")):
+                continue
+            self.stem_fuse[id(b)] = {
+                "var": src.name, "conv": conv,
+                "eps": float(a.get("eps", 1e-3)),
+                "momentum": float(a.get("momentum", 0.9)),
+                "kernel": kernel,
+                "stride": tuple(ca.get("stride") or ()) or (1, 1),
+                "pad": tuple(ca.get("pad") or ()) or (0, 0)}
 
     @staticmethod
     def _nc_conv_attrs(n):
@@ -126,11 +177,14 @@ class _Lowered(object):
 
     def _init_norm_conv(self, consumers, outs):
         """NormConv fusion map: a BatchNorm[->relu] whose consumers are
-        fusable Convolutions becomes the prologue of those convs.  (The
-        epilogue-statistics map of the JAX package feeds training only and
-        arrives with the training slice.)"""
+        fusable Convolutions becomes the prologue of those convs.  A
+        training BatchNorm whose data producer is such a conv reads its
+        batch statistics from that conv's epilogue instead of reducing the
+        activation again."""
         self.nc_bn = {}        # bn id -> {bn, act, convs, others, attrs}
         self.nc_conv = {}      # conv id -> bn id
+        self.nc_stats_src = {}  # bn id -> producer conv node
+        self.nc_stats_for = {}  # conv id -> [bn ids reading its statistics]
         for b in self.order:
             if b.is_var or b.op.name != "BatchNorm":
                 continue
@@ -161,22 +215,59 @@ class _Lowered(object):
                                  "others": others, "attrs": attrs}
             for c in convs:
                 self.nc_conv[id(c)] = id(b)
+        for b_id, info in self.nc_bn.items():
+            src, si = info["bn"].inputs[0]
+            if si == 0 and not src.is_var and id(src) in self.nc_conv \
+                    and not info["attrs"].get("use_global_stats"):
+                self.nc_stats_src[b_id] = src
+                self.nc_stats_for.setdefault(id(src), []).append(b_id)
 
-    def _nc_run_bn(self, node, values, nhwc, nc_ctx, skip):
-        """Resolve a fused BatchNorm to per-channel (scale, shift) from its
-        moving statistics; the apply pass only materialises for consumers
-        that are not fused convolutions."""
+    def _nc_run_bn(self, node, values, nhwc, aux_updates, nc_ctx, is_train,
+                   skip):
+        """Resolve a fused BatchNorm to per-channel (scale, shift): in
+        training from the batch statistics (the producer conv's epilogue
+        sums when it emitted them, one reduce otherwise), updating the
+        moving statistics into ``aux_updates``; else from the moving
+        statistics.  The apply pass only materialises for consumers that
+        are not fused convolutions."""
         info = self.nc_bn[id(node)]
         xk = (id(node.inputs[0][0]), node.inputs[0][1])
         x = values[xk]
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
             return False
         attrs = info["attrs"]
+        eps = float(attrs.get("eps", 1e-3))
+        fix_gamma = attrs.get("fix_gamma", True)
         gamma, beta, mm, mv = (values[(id(c), i)]
                                for c, i in node.inputs[1:5])
-        scale, shift = bn_scale_shift(gamma, beta, mm, mv,
-                                      float(attrs.get("eps", 1e-3)),
-                                      attrs.get("fix_gamma", True), x.dtype)
+        if is_train and not attrs.get("use_global_stats"):
+            acc = torch.promote_types(x.dtype, torch.float32)
+            src = self.nc_stats_src.get(id(node))
+            dims = (0, 1, 2) if xk in nhwc else (0, 2, 3)
+            if src is not None and (id(src), 1) in values:
+                ssum = values[(id(src), 1)].to(acc)
+                ssq = values[(id(src), 2)].to(acc)
+            else:
+                x32 = x.to(acc)
+                ssum = x32.sum(dim=dims)
+                ssq = x32.square().sum(dim=dims)
+            nhw = x.numel() // ssum.numel()
+            mean = ssum / nhw
+            var = torch.maximum(ssq / nhw - mean.square(),
+                                torch.zeros((), dtype=acc))
+            momentum = float(attrs.get("momentum", 0.9))
+            for pos, stat in ((3, mean), (4, var)):
+                child = node.inputs[pos][0]
+                if child.is_var:
+                    aux_updates[child.name] = _bn_moving(
+                        values[(id(child), 0)], stat, momentum)
+            inv = torch.rsqrt(var + eps)
+            g = torch.ones_like(gamma) if fix_gamma else gamma
+            scale = g.to(acc) * inv
+            shift = beta.to(acc) - mean * scale
+        else:
+            scale, shift = bn_scale_shift(gamma, beta, mm, mv, eps,
+                                          fix_gamma, x.dtype)
         relu = info["act"] is not None
         nc_ctx[id(node)] = (scale, shift, xk, relu)
         if info["others"]:
@@ -188,19 +279,63 @@ class _Lowered(object):
             skip.add(id(info["act"]))
         return True
 
-    def _nc_run_conv(self, node, values, nhwc, nc_ctx):
+    def _nc_run_conv(self, node, values, nhwc, nc_ctx, is_train):
         """Run a Convolution as the fused NormConv: the BatchNorm(+relu)
-        resolved by _nc_run_bn is its prologue."""
+        resolved by _nc_run_bn is its prologue.  In training it runs
+        through the ``NormConv`` Function and emits the epilogue statistics
+        when a BatchNorm below reads them (pseudo-slots 1 and 2 of the
+        conv's values)."""
         scale, shift, xk, relu = nc_ctx[self.nc_conv[id(node)]]
         x = values[xk]
         x_cl = x.contiguous() if xk in nhwc else _to_cl(x)
         w = values[(id(node.inputs[1][0]), node.inputs[1][1])]  # (O, I, k, k)
         g = self._nc_conv_attrs(node)
-        y, _, _ = norm_conv(x_cl, _hwio(w), scale,
-                            shift, kernel=g["k"], stride=g["s"], pad=g["p"],
-                            relu=relu, prologue=True, stats=False)
-        values[(id(node), 0)] = y
+        if is_train:
+            stats = bool(self.nc_stats_for.get(id(node)))
+            out = NormConv.apply(x_cl, w, scale, shift, g["k"], g["s"],
+                                 g["p"], relu, True, stats)
+            if stats:
+                out, values[(id(node), 1)], values[(id(node), 2)] = out
+            values[(id(node), 0)] = out
+        else:
+            values[(id(node), 0)] = norm_conv(
+                x_cl, _hwio(w), scale, shift, kernel=g["k"], stride=g["s"],
+                pad=g["p"], relu=relu, prologue=True, stats=False)[0]
         nhwc.add((id(node), 0))
+
+    def _stem_run(self, node, values, nhwc, aux_updates, skip, arg_vals,
+                  s2d):
+        """Run a fused input BatchNorm + conv pair (see ``_init_stem``):
+        the conv's output channel-last, the BatchNorm's moving statistics
+        into ``aux_updates``."""
+        info = self.stem_fuse[id(node)]
+        xk = (id(node.inputs[0][0]), node.inputs[0][1])
+        x = values[xk]
+        if not isinstance(x, torch.Tensor) or x.dim() != 4:
+            return False
+        x_cl = x if xk in nhwc else _to_cl(x)
+        conv = info["conv"]
+        beta = values[(id(node.inputs[2][0]), node.inputs[2][1])]
+        # the conv's weight variable comes after the BatchNorm in walk
+        # order, so it is not in values yet: read it from the arguments
+        wvar = conv.inputs[1][0]
+        w = values.get((id(wvar), conv.inputs[1][1]))
+        if w is None:
+            if not wvar.is_var or wvar.name not in arg_vals:
+                return False
+            w = arg_vals[wvar.name]
+        out, mean, var = input_bn_conv(x_cl, beta, w, info["eps"],
+                                       info["kernel"], info["stride"],
+                                       info["pad"], s2d=s2d)
+        for pos, stat in ((3, mean), (4, var)):
+            child = node.inputs[pos][0]
+            if child.is_var:
+                aux_updates[child.name] = _bn_moving(
+                    values[(id(child), 0)], stat, info["momentum"])
+        values[(id(conv), 0)] = out
+        nhwc.add((id(conv), 0))
+        skip.add(id(conv))
+        return True
 
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
             device=None):
@@ -233,12 +368,10 @@ class _Lowered(object):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
-        if nc_on and is_train:
-            raise MXNetError("MXNET_NORM_CONV=1: the NormConv peephole has "
-                             "no backward yet and would drop the gradients "
-                             "below it; NormConv training arrives with the "
-                             "NormConv training slice (set MXNET_NORM_CONV=0 "
-                             "to train unfused)")
+        stem_on = (use_nhwc and is_train and bool(self.stem_fuse)
+                   and bool(no_grad_inputs)
+                   and get_env("MXNET_STEM_FUSE", "1") == "1")
+        stem_s2d = get_env("MXNET_STEM_S2D", "0") == "1"
         nc_ctx = {}
         values = {}
         nhwc = set()      # value keys currently stored channel-last
@@ -259,12 +392,20 @@ class _Lowered(object):
                 continue
             if id(node) in skip:
                 continue
+            stem = self.stem_fuse.get(id(node)) if stem_on else None
+            if stem is not None and stem["var"] in no_grad_inputs \
+                    and not (nc_on and (id(node) in self.nc_bn
+                                        or id(stem["conv"]) in self.nc_conv)):
+                if self._stem_run(node, values, nhwc, aux_updates, skip,
+                                  arg_vals, stem_s2d):
+                    continue
             if nc_on and id(node) in self.nc_bn:
-                if self._nc_run_bn(node, values, nhwc, nc_ctx, skip):
+                if self._nc_run_bn(node, values, nhwc, aux_updates, nc_ctx,
+                                   is_train, skip):
                     continue
             if nc_on and id(node) in self.nc_conv \
                     and self.nc_conv[id(node)] in nc_ctx:
-                self._nc_run_conv(node, values, nhwc, nc_ctx)
+                self._nc_run_conv(node, values, nhwc, nc_ctx, is_train)
                 continue
             fused_act = self.fused_relu.get(id(node))
             op = get_op("_BatchNormReLU") if fused_act is not None \

@@ -3,8 +3,10 @@ FullyConnected, Activation, Convolution, Pooling, BatchNorm, the
 executor-fused _BatchNormReLU and Dropout.  Their backward is autograd's,
 except where the JAX package writes its own: BatchNorm and BatchNorm+ReLU in
 training (``BatchNormTrain``, ``BatchNormReLUTrain``, counterparts of its
-custom VJPs ``_bn_train_core`` and ``_bn_relu_train_core``) and the max-pool
-equality-mask backward of ``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
+custom VJPs ``_bn_train_core`` and ``_bn_relu_train_core``), the executor's
+fused input BatchNorm + stem convolution (``InputBNConv``, counterpart of
+``_input_bn_conv_core``) and the max-pool equality-mask backward of
+``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
 
 Convolution and pooling call PyTorch's own (cuDNN on the card), as the JAX
 package leaves them to XLA.  With ``layout='NHWC'`` (set by the executor's
@@ -496,6 +498,188 @@ def _batch_norm_relu(data, gamma, beta, moving_mean, moving_var,
                       fix_gamma=fix_gamma, use_global_stats=use_global_stats,
                       layout=layout)
     return (relu(res[0]),) + tuple(res[1:])
+
+
+# ------------------------------------------------- fused input-BN + stem conv
+def _s2d_eligible(x_shape, geom):
+    """Space-to-depth applies when both strides are 2, the input's spatial
+    dims are even, and the packed stride-1 conv gives the strided conv's
+    output extent: it always gives H/2, which is floor((H + 2p - k)/2) + 1
+    only when k - 2p is 1 or 2 (the 7x7/p3 ImageNet stem qualifies)."""
+    k, s, p = geom
+    return (tuple(s) == (2, 2)
+            and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
+            and k[0] - 2 * p[0] in (1, 2) and k[1] - 2 * p[1] in (1, 2))
+
+
+def _s2d_taps(geom):
+    """Where each tap (ih, iw) of the strided conv lands in the packed
+    stride-1 conv (parity: ``_s2d_pack_weights``): input row 2i - p + kh
+    splits into parity a = (kh - p) % 2 and packed tap u = (kh - p - a) / 2.
+    Returns ((kh, kw) index arrays of the packed channel group a*2 + b, of
+    the packed row and of the packed column), the packed kernel (khp, kwp)
+    and the packed padding ((top, bottom), (left, right))."""
+    k, _, p = geom
+
+    def taps(kdim, pad):
+        ms = [t - pad for t in range(kdim)]
+        us = [(m - (m % 2)) // 2 for m in ms]
+        return _np.array(us) - min(us), _np.array([m % 2 for m in ms]), \
+            min(us), max(us)
+    uh, ah, uhmin, uhmax = taps(k[0], p[0])
+    uw, aw, uwmin, uwmax = taps(k[1], p[1])
+    q = ah[:, None] * 2 + aw[None, :]
+    rows = _np.broadcast_to(uh[:, None], q.shape)
+    cols = _np.broadcast_to(uw[None, :], q.shape)
+    return ((torch.as_tensor(q), torch.as_tensor(rows.copy()),
+             torch.as_tensor(cols.copy())),
+            (uhmax - uhmin + 1, uwmax - uwmin + 1),
+            ((-uhmin, uhmax), (-uwmin, uwmax)))
+
+
+def _s2d_pack_weights(w, geom):
+    """Logical (O, C, kh, kw) stem weights -> the packed (O, 4C, khp, kwp)
+    weights of the space-to-depth conv (packed channel (a*2 + b)*C + c),
+    and the packed padding."""
+    o, c = w.shape[:2]
+    idx, (khp, kwp), pads = _s2d_taps(geom)
+    wp = w.new_zeros((4, khp, kwp, o, c))
+    wp[idx] = w.permute(2, 3, 0, 1)
+    return wp.permute(3, 0, 4, 1, 2).reshape(o, 4 * c, khp, kwp), pads
+
+
+def _s2d_unpack_weight_grad(dwp, geom):
+    """The gradient of the logical weights from that of the packed ones:
+    the transpose of ``_s2d_pack_weights``'s scatter."""
+    o, c4, khp, kwp = dwp.shape
+    idx, _, _ = _s2d_taps(geom)
+    dwp = dwp.reshape(o, 4, c4 // 4, khp, kwp).permute(1, 3, 4, 0, 2)
+    return dwp[idx].permute(2, 3, 0, 1)
+
+
+def _s2d_pack_input(y):
+    """(N, H, W, C) -> (N, H/2, W/2, 4C), channel (a*2 + b)*C + c."""
+    n, h, w_, c = y.shape
+    y = y.reshape(n, h // 2, 2, w_ // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, h // 2, w_ // 2, 4 * c)
+
+
+def _stem_operands(y, w, geom, s2d):
+    """(input as an NCHW view, weight, stride, padding) of the stem
+    convolution, packed by space-to-depth when ``s2d`` and eligible."""
+    k, s, p = geom
+    if s2d and _s2d_eligible(y.shape, geom):
+        wp, ((t, b), (l, r)) = _s2d_pack_weights(w, geom)
+        yp = F.pad(_s2d_pack_input(y).permute(0, 3, 1, 2), (l, r, t, b))
+        return yp, wp, (1, 1), (0, 0)
+    return y.permute(0, 3, 1, 2), w, tuple(s), tuple(p)
+
+
+def _stem_conv(y, w, geom, s2d=False):
+    """The stem convolution of channel-last ``y`` with logical (O, C, kh,
+    kw) ``w``, via space-to-depth when eligible and ``s2d`` (parity:
+    ``_stem_conv``; MXNET_STEM_S2D, default off, resolved by the
+    executor); channel-last out."""
+    inp, wt, s, p = _stem_operands(y, w, geom, s2d)
+    return F.conv2d(inp, wt, stride=s, padding=p).permute(0, 2, 3, 1)
+
+
+def _ibc_normalise(x, b, mean, inv):
+    """x * inv + (b - mean * inv), inv and the shift cast to x's dtype:
+    ``_bn_train_fwd``'s output with a gamma of ones, from its statistics
+    (the backward recomputes it)."""
+    shift = b.to(inv.dtype) - mean * inv
+    return x * inv.reshape(1, 1, 1, -1).to(x.dtype) \
+        + shift.reshape(1, 1, 1, -1).to(x.dtype)
+
+
+def _ibc_fwd_impl(x, b, w, eps, geom, s2d):
+    """Forward of the fused input BatchNorm(fix_gamma) + Convolution
+    (parity: ``_ibc_fwd_impl``): channel-last x, logical w; returns
+    (conv out channel-last, mean, var, inv), the statistics those of
+    ``_bn_train_fwd`` with a gamma of ones."""
+    y, mean, var, inv = _bn_train_fwd(x, torch.ones_like(b), b, eps, -1)
+    return _stem_conv(y, w, geom, s2d), mean, var, inv
+
+
+def _ibc_tap_ranges(in_dim, out_dim, k, s, p):
+    """Per tap, the inclusive range of output indices whose input tap stays
+    in bounds: tap t at output i reads input s*i - p + t."""
+    ranges = []
+    for t in range(k):
+        lo = max(0, -((-(p - t)) // s))   # ceil((p - t) / s), clamped
+        hi = min(out_dim - 1, (in_dim - 1 + p - t) // s)
+        ranges.append((lo, hi))
+    return ranges
+
+
+class InputBNConv(torch.autograd.Function):
+    """BatchNorm(train, fix_gamma) on an input with no gradient, fused with
+    the Convolution that consumes it: the ResNet stem bn_data -> conv0
+    (counterpart: ``_input_bn_conv_core``).  ``apply(x, beta, w, eps,
+    geom, s2d)`` with x channel-last and w logical returns (out
+    channel-last, mean, var); mean and var carry no gradient.
+
+    The backward takes dW by the weight gradient of the conv on the
+    recomputed normalised input, and d(beta) without the data gradient of
+    the conv: summed over the whole input grid, the transposed conv of the
+    cotangent collapses, per kernel tap, to a rectangle sum of sum_n(g) over
+    the outputs whose tap stays in bounds (2-D prefix sums), contracted with
+    the weights.  dx is a hard zero: the executor fuses only an input
+    declared gradient-free."""
+
+    @staticmethod
+    def forward(ctx, x, b, w, eps, geom, s2d):
+        out, mean, var, inv = _ibc_fwd_impl(x, b, w, eps, geom, s2d)
+        ctx.save_for_backward(x, b, w, mean, inv)
+        ctx.geom, ctx.s2d = geom, s2d
+        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _dmean, _dvar):
+        x, b, w, mean, inv = ctx.saved_tensors
+        k, s, p = ctx.geom
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
+        if g is None:
+            return dx, None, None, None, None, None
+        dw = db = None
+        if ctx.needs_input_grad[2]:
+            inp, wt, st, pd = _stem_operands(
+                _ibc_normalise(x, b, mean, inv), w, ctx.geom, ctx.s2d)
+            _, dw, _ = torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), inp, wt, None, list(st), list(pd),
+                [1, 1], False, [0, 0], 1, [False, True, False])
+            if wt is not w:
+                dw = _s2d_unpack_weight_grad(dw, ctx.geom)
+        if ctx.needs_input_grad[1]:
+            acc = inv.dtype
+            big = g.to(acc).sum(dim=0)                          # (Ho, Wo, O)
+            pre = F.pad(big.cumsum(0).cumsum(1), (0, 0, 1, 0, 1, 0))
+            rows = _ibc_tap_ranges(x.shape[1], g.shape[1], k[0], s[0], p[0])
+            cols = _ibc_tap_ranges(x.shape[2], g.shape[2], k[1], s[1], p[1])
+            r0, r1 = (torch.tensor(v)[:, None] for v in zip(*rows))
+            c0, c1 = (torch.tensor(v)[None, :] for v in zip(*cols))
+            empty = ((r0 > r1) | (c0 > c1)).to(pre.device)
+            # an empty range's corners may fall off the table: clamp them
+            # in (its sum is masked to 0 below)
+            r0, c0 = r0.clamp(max=g.shape[1]), c0.clamp(max=g.shape[2])
+            r1, c1 = r1.clamp(min=-1), c1.clamp(min=-1)
+            taps = (pre[r1 + 1, c1 + 1] - pre[r0, c1 + 1]
+                    - pre[r1 + 1, c0] + pre[r0, c0])           # (kh, kw, O)
+            taps = torch.where(empty[..., None], 0.0, taps)
+            db = torch.einsum("ocij,ijo->c", w.to(acc), taps).to(b.dtype)
+        return dx, db, dw, None, None, None
+
+
+def input_bn_conv(x_cl, beta, weight, eps, kernel, stride, pad, s2d=False):
+    """The executor's entry: the fused training input BatchNorm + conv,
+    channel-last (parity: ``input_bn_conv``).  Returns (out channel-last,
+    mean, var), mean and var for the moving statistics."""
+    geom = (tuple(int(v) for v in kernel), tuple(int(v) for v in stride),
+            tuple(int(v) for v in pad))
+    return InputBNConv.apply(x_cl, beta, weight, float(eps), geom, bool(s2d))
 
 
 # --------------------------------------------------------------------- Dropout

@@ -10,7 +10,14 @@ version.
 The kernel is compiled for ``sm_90a`` at its first use and loaded with ctypes
 (``kernel_build``).  ``launches`` counts ``norm_conv`` calls that launched the
 kernel: one launch each, split-K included (the slice blocks of a tile sum
-their partials inside that launch).
+their partials inside that launch); ``stats_launches`` those of them with
+the statistics epilogue on.
+
+``NormConv`` is the autograd Function of training (counterpart: the custom
+VJP ``_nc_core``): its forward is ``norm_conv``, its backward the JAX
+package's ``_nc_core_bwd`` in PyTorch ops, where the conv's data and weight
+gradients go to PyTorch's convolution backward (cuDNN on the card), as the
+JAX package left them to XLA.  Only the forward is a kernel.
 """
 from __future__ import annotations
 
@@ -20,13 +27,17 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import relu as _relu
 from .kernel_build import CudaLibrary
 
 __all__ = ["norm_conv", "norm_conv_ref", "norm_conv_available",
-           "geometry_ok", "build", "launches", "plan", "vec_flags"]
+           "geometry_ok", "build", "launches", "stats_launches", "plan",
+           "vec_flags", "NormConv"]
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), and
+# those of them with the statistics epilogue on
 launches = 0
+stats_launches = 0
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -87,10 +98,13 @@ def norm_conv_available(x_shape, w_shape, stride, pad, dtype=torch.float32):
 
 def _apply(x, scale, shift, relu):
     """x*scale + shift (+ReLU) with scale/shift first cast to x's dtype,
-    as the TPU kernel and the JAX package's ``_apply`` round it."""
+    as the TPU kernel and the JAX package's ``_apply`` round it.  The ReLU
+    is ``jnp.maximum(out, 0)``'s, whose gradient is 0.5 at a tie (the
+    executor differentiates this where a BatchNorm has consumers besides
+    its fused convolutions)."""
     out = x * scale.to(x.dtype).reshape(1, 1, 1, -1) \
         + shift.to(x.dtype).reshape(1, 1, 1, -1)
-    return torch.relu(out) if relu else out
+    return _relu(out) if relu else out
 
 
 def norm_conv_ref(x, w, scale, shift, kernel, stride, pad, relu=True,
@@ -186,7 +200,7 @@ def launch(lib, x, w, sc, sh, y, ysum, ysq, kernel, stride, pad, relu,
 
 
 def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
-    global launches
+    global launches, stats_launches
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
         raise MXNetError("norm_conv kernel takes float32 or bfloat16 x and w "
                          "of one dtype, got %s and %s" % (x.dtype, w.dtype))
@@ -227,6 +241,7 @@ def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
                      relu, prologue, stats, p, stream)
     _kernel.check(err, "norm_conv")
     launches += 1
+    stats_launches += int(stats)
     return y, ysum, ysq
 
 
@@ -247,3 +262,91 @@ def norm_conv(x, w, scale, shift, kernel, stride, pad, relu=True,
                        bool(relu), bool(prologue), bool(stats))
     return norm_conv_ref(x, w, scale, shift, kernel, stride, pad, relu,
                          prologue, stats)
+
+
+def _fold(dy, dsum, dsq, y):
+    """dy + dsum + 2 y dsq (d sum/dy = 1, d sum y^2/dy = 2y): the
+    statistics' cotangents folded into one cotangent of y, in at least
+    float32, then in dy's dtype (a None cotangent is 0)."""
+    acc = torch.promote_types(y.dtype, torch.float32)
+    out = torch.zeros_like(y, dtype=acc) if dy is None else dy.to(acc)
+    if dsum is not None:
+        out = out + dsum.to(acc).reshape(1, 1, 1, -1)
+    if dsq is not None:
+        out = out + 2.0 * y.to(acc) * dsq.to(acc).reshape(1, 1, 1, -1)
+    return out.to(y.dtype if dy is None else dy.dtype)
+
+
+def _gate(xh, dxh):
+    """The prologue ReLU's backward on the recomputed output xh: 0 where
+    xh is not positive, a tie included."""
+    return torch.where(xh > 0, dxh, 0.0)
+
+
+class NormConv(torch.autograd.Function):
+    """NormConv in training (counterpart: ``_nc_core`` with its custom VJP
+    ``_nc_core_fwd`` / ``_nc_core_bwd``).
+
+    ``apply(x, w, scale, shift, kernel, stride, pad, relu, prologue,
+    stats)``: x channel-last (N, H, W, Cin), w the logical (O, I, k, k)
+    weight, whose HWIO copy for the kernel is made here on every call (so
+    the weight's gradient never meets a copy made outside autograd).
+    Returns y, or (y, sum y, sum y^2) with ``stats``, all differentiable.
+    Saves x, w, scale, shift and, with ``stats``, y.
+
+    The backward folds the statistics' cotangents into dy (d sum/dy = 1,
+    d sum y^2/dy = 2y) in at least float32, recomputes the prologue, takes
+    the convolution's data and weight gradients (channels_last views, so
+    NHWC needs no transpose), gates with ``xh > 0`` (0 at a tie, as the
+    JAX package's VJP), and reduces dscale and dshift in at least
+    float32.  dW comes back in (O, I, k, k)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, kernel, stride, pad, relu,
+                prologue, stats):
+        y, ysum, ysq = norm_conv(x, w.permute(2, 3, 1, 0).contiguous(),
+                                 scale, shift, kernel, stride, pad, relu,
+                                 prologue, stats)
+        ctx.save_for_backward(x, w, scale, shift, y if stats else None)
+        ctx.geom = (int(kernel), int(stride), int(pad), bool(relu),
+                    bool(prologue), bool(stats))
+        ctx.set_materialize_grads(False)
+        if stats:
+            return y, ysum, ysq
+        return y
+
+    @staticmethod
+    def backward(ctx, dy, dsum=None, dsq=None):
+        x, w, scale, shift, y = ctx.saved_tensors
+        _, stride, pad, relu, prologue, stats = ctx.geom
+        need_x, need_w, need_sc, need_sh = ctx.needs_input_grad[:4]
+        none = (None,) * 6
+        if dy is None and dsum is None and dsq is None:
+            return (None,) * 4 + none
+        if stats and (dsum is not None or dsq is not None):
+            dy_eff = _fold(dy, dsum, dsq, y)
+        else:
+            dy_eff = dy
+        xh = _apply(x, scale, shift, relu) if prologue else x
+        # the data gradient feeds dx and, through the prologue, dscale and
+        # dshift; a data input with no gradient skips it
+        need_dxh = need_x or (prologue and (need_sc or need_sh))
+        dxh, dw, _ = torch.ops.aten.convolution_backward(
+            dy_eff.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2), w, None,
+            [stride, stride], [pad, pad], [1, 1], False, [0, 0], 1,
+            [need_dxh, need_w, False])
+        dx = dscale = dshift = None
+        if need_dxh:
+            dxh = dxh.permute(0, 2, 3, 1)
+            if not prologue:
+                return (dxh, dw, None, None) + none
+            dpre = _gate(xh, dxh) if relu else dxh
+            acc = torch.promote_types(x.dtype, torch.float32)
+            if need_x:
+                dx = dpre * scale.to(dpre.dtype).reshape(1, 1, 1, -1)
+            if need_sc:
+                dscale = (dpre * x).to(acc).sum(dim=(0, 1, 2)) \
+                    .to(scale.dtype)
+            if need_sh:
+                dshift = dpre.to(acc).sum(dim=(0, 1, 2)).to(shift.dtype)
+        return (dx, dw, dscale, dshift) + none

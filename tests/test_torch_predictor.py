@@ -54,8 +54,9 @@ def _count_norm_conv(monkeypatch):
 @pytest.mark.parametrize("norm_conv,layout", [("0", "NHWC"), ("1", "NHWC"),
                                               ("1", "NCHW")])
 def test_resnet50_bind_forward_f64(norm_conv, layout, f64, monkeypatch):
-    """ResNet-50, 3x32x32, 10 classes, batch 2: the port's bind/forward
-    equals mxnet_tpu's to 1e-9, with the NormConv peephole on and off (and
+    """ResNet-50, 3x32x32, 10 classes, batch 2: the port's bind/forward,
+    in inference and in training, equals mxnet_tpu's to 1e-9, with the
+    NormConv peephole on and off (and
     off again under the NCHW layout, which the peephole needs)."""
     monkeypatch.setenv("MXNET_NORM_CONV", norm_conv)
     monkeypatch.setenv("MXNET_CONV_LAYOUT", layout)
@@ -89,13 +90,9 @@ def test_resnet50_bind_forward_f64(norm_conv, layout, f64, monkeypatch):
     # plus the 3x3 stem conv0 of the 32x32 variant (bn_data is its prologue)
     fused = norm_conv == "1" and layout == "NHWC"
     assert len(calls) == (53 if fused else 0)
-    # training: the NormConv peephole has no backward yet and refuses
-    # rather than drop gradients; unfused, the training forward (batch
-    # statistics, moving statistics updated) equals mxnet_tpu's
-    if fused:
-        with pytest.raises(mt.MXNetError, match="NormConv training slice"):
-            pex.forward(is_train=True)
-        return
+    # training, fused or not: the training forward (batch statistics, from
+    # the NormConv epilogue where fused, moving statistics updated) equals
+    # mxnet_tpu's under the same MXNET_NORM_CONV
     want = jex.forward(is_train=True)[0].asnumpy()
     got = pex.forward(is_train=True)[0].asnumpy()
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)

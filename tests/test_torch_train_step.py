@@ -301,9 +301,9 @@ def test_trainstep_refuses_what_is_not_ported(kw, item):
 
 
 def test_unported_rules_and_ops_refuse():
-    """An optimizer TrainStep has no rule for, and the NormConv peephole
-    under is_train, raise MXNetError; BatchNorm trains (its moving
-    statistics move)."""
+    """An optimizer TrainStep has no rule for raises MXNetError; BatchNorm
+    trains (its moving statistics move), unfused and through the NormConv
+    peephole under is_train, which takes the same step."""
     class SGLD(mt.optimizer.Optimizer):
         pass
     with pytest.raises(mt.MXNetError, match="optimizer.Updater"):
@@ -315,23 +315,29 @@ def test_unported_rules_and_ops_refuse():
     net = S.SoftmaxOutput(S.Flatten(net), S.Variable("softmax_label"))
     ts = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
     p, s, a = ts.init({"data": (2, 3, 6, 6)}, {"softmax_label": (2,)})
-    b = ts.shard_batch({"data": np.ones((2, 3, 6, 6), np.float32),
+    b = ts.shard_batch({"data": np.arange(216, dtype=np.float32)
+                        .reshape(2, 3, 6, 6) % 7,
                         "softmax_label": np.zeros(2, np.float32)})
-    before = {n: v.clone() for n, v in a.items()}
+    start = [{n: v.clone() for n, v in d.items()} for d in (p, a)]
     ts(p, s, a, b)
     assert all(torch.isfinite(v).all() for v in p.values())
-    assert not torch.equal(a["bn_moving_var"], before["bn_moving_var"])
+    assert not torch.equal(a["bn_moving_var"], start[1]["bn_moving_var"])
     import os
     prev = os.environ.get("MXNET_NORM_CONV")
     os.environ["MXNET_NORM_CONV"] = "1"
     try:
-        with pytest.raises(mt.MXNetError, match="NormConv training"):
-            ts(p, s, a, b)
+        ts2 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+        p2, s2, a2 = start[0], ts2.fopt.init_state(start[0]), start[1]
+        ts2(p2, s2, a2, b)
     finally:
         if prev is None:
             del os.environ["MXNET_NORM_CONV"]
         else:
             os.environ["MXNET_NORM_CONV"] = prev
+    for n in p:
+        torch.testing.assert_close(p2[n], p[n], rtol=1e-5, atol=1e-6)
+    for n in a:
+        torch.testing.assert_close(a2[n], a[n], rtol=1e-5, atol=1e-6)
 
 
 def test_initializers_and_scheduler():
