@@ -22,6 +22,9 @@ fatal on failure:
    y and both sums against the plain version and y bitwise over two
    launches; at batch 32 the kernel (with the statistics where the
    training graph has them), the plain version and cuDNN's conv timed;
+   then the same at batch 32 in bfloat16 (the AMP step's forward), timed
+   beside cuDNN's bfloat16 conv and a bfloat16 bound (bf16 bytes, the
+   tensor-core peak);
 3. serving: ResNet-50 at full width (1000 classes, 3x224x224, random
    weights from a seed) behind ``ServedModel`` with MXNET_NORM_CONV=1,
    max_batch 8, 24 requests from 4 client threads; every request answered,
@@ -47,7 +50,25 @@ fatal on failure:
    rounds than its default): img/s, host ms a step, peak memory, and a
    torch.profiler breakdown of one step (the NormConv kernel, cuDNN's
    convolutions and the FC's GEMM, BatchNorm and the other elementwise
-   work, the SGD rule);
+   work, the SGD rule, the casts);
+4b. resnet50_train_amp: the same model, unfused then fused, under
+   ``Policy("bfloat16")`` (bench.py's policy): (a) one step at batch 4 on
+   the card against phase 4's float64 CPU step on the same graph, each
+   gradient, moving statistic and parameter update within RESNET_FLOOR_X
+   times its bfloat16 floor (RESNET_FLOOR_SAMPLES bf16-policy steps of the
+   port on the CPU from the state and from nudges of it by
+   RESNET_BF16_NUDGE), and the step's Functions (BatchNorm, BatchNorm+
+   ReLU, NormConv with statistics) in bfloat16 on the card against float64
+   on the CPU on the same inputs, within RESNET_FLOOR_X times their CPU
+   bfloat16 floors; (b) a batch holding an inf leaves parameters,
+   momenta and moving statistics bitwise unchanged, halves the scale and
+   counts one overflow; one step under torch.cuda.set_sync_debug_mode
+   ("warn", each synchronisation printed with its stack, then "error");
+   unfused, a ``Policy("float32", loss_scale=2**10)`` step bitwise equal
+   to the plain float32 step (cuDNN deterministic); (c) the loss lower
+   after 9 steps; (d) batch 32 timed and profiled as in phase 4, beside
+   the float32 run of this call; fused, every NormConv launch in
+   bfloat16, 52 a step, 32 with statistics;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -84,6 +105,13 @@ fatal on failure:
    the outputs, on the card) lower after the last step than after the
    first, 36 flash launches per step, host ms per step and tokens/s, and a
    torch.profiler breakdown of one step;
+8b. lm_train_amp: the LM under ``Policy("bfloat16")``: each parameter's
+   gradient within LM_BF16_X times its bfloat16 floor (the xla graph's
+   bf16-policy gradient against its float32 one), the three flash kernels
+   launched 12 times each in bfloat16; 9 Adam steps with the loss lower,
+   36 bfloat16 flash launches a step, host ms, peak memory and a profiled
+   step; one gradient step each with remat False, True and "dots", peak
+   memory and host ms beside the gradients' distance;
    graph_device: a graph of ``_ones`` plus a data variable, and one of a
    uniform sampler plus a data variable, bound to gpu(0), forward on the
    card with the right values;
@@ -105,12 +133,15 @@ fatal on failure:
    push, kernel / plain / ``torch.add`` / bound ms of axpb; a source with
    a syntax error must raise MXNetError carrying nvcc's log.
 
-Prints the card's name and power limit, per-geometry numbers, serving qps
-and latency, the ResNet-50 training checks, rates and profiles (unfused and
-fused), the NormConv launches of serving and of fused training, flash
-timings, LM checks and profiles, flash backward timings,
-LM training checks, rates and profile, Updater and Rtc numbers, a JSON line
-of kernel numbers, and as its last line
+Prints the card's name and power limit, whether ml_dtypes imports,
+per-geometry numbers, serving qps and latency, the ResNet-50 training
+checks, rates and profiles (unfused and fused, float32 and bfloat16 AMP),
+the NormConv launches of serving and of fused training, flash timings, LM
+checks and profiles, flash backward timings, LM training checks, rates and
+profiles (float32 and AMP), Updater and Rtc numbers, each phase's seconds,
+a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
+bfloat16 kernel at the training shapes and its launches in the AMP steps),
+and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
 """
@@ -138,6 +169,12 @@ Y_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # float32 statistics epilogue vs the plain version's sums of y, relative to
 # the largest |sum| (the kernel adds per-tile partials with atomics)
 STATS_TOL = 1e-4
+# bfloat16: the kernel sums its float32 accumulator, the plain version the
+# bfloat16 y (each term rounded once, 2^-9 relative at most): over the
+# >= 25,000 terms of a channel those roundings average out to well under
+# 1e-4 of the largest sum; 1e-3 leaves room for a channel whose sum
+# cancels
+STATS_TOL_BF16 = 1e-3
 # served softmax rows vs the unfused reference, relative to the largest
 # probability: float32 throughout, so only summation order differs
 SERVE_TOL = 1e-4
@@ -173,6 +210,14 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # both.  A fault in a kernel or in its autograd wiring moves both by O(1).
 LM_GRAD_TOL = 5e-2
 LM_GRAD_NORM_TOL = 5e-3
+# the LM under Policy("bfloat16"): each parameter's gradient on the kernel
+# graph against the attn_impl="xla" graph's float32 gradient, within
+# LM_BF16_X times that parameter's bfloat16 floor, the xla graph's
+# bf16-policy gradient against its float32 one (or LM_BF16_FLOOR_MIN);
+# both measures as above.  The two bf16 graphs round the same
+# activations to bfloat16 and differ in the attention's float32 sums.
+LM_BF16_X = 4.0
+LM_BF16_FLOOR_MIN = 1e-6
 # ResNet-50 training: one SGD-momentum step at full width and depth
 # (224x224, 1000 classes), batch RESNET_CHECK_BATCH, float32 on the card
 # (TF32 off) against the same step in float64 on the CPU, from one state,
@@ -218,6 +263,31 @@ RESNET_FLOOR_NUDGE = 2.0 ** -18
 RESNET_FLOOR_X = 4.0
 RESNET_FLOOR_MIN = 1e-6
 RESNET_F64_TOL = 1e-9
+# the AMP phase's check: one step under Policy("bfloat16") on the card
+# against the same float64 CPU step, each leaf within RESNET_FLOOR_X times
+# its bfloat16 floor: the largest distance from float64 of
+# RESNET_FLOOR_SAMPLES bfloat16-policy steps of the port on the CPU, from
+# the state and from nudges of it by RESNET_BF16_NUDGE.  2^-9 is
+# bfloat16's rounding (half an ulp at 8 bits of mantissa): the card's and
+# the CPU's bfloat16 convolutions round each output once from float32
+# sums taken in other orders, so a leaf moves about as far under a nudge
+# of one bfloat16 rounding as between the two devices.  Below the FC the
+# bfloat16 step's gradients are as far from float64 as they are large
+# (ReLU gates flip and BatchNorm's backward cancels at batch 4: on the
+# CPU the port's and the JAX package's bfloat16 steps both sit at a
+# median 1.1 in norm from float64 over the conv weights, float32 at
+# 0.025), so a fault of a few percent in the backward cannot show there;
+# the moving statistics (forward only) and the parameter updates (a
+# master kept in bfloat16 rounds them) can.  The phase therefore also
+# holds the step's Functions in bfloat16 to their float64 versions on the
+# same inputs, where nothing is chaotic (``amp_function_rows``): each
+# output and gradient within RESNET_FLOOR_X times the distance of the
+# same Function's bfloat16 run on the CPU.
+RESNET_BF16_NUDGE = 2.0 ** -9
+# the AMP check's leaves: besides each gradient (first momentum) and moving
+# statistic, each parameter's update (new - old master weight), which a
+# master weight kept in bfloat16 would round away
+AMP_KINDS = ("grad", "aux", "update")
 RESNET_LR = 0.1
 # the timed run: resnet50_train.py's function at its batch (32), with
 # fewer rounds than its default, so the phase fits the script's limit
@@ -434,23 +504,28 @@ def kernel_phase(torch, nc, geoms):
     return tot
 
 
-def kernel_train_phase(torch, nc, geoms, stats_geoms):
-    """The kernel at the training step's geometries, float32, TF32 off: at
-    RESNET_CHECK_BATCH and RESNET_TRAIN_BATCH, every geometry with the
-    statistics epilogue on, y and both sums against the plain version and
-    y bitwise over two launches; at RESNET_TRAIN_BATCH the kernel (with
-    the statistics where the training graph has them), the plain version
-    and cuDNN's conv timed beside the bound.  Returns the totals of one
+def kernel_train_phase(torch, nc, geoms, stats_geoms, dt=None,
+                       batches=(RESNET_CHECK_BATCH, RESNET_TRAIN_BATCH)):
+    """The kernel at the training step's geometries in ``dt`` (float32 by
+    default), TF32 off: at each of ``batches``, every geometry with the
+    statistics epilogue on, y and both sums against the plain version in
+    the same dtype and y bitwise over two launches; at RESNET_TRAIN_BATCH
+    the kernel (with the statistics where the training graph has them),
+    the plain version and cuDNN's conv in the same dtype timed beside the
+    bound (``dt``'s bytes and peak).  Returns the totals of one
     batch-RESNET_TRAIN_BATCH training step's forward (RESNET_NC_PER_STEP
     launches)."""
+    dt = dt or torch.float32
+    dname = str(dt).split(".")[1]
+    stats_tol = STATS_TOL if dt == torch.float32 else STATS_TOL_BF16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0}
-    for batch in (RESNET_CHECK_BATCH, RESNET_TRAIN_BATCH):
+    for batch in batches:
         for key, count in sorted(geoms.items()):
             h, w, cin, cout, k, s, p = key
             n_stats = stats_geoms.get(key, 0)
-            x, wt, sc, sh = nc_inputs(torch, gen, batch, key, torch.float32)
+            x, wt, sc, sh = nc_inputs(torch, gen, batch, key, dt)
             yk, sk, qk = nc.norm_conv(x, wt, sc, sh, k, s, p, stats=True)
             yk2, _, _ = nc.norm_conv(x, wt, sc, sh, k, s, p, stats=True)
             yp, spl, qp = nc.norm_conv_ref(x, wt, sc, sh, k, s, p,
@@ -459,27 +534,27 @@ def kernel_train_phase(torch, nc, geoms, stats_geoms):
             if not torch.equal(yk, yk2):
                 fail("kernel train batch %d %s: y differs between two "
                      "launches" % (batch, key))
-            err = (yk - yp).abs().max().item()
-            ref = yp.abs().max().item()
-            if not torch.isfinite(yk).all() or err > Y_TOL["float32"] * ref:
-                fail("kernel train batch %d %s: max|dy| %.3g > %g * %.3g"
-                     % (batch, key, err, Y_TOL["float32"], ref))
+            err = (yk.float() - yp.float()).abs().max().item()
+            ref = yp.float().abs().max().item()
+            if not torch.isfinite(yk).all() or err > Y_TOL[dname] * ref:
+                fail("kernel train %s batch %d %s: max|dy| %.3g > %g * %.3g"
+                     % (dname, batch, key, err, Y_TOL[dname], ref))
             serr = 0.0
             for a, b, what in ((sk, spl, "sum"), (qk, qp, "sumsq")):
                 e = (a - b).abs().max().item() / b.abs().max().item()
                 serr = max(serr, e)
-                if e > STATS_TOL:
-                    fail("kernel train batch %d %s stats %s: relative "
-                         "error %.3g > %g" % (batch, key, what, e,
-                                              STATS_TOL))
+                if e > stats_tol:
+                    fail("kernel train %s batch %d %s stats %s: relative "
+                         "error %.3g > %g" % (dname, batch, key, what, e,
+                                              stats_tol))
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             _, bm, bn, splits, _ = nc.plan(nc._kernel.get(), x.shape,
                                            wt.shape, s, p, device_index=0)
-            line = ("geom_train batch=%d H=%d W=%d Cin=%d Cout=%d k=%d s=%d "
-                    "p=%d count=%d stats_count=%d max_abs_err=%r "
+            line = ("geom_train dtype=%s batch=%d H=%d W=%d Cin=%d Cout=%d "
+                    "k=%d s=%d p=%d count=%d stats_count=%d max_abs_err=%r "
                     "stats_rel_err=%r tile=%dx%d splits=%d"
-                    % (batch, h, w, cin, cout, k, s, p, count, n_stats, err,
-                       serr, bm, bn, splits))
+                    % (dname, batch, h, w, cin, cout, k, s, p, count,
+                       n_stats, err, serr, bm, bn, splits))
             if batch != RESNET_TRAIN_BATCH:
                 print(line + " bitwise_repeat=True")
                 continue
@@ -492,7 +567,8 @@ def kernel_train_phase(torch, nc, geoms, stats_geoms):
             plain_ms = time_ms(torch, lambda: nc.norm_conv_ref(
                 x, wt, sc, sh, k, s, p, stats=n_stats > 0))
             library_ms = nc_library_ms(torch, nc, x, wt, sc, sh, s, p)
-            bound_ms, ops_ms, bytes_ms = nc_bound(batch, key, 4,
+            bound_ms, ops_ms, bytes_ms = nc_bound(batch, key,
+                                                  x.element_size(),
                                                   n_stats > 0)
             print(line + " kernel_ms=%r plain_ms=%r library_ms=%r "
                   "bound_ms=%r bound_by=%s bitwise_repeat=True"
@@ -639,13 +715,13 @@ def resnet50_state(mt, net, batch):
             aux, data)
 
 
-def nudged(state, seed):
-    """``state`` with each float value times 1 + u * RESNET_FLOOR_NUDGE, u
-    uniform in [-1, 1]."""
+def nudged(state, seed, size=RESNET_FLOOR_NUDGE):
+    """``state`` with each float value times 1 + u * ``size``, u uniform in
+    [-1, 1]."""
     rng = np.random.default_rng(seed)
 
     def nudge(v):
-        return v * (1 + RESNET_FLOOR_NUDGE * rng.uniform(-1, 1, np.shape(v)))
+        return v * (1 + size * rng.uniform(-1, 1, np.shape(v)))
     params, opt_state, aux, data = state
     return ({n: nudge(v) for n, v in params.items()},
             {n: tuple(nudge(x) for x in st) for n, st in opt_state.items()},
@@ -654,13 +730,13 @@ def nudged(state, seed):
              "softmax_label": data["softmax_label"]})
 
 
-def resnet50_trainer(mt, net, state, ctx, dtype, batch):
-    """A TrainStep with the check's optimizer on ``ctx`` and its state,
-    parameters and batch at ``dtype``."""
+def resnet50_trainer(mt, net, state, ctx, dtype, batch, policy=None):
+    """A TrainStep with the check's optimizer on ``ctx`` (under ``policy``)
+    and its state, parameters and batch at ``dtype``."""
     params, opt_state, aux, data = state
     ts = mt.TrainStep(net, mt.optimizer.SGD(
         learning_rate=RESNET_LR, momentum=0.9, rescale_grad=1.0 / batch),
-        ctx=ctx)
+        ctx=ctx, policy=policy)
     p, s, a = mt.convert.train_state_from_numpy(
         {n: v.astype(dtype) for n, v in params.items()},
         {n: tuple(x.astype(dtype) for x in st)
@@ -670,14 +746,19 @@ def resnet50_trainer(mt, net, state, ctx, dtype, batch):
         {k: v.astype(dtype) for k, v in data.items()})
 
 
-def resnet50_step(mt, net, state, ctx, dtype, batch):
+def resnet50_step(mt, net, state, ctx, dtype, batch, policy=None):
     """One step of the check's trainer from ``state`` at ``dtype`` on
-    ``ctx``: ((first momenta, moving statistics) as float64 CPU tensors,
-    (TrainStep, params, opt_state, aux, batch, outputs) after it)."""
-    ts, p, s, a, data = resnet50_trainer(mt, net, state, ctx, dtype, batch)
+    ``ctx`` (under ``policy``): ((first momenta, moving statistics, each
+    parameter's update) as float64 CPU tensors, (TrainStep, params,
+    opt_state, aux, batch, outputs) after it)."""
+    ts, p, s, a, data = resnet50_trainer(mt, net, state, ctx, dtype, batch,
+                                         policy)
+    # a copy: the step updates p in place
+    before = {n: v.double().cpu().clone() for n, v in p.items()}
     p, s, a, outs = ts(p, s, a, data)
     return (({n: st[0].double().cpu() for n, st in s.items()},
-             {n: v.double().cpu() for n, v in a.items()}),
+             {n: v.double().cpu() for n, v in a.items()},
+             {n: v.double().cpu() - before[n] for n, v in p.items()}),
             (ts, p, s, a, data, outs))
 
 
@@ -702,13 +783,13 @@ def resnet_dist(got, want):
             (d.norm() / want.norm().clamp_min(1e-300)).item())
 
 
-def resnet50_leaf_rows(torch, got, want, floors):
-    """Per gradient and moving statistic of the step ``got`` against
-    ``want``: (max_rel, norm_rel, floor max_rel, floor norm_rel, max_rel
-    and norm_rel as multiples of max(floor, RESNET_FLOOR_MIN), kind,
-    name)."""
+def resnet50_leaf_rows(torch, got, want, floors, kinds=("grad", "aux")):
+    """Per gradient and moving statistic (and, with "update" in ``kinds``,
+    each parameter's update) of the step ``got`` against ``want``:
+    (max_rel, norm_rel, floor max_rel, floor norm_rel, max_rel and norm_rel
+    as multiples of max(floor, RESNET_FLOOR_MIN), kind, name)."""
     rows = []
-    for k, kind in enumerate(("grad", "aux")):
+    for k, kind in enumerate(kinds):
         for n, ref in want[k].items():
             if not torch.isfinite(got[k][n]).all():
                 fail("resnet50_train: non-finite %s of %s" % (kind, n))
@@ -781,31 +862,12 @@ def resnet50_train_phase(torch, mt, nc, norm_conv, unfused_want=None):
         f64_what = "card_f64"
         f64 = max(resnet_dist(card[np.float64][0][k][n], ref)[0]
                   for k in (0, 1) for n, ref in want[k].items())
-    for col, what in ((4, "max_rel"), (5, "norm_rel")):
-        for row in sorted(rows, key=lambda r: -r[col])[:4]:
-            print("%s worst_by=floor_x_%s %s=%s max_rel=%r "
-                  "norm_rel=%r f32_floor max_rel=%r norm_rel=%r "
-                  "floor_x max=%r norm=%r" % ((tag, what, row[6], row[7])
-                                             + row[:6]))
-    worst = [max(r[i] for r in rows) for i in range(6)]
-    print("%s check grads=%d aux=%d floor_samples=%d card_f32 "
-          "worst max_rel=%r norm_rel=%r, f32 floor worst max_rel=%r "
-          "norm_rel=%r; card_f32 worst times its leaf's floor max=%r "
-          "norm=%r (tol %g x max(floor, %g)); %s worst max_rel=%r "
-          "(tol %g)"
-          % ((tag, len(want[0]), len(want[1]), len(floors)) + tuple(worst)
-             + (RESNET_FLOOR_X, RESNET_FLOOR_MIN, f64_what, f64,
-                RESNET_F64_TOL)))
+    print("%s %s worst max_rel=%r (tol %g)"
+          % (tag, f64_what, f64, RESNET_F64_TOL))
     if f64 > RESNET_F64_TOL:
         fail("%s: the float64 step (%s) differs by %.3g of the largest "
              "entry (tol %g)" % (tag, f64_what, f64, RESNET_F64_TOL))
-    for rel, nrel, frel, fnrel, xr, xn, kind, n in rows:
-        if xr > RESNET_FLOOR_X or xn > RESNET_FLOOR_X:
-            fail("%s: %s of %s differs from the float64 step by "
-                 "%.3g of its largest entry and %.3g in norm, %.3g and %.3g "
-                 "times its float32 floor (%.3g, %.3g; tol %g x)"
-                 % (tag, kind, n, rel, nrel, xr, xn, frel, fnrel,
-                    RESNET_FLOOR_X))
+    resnet50_check_rows(torch, tag, rows, "f32_floor")
 
     ts, p, s, a, batch, outs = trainer
     lab = batch["softmax_label"].long()
@@ -860,17 +922,337 @@ def resnet50_train_phase(torch, mt, nc, norm_conv, unfused_want=None):
     return dict(counted, img_s=img_s, want=want)
 
 
+def amp_policy(mt):
+    """The AMP phases' policy: bench.py's bfloat16 policy (dynamic loss
+    scale from 2^15)."""
+    return mt.amp.Policy("bfloat16")
+
+
+def resnet50_amp_reference(mt, net, state, batch, tag):
+    """The RESNET_FLOOR_SAMPLES bfloat16-policy steps of the port on the
+    CPU, on the graph MXNET_NORM_CONV selects, that give each leaf its
+    bfloat16 floor: from ``state`` and from nudges of it by
+    RESNET_BF16_NUDGE."""
+    t0 = time.perf_counter()
+    floors = [resnet50_step(mt, net, nudged(state, SEED + 200 + i,
+                                            RESNET_BF16_NUDGE)
+                            if i else state, mt.cpu(), np.float32, batch,
+                            amp_policy(mt))[0]
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    print("%s steps=%d cpu_bf16_policy seconds=%r"
+          % (tag, RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
+    return floors
+
+
+def amp_function_rows(torch, mt):
+    """The AMP step's hand-written Functions at ResNet-50 shapes in
+    bfloat16 (parameters cast to bfloat16, scale and shift float32, as the
+    AMP graph hands them over), on the card against the same Function in
+    float64 on the CPU on the same inputs: BatchNormTrain and
+    BatchNormReLUTrain on a (4, 56, 56, 256) channel-last input whose
+    channels sit off zero (the residual stream's cancellation), and
+    NormConv with its statistics at stage 1's 3x3 conv (4, 56, 56, 64),
+    cotangents on y and on both sums.  Each output and input gradient is a
+    leaf whose floor is the same Function's bfloat16 run on the CPU.
+    Returns leaf rows as ``resnet50_leaf_rows`` gives them, kind "fn"."""
+    from mxnet_tpu_torch.ops import nn as pnn
+    from mxnet_tpu_torch.ops import norm_conv as pnc
+    gen = torch.Generator().manual_seed(SEED + 9)
+
+    def randn(*shape, scale=1.0, shift=0.0, dt=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dt)
+
+    def bn_case(fn):
+        x = randn(4, 56, 56, 256, shift=2.0)
+        ins = (x, randn(256, scale=0.2, shift=1.0), randn(256, scale=0.1))
+        cots = (randn(*x.shape),)
+        return ins, cots, lambda x, g, b: fn.apply(x, g, b, 1e-5, 3)
+
+    def nc_case():
+        x = randn(4, 56, 56, 64).relu()
+        w = randn(64, 64, 3, 3, scale=(2.0 / (9 * 64)) ** 0.5)
+        ins = (x, w, randn(64, scale=0.2, shift=1.0, dt=torch.float32),
+               randn(64, scale=0.5, dt=torch.float32))
+        cots = (randn(4, 56, 56, 64), randn(64, scale=0.1,
+                                            dt=torch.float32),
+                randn(64, scale=0.1, dt=torch.float32))
+        return ins, cots, lambda x, w, sc, sh: pnc.NormConv.apply(
+            x, w, sc, sh, 3, 1, 1, True, True, True)
+
+    def run(fn, ins, cots, dev, dt=None):
+        leaves = [t.to(dev, dt or t.dtype).requires_grad_(True)
+                  for t in ins]
+        outs = fn(*leaves)
+        grads = torch.autograd.grad(
+            [outs[i] for i in range(len(cots))], leaves,
+            [c.to(dev, dt or c.dtype) for c in cots])
+        return [t.detach().double().cpu() for t in list(outs) + list(grads)]
+
+    rows = []
+    for name, (ins, cots, fn) in (
+            ("bn", bn_case(pnn.BatchNormTrain)),
+            ("bn_relu", bn_case(pnn.BatchNormReLUTrain)),
+            ("norm_conv", nc_case())):
+        card = run(fn, ins, cots, "cuda")
+        floor = run(fn, ins, cots, "cpu")
+        want = run(fn, ins, cots, "cpu", torch.float64)
+        names = (["out", "mean", "var", "dx", "dgamma", "dbeta"]
+                 if name.startswith("bn") else
+                 ["y", "sum_y", "sum_y2", "dx", "dw", "dscale", "dshift"])
+        for leaf, got, f, ref in zip(names, card, floor, want):
+            if not torch.isfinite(got).all():
+                fail("AMP Function %s: non-finite %s" % (name, leaf))
+            d, fd = resnet_dist(got, ref), resnet_dist(f, ref)
+            rows.append(d + fd + tuple(x / max(y, RESNET_FLOOR_MIN)
+                                       for x, y in zip(d, fd))
+                        + ("fn", "%s.%s" % (name, leaf)))
+    return rows
+
+
+def resnet50_check_rows(torch, tag, rows, floor_name):
+    """Print the worst leaves of a floor check and fail on any leaf over
+    RESNET_FLOOR_X times its floor."""
+    for col, what in ((4, "max_rel"), (5, "norm_rel")):
+        for row in sorted(rows, key=lambda r: -r[col])[:4]:
+            print("%s worst_by=floor_x_%s %s=%s max_rel=%r norm_rel=%r "
+                  "%s max_rel=%r norm_rel=%r floor_x max=%r norm=%r"
+                  % ((tag, what, row[6], row[7]) + row[:2] + (floor_name,)
+                     + row[2:6]))
+    worst = [max(r[i] for r in rows) for i in range(6)]
+    print("%s check leaves=%d worst max_rel=%r norm_rel=%r, %s worst "
+          "max_rel=%r norm_rel=%r; worst times its leaf's floor max=%r "
+          "norm=%r (tol %g x max(floor, %g))"
+          % ((tag, len(rows)) + tuple(worst[:2]) + (floor_name,)
+             + tuple(worst[2:]) + (RESNET_FLOOR_X, RESNET_FLOOR_MIN)))
+    for rel, nrel, frel, fnrel, xr, xn, kind, n in rows:
+        if xr > RESNET_FLOOR_X or xn > RESNET_FLOOR_X:
+            fail("%s: %s of %s differs from the float64 step by %.3g of "
+                 "its largest entry and %.3g in norm, %.3g and %.3g times "
+                 "its %s (%.3g, %.3g; tol %g x)"
+                 % (tag, kind, n, rel, nrel, xr, xn, floor_name, frel,
+                    fnrel, RESNET_FLOOR_X))
+    return worst
+
+
+def sync_free(torch, what, fn):
+    """``fn()`` with torch's CUDA sync debug mode at "warn", each
+    synchronisation recorded with the stack of this repo's frames, then
+    once more at "error": fails on any synchronisation."""
+    import traceback
+    import warnings
+    seen = []
+    real = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            here = [fr for fr in traceback.extract_stack()[:-1]
+                    if "mxnet_tpu_torch" in fr.filename]
+            seen.append((str(message), ["%s:%d %s" % (
+                os.path.relpath(fr.filename), fr.lineno, fr.name)
+                for fr in here[-6:]]))
+        else:
+            real(message, category, filename, lineno, file, line)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = real
+    for msg, stack in seen:
+        print("sync %s: %s at %s" % (what, msg.splitlines()[0], stack))
+    if seen:
+        fail("%s: %d host synchronisations in the step" % (what, len(seen)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("sync %s: none under set_sync_debug_mode warn, then error" % what)
+
+
+def resnet50_train_amp_phase(torch, mt, nc, norm_conv, want, f32_img_s):
+    """ResNet-50 training under Policy("bfloat16") with MXNET_NORM_CONV=
+    ``norm_conv``: (a) one step at batch RESNET_CHECK_BATCH on the card
+    against ``want``, the float64 CPU step of the float32 phase on the same
+    graph, each leaf within RESNET_FLOOR_X times its bfloat16 floor;
+    (b) exact checks: an overflow batch leaves the state bitwise unchanged,
+    halves the scale and counts one overflow; one step with no host
+    synchronisation; unfused, a float32 policy with a power-of-two scale
+    trains bitwise as the plain float32 step (cuDNN deterministic); (c) the
+    loss over 9 steps on one batch; (d) batch 32 timed through
+    bench/resnet50_train.py's functions and one step profiled.  Fused, the
+    NormConv kernel must launch RESNET_NC_PER_STEP times a step
+    (RESNET_NC_STATS_PER_STEP with statistics), every launch in bfloat16.
+    Returns {"img_s", "launches", "stats_launches", "bf16_launches",
+    "steps", "worst"}."""
+    from mxnet_tpu_torch.bench import resnet50_train as rt
+    os.environ["MXNET_NORM_CONV"] = norm_conv
+    fused = norm_conv == "1"
+    tag = "resnet50_train_amp_fused" if fused else "resnet50_train_amp"
+    per_step = RESNET_NC_PER_STEP if fused else 0
+    per_step_stats = RESNET_NC_STATS_PER_STEP if fused else 0
+    counted = {"launches": 0, "stats_launches": 0, "bf16_launches": 0,
+               "steps": 0}
+    policy = amp_policy(mt)
+    gpu = mt.gpu(0)
+
+    def counted_run(what, steps, fn):
+        """``fn()``, which runs ``steps`` AMP steps on the card, with the
+        NormConv counts set to 0 before it and read after it."""
+        nc.launches = nc.stats_launches = nc.bf16_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = (nc.launches, nc.stats_launches, nc.bf16_launches)
+        if got != (per_step * steps, per_step_stats * steps,
+                   per_step * steps):
+            fail("%s %s: NormConv launched %d times (%d with statistics, "
+                 "%d in bfloat16) in %d steps, expected %d (%d) a step, "
+                 "all in bfloat16" % ((tag, what) + got
+                                      + (steps, per_step, per_step_stats)))
+        for k, v in zip(("launches", "stats_launches", "bf16_launches"),
+                        got):
+            counted[k] += v
+        counted["steps"] += steps
+        return out
+
+    net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+    b = RESNET_CHECK_BATCH
+    state = resnet50_state(mt, net, b)
+    t0 = time.perf_counter()
+    got, trainer = counted_run("check step", 1, lambda: resnet50_step(
+        mt, net, state, gpu, np.float32, b, policy))
+    print("%s step=card_bf16_policy seconds=%r"
+          % (tag, time.perf_counter() - t0))
+    floors = resnet50_amp_reference(mt, net, state, b, tag)
+    worst = resnet50_check_rows(
+        torch, tag, resnet50_leaf_rows(torch, got, want, floors, AMP_KINDS),
+        "bf16_floor")
+    resnet50_check_rows(torch, tag + " functions", amp_function_rows(
+        torch, mt), "cpu_bf16_floor")
+
+    # exact checks: the overflow skip, no host sync, the pow2 f32 policy
+    ts, p, s, a, data = resnet50_trainer(mt, net, state, gpu, np.float32,
+                                         b, policy)
+    bad = dict(data, data=data["data"].clone())
+    bad["data"][1, 2, 3, 4] = float("inf")
+    before = ({n: v.clone() for n, v in p.items()},
+              {n: tuple(x.clone() for x in st) for n, st in s.items()},
+              {n: v.clone() for n, v in a.items()})
+    counted_run("overflow step", 1, lambda: ts(p, s, a, bad))
+    same = (all(torch.equal(before[0][n], p[n]) for n in p)
+            and all(torch.equal(x, y) for n in s
+                    for x, y in zip(before[1][n], s[n]))
+            and all(torch.equal(before[2][n], a[n]) for n in a))
+    host = ts.scale_state_host()
+    print("%s overflow step: params, momenta and moving statistics "
+          "bitwise unchanged=%s scale_state=%s"
+          % (tag, same, host))
+    if not same or host != {"scale": policy.loss_scale / 2, "good": 0,
+                            "overflow": 1}:
+        fail("%s: the overflow step changed the state or the scale: %s"
+             % (tag, host))
+    counted_run("sync-free steps", 2, lambda: sync_free(
+        torch, tag, lambda: ts(p, s, a, data)))
+    del ts, p, s, a, data, bad, before
+    if not fused:
+        torch.backends.cudnn.deterministic = True
+        try:
+            steps = [resnet50_step(mt, net, state, gpu, np.float32, b,
+                                   pol)[1]
+                     for pol in (None, mt.amp.Policy(
+                         "float32", loss_scale=2.0 ** 10))]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (_, p0, s0, a0, _, o0), (_, p1, s1, a1, _, o1) = steps
+        exact = (all(torch.equal(p0[n], p1[n]) for n in p0)
+                 and all(torch.equal(x, y) for n in s0
+                         for x, y in zip(s0[n], s1[n]))
+                 and all(torch.equal(a0[n], a1[n]) for n in a0)
+                 and torch.equal(o0[0], o1[0]))
+        print("%s float32 policy loss_scale=2^10 vs plain float32 step "
+              "(cudnn.deterministic): bitwise_equal=%s" % (tag, exact))
+        if not exact:
+            fail("%s: the float32 policy step with a power-of-two scale "
+                 "differs from the plain step" % tag)
+        del steps, p0, s0, a0, o0, p1, s1, a1, o1
+
+    ts, p, s, a, batch, outs = trainer
+    lab = batch["softmax_label"].long()
+    rows_idx = torch.arange(lab.numel(), device=lab.device)
+
+    def loss(outs):
+        return -torch.log(outs[0][rows_idx, lab]).mean().item()
+
+    def more_steps():
+        nonlocal p, s, a, outs
+        for _ in range(4):
+            p, s, a, outs = ts(p, s, a, batch)
+            losses.append(loss(outs))
+        p, s, a, outs = ts.run_steps(p, s, a, batch, 3)
+        losses.append(loss(outs))
+    losses = [loss(outs)]
+    counted_run("8 steps", 8, more_steps)
+    print("%s steps=9 (1 checked + 4 calls + run_steps(3)) batch=%d "
+          "losses=%s scale_state=%s" % (tag, b, [round(x, 6) for x in losses],
+                                        ts.scale_state_host()))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail("%s: the loss did not fall: %s" % (tag, losses))
+    del trainer, ts, p, s, a, batch, outs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, p, s, a, batch = rt.setup(batch=RESNET_TRAIN_BATCH, image=IMAGE,
+                                  num_layers=50, num_classes=CLASSES,
+                                  ctx=gpu, policy=policy)
+    steps = RESNET_TRAIN_ROUNDS * (RESNET_TRAIN_CHUNK + 1)
+    img_s, dt, outs = counted_run(
+        "batch-32 timing", steps + RESNET_TRAIN_CHUNK + 1,
+        lambda: rt.timed_chunks(ts, p, s, a, batch,
+                                chunk=RESNET_TRAIN_CHUNK,
+                                rounds=RESNET_TRAIN_ROUNDS))
+    if not torch.isfinite(outs[0]).all() or outs[0].dtype != torch.float32:
+        fail("%s: outputs at batch %d are %s or not finite"
+             % (tag, RESNET_TRAIN_BATCH, outs[0].dtype))
+    print("%s batch=%d MXNET_NORM_CONV=%s policy=%s img_per_s=%r "
+          "host_ms_per_step=%r (run_steps(%d) x %d after one warm chunk, "
+          "one scalar fetched; setup and warm seconds=%r) peak_mem_gb=%r "
+          "(this run's); float32 img_per_s=%r in this call, bf16/f32=%r"
+          % (tag, RESNET_TRAIN_BATCH, norm_conv, policy.describe(), img_s,
+             dt / steps * 1e3, RESNET_TRAIN_CHUNK, RESNET_TRAIN_ROUNDS,
+             time.perf_counter() - t0 - dt,
+             torch.cuda.max_memory_allocated() / 2 ** 30, f32_img_s,
+             img_s / f32_img_s))
+    counted_run("profiled step", 2, lambda: resnet_train_breakdown(
+        torch, ts, p, s, a, batch, tag))
+    print("%s MXNET_NORM_CONV=%s norm_conv_launches=%d stats_launches=%d "
+          "bf16_launches=%d steps=%d (%d and %d a step)"
+          % (tag, norm_conv, counted["launches"], counted["stats_launches"],
+             counted["bf16_launches"], counted["steps"], per_step,
+             per_step_stats))
+    return dict(counted, img_s=img_s, worst=worst)
+
+
 def resnet_train_breakdown(torch, ts, params, state, aux, batch, tag):
     """Device time of one TrainStep call (after one warm call) by group,
     from torch.profiler: the NormConv kernel (``nc_kernel``), cuDNN's
     convolutions (forward, data and weight gradients, with their layout
     transposes) and the FC's GEMM by kernel name, the SGD rule by the
-    ``TrainStep.update`` range that holds its launches, and the rest
-    (BatchNorm, ReLU gates, residual adds, pooling, the loss head)."""
+    ``TrainStep.update`` range that holds its launches, the casts (the
+    kernels of ``aten::_to_copy`` outside that range: an AMP step's
+    compute-dtype copies and their gradients), and the rest (BatchNorm,
+    ReLU gates, residual adds, pooling, the loss head)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     conv_keys = ("conv", "cudnn", "implicit", "dgrad", "wgrad", "xmma",
-                 "sm90_", "sm80_", "cutlass", "winograd", "fft")
+                 "sm90_", "sm80_", "cutlass", "winograd", "fft", "gemm",
+                 "nvjet")
     ts(params, state, aux, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -899,11 +1281,29 @@ def resnet_train_breakdown(torch, ts, params, state, aux, batch, tag):
         if up is not None:
             sgd_us += sum(k.duration for k in e.kernels)
             sgd_n += len(e.kernels)
-    rest_us = busy_us - nc_us - conv_us - sgd_us
+    cast_us, cast_n = 0.0, 0
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        up, cast = e, False
+        while up is not None and up.name != "TrainStep.update":
+            cast = cast or up.name == "aten::_to_copy"
+            up = up.cpu_parent
+        if cast and up is None:
+            cast_us += sum(k.duration for k in e.kernels
+                           if "nc_kernel" not in k.name and not any(
+                               c in k.name.lower() for c in conv_keys))
+            cast_n += len(e.kernels)
+    rest_us = busy_us - nc_us - conv_us - sgd_us - cast_us
     print("profile %s step: wall_us=%r device_busy_us=%r "
-          "device_busy_share=%r kernels=%d launches=%d"
+          "device_busy_share=%r kernels=%d launches=%d peak_mem_gb=%r"
           % (tag, wall_us, busy_us, busy_us / wall_us, len(kernels),
-             sum(e.count for e in kernels)))
+             sum(e.count for e in kernels),
+             torch.cuda.max_memory_allocated() / 2 ** 30))
+    print("profile %s group=casts us=%r launches=%d share=%r (kernels "
+          "under aten::_to_copy outside the update: the compute-dtype "
+          "copies and their gradients)"
+          % (tag, cast_us, cast_n, cast_us / max(busy_us, 1e-9)))
     for group, us in (("norm_conv", nc_us), ("conv_gemm", conv_us),
                       ("bn_elementwise_other", rest_us)):
         print("profile %s group=%s us=%r share=%r"
@@ -1023,7 +1423,7 @@ def flash_phase(torch, fa):
     """Kernel vs plain version, timed beside SDPA and the bound, at the LM's
     shape (q, k, v made as the LM makes them) and at FLASH_CHECKS, in float32
     and bfloat16.  Returns the float32 numbers per launch at the LM's
-    shape."""
+    shape, and under "bfloat16" the bfloat16 ones."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lm_shape = (LM_BATCH, LM["num_heads"], LM["seq_len"],
@@ -1073,10 +1473,12 @@ def flash_phase(torch, fa):
                      bound_ms, bound_by, tile, nth, bq, bk, dmax, blocks,
                      bufs, fa.aligned16(q, k, v),
                      sdpa_backend(torch, library)))
-            if main and dt == torch.float32:
-                out = {"ms": kernel_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err}
+            if main:
+                nums = {"ms": kernel_ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": err}
+                out.update(nums) if dt == torch.float32 \
+                    else out.update(bfloat16=nums)
     return out
 
 
@@ -1244,7 +1646,8 @@ def flash_bwd_phase(torch, fa):
     """Backward kernels vs the plain backward, timed beside SDPA's backward
     and the bounds, at the LM's shape (q, k, v and dO made as the LM makes
     them) and at FLASH_CHECKS, in float32 and bfloat16.  Returns the float32
-    numbers per launch at the LM's shape."""
+    numbers per launch at the LM's shape, and under "bfloat16" the
+    bfloat16 ones."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     lm_shape = (LM_BATCH, LM["num_heads"], LM["seq_len"],
@@ -1326,13 +1729,15 @@ def flash_bwd_phase(torch, fa):
                   "plain_ms=%r sdpa_bwd_ms=%r"
                   % (label, dq_ms, dq_bound, dq_by, dkv_ms, dkv_bound,
                      dkv_by, whole_ms, plain_ms, sdpa_ms))
-            if main and dt == torch.float32:
-                out = {"dq_ms": dq_ms, "dkv_ms": dkv_ms,
-                       "whole_ms": whole_ms, "plain_ms": plain_ms,
-                       "library_ms": sdpa_ms, "dq_bound_ms": dq_bound,
-                       "dq_bound_by": dq_by, "dkv_bound_ms": dkv_bound,
-                       "dkv_bound_by": dkv_by, "dq_err": errs["dq"][0],
-                       "dkv_err": max(errs["dk"][0], errs["dv"][0])}
+            if main:
+                nums = {"dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                        "whole_ms": whole_ms, "plain_ms": plain_ms,
+                        "library_ms": sdpa_ms, "dq_bound_ms": dq_bound,
+                        "dq_bound_by": dq_by, "dkv_bound_ms": dkv_bound,
+                        "dkv_bound_by": dkv_by, "dq_err": errs["dq"][0],
+                        "dkv_err": max(errs["dk"][0], errs["dv"][0])}
+                out.update(nums) if dt == torch.float32 \
+                    else out.update(bfloat16=nums)
             del got, again, want, run
     return out
 
@@ -1462,6 +1867,181 @@ def lm_train_phase(torch, mt, fa):
     return counts[1], counts[2]
 
 
+def flash_bf16_counts(fa):
+    return (fa.bf16_launches, fa.bwd_dq_bf16_launches,
+            fa.bwd_dkv_bf16_launches)
+
+
+def reset_flash_bf16_counts(fa):
+    reset_flash_counts(fa)
+    fa.bf16_launches = fa.bwd_dq_bf16_launches = \
+        fa.bwd_dkv_bf16_launches = 0
+
+
+def lm_amp_grads(torch, mt, fa, sym, weights, batch, policy, remat=False):
+    """The gradients of one step of ``sym`` under ``policy`` on the card
+    from ``weights``: TrainStep with SGD(lr 1, momentum 0.9) from a zero
+    momentum, whose new momentum is -g.  Returns ({name: float32 gradient
+    on the card}, (fwd, dQ, dK/dV launches), their bfloat16 counts, host
+    ms of the step to a synchronize, peak GB of the step)."""
+    gpu = mt.gpu(0)
+    ts = mt.TrainStep(sym, mt.optimizer.SGD(learning_rate=1.0, momentum=0.9),
+                      policy=policy, remat=remat)
+    zeros = {n: (np.zeros(v.shape, np.float32),) for n, v in weights.items()}
+    params, state, aux = mt.convert.train_state_from_numpy(
+        weights, zeros, {}, ctx=gpu)
+    del zeros
+    dev_batch = ts.shard_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_bf16_counts(fa)
+    t0 = time.perf_counter()
+    ts(params, state, aux, dev_batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = {n: -st[0] for n, st in state.items()}
+    return grads, flash_counts(fa), flash_bf16_counts(fa), host_ms, peak
+
+
+def lm_dist(a, b):
+    """(max |a - b| / max |b|, ||a - b|| / ||b||) in float64."""
+    a, b = a.double(), b.double()
+    return (((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item(),
+            ((a - b).norm() / b.norm().clamp_min(1e-300)).item())
+
+
+def lm_train_amp_phase(torch, mt, fa):
+    """The LM at GPT-2-small widths under Policy("bfloat16"): (a) each
+    parameter's gradient on the kernel graph within LM_BF16_X times its
+    bfloat16 floor, the distance of the attn_impl="xla" graph's bf16-policy
+    gradient from its float32 one (or LM_BF16_FLOOR_MIN); every flash
+    kernel launched 12 times, all in bfloat16; (b) TrainStep with
+    Adam(LM_LR): a warm step, 4 calls and run_steps(3), the loss lower,
+    36 flash launches a step, all bfloat16, host ms a step, a profiled
+    step; (c) one gradient step each with remat False (again, warm), True
+    and "dots": gradients within LM_GRAD_TOL / LM_GRAD_NORM_TOL of the
+    first plain step's, with peak memory and host ms.  Returns (fwd, dQ, dK/dV launches) of (b)."""
+    net = mt.models.transformer.get_symbol(**LM)
+    ref_net = mt.models.transformer.get_symbol(attn_impl="xla", **LM)
+    weights = lm_weights(net)
+    rng = np.random.default_rng(SEED + 4)
+    toks = rng.integers(0, LM["vocab_size"], (LM_BATCH, LM["seq_len"] + 1))
+    batch = {"data": toks[:, :-1].astype(np.float32),
+             "softmax_label": toks[:, 1:].astype(np.float32)}
+    policy = amp_policy(mt)
+    layers = LM["num_layers"]
+    runs = {}
+    for name, sym, pol in (("flash_bf16", net, policy),
+                           ("xla_bf16", ref_net, policy),
+                           ("xla_f32", ref_net, None)):
+        runs[name] = lm_amp_grads(torch, mt, fa, sym, weights, batch, pol)
+        _, counts, bf16, host_ms, peak = runs[name]
+        print("lm_train_amp grad graph=%s flash_launches=%s bf16=%s "
+              "host_ms=%r peak_mem_gb=%r" % (name, counts, bf16, host_ms,
+                                              peak))
+        want = ((layers,) * 3, (layers,) * 3) if name == "flash_bf16" \
+            else ((0,) * 3, (0,) * 3)
+        if (counts, bf16) != want:
+            fail("lm_train_amp: the %s graph launched %s flash kernels (%s "
+                 "in bfloat16), want %s" % (name, counts, bf16, want))
+    got, ref, f32 = (runs[n][0] for n in ("flash_bf16", "xla_bf16",
+                                          "xla_f32"))
+    rows = []
+    for n, g in f32.items():
+        if not torch.isfinite(got[n]).all():
+            fail("lm_train_amp: non-finite gradient of %s" % n)
+        d, floor = lm_dist(got[n], g), lm_dist(ref[n], g)
+        rows.append(tuple(x / max(f, LM_BF16_FLOOR_MIN)
+                          for x, f in zip(d, floor)) + d + floor + (n,))
+    rows.sort(key=lambda r: -max(r[:2]))
+    for r in rows[:8]:
+        print("lm_train_amp grad param=%s max_rel=%r norm_rel=%r bf16_floor "
+              "max_rel=%r norm_rel=%r floor_x max=%r norm=%r"
+              % ((r[6],) + r[2:6] + r[:2]))
+    worst = [max(r[i] for r in rows) for i in range(6)]
+    print("lm_train_amp grad_check parameters=%d worst floor_x max=%r "
+          "norm=%r (tol %g x max(floor, %g)); worst max_rel=%r norm_rel=%r; "
+          "bf16 floor worst max_rel=%r norm_rel=%r"
+          % ((len(rows),) + tuple(worst[:2]) + (LM_BF16_X, LM_BF16_FLOOR_MIN)
+             + tuple(worst[2:])))
+    for r in rows:
+        if r[0] > LM_BF16_X or r[1] > LM_BF16_X:
+            fail("lm_train_amp: gradient of %s is %.3g (max) and %.3g "
+                 "(norm) times its bfloat16 floor (tol %g)"
+                 % (r[6], r[0], r[1], LM_BF16_X))
+    plain = runs["flash_bf16"]
+    del runs, ref, f32, rows
+
+    gpu = mt.gpu(0)
+    ts = mt.TrainStep(net, mt.optimizer.Adam(learning_rate=LM_LR),
+                      policy=policy)
+    zeros = {n: (np.zeros(v.shape, np.float32), np.zeros(v.shape,
+                                                         np.float32))
+             for n, v in weights.items()}
+    params, state, aux = mt.convert.train_state_from_numpy(
+        weights, zeros, {}, ctx=gpu)
+    del zeros
+    dev_batch = ts.shard_batch(batch)
+    lab = dev_batch["softmax_label"].reshape(-1).long()
+    idx = torch.arange(lab.numel(), device=lab.device)
+
+    def loss(outs):
+        return -torch.log(outs[0][idx, lab]).mean().item()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, aux, outs = ts(params, state, aux, dev_batch)   # warm
+    losses = [loss(outs)]
+    torch.cuda.synchronize()
+    reset_flash_bf16_counts(fa)
+    host_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        params, state, aux, outs = ts(params, state, aux, dev_batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss(outs))
+    params, state, aux, outs = ts.run_steps(params, state, aux, dev_batch, 3)
+    torch.cuda.synchronize()
+    losses.append(loss(outs))
+    counts, bf16 = flash_counts(fa), flash_bf16_counts(fa)
+    steps = 8
+    step_ms = float(np.mean(host_ms))
+    print("lm_train_amp steps=9 (1 warm + 4 calls + run_steps(3)) "
+          "policy=%s losses=%s scale_state=%s"
+          % (policy.describe(), [round(x, 6) for x in losses],
+             ts.scale_state_host()))
+    print("lm_train_amp host_ms_per_step=%r tokens_per_s=%r peak_mem_gb=%r "
+          "launches over %d steps flash_fwd=%d flash_dq=%d flash_dkv=%d "
+          "bf16 %s" % ((step_ms, LM_BATCH * LM["seq_len"] / step_ms * 1e3,
+                        torch.cuda.max_memory_allocated() / 2 ** 30, steps)
+                       + counts + (bf16,)))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail("lm_train_amp: the loss did not fall: %s" % losses)
+    if counts != (steps * layers,) * 3 or bf16 != counts:
+        fail("lm_train_amp: flash launches %s (%s in bfloat16) != 3 x %d "
+             "x %d steps, all bfloat16" % (counts, bf16, layers, steps))
+    train_breakdown(torch, ts, params, state, aux, dev_batch)
+    del ts, params, state, aux, outs, dev_batch
+    torch.cuda.empty_cache()
+
+    for remat in (False, True, "dots"):
+        grads, rc, rbf16, r_ms, r_peak = lm_amp_grads(
+            torch, mt, fa, net, weights, batch, policy, remat)
+        d = [lm_dist(grads[n], g) for n, g in plain[0].items()]
+        worst_r = [max(x[i] for x in d) for i in (0, 1)]
+        print("lm_train_amp remat=%s host_ms=%r peak_mem_gb=%r "
+              "flash_launches=%s bf16=%s grads vs remat=False worst "
+              "max_rel=%r norm_rel=%r (tol %g, %g)"
+              % ((remat, r_ms, r_peak, rc, rbf16) + tuple(worst_r)
+                 + (LM_GRAD_TOL, LM_GRAD_NORM_TOL)))
+        if worst_r[0] > LM_GRAD_TOL or worst_r[1] > LM_GRAD_NORM_TOL:
+            fail("lm_train_amp: remat=%s gradients differ from the plain "
+                 "step's by %s" % (remat, worst_r))
+        del grads
+    del plain
+    return counts
+
+
 def train_breakdown(torch, ts, params, state, aux, batch):
     """Device time of one TrainStep call by group, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -1469,7 +2049,8 @@ def train_breakdown(torch, ts, params, state, aux, batch):
     groups = [("flash fwd", ("flash_fwd_kernel",)),
               ("flash dq", ("flash_bwd_dq_kernel",)),
               ("flash dkv", ("flash_bwd_dkv_kernel",)),
-              ("cublas", ("gemm", "cutlass", "cublas", "xmma", "sm90_")),
+              ("cublas", ("gemm", "cutlass", "cublas", "xmma", "sm90_",
+                          "nvjet")),
               ("softmax", ("softmax",)),
               ("embedding backward", ("indexfunc", "index_add", "embedding",
                                       "index_put", "scatter")),
@@ -1805,11 +2386,23 @@ def main():
           % (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
              torch.get_float32_matmul_precision()))
+    bf16_np = mt.base.np_bfloat16()
+    print("ml_dtypes %s: a bfloat16 NDArray's dtype is %s"
+          % ("imports" if bf16_np is not None else "does not import",
+             mt.nd.array(np.zeros(1, np.float32), ctx=mt.cpu(),
+                         dtype="bfloat16").dtype))
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print("phase %s seconds=%r" % (name, now - t_phase[0]))
+        t_phase[0] = now
 
     t0 = time.perf_counter()
     build_all([("norm_conv", nc.build), ("flash_attention", fa.build),
                ("flash_attention_bwd", fa.build_bwd)])
     print("build all seconds=%r" % (time.perf_counter() - t0))
+    phase_done("build")
 
     geoms, stats_geoms = resnet50_geometries(mt, BATCH)
     per_forward = sum(geoms.values())
@@ -1834,66 +2427,132 @@ def main():
              ttot["library_ms"], ttot["bound_ms"],
              "operations" if ttot["ops_ms"] >= ttot["bytes_ms"]
              else "bytes"))
+    btot = kernel_train_phase(torch, nc, geoms, stats_geoms, torch.bfloat16,
+                              (RESNET_TRAIN_BATCH,))
+    print("kernel totals per batch-%d bfloat16 training step's forward (%d "
+          "launches, %d with statistics): kernel_ms=%r plain_ms=%r "
+          "library_ms=%r bound_ms=%r bound_by=%s"
+          % (RESNET_TRAIN_BATCH, RESNET_NC_PER_STEP,
+             RESNET_NC_STATS_PER_STEP, btot["ms"], btot["plain_ms"],
+             btot["library_ms"], btot["bound_ms"],
+             "operations" if btot["ops_ms"] >= btot["bytes_ms"]
+             else "bytes"))
+    phase_done("kernels")
 
     launches = serving_phase(torch, mt, nc, per_forward)
+    phase_done("serving")
     unfused = resnet50_train_phase(torch, mt, nc, "0")
     torch.cuda.empty_cache()
+    phase_done("resnet50_train")
     fused = resnet50_train_phase(torch, mt, nc, "1", unfused["want"])
+    torch.cuda.empty_cache()
+    phase_done("resnet50_train_fused")
+    amp_unfused = resnet50_train_amp_phase(torch, mt, nc, "0",
+                                           unfused["want"],
+                                           unfused["img_s"])
+    torch.cuda.empty_cache()
+    phase_done("resnet50_train_amp")
+    amp_fused = resnet50_train_amp_phase(torch, mt, nc, "1", fused["want"],
+                                         fused["img_s"])
+    phase_done("resnet50_train_amp_fused")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
-          "%d fused training steps)" % (launches, fused["launches"],
-                                        fused["stats_launches"],
-                                        fused["steps"]))
+          "%d fused training steps) amp_training=%d (%d with statistics, "
+          "%d in bfloat16, %d fused AMP steps)"
+          % (launches, fused["launches"], fused["stats_launches"],
+             fused["steps"], amp_fused["launches"],
+             amp_fused["stats_launches"], amp_fused["bf16_launches"],
+             amp_fused["steps"]))
+    print("resnet50 img_per_s batch=%d unfused float32=%r bf16_amp=%r "
+          "fused float32=%r bf16_amp=%r (this call)"
+          % (RESNET_TRAIN_BATCH, unfused["img_s"], amp_unfused["img_s"],
+             fused["img_s"], amp_fused["img_s"]))
     del unfused, fused["want"]
     torch.cuda.empty_cache()
 
     fl = flash_phase(torch, fa)
+    phase_done("flash")
     fl_launches = lm_phase(torch, mt, fa)
+    phase_done("lm")
     per = LM["num_layers"]     # the launches of one float32 LM forward
     bw = flash_bwd_phase(torch, fa)
+    phase_done("flash_bwd")
     dq_launches, dkv_launches = lm_train_phase(torch, mt, fa)
+    phase_done("lm_train")
+    amp_counts = lm_train_amp_phase(torch, mt, fa)
+    torch.cuda.empty_cache()
+    phase_done("lm_train_amp")
     graph_device_phase(torch, mt)
     weights = lm_weights(mt.models.transformer.get_symbol(**LM))
     imperative_phase(torch, mt, weights)
+    phase_done("graph_device+imperative")
     rt = rtc_phase(torch, mt, weights)
+    phase_done("rtc")
+    flb, bwb = fl["bfloat16"], bw["bfloat16"]
 
     print(json.dumps({"kernels": [{
         "name": "norm_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
-        "launches": launches + fused["launches"],
+        "launches": launches + fused["launches"] + amp_fused["launches"],
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"]
         else "bytes",
-        "library_ms": tot["library_ms"]}, {
+        "library_ms": tot["library_ms"],
+        "bf16_train": {
+            "launches": amp_fused["bf16_launches"],
+            "max_abs_err": btot["max_abs_err"], "ms": btot["ms"],
+            "plain_ms": btot["plain_ms"], "bound_ms": btot["bound_ms"],
+            "bound_by": "operations" if btot["ops_ms"] >= btot["bytes_ms"]
+            else "bytes", "library_ms": btot["library_ms"]}}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:47",
-        "launches": fl_launches, "max_abs_err": fl["max_abs_err"],
+        "launches": fl_launches + amp_counts[0],
+        "max_abs_err": fl["max_abs_err"],
         "ms": per * fl["ms"], "plain_ms": per * fl["plain_ms"],
         "bound_ms": per * fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": per * fl["library_ms"]}, {
+        "library_ms": per * fl["library_ms"],
+        "bf16_train": {
+            "launches": amp_counts[0], "max_abs_err": flb["max_abs_err"],
+            "ms": per * flb["ms"], "plain_ms": per * flb["plain_ms"],
+            "bound_ms": per * flb["bound_ms"], "bound_by": flb["bound_by"],
+            "library_ms": per * flb["library_ms"]}}, {
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
-        "launches": dq_launches, "max_abs_err": bw["dq_err"],
+        "launches": dq_launches + amp_counts[1],
+        "max_abs_err": bw["dq_err"],
         "ms": per * bw["dq_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",
         "bound_ms": per * bw["dq_bound_ms"], "bound_by": bw["dq_bound_by"],
         "library_ms": per * bw["library_ms"],
-        "library_covers": "dq+dk+dv"}, {
+        "library_covers": "dq+dk+dv",
+        "bf16_train": {
+            "launches": amp_counts[1], "max_abs_err": bwb["dq_err"],
+            "ms": per * bwb["dq_ms"], "plain_ms": per * bwb["plain_ms"],
+            "bound_ms": per * bwb["dq_bound_ms"],
+            "bound_by": bwb["dq_bound_by"],
+            "library_ms": per * bwb["library_ms"]}}, {
         "name": "flash_attention_bwd_dkv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:169",
-        "launches": dkv_launches, "max_abs_err": bw["dkv_err"],
+        "launches": dkv_launches + amp_counts[2],
+        "max_abs_err": bw["dkv_err"],
         "ms": per * bw["dkv_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",
         "bound_ms": per * bw["dkv_bound_ms"],
         "bound_by": bw["dkv_bound_by"],
         "library_ms": per * bw["library_ms"],
-        "library_covers": "dq+dk+dv"}, {
+        "library_covers": "dq+dk+dv",
+        "bf16_train": {
+            "launches": amp_counts[2], "max_abs_err": bwb["dkv_err"],
+            "ms": per * bwb["dkv_ms"], "plain_ms": per * bwb["plain_ms"],
+            "bound_ms": per * bwb["dkv_bound_ms"],
+            "bound_by": bwb["dkv_bound_by"],
+            "library_ms": per * bwb["library_ms"]}}, {
         "name": "rtc_axpb", "route": "cuda",
         "source": "mxnet_tpu_torch/rtc_kernels.py",
         "replaces": "mxnet_tpu/rtc.py:55",

@@ -10,7 +10,8 @@ kernel for the card.  Entry points run on ``gpu(0)`` unless the caller asks
 for ``cpu()``.
 
 Ported so far: ResNet-50 inference and serving, the transformer LM's
-inference, its training through ``train.TrainStep``, and the imperative
+inference, its training through ``train.TrainStep`` (ResNet-50 too, in
+float32 or under an ``amp.Policy``), and the imperative
 entry point: ``mx.nd`` ops and views, the optimizers' ``update`` and
 ``Updater``, and ``rtc``.
 """
@@ -34,11 +35,12 @@ from . import initializer
 from . import initializer as init
 from . import optimizer
 from . import rtc
+from . import amp
 from . import train
 from .train import TrainStep, EvalStep
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
-           "lr_scheduler", "initializer", "init", "optimizer", "rtc", "train",
-           "TrainStep", "EvalStep"]
+           "lr_scheduler", "initializer", "init", "optimizer", "rtc", "amp",
+           "train", "TrainStep", "EvalStep"]

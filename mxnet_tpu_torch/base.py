@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "string_types", "get_env", "Registry",
-           "torch_dtype", "numpy_dtype"]
+           "torch_dtype", "numpy_dtype", "np_bfloat16"]
 
 string_types = (str,)
 
@@ -82,7 +82,22 @@ def torch_dtype(dtype):
         raise MXNetError("unsupported dtype %s" % dt)
 
 
+def np_bfloat16():
+    """ml_dtypes' numpy bfloat16 (the JAX package's bfloat16 type), or
+    None when ml_dtypes does not import.  Imported at each call, so that
+    an environment without it takes the fallback."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def numpy_dtype(dtype):
-    """The numpy dtype of a torch dtype (``torch.bfloat16`` stays as it
-    is: numpy has none)."""
+    """The numpy dtype of a torch dtype.  ``torch.bfloat16`` becomes
+    ml_dtypes' bfloat16 when ml_dtypes imports, as in the JAX package;
+    without it, it stays ``torch.bfloat16`` (numpy has no bfloat16)."""
+    if dtype == torch.bfloat16:
+        bf16 = np_bfloat16()
+        return dtype if bf16 is None else bf16
     return _TORCH2NP.get(dtype, dtype)

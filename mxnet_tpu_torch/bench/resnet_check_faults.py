@@ -24,9 +24,27 @@ On the fused graph (MXNET_NORM_CONV=1), in the ``NormConv`` Function:
 - ``nc_gate_ge0``: the prologue ReLU's backward gated with ``xh >= 0``.
 
 Each fault acts only on float32 tensors on the card, so the references are
-untouched.  For each run it prints the worst leaf as a multiple of its
-floor (by largest entry and in norm) and whether the check fails it.
-Exits with 1 if the clean step fails the check or a fault passes it.
+untouched.
+
+Then the check of chip_smoke.py's resnet50_train_amp phases, clean and with
+each planted bfloat16 fault, which acts only on tensors on the card: one
+step under ``Policy("bfloat16")``, each gradient, moving statistic and
+parameter update within RESNET_FLOOR_X times its bfloat16 floor (sampled
+by bfloat16-policy steps on the CPU), and the step's Functions in bfloat16
+(BatchNorm, BatchNorm+ReLU, NormConv with statistics) within RESNET_FLOOR_X
+times their CPU bfloat16 floors (``amp_function_rows``):
+
+- ``bn_stats_in_bf16`` (unfused): BatchNorm's batch mean and var computed
+  in bfloat16 arithmetic from the bfloat16 activations, where the port
+  accumulates them in float32;
+- ``master_update_bf16`` (both graphs): each parameter rounded to bfloat16
+  after the rule, as if the master weights were bfloat16;
+- ``nc_fold_no_dsq_bf16`` (fused): the NormConv backward's fold without its
+  2 y d(sum y^2) term, on bfloat16 y.
+
+For each run it prints the worst leaf as a multiple of its floor (by
+largest entry and in norm) and whether the check fails it.  Exits with 1
+if a clean step fails its check or a fault passes it.
 """
 import contextlib
 import os
@@ -119,6 +137,38 @@ def _gate_ge0(gate):
     return planted
 
 
+def _bn_stats_in_bf16(fwd):
+    def planted(x, g, b, eps, caxis):
+        if not (x.is_cuda and x.dtype == torch.bfloat16):
+            return fwd(x, g, b, eps, caxis)
+        axes, cshape = pnn._bn_axes(x.dim(), caxis)
+        mean = x.mean(dim=axes)
+        var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        mean, var, inv = mean.float(), var.float(), inv.float()
+        scale = g.float() * inv
+        out = x * scale.reshape(cshape).to(x.dtype) \
+            + (b.float() - mean * scale).reshape(cshape).to(x.dtype)
+        return out, mean, var, inv
+    return planted
+
+
+def _master_update_bf16(update):
+    def planted(self, name, w, g, state, hyper, t):
+        nw, new_state = update(self, name, w, g, state, hyper, t)
+        if _on_card_f32(nw):
+            nw = _bf16(nw)
+        return nw, new_state
+    return planted
+
+
+def _fold_no_dsq_bf16(fold):
+    def planted(dy, dsum, dsq, y):
+        on = y.is_cuda and y.dtype == torch.bfloat16
+        return fold(dy, dsum, None if on else dsq, y)
+    return planted
+
+
 @contextlib.contextmanager
 def _tf32():
     torch.backends.cudnn.allow_tf32 = True
@@ -144,6 +194,37 @@ FAULTS = {
            lambda: _patched("norm_conv", _stats_from_bf16_y, pnc)),
           ("nc_gate_ge0", lambda: _patched("_gate", _gate_ge0, pnc))),
 }
+# the bfloat16 faults of the AMP check, by MXNET_NORM_CONV
+AMP_FAULTS = {
+    "0": (("clean", contextlib.nullcontext),
+          ("bn_stats_in_bf16",
+           lambda: _patched("_bn_train_fwd", _bn_stats_in_bf16)),
+          ("master_update_bf16",
+           lambda: _patched("update", _master_update_bf16,
+                            mt.train._FunctionalOptimizer))),
+    "1": (("clean", contextlib.nullcontext),
+          ("nc_fold_no_dsq_bf16",
+           lambda: _patched("_fold", _fold_no_dsq_bf16, pnc)),
+          ("master_update_bf16",
+           lambda: _patched("update", _master_update_bf16,
+                            mt.train._FunctionalOptimizer))),
+}
+
+
+def _report(tag, name, rows, floor_name):
+    """Print the worst leaf of a run as a multiple of its floor and
+    whether the check fails; returns True when it fails."""
+    over = [r for r in rows if max(r[4], r[5]) > cs.RESNET_FLOOR_X]
+    for col, what in ((4, "max"), (5, "norm")):
+        r = max(rows, key=lambda r: r[col])
+        print("%s fault=%s worst_by=%s %s=%s floor_x max=%r norm=%r "
+              "max_rel=%r norm_rel=%r %s max_rel=%r norm_rel=%r"
+              % ((tag, name, what, r[6], r[7]) + r[4:6] + r[:2]
+                 + (floor_name,) + r[2:4]))
+    print("%s fault=%s leaves_over_tol=%d of %d (tol %g x max(floor, %g)) "
+          "check=%s" % (tag, name, len(over), len(rows), cs.RESNET_FLOOR_X,
+                        cs.RESNET_FLOOR_MIN, "fails" if over else "passes"))
+    return bool(over)
 
 
 def main():
@@ -157,29 +238,28 @@ def main():
     b = cs.RESNET_CHECK_BATCH
     state = cs.resnet50_state(mt, net, b)
     bad = []
-    for norm_conv, faults in sorted(FAULTS.items()):
+    for norm_conv in sorted(FAULTS):
         os.environ["MXNET_NORM_CONV"] = norm_conv
         want, floors = cs.resnet50_reference(mt, net, state, b)
-        for name, planted in faults:
+        tag = "MXNET_NORM_CONV=%s float32" % norm_conv
+        for name, planted in FAULTS[norm_conv]:
             with planted():
                 got = cs.resnet50_step(mt, net, state, mt.gpu(0),
                                        np.float32, b)[0]
             rows = cs.resnet50_leaf_rows(torch, got, want, floors)
-            over = [r for r in rows if max(r[4], r[5]) > cs.RESNET_FLOOR_X]
-            for col, what in ((4, "max"), (5, "norm")):
-                r = max(rows, key=lambda r: r[col])
-                print("MXNET_NORM_CONV=%s fault=%s worst_by=%s %s=%s "
-                      "floor_x max=%r norm=%r max_rel=%r norm_rel=%r "
-                      "f32_floor max_rel=%r norm_rel=%r"
-                      % ((norm_conv, name, what, r[6], r[7]) + r[4:6]
-                         + r[:4]))
-            print("MXNET_NORM_CONV=%s fault=%s leaves_over_tol=%d of %d "
-                  "(tol %g x max(floor, %g)) check=%s"
-                  % (norm_conv, name, len(over), len(rows),
-                     cs.RESNET_FLOOR_X, cs.RESNET_FLOOR_MIN,
-                     "fails" if over else "passes"))
-            if bool(over) != (name != "clean"):
-                bad.append((norm_conv, name))
+            if _report(tag, name, rows, "f32_floor") != (name != "clean"):
+                bad.append((norm_conv, "float32", name))
+        floors = cs.resnet50_amp_reference(mt, net, state, b, tag)
+        tag = "MXNET_NORM_CONV=%s bf16_policy" % norm_conv
+        for name, planted in AMP_FAULTS[norm_conv]:
+            with planted():
+                got = cs.resnet50_step(mt, net, state, mt.gpu(0),
+                                       np.float32, b, cs.amp_policy(mt))[0]
+                fn_rows = cs.amp_function_rows(torch, mt)
+            rows = cs.resnet50_leaf_rows(torch, got, want, floors,
+                                         cs.AMP_KINDS) + fn_rows
+            if _report(tag, name, rows, "bf16_floor") != (name != "clean"):
+                bad.append((norm_conv, "bf16_policy", name))
     print(_card())
     if bad:
         print("unexpected: %s" % bad)

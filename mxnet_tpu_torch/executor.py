@@ -43,7 +43,8 @@ from .context import Context
 from . import ndarray as nd
 from . import random as _random
 from .ops.nn import _bn_moving, bn_scale_shift, input_bn_conv
-from .ops.norm_conv import NormConv, _apply, geometry_ok, norm_conv
+from .ops.norm_conv import (NormConv, PEEPHOLE_DTYPES, _apply, geometry_ok,
+                             norm_conv)
 from .ops.registry import get_op
 from .symbol import _topo
 
@@ -77,6 +78,28 @@ def _to_cf(v):
 
 def _is_arr(v):
     return isinstance(v, torch.Tensor) and v.dim() >= 3
+
+
+class _ScaleBackward(torch.autograd.Function):
+    """Identity forward, cotangent-times-scale backward (counterpart: the
+    JAX package's ``_make_scale_backward``).
+
+    The loss heads (ops/loss.py) emit their fixed gradient and ignore the
+    cotangent that reaches them, so AMP's loss scale cannot ride the seeds
+    of ``torch.autograd.grad``.  ``_Lowered.run(head_grad_scale=s)`` wraps
+    each loss head's data input in this op instead: everything below the
+    head sees its cotangents multiplied by ``s``, which is "scale the loss
+    before backward".  ``s`` is a tensor and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.save_for_backward(s)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * s.to(g.dtype), None
 
 
 class _Lowered(object):
@@ -235,6 +258,10 @@ class _Lowered(object):
         x = values[xk]
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
             return False
+        if x.dtype not in PEEPHOLE_DTYPES:
+            # float16: the kernel takes float32 and bfloat16 only, so the
+            # BatchNorm and its convolutions run unfused
+            return False
         attrs = info["attrs"]
         eps = float(attrs.get("eps", 1e-3))
         fix_gamma = attrs.get("fix_gamma", True)
@@ -338,11 +365,13 @@ class _Lowered(object):
         return True
 
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
-            device=None):
+            device=None, head_grad_scale=None):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
-        labels) enter it detached.
+        labels) enter it detached.  ``head_grad_scale`` (a scalar tensor,
+        training only) multiplies the gradient every loss head sends down
+        (``_ScaleBackward``): AMP's loss scale.
 
         ``device`` (a Context or ``torch.device``; by default the device of
         the first bound value) is where an op with no input runs, as in
@@ -351,7 +380,8 @@ class _Lowered(object):
         generator (``random.generator``)."""
         with torch.set_grad_enabled(bool(is_train)):
             return self._run(arg_vals, aux_vals, bool(is_train),
-                             frozenset(no_grad_inputs), device)
+                             frozenset(no_grad_inputs), device,
+                             head_grad_scale if is_train else None)
 
     @staticmethod
     def _device(device, arg_vals, aux_vals):
@@ -364,7 +394,8 @@ class _Lowered(object):
                 return v.device
         return torch.device("cpu")
 
-    def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device):
+    def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device,
+             head_grad_scale):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
@@ -444,6 +475,11 @@ class _Lowered(object):
             else:
                 ins = [_to_cf(v) if in_keys[j] in nhwc else v
                        for j, v in enumerate(ins)]
+            if head_grad_scale is not None and op.is_loss and ins:
+                # the heads ignore their incoming cotangent: scale the
+                # gradient they send down instead
+                ins = [_ScaleBackward.apply(ins[0], head_grad_scale)] \
+                    + ins[1:]
             call = op.make_callable(params, is_train)
             if not ins and dev is None:
                 dev = self._device(device, arg_vals, aux_vals)

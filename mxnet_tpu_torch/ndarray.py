@@ -13,7 +13,10 @@ shares memory with its inputs: such an output is copied.
 The ``.params`` framing (``_write_entry`` / ``_read_entries``) is the same
 byte format as the JAX package's: a file written by either package loads in
 the other, byte for byte.  bfloat16 entries travel as their raw 16-bit
-patterns, so no numpy bfloat16 type is needed.
+patterns, so no numpy bfloat16 type is needed.  A bfloat16 array's
+``dtype`` and ``asnumpy()`` use ml_dtypes' numpy bfloat16, as the JAX
+package's do, when ml_dtypes imports; without it ``dtype`` is
+``torch.bfloat16`` and ``asnumpy()`` widens to float32.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import struct
 import numpy as np
 import torch
 
-from .base import MXNetError, _TORCH2NP, numpy_dtype, torch_dtype
+from .base import (MXNetError, _TORCH2NP, np_bfloat16, numpy_dtype,
+                   torch_dtype)
 from .context import Context, current_context
 from . import ops as _ops  # noqa: F401  (every op, before the frontends)
 from .ops import registry as _reg
@@ -105,7 +109,8 @@ class NDArray(object):
 
     @property
     def dtype(self):
-        """numpy dtype of the contents (``torch.bfloat16`` for bfloat16)."""
+        """numpy dtype of the contents: bfloat16 is ml_dtypes' bfloat16,
+        or ``torch.bfloat16`` when ml_dtypes does not import."""
         return numpy_dtype(self._data.dtype)
 
     @property
@@ -122,10 +127,15 @@ class NDArray(object):
 
     # ------------------------------------------------------------ conversions
     def asnumpy(self):
-        """Blocking copy to host numpy (bfloat16 comes back as float32)."""
+        """Blocking copy to host numpy.  bfloat16 comes back as ml_dtypes'
+        bfloat16, built from the raw 16-bit patterns, or as float32 when
+        ml_dtypes does not import (numpy has no bfloat16 of its own)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
+            bf16 = np_bfloat16()
+            if bf16 is None:
+                return t.float().cpu().numpy()
+            return t.view(torch.int16).cpu().numpy().view(bf16)
         return t.cpu().numpy()
 
     def asscalar(self):

@@ -23,7 +23,9 @@ output transpose, reach them without a copy.  They are compiled for
 Each reads rows in 16-byte pieces where ``aligned16`` holds and element by
 element otherwise; ``fwd_plan`` reports the forward's tile for a shape.
 ``launches``, ``bwd_dq_launches`` and ``bwd_dkv_launches`` count the
-launches of the three kernels.
+launches of the three kernels, and ``bf16_launches``,
+``bwd_dq_bf16_launches`` and ``bwd_dkv_bf16_launches`` those of them in
+bfloat16.
 """
 from __future__ import annotations
 
@@ -38,13 +40,18 @@ from .kernel_build import CudaLibrary
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref", "FlashAttention",
            "flash_available", "build", "build_bwd", "launches",
-           "bwd_dq_launches", "bwd_dkv_launches", "aligned16", "fwd_plan"]
+           "bwd_dq_launches", "bwd_dkv_launches", "bf16_launches",
+           "bwd_dq_bf16_launches", "bwd_dkv_bf16_launches", "aligned16",
+           "fwd_plan"]
 
 # kernel launches since import (or since a caller reset them to 0): the
-# forward, the dQ kernel and the dK/dV kernel
+# forward, the dQ kernel and the dK/dV kernel, and those in bfloat16
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+bf16_launches = 0
+bwd_dq_bf16_launches = 0
+bwd_dkv_bf16_launches = 0
 
 # the mask value of the TPU kernel: finite, so that a masked score minus a
 # running maximum is never (-inf) - (-inf)
@@ -174,7 +181,7 @@ def fwd_plan(shape, lib=None):
 
 
 def _launch(q, k, v, causal, scale):
-    global launches
+    global launches, bf16_launches
     _check("flash_attention", q, k, v)
     q, k, v = _unit_last(q, k, v)
     lib = _kernel.get()
@@ -190,6 +197,7 @@ def _launch(q, k, v, causal, scale):
             int(q.dtype == torch.bfloat16), int(aligned16(q, k, v)), stream)
     _kernel.check(err, "flash_attention")
     launches += 1
+    bf16_launches += int(q.dtype == torch.bfloat16)
     return o, lse
 
 
@@ -267,22 +275,24 @@ class _BwdLaunch(object):
         return torch.cuda.current_stream(self.device).cuda_stream
 
     def dq_kernel(self):
-        global bwd_dq_launches
+        global bwd_dq_launches, bwd_dq_bf16_launches
         with torch.cuda.device(self.device):
             err = self._lib.flash_bwd_dq_launch(
                 *self._ins, self.dq.data_ptr(), *self._tail, int(self.vec),
                 self._stream())
         _bwd_kernel.check(err, "flash_attention_bwd (dQ)")
         bwd_dq_launches += 1
+        bwd_dq_bf16_launches += int(self.dq.dtype == torch.bfloat16)
 
     def dkv_kernel(self):
-        global bwd_dkv_launches
+        global bwd_dkv_launches, bwd_dkv_bf16_launches
         with torch.cuda.device(self.device):
             err = self._lib.flash_bwd_dkv_launch(
                 *self._ins, self.dk.data_ptr(), self.dv.data_ptr(),
                 *self._tail, int(self.vec), self._stream())
         _bwd_kernel.check(err, "flash_attention_bwd (dK/dV)")
         bwd_dkv_launches += 1
+        bwd_dkv_bf16_launches += int(self.dk.dtype == torch.bfloat16)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):

@@ -262,10 +262,11 @@ def _pooling(data, kernel=None, stride=(), pad=(), pool_type="max",
                 cnt = None
                 for ax, (i, k, s, p, o) in enumerate(
                         zip(sp_shape, kernel, stride, pad, outs)):
-                    starts = _np.arange(o) * s - p
-                    d = _np.minimum(starts + k, i + p) - starts
-                    d = torch.as_tensor(d, dtype=out.dtype,
-                                        device=out.device)
+                    # the counts are made on the output's device: a copy
+                    # from host memory would wait for the device
+                    starts = torch.arange(o, device=out.device) * s - p
+                    d = (torch.clamp(starts + k, max=i + p) - starts).to(
+                        out.dtype)
                     d = d.reshape((o,) + (1,) * (nd - ax - 1))
                     cnt = d if cnt is None else cnt * d
                 out = out / cnt
@@ -602,15 +603,17 @@ def _ibc_fwd_impl(x, b, w, eps, geom, s2d):
     return _stem_conv(y, w, geom, s2d), mean, var, inv
 
 
-def _ibc_tap_ranges(in_dim, out_dim, k, s, p):
+def _ibc_tap_ranges(in_dim, out_dim, k, s, p, device):
     """Per tap, the inclusive range of output indices whose input tap stays
-    in bounds: tap t at output i reads input s*i - p + t."""
-    ranges = []
-    for t in range(k):
-        lo = max(0, -((-(p - t)) // s))   # ceil((p - t) / s), clamped
-        hi = min(out_dim - 1, (in_dim - 1 + p - t) // s)
-        ranges.append((lo, hi))
-    return ranges
+    in bounds (tap t at output i reads input s*i - p + t): (lo, hi), two
+    (k,) int64 tensors made on ``device``, so that indexing with them
+    never copies from the host (which would wait for the device)."""
+    t = torch.arange(k, device=device)
+    # ceil((p - t) / s) = -floor((t - p) / s), clamped
+    lo = torch.clamp(-torch.div(t - p, s, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(in_dim - 1 + p - t, s,
+                               rounding_mode="floor"), max=out_dim - 1)
+    return lo, hi
 
 
 class InputBNConv(torch.autograd.Function):
@@ -657,11 +660,11 @@ class InputBNConv(torch.autograd.Function):
             acc = inv.dtype
             big = g.to(acc).sum(dim=0)                          # (Ho, Wo, O)
             pre = F.pad(big.cumsum(0).cumsum(1), (0, 0, 1, 0, 1, 0))
-            rows = _ibc_tap_ranges(x.shape[1], g.shape[1], k[0], s[0], p[0])
-            cols = _ibc_tap_ranges(x.shape[2], g.shape[2], k[1], s[1], p[1])
-            r0, r1 = (torch.tensor(v)[:, None] for v in zip(*rows))
-            c0, c1 = (torch.tensor(v)[None, :] for v in zip(*cols))
-            empty = ((r0 > r1) | (c0 > c1)).to(pre.device)
+            r0, r1 = (v[:, None] for v in _ibc_tap_ranges(
+                x.shape[1], g.shape[1], k[0], s[0], p[0], pre.device))
+            c0, c1 = (v[None, :] for v in _ibc_tap_ranges(
+                x.shape[2], g.shape[2], k[1], s[1], p[1], pre.device))
+            empty = (r0 > r1) | (c0 > c1)
             # an empty range's corners may fall off the table: clamp them
             # in (its sum is masked to 0 below)
             r0, c0 = r0.clamp(max=g.shape[1]), c0.clamp(max=g.shape[2])

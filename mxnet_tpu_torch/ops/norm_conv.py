@@ -11,7 +11,7 @@ The kernel is compiled for ``sm_90a`` at its first use and loaded with ctypes
 (``kernel_build``).  ``launches`` counts ``norm_conv`` calls that launched the
 kernel: one launch each, split-K included (the slice blocks of a tile sum
 their partials inside that launch); ``stats_launches`` those of them with
-the statistics epilogue on.
+the statistics epilogue on, ``bf16_launches`` those in bfloat16.
 
 ``NormConv`` is the autograd Function of training (counterpart: the custom
 VJP ``_nc_core``): its forward is ``norm_conv``, its backward the JAX
@@ -31,15 +31,22 @@ from .elemwise import relu as _relu
 from .kernel_build import CudaLibrary
 
 __all__ = ["norm_conv", "norm_conv_ref", "norm_conv_available",
-           "geometry_ok", "build", "launches", "stats_launches", "plan",
-           "vec_flags", "NormConv"]
+           "geometry_ok", "build", "launches", "stats_launches",
+           "bf16_launches", "plan", "vec_flags", "NormConv",
+           "PEEPHOLE_DTYPES"]
 
-# kernel launches since import (or since a caller reset it to 0), and
-# those of them with the statistics epilogue on
+# kernel launches since import (or since a caller reset it to 0), those of
+# them with the statistics epilogue on, and those in bfloat16
 launches = 0
 stats_launches = 0
+bf16_launches = 0
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the activation dtypes the executor's NormConv peephole fuses: the
+# kernel's, and float64, which only the plain version takes (the CPU
+# parity reference of the fused path).  Any other (float16) runs the
+# unfused ops.
+PEEPHOLE_DTYPES = _KERNEL_DTYPES + (torch.float64,)
 
 
 def _bind(lib):
@@ -200,7 +207,7 @@ def launch(lib, x, w, sc, sh, y, ysum, ysq, kernel, stride, pad, relu,
 
 
 def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
-    global launches, stats_launches
+    global launches, stats_launches, bf16_launches
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
         raise MXNetError("norm_conv kernel takes float32 or bfloat16 x and w "
                          "of one dtype, got %s and %s" % (x.dtype, w.dtype))
@@ -242,6 +249,7 @@ def _launch(x, w, scale, shift, kernel, stride, pad, relu, prologue, stats):
     _kernel.check(err, "norm_conv")
     launches += 1
     stats_launches += int(stats)
+    bf16_launches += int(x.dtype == torch.bfloat16)
     return y, ysum, ysq
 
 

@@ -10,11 +10,12 @@ carry weights across as numpy arrays and compare samples by statistics.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["seed", "generator", "uniform", "normal"]
+__all__ = ["seed", "generator", "uniform", "normal", "replaying"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -42,6 +43,28 @@ def generator(device=None):
             getattr(_state, "seed", _DEFAULT_SEED))
         gens[dev] = gen
     return gen
+
+
+@contextlib.contextmanager
+def replaying(gen, state):
+    """Run a block with ``gen`` as its device's generator in the calling
+    thread (autograd's device threads included) and at ``state``; after it,
+    ``gen`` is back where it stood and the thread's own generator is back in
+    place.  A recomputed forward (``TrainStep(remat=...)``) draws the same
+    Dropout masks as the forward it replays this way."""
+    gens = _gens()
+    own = gens.get(gen.device)
+    now = gen.get_state()
+    gens[gen.device] = gen
+    gen.set_state(state)
+    try:
+        yield
+    finally:
+        gen.set_state(now)
+        if own is None:
+            del gens[gen.device]
+        else:
+            gens[gen.device] = own
 
 
 def seed(seed_state):

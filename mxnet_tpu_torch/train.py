@@ -15,18 +15,37 @@ dicts come back.  ``run_steps`` is a Python loop over the same step
 The step's scalars follow JAX's float32 arithmetic: ``hyper`` rounds the lr
 to float32, and Adam's bias correction is computed in float32 from a
 float32 step count, so a float64 run still matches the JAX package's to
-1e-9.  Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the
-parallel slice), ``policy``, ``dtype`` and ``remat`` (the AMP slice), and the
-monitor, telemetry and sanitize hooks (the observability slice); SGLD, DCASGD
-and Test run through the imperative ``optimizer.Updater``, not here.
+1e-9.
+
+Mixed precision (``policy=``, ``amp.Policy``) and the pure cast
+(``dtype=``) follow the JAX package: float32 data inputs and a copy of every
+parameter enter the forward in the compute dtype, labels and the moving
+statistics uncast; the gradients reach the float32 masters through autograd
+of the cast.  Under a policy the loss scale rides the loss heads
+(``_Lowered.run(head_grad_scale=...)``), the overflow verdict is computed on
+the device, and an overflow step's update is a tensor select that keeps
+every weight, optimizer state and moving statistic as it was: no host read
+in the step.  ``remat`` recomputes the forward in the backward
+(``torch.utils.checkpoint``), replaying the explicit generator the Dropout
+and sampling ops draw from.
+
+Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the parallel
+slice), and the monitor, telemetry and sanitize hooks (the observability
+slice; the AMP telemetry, the ``loss_scale`` gauge and the
+``amp_overflow_steps`` counter, among them); SGLD, DCASGD and Test run
+through the imperative ``optimizer.Updater``, not here.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as _np
 import torch
+import torch.utils.checkpoint as _ckpt
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .context import Context, cpu, current_context
+from . import amp as _amp
 from . import ndarray as nd
 from . import random as _random
 from .executor import _Lowered
@@ -39,16 +58,48 @@ __all__ = ["TrainStep", "EvalStep"]
 # brings them
 _NOT_PORTED = (("mesh", "the parallel slice"),
                ("param_shardings", "the parallel slice"),
-               ("zero", "the parallel slice"), ("policy", "the AMP slice"),
-               ("dtype", "the AMP slice"), ("remat", "the AMP slice"))
+               ("zero", "the parallel slice"))
+
+# remat="dots": the matrix products without batch dimensions whose outputs
+# the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither
+# convolutions nor batched products)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _refuse(who, **given):
     for name, item in _NOT_PORTED:
         if given.get(name, None):
             raise MXNetError("%s(%s=...) is not ported yet (it arrives "
-                             "with %s): the port trains on one device in "
-                             "the parameters' dtype" % (who, name, item))
+                             "with %s): the port trains on one device"
+                             % (who, name, item))
+
+
+def _compute_dtype(who, dtype, policy):
+    """(resolved policy or None, compute dtype or None): ``dtype=`` is the
+    pure cast, ``policy=`` the cast with loss scaling; a float32 policy
+    casts nothing."""
+    if policy is None:
+        return None, (None if dtype is None else torch_dtype(dtype))
+    if dtype is not None:
+        raise MXNetError("%s: pass either dtype= (pure cast) or policy= "
+                         "(cast + loss scaling), not both" % who)
+    policy = _amp.resolve_policy(policy)
+    if policy.compute_dtype == "float32":
+        return policy, None
+    return policy, torch_dtype(policy.compute_dtype)
+
+
+def _cast_inputs(vals, dtype, keep):
+    """Float32 inputs not named in ``keep`` (the labels: bfloat16 rounds
+    class ids, 997 becomes 996) cast to ``dtype``."""
+    return {k: (v.to(dtype) if k not in keep and v.dtype == torch.float32
+                else v) for k, v in vals.items()}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _host_init(symbol, low, param_names, aux_names, data_shapes,
@@ -207,6 +258,18 @@ class TrainStep(object):
     symbol : the loss-topped Symbol (e.g. a SoftmaxOutput head)
     optimizer : an ``optimizer.Optimizer``
     data_names / label_names : the input variables (not trained)
+    remat : False; True recomputes the forward in the backward
+        (``torch.utils.checkpoint``); "dots" keeps the outputs of the matrix
+        products without batch dimensions and recomputes the rest
+    dtype : the pure cast: float32 data inputs and a copy of every
+        parameter in this dtype (labels and moving statistics uncast), the
+        outputs in it too; no loss scaling
+    policy : an ``amp.Policy`` (or True, or a dtype string): the cast of
+        its compute dtype, float32 master weights, and the loss scale, whose
+        state (``scale``, ``good``, ``overflow``) lives on the step's device
+        and moves by ``Policy.next_state`` after every step; the outputs
+        come back in float32.  Resolve the env levers with
+        ``amp.resolve_policy()`` when building the step.
     ctx : the device the step runs on (default: the current context,
         ``gpu(0)`` unless a ``with cpu():`` block says otherwise)
 
@@ -220,7 +283,15 @@ class TrainStep(object):
                  param_shardings=None, remat=False, dtype=None, zero=False,
                  policy=None, ctx=None):
         _refuse("TrainStep", mesh=mesh, param_shardings=param_shardings,
-                remat=remat, dtype=dtype, zero=zero, policy=policy)
+                zero=zero)
+        if remat not in (False, None, True, "dots"):
+            raise MXNetError("TrainStep: remat must be False, True or "
+                             "'dots', got %r" % (remat,))
+        self.policy, self._dtype = _compute_dtype("TrainStep", dtype, policy)
+        self._has_scale = self.policy is not None
+        self._scale_state = None
+        self._overflow_seen = 0
+        self.remat = remat or False
         self.symbol = symbol
         self.ctx = Context(ctx) if ctx is not None else current_context()
         self._low = _Lowered(symbol)
@@ -255,35 +326,143 @@ class TrainStep(object):
         sharded)."""
         return _to_device(batch, self.ctx.torch_device())
 
+    # ------------------------------------------------------------ loss scale
+    def _scale_state_dev(self):
+        """The loss-scale state on the step's device (placed at first
+        use)."""
+        if self._scale_state is None:
+            self._scale_state = self.policy.init_state(
+                self.ctx.torch_device())
+        return self._scale_state
+
+    def scale_state_host(self):
+        """The loss-scale state as host scalars (checkpoint export), or
+        None without a policy.  Reads three scalars from the device: call
+        it at checkpoint time only."""
+        if not self._has_scale:
+            return None
+        return {k: float(v) if k == "scale" else int(v)
+                for k, v in self._scale_state_dev().items()}
+
+    def load_scale_state(self, host):
+        """Restore the loss-scale state from checkpointed host scalars,
+        merged over ``Policy.init_state`` (a no-op without a policy: a
+        float32 restore of an AMP checkpoint drops the scale)."""
+        if not self._has_scale or host is None:
+            return
+        dev = self.ctx.torch_device()
+        base = self.policy.init_state(dev)
+        self._scale_state = {
+            k: torch.tensor(host[k], dtype=v.dtype, device=dev)
+            if k in host else v for k, v in base.items()}
+        self._overflow_seen = int(host.get("overflow", 0))
+
+    def amp_stats(self):
+        """``(scale, overflow_delta)``: the current scale and the overflow
+        (skipped-update) count since the previous call, or None without a
+        policy or before the first step.  Reads two scalars from the
+        device: call it from diagnostics, never in the hot loop."""
+        if not self._has_scale or self._scale_state is None:
+            return None
+        total = int(self._scale_state["overflow"])
+        delta = total - self._overflow_seen
+        self._overflow_seen = total
+        return float(self._scale_state["scale"]), delta
+
+    # ------------------------------------------------------------------ step
+    def _forward(self, leaves, aux, batch, scale):
+        """The walk under autograd: inputs and a copy of every parameter
+        cast to the compute dtype (labels and aux uncast), the loss scale
+        at the heads; recomputed in the backward under ``remat``."""
+        dtype = self._dtype
+
+        def fwd():
+            vals = dict(batch)
+            params = leaves
+            if dtype is not None:
+                vals = _cast_inputs(vals, dtype, self.label_names)
+                params = {k: v.to(dtype) for k, v in leaves.items()}
+            vals.update(params)
+            return self._low.run(vals, aux, True,
+                                 no_grad_inputs=self._inputs,
+                                 device=self.ctx, head_grad_scale=scale)
+        if not self.remat:
+            return fwd()
+        # Dropout and the samplers draw from the step device's explicit
+        # generator, which checkpoint's preserve_rng_state does not cover:
+        # the recompute replays it from the state the forward started at
+        gen = _random.generator(self.ctx.torch_device())
+        start = gen.get_state()
+        calls = []
+
+        def replayed():
+            if not calls:
+                calls.append(1)
+                return fwd()
+            with _random.replaying(gen, start):
+                return fwd()
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return _ckpt.checkpoint(replayed, use_reentrant=False, **kw)
+
     def _step(self, params, opt_state, aux, batch, hyper, t):
+        lsc = self._scale_state_dev() if self._has_scale else None
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
-        vals = dict(batch)
-        vals.update(leaves)
-        outs, aux_upd = self._low.run(vals, aux, True,
-                                      no_grad_inputs=self._inputs,
-                                      device=self.ctx)
+        outs, aux_upd = self._forward(leaves, aux, batch,
+                                      None if lsc is None else lsc["scale"])
         seeds = [torch.ones((), dtype=o.dtype, device=o.device)
                  .expand(o.shape) for o in outs]
         grads = torch.autograd.grad(outs, [leaves[n] for n in
                                            self.param_names],
                                     seeds, allow_unused=True)
         del leaves
+        grads = [torch.zeros_like(params[n]) if g is None
+                 else g.to(params[n].dtype)
+                 for n, g in zip(self.param_names, grads)]
         # the range names the optimizer rule's kernels in a profile
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.update"):
-            for n, g in zip(self.param_names, grads):
-                w = params[n]
-                g = torch.zeros_like(w) if g is None else g.to(w.dtype)
-                new_w, new_state = self.fopt.update(n, w, g, opt_state[n],
-                                                    hyper, t)
-                w.copy_(new_w)
-                for s, v in zip(opt_state[n], new_state):
-                    s.copy_(v)
-            for k, v in aux_upd.items():
-                if k in aux:
-                    aux[k].copy_(v)
-        return params, opt_state, aux, tuple(o.detach() for o in outs)
+            if lsc is None:
+                self._update(params, opt_state, aux, aux_upd, grads, hyper,
+                             t, None)
+                return params, opt_state, aux, tuple(o.detach()
+                                                     for o in outs)
+            # overflow is judged on the scaled float32 gradients, on the
+            # device; the update is unscaled by 1/S once and kept only
+            # where the verdict is finite (a select, not a host branch)
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            inv = 1.0 / lsc["scale"]
+            grads = [g * inv.to(g.dtype) for g in grads]
+            self._update(params, opt_state, aux, aux_upd, grads, hyper, t,
+                         finite)
+            self._scale_state = self.policy.next_state(lsc, finite)
+        # the loss surface crosses back in float32
+        return params, opt_state, aux, tuple(o.detach().to(torch.float32)
+                                             for o in outs)
+
+    def _update(self, params, opt_state, aux, aux_upd, grads, hyper, t,
+                finite):
+        """The rule's results copied into the caller's tensors; with a
+        ``finite`` verdict, each copy keeps the old value where it is
+        false."""
+        def put(dst, new):
+            new = new.to(dst.dtype)
+            dst.copy_(new if finite is None
+                      else torch.where(finite, new, dst))
+        for n, g in zip(self.param_names, grads):
+            w = params[n]
+            new_w, new_state = self.fopt.update(n, w, g, opt_state[n],
+                                                hyper, t)
+            put(w, new_w)
+            for st, v in zip(opt_state[n], new_state):
+                put(st, v)
+        for k, v in aux_upd.items():
+            if k in aux:
+                put(aux[k], v)
 
     def __call__(self, params, opt_state, aux, batch, rng=None):
         """One step.  Returns (params, opt_state, aux, outputs); the first
@@ -306,9 +485,9 @@ class TrainStep(object):
           ``num_steps + 1`` axis and step i consumes slice i.
 
         The lr schedule is sampled once per call; the step count (Adam's
-        bias correction) advances per step, so the result equals
-        sequential stepping.  Returns (params, opt_state, aux,
-        last_outputs)."""
+        bias correction) advances per step, and the loss-scale state is
+        carried from step to step, so the result equals sequential
+        stepping.  Returns (params, opt_state, aux, last_outputs)."""
         if stacked:
             for k, v in batch.items():
                 if v.shape[0] != num_steps + 1:
@@ -329,16 +508,23 @@ class TrainStep(object):
 class EvalStep(object):
     """Forward-only step (parity: mxnet_tpu.train.EvalStep with
     ``mesh=None``): ``step(params, aux, batch)`` returns the outputs as a
-    tuple, computed without autograd."""
+    tuple, computed without autograd.  ``dtype=`` casts the float32 inputs
+    (labels excepted) and the parameters to that dtype; ``policy=``
+    contributes only its compute dtype (no backward, so no loss scale).
+    The outputs stay in the compute dtype."""
 
     def __init__(self, symbol, mesh=None, dtype=None,
                  label_names=("softmax_label",), policy=None):
-        _refuse("EvalStep", mesh=mesh, dtype=dtype, policy=policy)
+        _refuse("EvalStep", mesh=mesh)
+        _, self._dtype = _compute_dtype("EvalStep", dtype, policy)
         self._low = _Lowered(symbol)
         self.label_names = tuple(label_names)
 
     def __call__(self, params, aux, batch, rng=None):
         vals = dict(batch)
+        if self._dtype is not None:
+            vals = _cast_inputs(vals, self._dtype, self.label_names)
+            params = {k: v.to(self._dtype) for k, v in params.items()}
         vals.update(params)
         outs, _ = self._low.run(vals, aux, False)
         return tuple(outs)

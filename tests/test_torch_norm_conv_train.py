@@ -407,8 +407,9 @@ def test_bench_script_fused_metric_at_toy_size(capsys, monkeypatch):
     """``resnet50_train.main`` under MXNET_NORM_CONV=1 at toy size (ResNet-18,
     32x32, batch 2, chunk 1, 1 round, on the CPU): every step runs the
     fused graph's NormConv forwards, with statistics where a BatchNorm reads
-    them, and the record
-    carries the fused metric's own name, with the unfused run's config."""
+    them, and the record carries the fused metric's own name (float32 with
+    ``--dtype float32``, bench.py's bfloat16 policy by default), with the
+    unfused run's config."""
     import json
     from mxnet_tpu_torch.bench import resnet50_train
     full = resnet50_train.bench_resnet50_train
@@ -416,13 +417,13 @@ def test_bench_script_fused_metric_at_toy_size(capsys, monkeypatch):
     calls = _count_norm_conv(monkeypatch)
     seen = {}
 
-    def at_toy_size(ctx=None):
+    def at_toy_size(ctx=None, policy=None, dtype=None):
         seen["img_per_sec"] = full(batch=2, image=32, chunk=1, rounds=1,
                                    num_layers=18, num_classes=10,
-                                   ctx=mt.cpu())
+                                   ctx=mt.cpu(), policy=policy, dtype=dtype)
         return seen["img_per_sec"]
     monkeypatch.setattr(resnet50_train, "bench_resnet50_train", at_toy_size)
-    assert resnet50_train.main() == 0
+    assert resnet50_train.main(["--dtype", "float32"]) == 0
     low = _Lowered(_resnet("torch", 10, 18, 32))
     steps = 2 * (1 + 1)              # a warm and a timed run_steps(1)
     assert len(calls) == steps * len(low.nc_conv)
@@ -432,6 +433,13 @@ def test_bench_script_fused_metric_at_toy_size(capsys, monkeypatch):
     assert rec == resnet50_train.record(seen["img_per_sec"], rec["config"],
                                         fused=True)
     assert rec["config"]["num_layers"] == 50 and rec["value"] > 0
+    # the default, bench.py's bfloat16 policy, under its fused name
+    del calls[:]
+    assert resnet50_train.main([]) == 0
+    assert len(calls) == steps * len(low.nc_conv)
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "resnet50_train_img_per_sec_b32_normconv"
+    assert rec["config"]["amp"] == "bfloat16/dyn-scale-32768"
 
 
 # ----------------------------------------------------------------- the card

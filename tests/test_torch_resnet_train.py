@@ -402,32 +402,72 @@ def test_dropout_training_statistics(p):
 
 
 # -------------------------------------------------------- the bench script
-def test_bench_script_runs_at_toy_size(capsys, monkeypatch):
-    """``resnet50_train.bench_resnet50_train`` on the CPU at toy size
-    (ResNet-18, 32x32, batch 2, chunk 1, 1 round), reported through
-    ``main``: one JSON line with bench.py's keys and the fixed metric."""
+def _bench_at_toy_size(monkeypatch, argv):
+    """``resnet50_train.main(argv)`` with ``bench_resnet50_train`` cut to
+    toy size (ResNet-18, 32x32, batch 2, chunk 1, 1 round, on the CPU):
+    returns (what main passed on, the one JSON record printed)."""
     full = resnet50_train.bench_resnet50_train
     seen = {}
 
-    def at_toy_size(ctx=None):
-        seen["ctx"] = ctx
+    def at_toy_size(ctx=None, policy=None, dtype=None):
+        seen.update(ctx=ctx, policy=policy, dtype=dtype)
         seen["img_per_sec"] = full(batch=2, image=32, chunk=1, rounds=1,
                                    num_layers=18, num_classes=10,
-                                   ctx=mt.cpu())
+                                   ctx=mt.cpu(), policy=policy, dtype=dtype)
         return seen["img_per_sec"]
     monkeypatch.setattr(resnet50_train, "bench_resnet50_train", at_toy_size)
-    assert resnet50_train.main() == 0
-    assert seen["ctx"] == mt.gpu(0)
+    return seen, argv
+
+
+def _bench_record(capsys, seen):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     rec = json.loads(lines[0])
+    assert seen["ctx"] == mt.gpu(0)
     assert rec == resnet50_train.record(seen["img_per_sec"], rec["config"])
-    assert rec["metric"] == "resnet50_train_img_per_sec_b32_f32"
     assert rec["unit"] == "img/s" and rec["value"] > 0
     assert rec["vs_baseline"] == round(rec["value"] / 181.53, 3)
+    return rec
+
+
+def test_bench_script_runs_at_toy_size(capsys, monkeypatch):
+    """``resnet50_train.main`` with no arguments, at toy size: bench.py's
+    default, the bfloat16 policy with dynamic loss scaling, under
+    bench.py's metric name; MXNET_AMP=0 gives the pure bfloat16 cast under
+    the same name."""
+    monkeypatch.delenv("MXNET_AMP", raising=False)
+    monkeypatch.delenv("MXNET_LOSS_SCALE", raising=False)
+    seen, argv = _bench_at_toy_size(monkeypatch, [])
+    assert resnet50_train.main(argv) == 0
+    rec = _bench_record(capsys, seen)
+    assert rec["metric"] == "resnet50_train_img_per_sec_b32"
+    assert seen["policy"].compute_dtype == "bfloat16" and \
+        seen["policy"].dynamic and seen["dtype"] is None
     assert rec["config"] == dict(batch=32, image=224, chunk=40, rounds=10,
                                  num_layers=50, num_classes=1000,
-                                 dtype="float32", device="gpu(0)")
+                                 dtype="bfloat16",
+                                 amp="bfloat16/dyn-scale-32768",
+                                 device="gpu(0)")
+    monkeypatch.setenv("MXNET_AMP", "0")
+    assert resnet50_train.main(argv) == 0
+    rec = _bench_record(capsys, seen)
+    assert rec["metric"] == "resnet50_train_img_per_sec_b32"
+    assert seen["policy"] is None and seen["dtype"] == "bfloat16"
+    assert rec["config"]["amp"] is None
+
+
+def test_bench_script_float32_at_toy_size(capsys, monkeypatch):
+    """``--dtype float32`` at toy size: the float32 run under its own
+    metric, with no policy even where MXNET_AMP asks for one."""
+    monkeypatch.setenv("MXNET_AMP", "1")
+    seen, argv = _bench_at_toy_size(monkeypatch, ["--dtype", "float32"])
+    assert resnet50_train.main(argv) == 0
+    rec = _bench_record(capsys, seen)
+    assert rec["metric"] == "resnet50_train_img_per_sec_b32_f32"
+    assert seen["policy"] is None and seen["dtype"] is None
+    assert rec["config"] == dict(batch=32, image=224, chunk=40, rounds=10,
+                                 num_layers=50, num_classes=1000,
+                                 dtype="float32", amp=None, device="gpu(0)")
 
 
 # ----------------------------------------------------------------- the card

@@ -4,7 +4,9 @@ T=128, vocab-97 LM (as tests/test_torch_transformer.py).  The port's
 gradients with attn_impl='flash' (the autograd Function over the plain
 versions) and 'xla' against the JAX 'xla' graph's; the parameters after 4
 Adam and 4 SGD-momentum TrainStep steps; run_steps against sequential
-steps, stacked and not; EvalStep; and the refusals of what is not ported."""
+steps, stacked and not; EvalStep; and the refusals of what is not ported
+(mesh, param_shardings and zero; the AMP arguments are tested in
+tests/test_torch_amp.py)."""
 import jax
 import numpy as np
 import pytest
@@ -291,10 +293,7 @@ def test_eval_step_matches_mxnet_tpu(f64):
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "the parallel slice"),
     ({"param_shardings": {"x": None}}, "the parallel slice"),
-    ({"zero": 1}, "the parallel slice"),
-    ({"policy": "bfloat16"}, "the AMP slice"),
-    ({"dtype": "bfloat16"}, "the AMP slice"),
-    ({"remat": True}, "the AMP slice")])
+    ({"zero": 1}, "the parallel slice")])
 def test_trainstep_refuses_what_is_not_ported(kw, item):
     with pytest.raises(mt.MXNetError, match="arrives with %s" % item):
         mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
