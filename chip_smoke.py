@@ -69,6 +69,26 @@ fatal on failure:
    after 9 steps; (d) batch 32 timed and profiled as in phase 4, beside
    the float32 run of this call; fused, every NormConv launch in
    bfloat16, 52 a step, 32 with statistics;
+4c. module_fit: the users' entry point, ``Module.fit`` on gpu(0), cuDNN
+   deterministic.  ResNet-50 at full width from a seed-0 state over an
+   ``io.NDArrayIter`` of 4 synthetic batches of 32 (77 MB on the host), 2
+   epochs of SGD(0.1, momentum 0.9, wd 1e-4): the fused path engages, the
+   trained parameters and moving statistics equal a direct ``TrainStep``
+   run over the same batches bit for bit (or within MODULE_REPEAT_X times
+   two direct runs' distance, MODULE_NONDET_MIN at least), the same fit
+   with MXNET_DEVICE_PREFETCH=0
+   likewise, 2 batches of the general path (executor + Updater) within
+   rtol 5e-3 / atol 1e-5 of the fused steps; the fit's steady host ms a
+   batch beside TrainStep's on the same batches on the card, in turns, and
+   the general path's; the same module fit again under MXNET_NORM_CONV=1
+   (52 NormConv launches a step, 32 with statistics, the cached
+   TrainStep kept) and under MXNET_AMP=1 (every launch in bfloat16, the
+   loss scale read through ``amp_stats``, float32 masters after the sync
+   back); the batch loop of a fit without callbacks under
+   ``set_sync_debug_mode``; ``save_checkpoint``, ``Module.load`` and
+   ``score`` giving the same accuracy.  Then the LM at GPT-2-small widths
+   through ``Module.fit`` with Adam(1e-4), 2 batches of 4 x 1024: 36
+   flash launches a step, the parameters against a direct TrainStep run;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -138,7 +158,8 @@ per-geometry numbers, serving qps and latency, the ResNet-50 training
 checks, rates and profiles (unfused and fused, float32 and bfloat16 AMP),
 the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
-profiles (float32 and AMP), Updater and Rtc numbers, each phase's seconds,
+profiles (float32 and AMP), the Module layer's checks and timings, Updater
+and Rtc numbers, each phase's seconds,
 a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps),
 and as its last line
@@ -147,6 +168,7 @@ there is no CUDA device or the package is missing.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -299,6 +321,37 @@ LM = dict(vocab_size=50257, seq_len=1024, num_layers=12, num_hidden=768,
 LM_LR = 1e-4
 LM_BATCH = 4
 LM_BATCHES = 3
+# module_fit: ResNet-50 trained through Module.fit (the users' entry point)
+# over an NDArrayIter of MODULE_FIT_BATCHES synthetic batches of
+# MODULE_FIT_BATCH, MODULE_FIT_EPOCHS epochs of SGD(RESNET_LR, momentum 0.9,
+# wd 1e-4), cuDNN deterministic.  The fit runs the same TrainStep steps on
+# the same batches as a direct TrainStep run from the same state, so the
+# two must agree bit for bit; where they do not (ops that sum with atomic
+# adds, in an order the card picks: the LM's embedding gradient), the
+# distance (max |d| / max |w| per leaf) must stay within MODULE_REPEAT_X
+# times that between two direct runs, measured beside it, or within
+# MODULE_NONDET_MIN where two direct runs happened to agree.  On an H100
+# 80GB HBM3 at 700 W the LM's fit stood 2.4e-10 and 9.7e-10 from its
+# direct run (embed_weight; two direct runs 2.4e-10 and 0 apart); a fit on
+# another batch or a lost step moves a leaf by about the lr, 1e-4 or more
+# of its largest entry.  The general path (executor +
+# Updater, MXNET_FUSED_FIT=0) over MODULE_FIT_GENERAL batches against the
+# fused step from the same state within the JAX package's test bounds
+# (test_fused_fit.py: assert_allclose rtol 5e-3, atol 1e-5): the Updater
+# keeps the lr in float64 where the fused rule rounds it to float32.
+MODULE_FIT_BATCH = 32
+MODULE_FIT_BATCHES = 4
+MODULE_FIT_EPOCHS = 2
+MODULE_FIT_GENERAL = 2
+MODULE_REPEAT_X = 4.0
+MODULE_NONDET_MIN = 1e-6
+# timed turns of (the fit with the prefetch on, off, the general path,
+# TrainStep alone) in the module_fit phase
+MODULE_TIME_TURNS = 3
+MODULE_GENERAL_RTOL = 5e-3
+MODULE_GENERAL_ATOL = 1e-5
+# the LM through Module.fit: MODULE_LM_BATCHES batches of LM_BATCH x 1024
+MODULE_LM_BATCHES = 2
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
 # float32 and bfloat16
 FLASH_CHECKS = [
@@ -1237,6 +1290,384 @@ def resnet50_train_amp_phase(torch, mt, nc, norm_conv, want, f32_img_s):
              counted["bf16_launches"], counted["steps"], per_step,
              per_step_stats))
     return dict(counted, img_s=img_s, worst=worst)
+
+
+def module_host(mod):
+    """The module's parameters and aux states as float32 numpy."""
+    args, auxs = mod.get_params()
+    return ({n: v.asnumpy() for n, v in args.items()},
+            {n: v.asnumpy() for n, v in auxs.items()})
+
+
+def module_worst(got, want):
+    """(max over the leaves of max |got - want| / max |want|, its leaf)."""
+    worst = (0.0, None)
+    for n, w in want.items():
+        d = float(np.abs(got[n] - w).max() / max(np.abs(w).max(), 1e-30))
+        if d > worst[0]:
+            worst = (d, n)
+    return worst
+
+
+def module_env(env, fn):
+    """``fn()`` with the MXNET_* variables of ``env`` set (None: unset)."""
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def module_direct(torch, mt, net, args, aux, batches, opt, snap_after):
+    """The fused fit's computation without Module: a TrainStep with
+    ``opt`` on gpu(0) from ``args``/``aux``, one ``__call__`` per host
+    batch, each moved by ``shard_batch``.  Returns ((params, aux) as numpy
+    after every batch, the same after ``snap_after`` batches)."""
+    dev = mt.gpu(0).torch_device()
+    ts = mt.TrainStep(net, opt, ctx=mt.gpu(0))
+    # copies: the step updates them in place
+    p = {n: torch.from_numpy(v).to(dev, copy=True) for n, v in args.items()}
+    a = {n: torch.from_numpy(v).to(dev, copy=True) for n, v in aux.items()}
+    s = ts.fopt.init_state(p)
+
+    def host():
+        return ({n: v.to("cpu", copy=True).numpy() for n, v in p.items()},
+                {n: v.to("cpu", copy=True).numpy() for n, v in a.items()})
+    snap = None
+    for i, b in enumerate(batches):
+        if i == snap_after:
+            snap = host()
+        p, s, a, outs = ts(p, s, a, ts.shard_batch(b))
+    if not torch.isfinite(outs[0]).all():
+        fail("module_fit: non-finite outputs of the direct TrainStep run")
+    return host(), snap
+
+
+def module_same(torch, mt, what, got, want, rerun):
+    """Hold a fit's (params, aux) to a direct run's: bitwise, or within
+    max(MODULE_REPEAT_X times the distance ``rerun()`` (a second direct
+    run) lies from ``want``, MODULE_NONDET_MIN)."""
+    worst = max(module_worst(got[k], want[k]) for k in (0, 1))
+    if worst[0] == 0.0:
+        print("module_fit %s: bitwise equal" % what)
+        return
+    again = rerun()
+    floor = max(module_worst(again[k], want[k]) for k in (0, 1))
+    tol = max(MODULE_REPEAT_X * floor[0], MODULE_NONDET_MIN)
+    print("module_fit %s: not bitwise: worst max_rel=%r (%s); two direct "
+          "runs %r apart (%s); tol %r" % (what, worst[0], worst[1], floor[0],
+                                         floor[1], tol))
+    if worst[0] > tol:
+        fail("module_fit %s: %s differs by %.3g of its largest entry, "
+             "two direct runs by %.3g (tol %g)" % (what, worst[1], worst[0],
+                                                   floor[0], tol))
+
+
+def module_fit_phase(torch, mt, nc, fa, bench_img_s):
+    """ResNet-50 at full width and the LM at GPT-2-small widths trained
+    through ``Module.fit`` on gpu(0) (see MODULE_FIT_*).  Returns the
+    kernels' launches counted in the phase's fits: {"norm_conv",
+    "norm_conv_stats", "norm_conv_bf16", "flash": (fwd, dq, dkv)}."""
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        counts = module_fit_resnet(torch, mt, nc, bench_img_s)
+        counts["flash"] = module_fit_lm(torch, mt, fa)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    return counts
+
+
+def module_fit_resnet(torch, mt, nc, bench_img_s):
+    os.environ["MXNET_NORM_CONV"] = "0"
+    net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+    b, nb = MODULE_FIT_BATCH, MODULE_FIT_BATCHES
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, a0 = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
+                         {"softmax_label": (b,)}, seed=SEED)
+    args = {n: v.numpy() for n, v in p0.items()}
+    aux = {n: v.numpy() for n, v in a0.items()}
+    del ts0, p0, a0
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.uniform(-1, 1, (nb * b, 3, IMAGE, IMAGE)).astype(np.float32)
+    y = rng.integers(0, CLASSES, nb * b).astype(np.float32)
+    print("module_fit resnet50 host data %d x %d images = %.1f MB, %d "
+          "epochs" % (nb, b, x.nbytes / 1e6, MODULE_FIT_EPOCHS))
+    batches = [{"data": x[i * b:(i + 1) * b],
+                "softmax_label": y[i * b:(i + 1) * b]} for i in range(nb)]
+    opt_params = dict(learning_rate=RESNET_LR, momentum=0.9, wd=1e-4)
+
+    def sgd():
+        return mt.optimizer.SGD(rescale_grad=1.0 / b, **opt_params)
+
+    def fit(mod, it, epochs, env=None, callback=None):
+        """``mod.fit`` over ``it`` (with ``callback`` at each batch end);
+        (seconds, host ms between consecutive batch ends within an epoch,
+        averaged)."""
+        ends = []
+
+        def at_end(p):
+            ends.append((p.nbatch, time.perf_counter()))
+            if callback is not None:
+                callback(p)
+        t0 = time.perf_counter()
+        module_env(env or {}, lambda: mod.fit(
+            it, num_epoch=epochs, optimizer="sgd",
+            optimizer_params=opt_params, arg_params=args, aux_params=aux,
+            batch_end_callback=at_end))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gaps = [t1 - t0_ for (n0, t0_), (n1, t1) in zip(ends, ends[1:])
+                if n1 == n0 + 1]
+        return dt, 1e3 * sum(gaps) / max(1, len(gaps))
+
+    def launches(steps, want, fn, what):
+        """``fn()`` with the NormConv counts at 0 before and read after."""
+        nc.launches = nc.stats_launches = nc.bf16_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = (nc.launches, nc.stats_launches, nc.bf16_launches)
+        print("module_fit %s norm_conv launches=%d stats=%d bf16=%d in %d "
+              "steps" % ((what,) + got + (steps,)))
+        if got != tuple(steps * w for w in want):
+            fail("module_fit %s: NormConv launched %s in %d steps, expected "
+                 "%s a step" % (what, got, steps, want))
+        return out, got
+
+    it = mt.io.NDArrayIter(x, y, batch_size=b)
+    steps = nb * MODULE_FIT_EPOCHS
+    # (a) the fused fit, MXNET_NORM_CONV=0: no NormConv launch
+    mod = mt.Module(net, context=mt.gpu(0))
+    (fit_s, _), _ = launches(steps, (0, 0, 0),
+                                  lambda: fit(mod, it, MODULE_FIT_EPOCHS),
+                                  "fused fit MXNET_NORM_CONV=0")
+    if mod._fused_ts_cache is None:
+        fail("module_fit: the fused path did not engage")
+    ts_f32 = mod._fused_ts_cache[1]
+    got = module_host(mod)
+    # (b) the direct TrainStep run over the same batches in the same order
+    order = batches * MODULE_FIT_EPOCHS
+    want, snap = module_direct(torch, mt, net, args, aux, order, sgd(),
+                               MODULE_FIT_GENERAL)
+    module_same(torch, mt, "fit vs direct TrainStep", got, want,
+                lambda: module_direct(torch, mt, net, args, aux, order,
+                                      sgd(), MODULE_FIT_GENERAL)[0])
+    # (c) the same fit with the device prefetch off
+    mod_off = mt.Module(net, context=mt.gpu(0))
+    fit(mod_off, it, MODULE_FIT_EPOCHS, {"MXNET_DEVICE_PREFETCH": "0"})
+    module_same(torch, mt, "prefetch on vs off", module_host(mod_off), got,
+                lambda: module_direct(torch, mt, net, args, aux, order,
+                                      sgd(), MODULE_FIT_GENERAL)[0])
+    del mod_off
+    # (d) the general path over the first batches against the fused step,
+    # then an epoch of it timed
+    mod_g = mt.Module(net, context=mt.gpu(0))
+    ng = MODULE_FIT_GENERAL
+    fit(mod_g, mt.io.NDArrayIter(x[:ng * b], y[:ng * b], batch_size=b), 1,
+        {"MXNET_FUSED_FIT": "0"})
+    if mod_g._fused_ts_cache is not None:
+        fail("module_fit: MXNET_FUSED_FIT=0 took the fused path")
+    general = module_host(mod_g)
+    worst = 0.0
+    for k in (0, 1):
+        for n, w in snap[k].items():
+            g = general[k][n]
+            excess = np.abs(g - w) - (MODULE_GENERAL_ATOL
+                                      + MODULE_GENERAL_RTOL * np.abs(w))
+            worst = max(worst, float(np.abs(g - w).max()))
+            if (excess > 0).any():
+                fail("module_fit: the general path's %s differs from the "
+                     "fused step's beyond rtol %g atol %g (max |d| %.3g)"
+                     % (n, MODULE_GENERAL_RTOL, MODULE_GENERAL_ATOL,
+                        float(np.abs(g - w).max())))
+    print("module_fit general path (executor + Updater) %d batches: max "
+          "|d| from the fused step=%r (rtol %g atol %g)"
+          % (ng, worst, MODULE_GENERAL_RTOL, MODULE_GENERAL_ATOL))
+    # timing, in turns (the host's speed drifts within a call): the fused
+    # fit's host ms between batch ends with the prefetch on and off, the
+    # general path's, and TrainStep steps over the same batches already on
+    # the card, ending in a synchronize.  The host runs ahead of the card
+    # until the launch queue fills, so in steady state a gap between batch
+    # ends is the time a batch.
+    dev = mt.gpu(0).torch_device()
+    ts_t = mt.TrainStep(net, sgd(), ctx=mt.gpu(0))
+    pt = {n: torch.from_numpy(v).to(dev, copy=True) for n, v in args.items()}
+    at = {n: torch.from_numpy(v).to(dev, copy=True) for n, v in aux.items()}
+    st = ts_t.fopt.init_state(pt)
+    staged = [ts_t.shard_batch(bb) for bb in batches]
+    fit_runs, off_runs, general_runs, step_runs = [], [], [], []
+    for _ in range(MODULE_TIME_TURNS):
+        fit_runs.append(fit(mod, it, MODULE_FIT_EPOCHS)[1])
+        off_runs.append(fit(mod, it, MODULE_FIT_EPOCHS,
+                            {"MXNET_DEVICE_PREFETCH": "0"})[1])
+        general_runs.append(fit(mod_g, it, 1, {"MXNET_FUSED_FIT": "0"})[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pt, st, at, _ = ts_t(pt, st, at, staged[i % nb])
+        torch.cuda.synchronize()
+        step_runs.append((time.perf_counter() - t0) * 1e3 / steps)
+    del ts_t, pt, at, st, staged, mod_g
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    def minus(a, b):
+        return [x - y for x, y in zip(a, b)]
+    print("module_fit resnet50 batch=%d (%d turns) host_ms_per_batch: "
+          "fused fit %r, prefetch off %r, general path (executor + "
+          "Updater) %r; TrainStep on device batches ms_per_step %r"
+          % (b, MODULE_TIME_TURNS, fit_runs, off_runs, general_runs,
+             step_runs))
+    print("module_fit resnet50 medians: fit img_per_s=%r TrainStep "
+          "img_per_s=%r module_layer_host_ms_per_batch=%r (turns %r) "
+          "prefetch_off_minus_on_ms=%r (turns %r) general_minus_fused_ms=%r "
+          "(turns %r); first fit with set-up and sync-back: %.3f s for %d "
+          "batches, img_per_s=%r; bench resnet50_train img_per_s=%r "
+          "(float32 unfused, this call, cudnn.deterministic off)"
+          % (1e3 * b / median(fit_runs), 1e3 * b / median(step_runs),
+             median(minus(fit_runs, step_runs)), minus(fit_runs, step_runs),
+             median(minus(off_runs, fit_runs)), minus(off_runs, fit_runs),
+             median(minus(general_runs, fit_runs)),
+             minus(general_runs, fit_runs), fit_s, steps, steps * b / fit_s,
+             bench_img_s))
+    # (e) the same module fit again under MXNET_NORM_CONV=1: the lever is
+    # read at every run, so the cached TrainStep serves it
+    counted = {"norm_conv": 0, "norm_conv_stats": 0, "norm_conv_bf16": 0}
+    _, got_nc = launches(nb, (RESNET_NC_PER_STEP, RESNET_NC_STATS_PER_STEP,
+                              0),
+                         lambda: fit(mod, it, 1, {"MXNET_NORM_CONV": "1"}),
+                         "fused fit MXNET_NORM_CONV=1")
+    if mod._fused_ts_cache[1] is not ts_f32:
+        fail("module_fit: toggling MXNET_NORM_CONV rebuilt the TrainStep")
+    # (f) and under MXNET_AMP=1: a new bfloat16 step, NormConv in bfloat16
+    scales = []
+
+    def amp_fit():
+        return fit(mod, it, 1, {"MXNET_NORM_CONV": "1", "MXNET_AMP": "1"},
+                   lambda p: scales.append(p.locals["fast"].amp_stats()))
+    _, got_amp = launches(nb, (RESNET_NC_PER_STEP, RESNET_NC_STATS_PER_STEP,
+                               RESNET_NC_PER_STEP), amp_fit,
+                          "fused fit MXNET_AMP=1 MXNET_NORM_CONV=1")
+    ts_amp = mod._fused_ts_cache[1]
+    if ts_amp is ts_f32 or ts_amp.policy is None \
+            or ts_amp.policy.compute_dtype != "bfloat16":
+        fail("module_fit: MXNET_AMP=1 did not build a bfloat16 TrainStep")
+    masters = module_host(mod)
+    bad = [n for k in (0, 1) for n, v in masters[k].items()
+           if v.dtype != np.float32 or not np.isfinite(v).all()]
+    ex = mod._exec_group.execs[0]
+    bad += [n for n, v in ex.arg_dict.items() if v.dtype != np.float32]
+    if bad or not scales or not all(s is not None and s[0] > 0
+                                    for s in scales):
+        fail("module_fit AMP: masters %s not finite float32, or no loss "
+             "scale (%s)" % (bad[:4], scales))
+    print("module_fit AMP loss scale per batch (amp_stats: scale, "
+          "overflows)=%s; masters float32 after sync_back" % (scales,))
+    for k, v in zip(("norm_conv", "norm_conv_stats"), (0, 1)):
+        counted[k] += got_nc[v] + got_amp[v]
+    counted["norm_conv_bf16"] += got_amp[2]
+    # (g) the batch loop of a fit (no callbacks) without a host sync
+    fast = mod._start_fused_fit()
+    metric = mt.metric.Accuracy()
+
+    def loop():
+        it.reset()
+        data_iter = fast.prefetch(iter(it))
+        try:
+            for batch in data_iter:
+                outs, labels = fast.step(batch)
+                metric.update(labels, outs)
+        finally:
+            data_iter.drain()
+    sync_free(torch, "module_fit batch loop (prefetch on)", loop)
+    fast.sync_back()
+    it.reset()
+    # (h) save_checkpoint, Module.load and score
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "module_fit")
+    os.makedirs(ck_dir, exist_ok=True)
+    prefix = os.path.join(ck_dir, "resnet50")
+    try:
+        mod.save_checkpoint(prefix, MODULE_FIT_EPOCHS)
+        acc = mod.score(it, "acc")[0][1]
+        back = mt.Module.load(prefix, MODULE_FIT_EPOCHS, context=mt.gpu(0))
+        back.bind(it.provide_data, it.provide_label, for_training=False)
+        acc_back = back.score(it, "acc")[0][1]
+        saved = module_host(mod)
+        loaded = module_host(back)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    if acc_back != acc or module_worst(loaded[0], saved[0])[0] != 0.0:
+        fail("module_fit: Module.load of the checkpoint scores %r, the "
+             "module %r" % (acc_back, acc))
+    print("module_fit checkpoint round trip: score accuracy=%r both"
+          % acc)
+    del mod, back, fast
+    torch.cuda.empty_cache()
+    return counted
+
+
+def module_fit_lm(torch, mt, fa):
+    """The LM at GPT-2-small widths through Module.fit with Adam(LM_LR):
+    MODULE_LM_BATCHES batches, 36 flash launches a step, the parameters
+    against a direct TrainStep run.  Returns the flash launches of the
+    fit."""
+    net = mt.models.transformer.get_symbol(**LM)
+    weights = lm_weights(net)
+    rng = np.random.default_rng(SEED + 9)
+    toks = rng.integers(0, LM["vocab_size"],
+                        (MODULE_LM_BATCHES * LM_BATCH, LM["seq_len"] + 1))
+    data = toks[:, :-1].astype(np.float32)
+    label = toks[:, 1:].astype(np.float32)
+    it = mt.io.NDArrayIter(data, label, batch_size=LM_BATCH)
+    mod = mt.Module(net, context=mt.gpu(0))
+    reset_flash_counts(fa)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="adam",
+            optimizer_params={"learning_rate": LM_LR}, arg_params=weights,
+            aux_params={})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    want = (LM["num_layers"] * MODULE_LM_BATCHES,) * 3
+    print("module_fit lm %d batches of %dx%d: flash_fwd_launches=%d "
+          "flash_dq_launches=%d flash_dkv_launches=%d seconds=%r (with "
+          "set-up and sync-back)" % ((MODULE_LM_BATCHES, LM_BATCH,
+                                      LM["seq_len"]) + counts + (dt,)))
+    if counts != want:
+        fail("module_fit lm: flash launches %s in %d steps, want 12 of each "
+             "a step" % (counts, MODULE_LM_BATCHES))
+    if mod._fused_ts_cache is None:
+        fail("module_fit lm: the fused path did not engage")
+    got = module_host(mod)
+    del mod
+    batches = [{"data": data[i * LM_BATCH:(i + 1) * LM_BATCH],
+                "softmax_label": label[i * LM_BATCH:(i + 1) * LM_BATCH]}
+               for i in range(MODULE_LM_BATCHES)]
+
+    def direct():
+        return module_direct(torch, mt, net, weights, {}, batches,
+                             mt.optimizer.Adam(learning_rate=LM_LR,
+                                               rescale_grad=1.0 / LM_BATCH),
+                             MODULE_LM_BATCHES - 1)[0]
+    module_same(torch, mt, "lm fit vs direct TrainStep", got, direct(),
+                direct)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def resnet_train_breakdown(torch, ts, params, state, aux, batch, tag):
@@ -2455,6 +2886,8 @@ def main():
     amp_fused = resnet50_train_amp_phase(torch, mt, nc, "1", fused["want"],
                                          fused["img_s"])
     phase_done("resnet50_train_amp_fused")
+    mf = module_fit_phase(torch, mt, nc, fa, unfused["img_s"])
+    phase_done("module_fit")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -2494,7 +2927,8 @@ def main():
         "name": "norm_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
-        "launches": launches + fused["launches"] + amp_fused["launches"],
+        "launches": launches + fused["launches"] + amp_fused["launches"]
+        + mf["norm_conv"],
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -2502,7 +2936,7 @@ def main():
         else "bytes",
         "library_ms": tot["library_ms"],
         "bf16_train": {
-            "launches": amp_fused["bf16_launches"],
+            "launches": amp_fused["bf16_launches"] + mf["norm_conv_bf16"],
             "max_abs_err": btot["max_abs_err"], "ms": btot["ms"],
             "plain_ms": btot["plain_ms"], "bound_ms": btot["bound_ms"],
             "bound_by": "operations" if btot["ops_ms"] >= btot["bytes_ms"]
@@ -2510,7 +2944,7 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:47",
-        "launches": fl_launches + amp_counts[0],
+        "launches": fl_launches + amp_counts[0] + mf["flash"][0],
         "max_abs_err": fl["max_abs_err"],
         "ms": per * fl["ms"], "plain_ms": per * fl["plain_ms"],
         "bound_ms": per * fl["bound_ms"], "bound_by": fl["bound_by"],
@@ -2523,7 +2957,7 @@ def main():
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
-        "launches": dq_launches + amp_counts[1],
+        "launches": dq_launches + amp_counts[1] + mf["flash"][1],
         "max_abs_err": bw["dq_err"],
         "ms": per * bw["dq_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",
@@ -2539,7 +2973,7 @@ def main():
         "name": "flash_attention_bwd_dkv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:169",
-        "launches": dkv_launches + amp_counts[2],
+        "launches": dkv_launches + amp_counts[2] + mf["flash"][2],
         "max_abs_err": bw["dkv_err"],
         "ms": per * bw["dkv_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",

@@ -11,9 +11,10 @@ for ``cpu()``.
 
 Ported so far: ResNet-50 inference and serving, the transformer LM's
 inference, its training through ``train.TrainStep`` (ResNet-50 too, in
-float32 or under an ``amp.Policy``), and the imperative
-entry point: ``mx.nd`` ops and views, the optimizers' ``update`` and
-``Updater``, and ``rtc``.
+float32 or under an ``amp.Policy``) and through ``Module.fit`` (with the
+data iterators, metrics, callbacks and checkpoints of ``io``, ``metric``,
+``callback`` and ``model``), and the imperative entry point: ``mx.nd`` ops
+and views, the optimizers' ``update`` and ``Updater``, and ``rtc``.
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
@@ -38,9 +39,17 @@ from . import rtc
 from . import amp
 from . import train
 from .train import TrainStep, EvalStep
+from . import io
+from . import metric
+from . import callback
+from . import model
+from . import module
+from . import module as mod
+from .module import Module
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
            "lr_scheduler", "initializer", "init", "optimizer", "rtc", "amp",
-           "train", "TrainStep", "EvalStep"]
+           "train", "TrainStep", "EvalStep", "io", "metric", "callback",
+           "model", "module", "mod", "Module"]

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "string_types", "get_env", "Registry",
-           "torch_dtype", "numpy_dtype", "np_bfloat16"]
+           "atomic_write", "torch_dtype", "numpy_dtype", "np_bfloat16"]
 
 string_types = (str,)
 
@@ -55,6 +55,56 @@ class Registry(object):
 
     def list_names(self):
         return sorted(self._entries)
+
+
+class atomic_write(object):
+    """Crash-consistent local file write (parity: mxnet_tpu.base
+    .atomic_write): the bytes go to a temporary file in the same directory,
+    which is flushed, fsynced and renamed over the target, and the
+    directory is fsynced.  A process killed mid-write leaves the previous
+    file whole; on error the temporary file is removed and the target left
+    as it was.  A context manager yielding the open file."""
+
+    def __init__(self, fname, mode="wb"):
+        self.fname = str(fname)
+        self.tmp = "%s.tmp-%d" % (self.fname, os.getpid())
+        self.mode = mode
+        self._f = None
+
+    def __enter__(self):
+        self._f = open(self.tmp, self.mode)
+        return self._f
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            try:
+                if exc_type is None:
+                    self._f.flush()
+                    os.fsync(self._f.fileno())
+            finally:
+                # closed whatever happens: a failed fsync must not leak
+                # the descriptor
+                self._f.close()
+            if exc_type is None:
+                os.replace(self.tmp, self.fname)
+                # the rename lives in the directory: without its fsync a
+                # power cut can drop the new entry
+                d = os.path.dirname(self.fname) or "."
+                try:
+                    fd = os.open(d, os.O_RDONLY)
+                    try:
+                        os.fsync(fd)
+                    finally:
+                        os.close(fd)
+                except OSError:
+                    pass   # a platform without directory fsync
+        finally:
+            if os.path.exists(self.tmp):
+                try:
+                    os.remove(self.tmp)
+                except OSError:
+                    pass
+        return False
 
 
 _NP2TORCH = {np.dtype("float32"): torch.float32,

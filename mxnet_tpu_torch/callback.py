@@ -1,0 +1,126 @@
+"""Training-loop callbacks (counterpart: mxnet_tpu/callback.py).
+
+Batch-end callbacks receive a ``model.BatchEndParam`` (``epoch``,
+``nbatch``, ``eval_metric``, ``locals``); epoch-end callbacks receive
+``(epoch, symbol, arg_params, aux_params)``.  ``Speedometer`` counts samples
+as ``nbatch * batch_size`` (the telemetry sample counter it reads in the
+JAX package arrives with the observability slice); ``do_step_checkpoint``
+(sharded step checkpoints) arrives with the checkpoint slice.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from .base import MXNetError
+
+__all__ = ["do_checkpoint", "module_checkpoint", "do_step_checkpoint",
+           "log_train_metric", "Speedometer", "ProgressBar"]
+
+_LOG = logging.getLogger(__name__)
+
+
+def _metric_pairs(metric):
+    return [] if metric is None else metric.get_name_value()
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback that saves ``mod`` every ``period`` epochs
+    (parity: callback.module_checkpoint)."""
+    every = max(1, int(period))
+
+    def save_module(epoch, sym=None, arg=None, aux=None):
+        done = epoch + 1
+        if done % every == 0:
+            mod.save_checkpoint(prefix, done, save_optimizer_states)
+
+    return save_module
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback that saves the symbol and parameters every
+    ``period`` epochs (parity: callback.do_checkpoint)."""
+    from .model import save_checkpoint
+    every = max(1, int(period))
+
+    def save_params(epoch, sym, arg, aux):
+        done = epoch + 1
+        if done % every == 0:
+            save_checkpoint(prefix, done, sym, arg, aux)
+
+    return save_params
+
+
+def do_step_checkpoint(module, checkpointer, every_n_steps, resume_epoch=0,
+                       nbatch_offset=0):
+    """Sharded step-interval checkpoints of the live fused training state:
+    not ported yet."""
+    raise MXNetError("callback.do_step_checkpoint is not ported yet: it "
+                     "arrives with the checkpoint slice")
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback that logs the training metric every ``period``
+    batches, optionally resetting it (parity: callback.log_train_metric)."""
+
+    def emit(param):
+        if param.nbatch % period != 0:
+            return
+        for name, value in _metric_pairs(param.eval_metric):
+            _LOG.info("epoch %d batch %d: train %s = %f",
+                      param.epoch, param.nbatch, name, value)
+        if auto_reset and param.eval_metric is not None:
+            param.eval_metric.reset()
+
+    return emit
+
+
+class Speedometer(object):
+    """Batch-end callback that logs samples/s every ``frequent`` batches
+    (parity: callback.Speedometer, batch-index arithmetic).  It keeps one
+    (batch index, clock) mark; each report measures the span since the mark
+    and re-arms, and a batch index that moves back (a new epoch) drops the
+    mark.  A report reads the metric, which syncs the host with the card."""
+
+    def __init__(self, batch_size, frequent=50):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self._mark = None   # (nbatch, perf_counter) of the last report
+
+    def __call__(self, param):
+        now = time.perf_counter()
+        n = param.nbatch
+        if self._mark is not None and n < self._mark[0]:
+            self._mark = None
+        if self._mark is None:
+            self._mark = (n, now)
+            return
+        if n % self.frequent != 0 or n == self._mark[0]:
+            return
+        rate = (n - self._mark[0]) * self.batch_size / max(
+            now - self._mark[1], 1e-12)
+        pairs = _metric_pairs(param.eval_metric)
+        if pairs:
+            param.eval_metric.reset()
+            shown = "  ".join("train-%s=%f" % nv for nv in pairs)
+            _LOG.info("Epoch[%d] Batch[%d]  %.2f samples/s  %s",
+                      param.epoch, n, rate, shown)
+        else:
+            _LOG.info("Epoch[%d] Batch[%d]  %.2f samples/s",
+                      param.epoch, n, rate)
+        self._mark = (n, now)
+
+
+class ProgressBar(object):
+    """Batch-end callback that logs an ASCII progress bar over ``total``
+    batches (parity: callback.ProgressBar)."""
+
+    def __init__(self, total, length=80):
+        self.total = total
+        self.length = length
+
+    def __call__(self, param):
+        frac = min(max(param.nbatch / float(self.total), 0.0), 1.0)
+        fill = int(round(self.length * frac))
+        bar = "#" * fill + "." * (self.length - fill)
+        _LOG.info("|%s| %3d%%", bar, int(frac * 100 + 0.5))

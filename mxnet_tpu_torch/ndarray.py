@@ -21,14 +21,13 @@ package's do, when ml_dtypes imports; without it ``dtype`` is
 from __future__ import annotations
 
 import io as _io
-import os
 import struct
 
 import numpy as np
 import torch
 
-from .base import (MXNetError, _TORCH2NP, np_bfloat16, numpy_dtype,
-                   torch_dtype)
+from .base import (MXNetError, _TORCH2NP, atomic_write, np_bfloat16,
+                   numpy_dtype, torch_dtype)
 from .context import Context, current_context
 from . import ops as _ops  # noqa: F401  (every op, before the frontends)
 from .ops import registry as _reg
@@ -129,14 +128,16 @@ class NDArray(object):
     def asnumpy(self):
         """Blocking copy to host numpy.  bfloat16 comes back as ml_dtypes'
         bfloat16, built from the raw 16-bit patterns, or as float32 when
-        ml_dtypes does not import (numpy has no bfloat16 of its own)."""
-        t = self._data.detach()
+        ml_dtypes does not import (numpy has no bfloat16 of its own).  A
+        copy on the CPU too: the array's later in-place writes never reach
+        the numpy array."""
+        t = self._data.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             bf16 = np_bfloat16()
             if bf16 is None:
-                return t.float().cpu().numpy()
-            return t.view(torch.int16).cpu().numpy().view(bf16)
-        return t.cpu().numpy()
+                return t.float().numpy()
+            return t.view(torch.int16).numpy().view(bf16)
+        return t.numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -568,8 +569,8 @@ def deserialize_arrays(blob):
 
 
 def save(fname, data):
-    """Save a dict or list of NDArrays as a ``.params`` file, through a
-    temporary file and a rename so a reader never sees half a file."""
+    """Save a dict or list of NDArrays as a ``.params`` file, through
+    ``base.atomic_write`` so a reader never sees half a file."""
     if isinstance(data, dict):
         items = list(data.items())
     else:
@@ -577,14 +578,8 @@ def save(fname, data):
         if not all(isinstance(a, NDArray) for a in arrays):
             raise MXNetError("save only supports NDArray contents")
         items = [("", a) for a in arrays]
-    tmp = "%s.tmp-%d" % (fname, os.getpid())
-    try:
-        with open(tmp, "wb") as f:
-            f.write(_serialize(items))
-        os.replace(tmp, fname)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with atomic_write(fname) as f:
+        f.write(_serialize(items))
 
 
 def load(fname, ctx=None):

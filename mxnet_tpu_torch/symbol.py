@@ -12,7 +12,7 @@ import json
 import numpy as _np
 
 from .attribute import AttrScope
-from .base import MXNetError, string_types
+from .base import MXNetError, atomic_write, string_types
 from .context import current_context
 from . import name as _name_mgr
 from .ops import registry as _reg
@@ -223,7 +223,9 @@ class Symbol(object):
         }, indent=2)
 
     def save(self, fname):
-        with open(fname, "w") as f:
+        """Write the JSON through ``base.atomic_write`` (a checkpoint's
+        symbol file is never seen half written)."""
+        with atomic_write(fname, "w") as f:
             f.write(self.tojson())
 
     def __repr__(self):

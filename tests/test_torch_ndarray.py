@@ -117,3 +117,20 @@ def test_default_context_is_the_card():
         mt.nd.zeros((2,))
     with pytest.raises(mt.MXNetError, match="CUDA"):
         mt.convert.params_from_numpy({"w": np.zeros(2)}, {})
+
+
+def test_asnumpy_is_a_copy_on_the_host():
+    """C9: ``asnumpy()`` of a CPU array handed back a numpy view of the
+    array's storage, so a later in-place write (``x[:] = v``, an
+    executor's next output, an optimizer step) changed the numpy array a
+    caller already held; the JAX package's arrays never change under it.
+    Both dtype paths copy now."""
+    a = mt.nd.array(np.arange(4.0), ctx=mt.cpu())
+    held = a.asnumpy()
+    a[:] = 7.0
+    np.testing.assert_array_equal(held, np.arange(4.0))
+    b = mt.nd.array(np.arange(4.0), ctx=mt.cpu(), dtype="bfloat16")
+    held = b.asnumpy()
+    b[:] = 7.0
+    np.testing.assert_array_equal(np.asarray(held, np.float32),
+                                  np.arange(4.0, dtype=np.float32))
