@@ -89,6 +89,28 @@ fatal on failure:
    ``score`` giving the same accuracy.  Then the LM at GPT-2-small widths
    through ``Module.fit`` with Adam(1e-4), 2 batches of 4 x 1024: 36
    flash launches a step, the parameters against a direct TrainStep run;
+4d. lstm_bucketing: the sequences slice at the published widths of the
+   bucketed LSTM LM (``bench/lstm_bucketing.py``: 2 LSTM layers of 200,
+   embedding 200, 10,000 words plus the invalid label, batch 32, buckets
+   10-60), float32 with TF32 off.  (a) The ``RNN`` op at the LM's shapes
+   (T=60, N=32, I=200, H=200, 2 layers) as lstm, gru and bidirectional
+   lstm: the cuDNN route (one cuDNN call a layer, ``rnn_op.cudnn_calls``)
+   and the plain version, both on the card, each output, final state and
+   gradient (data, parameters, states) within RESNET_FLOOR_X times its
+   float32 floor of the float64 plain version on the host, the two routes
+   within twice that of each other; both timed.  (b) The
+   ``FusedRNNCell`` LM and its ``LSTMCell`` stack at bucket 60, the
+   stack's weights moved by ``unpack_weights`` (``pack_weights`` gives the
+   flat vector back exactly): both forwards within the same rule of the
+   fused graph's float64 forward on the host.  (c) ``BucketingModule.fit``
+   with each cell, 2 epochs of 4 batches a bucket: every bucket bound once,
+   five of them with ``shared_module`` onto the default bucket's parameter
+   and gradient tensors (``data_ptr``), 2 cuDNN calls a batch with the
+   fused cell and none with the stack, the training perplexity lower in
+   the second epoch, a checkpoint of the default bucket loaded by
+   ``Module.load`` into a new BucketingModule scoring the same; tokens/s,
+   host ms a batch by bucket, the device-busy share of a profiled batch of
+   each bucket, peak memory;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -158,8 +180,9 @@ per-geometry numbers, serving qps and latency, the ResNet-50 training
 checks, rates and profiles (unfused and fused, float32 and bfloat16 AMP),
 the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
-profiles (float32 and AMP), the Module layer's checks and timings, Updater
-and Rtc numbers, each phase's seconds,
+profiles (float32 and AMP), the Module layer's checks and timings, the
+sequences slice's checks, times and rates, Updater and Rtc numbers, each
+phase's seconds,
 a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps),
 and as its last line
@@ -352,6 +375,25 @@ MODULE_GENERAL_RTOL = 5e-3
 MODULE_GENERAL_ATOL = 1e-5
 # the LM through Module.fit: MODULE_LM_BATCHES batches of LM_BATCH x 1024
 MODULE_LM_BATCHES = 2
+# lstm_bucketing: the bucketed LSTM LM of bench/lstm_bucketing.py at its
+# published widths.  (a) the RNN op at the LM's shapes (T, N, I, H, layers)
+# in the modes of RNN_CASES, float32 with TF32 off: the cuDNN route and the
+# plain version on the card, each output, final state and gradient (data,
+# parameters, states; fixed cotangents) within RESNET_FLOOR_X times its
+# float32 floor (the float32 plain version on the host against float64,
+# from the inputs and RESNET_FLOOR_SAMPLES - 1 nudges of them by
+# RESNET_FLOOR_NUDGE; RESNET_FLOOR_MIN at least) of the float64 plain
+# version on the host, and the two routes within twice that of each other;
+# (b) the FusedRNNCell LM and its LSTMCell stack (weights moved by
+# unpack_weights / pack_weights) at bucket LSTM_CHECK_BUCKET, each
+# forward's probabilities within the same rule of the fused graph in
+# float64 on the host; (c) BucketingModule.fit, LSTM_EPOCHS epochs of
+# LSTM_BATCHES_PER_BUCKET batches a bucket, with each cell.
+RNN_SHAPE = dict(T=60, N=32, I=200, H=200, layers=2)
+RNN_CASES = (("lstm", False), ("gru", False), ("lstm", True))
+LSTM_CHECK_BUCKET = 60
+LSTM_EPOCHS = 2
+LSTM_BATCHES_PER_BUCKET = 4
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
 # float32 and bfloat16
 FLASH_CHECKS = [
@@ -845,7 +887,7 @@ def resnet50_leaf_rows(torch, got, want, floors, kinds=("grad", "aux")):
     for k, kind in enumerate(kinds):
         for n, ref in want[k].items():
             if not torch.isfinite(got[k][n]).all():
-                fail("resnet50_train: non-finite %s of %s" % (kind, n))
+                fail("non-finite %s of %s" % (kind, n))
             d = resnet_dist(got[k][n], ref)
             floor = [max(m) for m in zip(*(resnet_dist(f[k][n], ref)
                                            for f in floors))]
@@ -2762,6 +2804,343 @@ def rtc_phase(torch, mt, weights):
     return res
 
 
+class KeptBatches(object):
+    """One walk of an iterator, kept, for scoring two modules on the same
+    batches (``BucketSentenceIter.reset`` reshuffles in place)."""
+
+    def __init__(self, it):
+        it.reset()
+        self.batches = list(it)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def reset(self):
+        pass
+
+
+def rnn_case(rnn_op, mode, bi, seed):
+    """The RNN op's inputs at RNN_SHAPE and fixed cotangents of its
+    outputs, as float64 numpy."""
+    T, N, I, H, L = (RNN_SHAPE[k] for k in ("T", "N", "I", "H", "layers"))
+    ndir = 2 if bi else 1
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / np.sqrt(H)
+    vals = {"data": rng.uniform(-1, 1, (T, N, I)),
+            "parameters": rng.uniform(-bound, bound, rnn_op.rnn_param_size(
+                mode, I, H, L, bi)),
+            "state": rng.uniform(-0.5, 0.5, (L * ndir, N, H))}
+    heads = [rng.standard_normal((T, N, H * ndir)),
+             rng.standard_normal((L * ndir, N, H))]
+    if mode == "lstm":
+        vals["state_cell"] = rng.uniform(-0.5, 0.5, (L * ndir, N, H))
+        heads.append(rng.standard_normal((L * ndir, N, H)))
+    return vals, heads
+
+
+def rnn_leaves(torch, rnn_op, mode, bi, vals, heads, dtype, device, route):
+    """{leaf: float64 CPU tensor} of one forward and backward of the RNN op
+    by ``route``: the output, the final states and the gradients of every
+    input under the cotangents ``heads``."""
+    ts = {n: torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+          for n, v in vals.items()}
+    out, hN, cN = rnn_op.rnn_forward(
+        ts["data"], ts["parameters"], ts["state"], ts.get("state_cell"),
+        mode, RNN_SHAPE["H"], RNN_SHAPE["layers"], bi, route=route)
+    outs = [out, hN] + ([cN] if cN is not None else [])
+    grads = torch.autograd.grad(outs, list(ts.values()), [
+        torch.tensor(h, dtype=dtype, device=device) for h in heads])
+    leaves = dict(zip(("out", "hN", "cN"), outs))
+    leaves.update(("d_" + n, g) for n, g in zip(ts, grads))
+    return {k: v.detach().double().cpu() for k, v in leaves.items()}
+
+
+def nudged_values(vals, seed, skip=()):
+    """``vals`` with each array times 1 + u * RESNET_FLOOR_NUDGE, u uniform
+    in [-1, 1] (the names in ``skip`` unchanged)."""
+    rng = np.random.default_rng(seed)
+    return {n: v if n in skip else
+            v * (1 + RESNET_FLOOR_NUDGE * rng.uniform(-1, 1, np.shape(v)))
+            for n, v in vals.items()}
+
+
+def floor_check(torch, tag, got, want, floors, pair=None):
+    """Hold each leaf of ``got`` within RESNET_FLOOR_X times its float32
+    floor (the largest distance of ``floors`` from ``want``, by max and by
+    norm; RESNET_FLOOR_MIN at least) of ``want``; with ``pair``, hold
+    ``got`` within twice that of ``pair``.  Prints one row a leaf; returns
+    the worst multiple of the floor."""
+    worst = 0.0
+    for row in resnet50_leaf_rows(torch, (got,), (want,),
+                                  [(f,) for f in floors], kinds=(tag,)):
+        k, floor, x = row[7], row[2:4], row[4:6]
+        line = ("%s %s max_rel=%.3e norm_rel=%.3e floor=%.3e/%.3e "
+                "x_floor=%.3f/%.3f" % ((tag, k) + row[:6]))
+        if pair is not None:
+            c = resnet_dist(got[k], pair[k])
+            line += " vs_pair=%.3e/%.3e" % c
+            if any(a > 2 * RESNET_FLOOR_X * max(f, RESNET_FLOOR_MIN)
+                   for a, f in zip(c, floor)):
+                fail("%s: %s is %r from the other route (floors %r)"
+                     % (tag, k, c, floor))
+        print(line)
+        if max(x) > RESNET_FLOOR_X:
+            fail("%s: %s at %r x its float32 floor" % (tag, k, x))
+        worst = max(worst, max(x))
+    return worst
+
+
+def rnn_op_check(torch, rnn_op, mode, bi, dev="cuda"):
+    """(a) of the lstm_bucketing phase for one mode: both routes on the card
+    ``dev`` against the float64 plain version on the host; their times."""
+    tag = "lstm_bucketing rnn %s%s" % (mode, " bidirectional" if bi else "")
+    vals, heads = rnn_case(rnn_op, mode, bi, SEED + 30)
+    t0 = time.perf_counter()
+    want = rnn_leaves(torch, rnn_op, mode, bi, vals, heads, torch.float64,
+                      "cpu", "plain")
+    floors = [rnn_leaves(torch, rnn_op, mode, bi,
+                         nudged_values(vals, SEED + 130 + i) if i else vals,
+                         heads, torch.float32, "cpu", "plain")
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    host_s = time.perf_counter() - t0
+    rnn_op.cudnn_calls = 0
+    cudnn = rnn_leaves(torch, rnn_op, mode, bi, vals, heads, torch.float32,
+                       dev, None)
+    if rnn_op.cudnn_calls != RNN_SHAPE["layers"]:
+        fail("%s: %d cuDNN calls in one forward, want one a layer (%d)"
+             % (tag, rnn_op.cudnn_calls, RNN_SHAPE["layers"]))
+    plain = rnn_leaves(torch, rnn_op, mode, bi, vals, heads, torch.float32,
+                       dev, "plain")
+    if rnn_op.cudnn_calls != RNN_SHAPE["layers"]:
+        fail("%s: the plain version called cuDNN" % tag)
+    worst = floor_check(torch, tag + " route=cudnn", cudnn, want, floors,
+                        plain)
+    worst_plain = floor_check(torch, tag + " route=plain", plain, want,
+                              floors)
+    ts = {n: torch.tensor(v, dtype=torch.float32, device=dev,
+                          requires_grad=True) for n, v in vals.items()}
+    hs = [torch.tensor(h, dtype=torch.float32, device=dev) for h in heads]
+
+    def step(route):
+        def fn():
+            out, hN, cN = rnn_op.rnn_forward(
+                ts["data"], ts["parameters"], ts["state"],
+                ts.get("state_cell"), mode, RNN_SHAPE["H"],
+                RNN_SHAPE["layers"], bi, route=route)
+            outs = [out, hN] + ([cN] if cN is not None else [])
+            torch.autograd.grad(outs, list(ts.values()), hs)
+        return fn
+    ms = {r: time_ms(torch, step(r), iters=10) for r in ("cudnn", "plain")}
+    dev = {r: device_profile(torch, step(r)) for r in ("cudnn", "plain")}
+    print("%s forward+backward ms cudnn=%r plain=%r device_ms cudnn=%r "
+          "plain=%r launches cudnn=%d plain=%d (float32, TF32 off; T=%d "
+          "N=%d I=%d H=%d layers=%d) worst_x_floor cudnn=%.3f plain=%.3f "
+          "host_reference_seconds=%r"
+          % (tag, ms["cudnn"], ms["plain"], dev["cudnn"][0] * 1e-3,
+             dev["plain"][0] * 1e-3, dev["cudnn"][1], dev["plain"][1],
+             RNN_SHAPE["T"], RNN_SHAPE["N"], RNN_SHAPE["I"], RNN_SHAPE["H"],
+             RNN_SHAPE["layers"], worst, worst_plain, host_s))
+    return ms
+
+
+def lstm_fused_unfused(torch, mt, lb, rnn_op):
+    """(b): the FusedRNNCell LM and its LSTMCell stack at bucket
+    LSTM_CHECK_BUCKET on the card, the stack's weights moved by
+    unpack_weights (and pack_weights back, exactly), each forward's
+    probabilities against the fused graph's float64 forward on the host."""
+    W = lb.WIDTHS
+    V, B, T = W["words"] + 1, lb.BATCH, LSTM_CHECK_BUCKET
+    cells = {c: lb.make_cell(mt, c, W["num_layers"], W["num_hidden"])
+             for c in ("fused", "lstm")}
+    syms = {c: lb.make_sym_gen(mt, cell, V, W["num_embed"],
+                               W["num_hidden"])(T)[0]
+            for c, cell in cells.items()}
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    arg_shapes = dict(zip(syms["fused"].list_arguments(),
+                          syms["fused"].infer_shape(**shapes)[0]))
+    rng = np.random.default_rng(SEED + 40)
+    # float32 values: unpack_weights hands float32 arrays out
+    params = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32)
+              .astype(np.float64) for n, s in arg_shapes.items()
+              if n not in shapes}
+    inputs = {"data": rng.integers(1, V, (B, T)).astype(np.float64),
+              "softmax_label": np.zeros((B, T))}
+
+    def forward(sym, args, ctx, dtype):
+        ex = sym.bind(ctx, {n: mt.nd.array(v, ctx=ctx, dtype=dtype)
+                            for n, v in dict(args, **inputs).items()})
+        return {"prob": ex.forward()[0].value.detach().double().cpu()}
+    want = forward(syms["fused"], params, mt.cpu(), np.float64)
+    floors = [forward(syms["fused"], nudged_values(params, SEED + 140 + i)
+                      if i else params, mt.cpu(), np.float32)
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    fused_cell = cells["fused"]
+    fused_cell._input_size_hint = W["num_embed"]
+    unpacked = fused_cell.unpack_weights({"lstm_parameters": mt.nd.array(
+        params["lstm_parameters"], ctx=mt.cpu())})
+    if any(v.context != mt.cpu() for v in unpacked.values()):
+        fail("lstm_bucketing: unpack_weights gave arrays off the host")
+    back = fused_cell.pack_weights(dict(unpacked))["lstm_parameters"]
+    if back.context != mt.cpu() or not np.array_equal(
+            back.asnumpy(), params["lstm_parameters"]):
+        fail("lstm_bucketing: pack_weights(unpack_weights(p)) != p")
+    uparams = {n: v for n, v in params.items() if n != "lstm_parameters"}
+    uparams.update((n, v.asnumpy()) for n, v in unpacked.items())
+    if sorted(uparams) != sorted(n for n in syms["lstm"].list_arguments()
+                                 if n not in shapes):
+        fail("lstm_bucketing: unpacked weights %s do not name the stack's"
+             % sorted(unpacked))
+    gpu = mt.gpu(0)
+    rnn_op.cudnn_calls = 0
+    fused = forward(syms["fused"], params, gpu, np.float32)
+    calls = rnn_op.cudnn_calls
+    unfused = forward(syms["lstm"], uparams, gpu, np.float32)
+    if calls != W["num_layers"] or rnn_op.cudnn_calls != calls:
+        fail("lstm_bucketing: cuDNN calls fused=%d unfused=%d, want %d "
+             "and 0" % (calls, rnn_op.cudnn_calls - calls,
+                        W["num_layers"]))
+    tag = "lstm_bucketing fused_vs_unfused bucket=%d" % T
+    worst = floor_check(torch, tag + " graph=fused", fused, want, floors,
+                        unfused)
+    worst_u = floor_check(torch, tag + " graph=lstm", unfused, want,
+                          floors)
+    print("%s worst_x_floor fused=%.3f unfused=%.3f (probabilities of "
+          "(%d, %d))" % (tag, worst, worst_u, B * T, V))
+
+
+def lstm_fit(torch, mt, lb, rnn_op, cell, card):
+    """(c) for one cell: BucketingModule.fit through the bench's ``run``;
+    every bucket bound once onto the default bucket's tensors, cuDNN
+    calls, the perplexity falling, a checkpoint of the default bucket
+    scoring the same; its numbers."""
+    binds = []
+    orig = mt.module.Module.bind
+
+    def counting_bind(self, *args, **kwargs):
+        binds.append(kwargs.get("shared_module") is not None)
+        return orig(self, *args, **kwargs)
+    mt.module.Module.bind = counting_bind
+    rnn_op.cudnn_calls = 0
+    try:
+        rec, mod, it, sym_gen = lb.run(cell, LSTM_EPOCHS,
+                                       LSTM_BATCHES_PER_BUCKET, mt.gpu(0),
+                                       seed=SEED)
+    finally:
+        mt.module.Module.bind = orig
+    tag = "lstm_bucketing fit cell=%s" % cell
+    buckets = list(lb.BUCKETS)
+    if rec["buckets_bound"] != buckets or len(binds) != len(buckets) or \
+            binds.count(True) != len(buckets) - 1:
+        fail("%s: binds %r for buckets %r" % (tag, binds,
+                                              rec["buckets_bound"]))
+    default = mod._buckets[it.default_bucket_key]
+    ref = default._exec_group.execs[0]
+    for key, m in mod._buckets.items():
+        ex = m._exec_group.execs[0]
+        for n in default._param_names:
+            if ex.arg_dict[n].value.data_ptr() != \
+                    ref.arg_dict[n].value.data_ptr() or \
+                    ex.grad_dict[n].value.data_ptr() != \
+                    ref.grad_dict[n].value.data_ptr():
+                fail("%s: bucket %d holds its own %s" % (tag, key, n))
+    want_calls = lb.WIDTHS["num_layers"] * rec["batches"] \
+        if cell == "fused" else 0
+    if rec["cudnn_calls"] != want_calls:
+        fail("%s: %d cuDNN calls in %d batches, want %d"
+             % (tag, rec["cudnn_calls"], rec["batches"], want_calls))
+    ppl = rec["train_perplexity"]
+    if not ppl[-1] < ppl[0]:
+        fail("%s: training perplexity %r did not fall" % (tag, ppl))
+    batches = KeptBatches(it)
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "lstm_bucketing")
+    os.makedirs(ck_dir, exist_ok=True)
+    prefix = os.path.join(ck_dir, cell)
+    try:
+        arg, aux = mod.get_params()
+        mt.model.save_checkpoint(prefix, LSTM_EPOCHS, default.symbol, arg,
+                                 aux)
+        loaded = mt.Module.load(prefix, LSTM_EPOCHS, context=mt.gpu(0))
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    if loaded.symbol.tojson() != default.symbol.tojson():
+        fail("%s: the checkpoint's symbol is not the default bucket's" % tag)
+    fresh = mt.module.BucketingModule(sym_gen, it.default_bucket_key,
+                                      context=mt.gpu(0))
+    fresh.bind(it.provide_data, it.provide_label, for_training=False)
+    fresh.set_params(loaded._arg_params, loaded._aux_params)
+    score = mod.score(batches, mt.metric.Perplexity(lb.INVALID_LABEL))
+    score_back = fresh.score(batches, mt.metric.Perplexity(lb.INVALID_LABEL))
+    if score_back != score:
+        fail("%s: the loaded checkpoint scores %r, the module %r"
+             % (tag, score_back, score))
+    metric_ms = perplexity_cost(torch, mt, lb, mod, batches)
+    print("%s tokens_per_s=%r (steady; over the whole fit %r) "
+          "fit_seconds=%r batches=%d "
+          "host_ms_per_batch=%s train_perplexity=%r cudnn_calls=%d "
+          "device_busy_share=%r (one batch of each bucket, profiled, %d "
+          "launches; device ms by group %s) peak_mem_gb=%r "
+          "buckets_bound=%r (%d with shared_module) checkpoint_score=%r "
+          "perplexity_update_ms at bucket %d: picked on the card=%r, the "
+          "whole softmax copied to the host=%r [%s]"
+          % (tag, rec["value"], rec["fit_tokens_per_s"], rec["fit_seconds"],
+             rec["batches"],
+             json.dumps(rec["host_ms_per_batch"]), ppl, rec["cudnn_calls"],
+             rec["device_busy_share"], rec["profiled_launches"],
+             json.dumps(rec["device_ms_by_group"]), rec["peak_mem_gb"],
+             rec["buckets_bound"], binds.count(True), score[0][1],
+             max(lb.BUCKETS), metric_ms[0], metric_ms[1], card))
+    del mod, fresh, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def perplexity_cost(torch, mt, lb, mod, batches, reps=5):
+    """Host ms of one ``Perplexity.update`` on a forward of the largest
+    bucket (each row's label probability picked on the card, one value a
+    row fetched) beside the yardstick the port does not use: the whole
+    (batch x length, vocabulary) softmax copied to the host and picked
+    there, as the JAX package's metric does."""
+    b = [x for x in batches if x.bucket_key == max(lb.BUCKETS)][0]
+    mod.forward(b, is_train=False)
+    out, lab = mod.get_outputs()[0], b.label[0]
+
+    def picked_on_card():
+        mt.metric.Perplexity(lb.INVALID_LABEL).update([lab], [out])
+
+    def copied():
+        probs = out.asnumpy().reshape(-1, out.shape[-1])
+        rows = lab.asnumpy().astype("int32").reshape(-1)
+        return probs[np.arange(rows.shape[0]), rows]
+    res = []
+    for fn in (picked_on_card, copied):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        res.append((time.perf_counter() - t0) * 1e3 / reps)
+    return res
+
+
+def lstm_bucketing_phase(torch, mt, card):
+    """The sequences slice: (a) the RNN op's routes, (b) fused against
+    unfused, (c) the bucketed LM through BucketingModule.fit with each
+    cell (see RNN_SHAPE above)."""
+    from mxnet_tpu_torch.bench import lstm_bucketing as lb
+    from mxnet_tpu_torch.ops import rnn_op
+    rnn_ms = {}
+    for mode, bi in RNN_CASES:
+        rnn_ms[(mode, bi)] = rnn_op_check(torch, rnn_op, mode, bi)
+    lstm_fused_unfused(torch, mt, lb, rnn_op)
+    fits = {cell: lstm_fit(torch, mt, lb, rnn_op, cell, card)
+            for cell in ("fused", "lstm")}
+    print("lstm_bucketing tokens_per_s fused=%r lstm=%r (%s)"
+          % (fits["fused"]["value"], fits["lstm"]["value"], card))
+    return {"rnn_ms": rnn_ms, "fits": fits}
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -2888,6 +3267,8 @@ def main():
     phase_done("resnet50_train_amp_fused")
     mf = module_fit_phase(torch, mt, nc, fa, unfused["img_s"])
     phase_done("module_fit")
+    lstm_bucketing_phase(torch, mt, card)
+    phase_done("lstm_bucketing")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "

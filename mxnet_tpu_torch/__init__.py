@@ -13,7 +13,9 @@ Ported so far: ResNet-50 inference and serving, the transformer LM's
 inference, its training through ``train.TrainStep`` (ResNet-50 too, in
 float32 or under an ``amp.Policy``) and through ``Module.fit`` (with the
 data iterators, metrics, callbacks and checkpoints of ``io``, ``metric``,
-``callback`` and ``model``), and the imperative entry point: ``mx.nd`` ops
+``callback`` and ``model``), the sequences slice (the ``RNN`` op, cuDNN on
+the card; the sequence ops; the ``rnn`` cells and ``BucketSentenceIter``;
+``module.BucketingModule``), and the imperative entry point: ``mx.nd`` ops
 and views, the optimizers' ``update`` and ``Updater``, and ``rtc``.
 """
 from .base import MXNetError
@@ -46,10 +48,11 @@ from . import model
 from . import module
 from . import module as mod
 from .module import Module
+from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
            "lr_scheduler", "initializer", "init", "optimizer", "rtc", "amp",
            "train", "TrainStep", "EvalStep", "io", "metric", "callback",
-           "model", "module", "mod", "Module"]
+           "model", "module", "mod", "Module", "rnn"]

@@ -593,15 +593,23 @@ class Executor(object):
         the shapes inferred from ``kwargs`` (the input shapes) and bind
         (parity: Executor.simple_bind).  ``type_dict`` gives argument
         dtypes (default float32); the gradient of every argument whose
-        request is not 'null' is allocated.  One device only:
-        ``group2ctx`` arrives with the parallel slice; ``shared_exec``
-        (memory shared between bucketed executors) with the Module slice."""
+        request is not 'null' is allocated.  With ``shared_exec`` every
+        argument, gradient and aux array of that executor whose name and
+        shape match is taken as it is, not allocated: bucketed executors
+        bind onto one set of parameters.  One device only: ``group2ctx``
+        arrives with the parallel slice."""
         if group2ctx:
             raise MXNetError("simple_bind(group2ctx=...) is not ported yet: "
                              "it arrives with the parallel slice")
-        if shared_exec is not None:
-            raise MXNetError("simple_bind(shared_exec=...) is not ported yet: "
-                             "it arrives with the Module slice")
+        shared = ((shared_exec.arg_dict, shared_exec.grad_dict,
+                   shared_exec.aux_dict) if shared_exec is not None
+                  else ({}, {}, {}))
+
+        def alloc(which, name, shape, dt):
+            have = shared[which].get(name)
+            if have is not None and tuple(have.shape) == tuple(shape):
+                return have
+            return nd.zeros(shape, ctx=ctx, dtype=dt)
         ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
         if arg_shapes is None:
@@ -612,7 +620,7 @@ class Executor(object):
         args, grads = {}, {}
         for i, (name, shape) in enumerate(zip(arg_names, arg_shapes)):
             dt = arg_types.get(name, _np.float32)
-            args[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+            args[name] = alloc(0, name, shape, dt)
             if isinstance(grad_req, string_types):
                 req = grad_req
             elif isinstance(grad_req, (list, tuple)):
@@ -620,11 +628,11 @@ class Executor(object):
             else:
                 req = grad_req.get(name, "null")
             if req != "null":
-                grads[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+                grads[name] = alloc(1, name, shape, dt)
         _, _, aux_types = symbol.infer_type(
             **{n: arg_types.get(n, _np.float32) for n in arg_names})
-        auxs = {name: nd.zeros(shape, ctx=ctx, dtype=at if at is not None
-                               else _np.float32)
+        auxs = {name: alloc(2, name, shape, at if at is not None
+                            else _np.float32)
                 for name, shape, at in zip(symbol.list_auxiliary_states(),
                                            aux_shapes, aux_types)}
         return Executor(symbol, ctx, args, grads, grad_req, auxs)

@@ -1,6 +1,6 @@
 """Weight initializers (counterpart: mxnet_tpu/initializer.py): InitDesc,
 the Initializer base with its name rules, Zero, One, Constant, Uniform,
-Normal and Xavier.
+Normal, Xavier, and the RNN slice's FusedRNN and LSTMBias.
 
 Dispatch is by parameter-name suffix as in the JAX package: *_bias, *_gamma,
 *_beta and moving_* get fixed defaults, *_weight goes to the concrete
@@ -14,12 +14,12 @@ import json
 
 import numpy as np
 
-from .base import string_types
+from .base import MXNetError, string_types
 from . import ndarray as nd
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier"]
+           "Normal", "Xavier", "FusedRNN", "LSTMBias"]
 
 
 class InitDesc(str):
@@ -189,5 +189,80 @@ class Xavier(Initializer):
             raise ValueError("Unknown random type")
 
 
+class FusedRNN(Initializer):
+    """A FusedRNNCell's flat parameter vector, initialised by unpacking it,
+    applying ``init`` to each weight (biases 0, an LSTM's forget-gate slice
+    ``forget_bias``) and packing it again (parity: FusedRNN)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if init is None:
+            raise MXNetError("FusedRNN requires an inner initializer")
+        if not isinstance(init, Initializer):
+            klass, kwargs = json.loads(init)
+            init = _REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps(), num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _infer_input_size(self, total):
+        """The input size that gives ``total`` parameters."""
+        h = self._num_hidden
+        d = 2 if self._bidirectional else 1
+        g = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[self._mode]
+        rest = (self._num_layers - 1) * (h * d + h + 2) + h + 2
+        input_size = total // (d * g * h) - rest
+        if (input_size + rest) * d * g * h != total:
+            raise MXNetError("FusedRNN: cannot infer input size from "
+                             "%d parameters" % total)
+        return int(input_size)
+
+    def _init_weight(self, _, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(self._num_hidden, self._num_layers,
+                                     self._mode, self._bidirectional,
+                                     forget_bias=self._forget_bias,
+                                     prefix="")
+        cell._input_size_hint = self._infer_input_size(arr.size)
+        args = cell.unpack_weights({"parameters": arr})
+        h = self._num_hidden
+        for name in args:
+            if name.endswith("_bias"):
+                v = np.zeros(args[name].shape, np.float32)
+                if self._mode == "lstm":
+                    # gates i,f,c,o: the forget gate's slice
+                    v[h:2 * h] = self._forget_bias
+                args[name][:] = v
+            else:
+                self._init(InitDesc(name), args[name])
+        arr[:] = cell.pack_weights(args)["parameters"]
+
+
+class LSTMBias(Initializer):
+    """LSTM biases: 0, with the forget gate's quarter at ``forget_bias``
+    (parity: LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_bias(self, name, arr):
+        v = np.zeros(arr.shape, np.float32)
+        if arr.shape[0] % 4 == 0:
+            num_hidden = arr.shape[0] // 4
+            v[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = v
+
+    _init_weight = _init_bias
+
+
 _REGISTRY = {c.__name__.lower(): c
-             for c in (Zero, One, Constant, Uniform, Normal, Xavier)}
+             for c in (Zero, One, Constant, Uniform, Normal, Xavier,
+                       FusedRNN, LSTMBias)}

@@ -3,8 +3,10 @@
 ``Accuracy`` reduces on the device: the argmax and the comparison run where
 the predictions are, and the count of correct rows accumulates as a device
 tensor, so ``Module.fit``'s batch loop never waits on the host; ``get()``
-fetches the one scalar.  Only ``num_inst`` grows, from shapes.  The other
-metrics compute on the host from ``asnumpy()``, as the JAX package's do.
+fetches the one scalar.  Only ``num_inst`` grows, from shapes.
+``Perplexity`` picks each row's label probability on the device and
+reduces those on the host.  The other metrics compute on the host from
+``asnumpy()``, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -215,10 +217,15 @@ class Perplexity(EvalMetric):
         loss = 0.0
         num = 0
         for label, pred in zip(labels, preds):
-            probs = pred.asnumpy()
-            lab = label.asnumpy().astype("int32").reshape(-1)
-            probs = probs.reshape(-1, probs.shape[-1])
-            picked = probs[numpy.arange(lab.shape[0]), lab]
+            pv = pred.value
+            lv = label.value.to(pv.device).reshape(-1).to(torch.int32)
+            # pick each row's label probability where the predictions are,
+            # so only one value a row comes to the host (the LM's
+            # (batch x length, vocabulary) softmax stays on the card)
+            picked = pv.reshape(-1, pv.shape[-1])[
+                torch.arange(lv.shape[0], device=pv.device),
+                lv.to(torch.int64)].cpu().numpy()
+            lab = lv.cpu().numpy()
             if self.ignore_label is not None:
                 ignore = (lab == self.ignore_label)
                 picked = numpy.where(ignore, 1.0, picked)

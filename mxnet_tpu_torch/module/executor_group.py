@@ -4,8 +4,10 @@ mxnet_tpu/module/executor_group.py).
 The group binds one ``Executor`` on its context with ``simple_bind`` and a
 grad_req per argument, loads each batch into the bound input arrays (one
 copy per input to the bound device) and runs forward and backward there.
-Data parallelism over several contexts arrives with the parallel slice, and
-executors shared between bucketed modules with the sequences slice.
+A group bound with ``shared_group`` (a bucket of a ``BucketingModule``)
+takes that group's parameter, gradient and aux arrays as they are, so
+every bucket trains one set of tensors.  Data parallelism over several
+contexts arrives with the parallel slice.
 """
 from __future__ import annotations
 
@@ -36,10 +38,6 @@ class DataParallelExecutorGroup(object):
             raise MXNetError("an executor group over %d contexts is not "
                              "ported yet: data parallelism arrives with the "
                              "parallel slice" % len(contexts))
-        if shared_group is not None:
-            raise MXNetError("an executor group shared with another is not "
-                             "ported yet: it arrives with the sequences "
-                             "slice (bucketing)")
         self.symbol = symbol
         self.contexts = contexts
         self.workload = workload
@@ -54,7 +52,7 @@ class DataParallelExecutorGroup(object):
         self.output_names = symbol.list_outputs()
         self._default_grad_req = grad_req
         self.execs = []
-        self.bind_exec(data_shapes, label_shapes)
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
     def _grad_req_dict(self):
         req = {}
@@ -69,10 +67,11 @@ class DataParallelExecutorGroup(object):
                 req[name] = "null"
         return req
 
-    def bind_exec(self, data_shapes, label_shapes):
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
         """Bind the executor for these input shapes; a rebind (``reshape``)
         shares every array whose shape is unchanged, the parameters among
-        them (parity: executor_group.bind_exec)."""
+        them, and so does a first bind with ``shared_group`` with that
+        group's executor (parity: executor_group.bind_exec)."""
         self.data_shapes = _descs(data_shapes)
         self.label_shapes = _descs(label_shapes)
         self.data_names = [d.name for d in self.data_shapes]
@@ -83,9 +82,10 @@ class DataParallelExecutorGroup(object):
         if self.execs:
             ex = self.execs[0].reshape(**shapes)
         else:
-            ex = self.symbol.simple_bind(ctx=self.contexts[0],
-                                         grad_req=self._grad_req_dict(),
-                                         **shapes)
+            ex = self.symbol.simple_bind(
+                ctx=self.contexts[0], grad_req=self._grad_req_dict(),
+                shared_exec=shared_group.execs[0] if shared_group is not None
+                else None, **shapes)
         self.execs = [ex]
         # per-parameter lists of per-device arrays (parity: param_arrays)
         names = [n for n in self.param_names if n in ex.arg_dict]

@@ -12,8 +12,11 @@ Not ported here, each refused with ``MXNetError`` naming its slice:
 several contexts, kvstore objects and the ``dist*`` kvstores, and the fused
 fit's pipeline, ZeRO, elastic-resume, sharded-checkpoint and live-resize
 branches (the parallel slice); the Monitor bridge (the observability
-slice); a module bound over another's executors (bucketing, the sequences
 slice).
+
+``bind(shared_module=...)`` binds onto another module's parameter, gradient
+and aux tensors and shares its host dicts and optimizer: the buckets of a
+``BucketingModule`` train one set of parameters.
 """
 from __future__ import annotations
 
@@ -227,10 +230,11 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Bind the executor for these input shapes on the context (parity:
-        Module.bind)."""
-        if shared_module is not None:
-            raise MXNetError("bind(shared_module=...) is not ported yet: "
-                             "bucketing arrives with the sequences slice")
+        Module.bind).  With ``shared_module`` (bound, its parameters
+        initialized) the executor binds onto that module's parameter,
+        gradient and aux tensors, and this module takes its host
+        parameter dicts and, once it has one, its optimizer: no parameter
+        is copied."""
         if force_rebind:
             self._reset_bind()
         if self.binded:
@@ -243,14 +247,25 @@ class Module(BaseModule):
             assert not inputs_need_grad
         self._data_shapes = _descs(data_shapes)
         self._label_shapes = _descs(label_shapes)
+        shared_group = None
+        if shared_module is not None:
+            assert isinstance(shared_module, Module) and \
+                shared_module.binded and shared_module.params_initialized
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, logger=self.logger,
+            for_training, inputs_need_grad, shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
             state_names=self._state_names)
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+        if shared_module is not None and shared_module.optimizer_initialized:
+            self.borrow_optimizer(shared_module)
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind for new batch shapes, keeping the parameters (parity:
@@ -293,6 +308,16 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def borrow_optimizer(self, shared_module):
+        """Train with ``shared_module``'s optimizer and ``Updater`` (parity:
+        Module.borrow_optimizer: a BucketingModule's buckets share one)."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     # ------------------------------------------------------------ computation
     def forward(self, data_batch, is_train=None):

@@ -2,8 +2,8 @@
 
 Importing this package registers the ops of the ported paths (ResNet-50
 inference, the transformer LM's inference and training, the imperative
-``mx.nd`` API) before ``symbol.py`` and ``ndarray.py`` generate their
-constructors and frontends.
+``mx.nd`` API, the sequences slice) before ``symbol.py`` and ``ndarray.py``
+generate their constructors and frontends.
 """
 from . import registry   # noqa: F401
 
@@ -18,3 +18,5 @@ from . import norm_conv  # noqa: F401  (the NormConv kernel and its guard)
 from . import indexing   # noqa: F401  (Embedding, take, one_hot, where)
 from . import attention  # noqa: F401  (dot_product_attention, LayerNorm, ...)
 from . import optimizer_ops  # noqa: F401  (sgd/adam/rmsprop updates)
+from . import sequence   # noqa: F401  (SequenceLast/Mask/Reverse)
+from . import rnn_op     # noqa: F401  (RNN: cuDNN on the card)

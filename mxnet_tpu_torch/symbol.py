@@ -17,7 +17,7 @@ from .context import current_context
 from . import name as _name_mgr
 from .ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
 
 
 class _Node(object):
@@ -82,12 +82,39 @@ class Symbol(object):
     def __iter__(self):
         return (self[i] for i in range(len(self._outputs)))
 
+    # ----------------------------------------------------------- composition
+    def __call__(self, *args, **kwargs):
+        raise MXNetError("symbol re-composition is not supported; "
+                         "build a new symbol instead")
+
+    # ------------------------------------------------------------ arithmetic
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("the port adds Symbols to Symbols only")
-        return create("_plus", lhs=self, rhs=other)
+        return _sym_binary("_plus", "_plus_scalar", self, other)
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return _sym_binary("_minus", "_minus_scalar", self, other)
+
+    def __rsub__(self, other):
+        return _sym_scalar("_rminus_scalar", self, other)
+
+    def __mul__(self, other):
+        return _sym_binary("_mul", "_mul_scalar", self, other)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return _sym_binary("_div", "_div_scalar", self, other)
+
+    def __rtruediv__(self, other):
+        return _sym_scalar("_rdiv_scalar", self, other)
+
+    def __pow__(self, other):
+        return _sym_binary("_power", "_power_scalar", self, other)
+
+    def __neg__(self):
+        return create("negative", data=self)
 
     # -------------------------------------------------------------- listing
     @property
@@ -268,15 +295,29 @@ def _attr_str(v):
 
 
 # -------------------------------------------------------------- construction
-def Variable(name, attr=None, shape=None):
-    """Create a variable symbol (parity: mx.sym.Variable; the training
-    attributes lr_mult/wd_mult/init arrive with the training slice)."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None):
+    """Create a variable symbol (parity: mx.sym.Variable): ``init`` (an
+    Initializer or its JSON) lands in the ``__init__`` attribute that
+    ``Module.init_params`` dispatches on."""
     if not isinstance(name, string_types):
         raise TypeError("Expect a string for variable name")
     attr = dict(AttrScope.current().get(attr) or {})
     if shape is not None:
         attr["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        attr["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attr["__wd_mult__"] = str(wd_mult)
+    if dtype is not None:
+        attr["__dtype__"] = str(_np.dtype(dtype))
+    if init is not None:
+        attr["__init__"] = init if isinstance(init, string_types) else \
+            init.dumps()
     return Symbol([(_Node(None, name, attr=attr), 0)])
+
+
+var = Variable
 
 
 def Group(symbols):
@@ -304,16 +345,25 @@ def create(op_name, *args, **kwargs):
     sym_kwargs = {}
     params = {}
     for k, v in kwargs.items():
-        if isinstance(v, Symbol):
+        if isinstance(v, Symbol) or (isinstance(v, (list, tuple)) and v and
+                                     all(isinstance(x, Symbol) for x in v)):
             sym_kwargs[k] = v
         else:
             params[k] = v
     pos_syms = []
     for a in args:
-        if not isinstance(a, Symbol):
+        if isinstance(a, Symbol):
+            pos_syms.append(a)
+        elif isinstance(a, (list, tuple)) and \
+                all(isinstance(x, Symbol) for x in a):
+            pos_syms.extend(a)
+        else:
             raise MXNetError("positional arguments to %s must be Symbols"
                              % op_name)
-        pos_syms.append(a)
+    if op.key_var_num_args and op.key_var_num_args not in params:
+        # a variadic op counts its inputs (parity: the reference's
+        # key_var_num_args fill-in)
+        params[op.key_var_num_args] = len(pos_syms) + len(sym_kwargs)
     params = op.normalize_attrs(params)
     name = _name_mgr.current().get(name, op.name.lower().lstrip("_"))
     inputs = []
@@ -334,6 +384,16 @@ def create(op_name, *args, **kwargs):
                          % (op_name, len(leftover), list(sym_kwargs)))
     node = _Node(op, name, params=params, attr=attr, inputs=inputs)
     return Symbol([(node, i) for i in range(node.num_outputs())])
+
+
+def _sym_binary(op, scalar_op, lhs, rhs):
+    if isinstance(rhs, Symbol):
+        return create(op, lhs=lhs, rhs=rhs)
+    return _sym_scalar(scalar_op, lhs, rhs)
+
+
+def _sym_scalar(scalar_op, data, scalar):
+    return create(scalar_op, data=data, scalar=float(scalar))
 
 
 # -------------------------------------------------------------------- loading

@@ -453,9 +453,6 @@ def test_refusals_name_their_slice():
         _, mod = _small()
         with pytest.raises(mt.MXNetError, match="parallel slice"):
             mod.fit(it, num_epoch=1, kvstore=kv)
-    with pytest.raises(mt.MXNetError, match="sequences slice"):
-        mod.bind(it.provide_data, it.provide_label, force_rebind=True,
-                 shared_module=mod)
     with pytest.raises(mt.MXNetError, match="checkpoint slice"):
         mt.callback.do_step_checkpoint(mod, None, 10)
     mod.bind(it.provide_data, it.provide_label, force_rebind=True)

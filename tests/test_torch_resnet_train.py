@@ -344,13 +344,20 @@ def test_simple_bind_refuses_group2ctx():
 
 
 def test_simple_bind_refuses_shared_exec():
-    """``shared_exec`` is refused by name, not taken as an input shape."""
+    """``shared_exec`` is not taken as an input shape: it names the
+    executor whose arrays of the same name and shape the new one binds
+    onto (the buckets of a BucketingModule), and the others are new."""
     net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=2)
     other = net.simple_bind(mt.cpu(), data=(2, 3))
     for bind in (net.simple_bind, lambda *a, **k: mt.executor.Executor
                  .simple_bind(net, *a, **k)):
-        with pytest.raises(mt.MXNetError, match="Module slice"):
-            bind(mt.cpu(), shared_exec=other, data=(2, 3))
+        ex = bind(mt.cpu(), shared_exec=other, data=(4, 3))
+        assert "shared_exec" not in ex.arg_dict
+        for n in net.list_arguments()[1:]:      # the weight and the bias
+            assert ex.arg_dict[n] is other.arg_dict[n]
+            assert ex.grad_dict[n] is other.grad_dict[n]
+        assert ex.arg_dict["data"].shape == (4, 3)
+        assert ex.arg_dict["data"] is not other.arg_dict["data"]
 
 
 # ------------------------------------------------------------------ Dropout
