@@ -6,9 +6,9 @@
 Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda).  Phases, each
 fatal on failure:
 
-1. build: compile the three kernel sources (csrc/norm_conv.cu,
-   csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) for sm_90a, one
-   nvcc each, started together;
+1. build: compile the four kernel sources (csrc/norm_conv.cu,
+   csrc/flash_attention.cu, csrc/flash_attention_bwd.cu,
+   csrc/multibox_nms.cu) for sm_90a, one nvcc each, started together;
 2. kernels: at every distinct NormConv geometry of ResNet-50 at batch 8,
    224x224 (22 of them, read off the graph), hold the kernel against its
    plain PyTorch version in float32 and bfloat16, with TF32 off; check the
@@ -111,6 +111,26 @@ fatal on failure:
    ``Module.load`` into a new BucketingModule scoring the same; tokens/s,
    host ms a batch by bucket, the device-busy share of a profiled batch of
    each bucket, peak memory;
+4e. ssd: the SSD slice (models/ssd.py: 64x64 input, 1,344 anchors) on the
+   example's synthetic batch, SSD_CLASSES classes, batch SSD_BATCH.  (a)
+   The MultiBox ops at those shapes: MultiBoxPrior on the card equal to the
+   CPU's; MultiBoxTarget (the training symbol's settings) on the card in
+   float32 against float64 on the CPU, cls_target and loc_mask entry for
+   entry, loc_target within SSD_LOC_TOL; MultiBoxDetection's NMS kernel
+   against greedy_nms_ref on the card (ids equal), the detections against
+   float64 on the CPU (ids equal, the rest within SSD_DET_TOL); the three
+   ops under set_sync_debug_mode ("warn", then "error"); the kernel and
+   the plain loop timed, beside a bound (the kept rows' chain of
+   barriers).  (b) One SGD-momentum TrainStep step from a seed's
+   parameters, float32 on the card (TF32 off) against float64 on the CPU:
+   cls_target equal, each first momentum and parameter update within
+   RESNET_FLOOR_X times its float32 floor; the step under
+   set_sync_debug_mode.  (c) Module.fit through bench/ssd_train.py at the
+   example's defaults (3 classes, batch 8, 10 batches, 2 epochs): the
+   fused path, LocL1 lower in epoch 2, the detection symbol's (8, 1344, 6)
+   with a kept row, one NMS launch a detection forward and none in the
+   fits; then a timing fit at SSD_TIMING (20 classes, batch 32); images/s,
+   host ms a batch, device-busy share, peak memory;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -181,10 +201,11 @@ checks, rates and profiles (unfused and fused, float32 and bfloat16 AMP),
 the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
 profiles (float32 and AMP), the Module layer's checks and timings, the
-sequences slice's checks, times and rates, Updater and Rtc numbers, each
-phase's seconds,
+sequences slice's and the SSD slice's checks, times and rates, Updater and
+Rtc numbers, each phase's seconds,
 a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
-bfloat16 kernel at the training shapes and its launches in the AMP steps),
+bfloat16 kernel at the training shapes and its launches in the AMP steps;
+row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
@@ -394,6 +415,31 @@ RNN_CASES = (("lstm", False), ("gru", False), ("lstm", True))
 LSTM_CHECK_BUCKET = 60
 LSTM_EPOCHS = 2
 LSTM_BATCHES_PER_BUCKET = 4
+# ssd: models/ssd.py at the example's widths (64x64 input, 1,344 anchors),
+# SSD_CLASSES classes + background, batch SSD_BATCH, label width 3, on the
+# example's synthetic batch.  (a) the MultiBox ops on the card against the
+# float64 CPU version: targets and kept ids equal, loc_target within
+# SSD_LOC_TOL and detection scores and boxes within SSD_DET_TOL of the
+# largest entry (1); the NMS kernel against greedy_nms_ref on the card, ids
+# equal, the rest within SSD_DET_TOL; (b) one SGD-momentum TrainStep step,
+# float32 on the card against float64 on the CPU, each first momentum and
+# parameter update within RESNET_FLOOR_X times its float32 floor (the
+# ResNet rule); (c) Module.fit through bench/ssd_train.py at the example's
+# defaults, then a timing fit at SSD_TIMING.
+SSD_CLASSES = 3
+SSD_BATCH = 8
+SSD_ANCHORS = 1344
+SSD_LOC_TOL = 1e-5
+SSD_DET_TOL = 1e-6
+SSD_LR = 0.005
+SSD_TIMING = dict(num_classes=20, batch_size=32, num_batches=10)
+# the NMS kernel's bound: its kept rows are a chain of dependent steps, one
+# block-wide barrier each, taken at NMS_BARRIER_CYCLES cycles of the SM
+# clock (an assumed barrier latency, not measured here) at the H100 SXM's
+# 1,980 MHz boost clock (data sheet); NMS_IOU_OPS operations a pair
+NMS_BARRIER_CYCLES = 24
+NMS_SM_HZ = 1.98e9
+NMS_IOU_OPS = 20
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
 # float32 and bfloat16
 FLASH_CHECKS = [
@@ -3141,6 +3187,239 @@ def lstm_bucketing_phase(torch, mt, card):
     return {"rnn_ms": rnn_ms, "fits": fits}
 
 
+def ssd_anchors(torch, get_op, ssd, dev):
+    """The SSD's anchors (1, SSD_ANCHORS, 4) from MultiBoxPrior on ``dev``:
+    the three feature maps of a 64x64 input (16, 8 and 4 pixels a side)."""
+    prior = get_op("MultiBoxPrior").fn
+    parts = [prior(torch.zeros((1, 1, f, f), device=dev), sizes=sizes,
+                   ratios=ratios)
+             for f, sizes, ratios in zip((16, 8, 4), ssd._SIZES, ssd._RATIOS)]
+    return torch.cat(parts, 1)
+
+
+def ssd_ops_check(torch, mt, contrib, st, ssd):
+    """(a) of the ssd phase: the MultiBox ops at the SSD's shapes on the
+    card against the float64 CPU version, the NMS kernel against its plain
+    version on the card, the three ops under sync_free, the kernel and the
+    plain loop timed.  Returns the kernel's JSON numbers."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    cuda = mt.gpu(0).torch_device()
+    anchors = ssd_anchors(torch, get_op, ssd, cuda)
+    want_anchors = ssd_anchors(torch, get_op, ssd, "cpu")
+    if tuple(anchors.shape) != (1, SSD_ANCHORS, 4) \
+            or not torch.equal(anchors.cpu(), want_anchors):
+        fail("ssd: MultiBoxPrior on the card %s differs from the CPU's"
+             % (tuple(anchors.shape),))
+    rng = np.random.default_rng(SEED)
+    _, label = st.synthetic_detection_batch(np.random.RandomState(0),
+                                            SSD_BATCH, SSD_CLASSES)
+    cls_pred = rng.standard_normal(
+        (SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)).astype(np.float32)
+    logits = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS))
+    cls_prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)) \
+        .astype(np.float32)
+    loc_pred = (rng.standard_normal((SSD_BATCH, SSD_ANCHORS * 4))
+                * 0.5).astype(np.float32)
+    tkw = dict(overlap_threshold=0.5, ignore_label=-1.0,
+               negative_mining_ratio=3.0, minimum_negative_samples=0,
+               negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2))
+    target = get_op("MultiBoxTarget").fn
+    detect = get_op("MultiBoxDetection").fn
+
+    def on(dev, dtype, *arrs):
+        return [torch.from_numpy(np.asarray(a, dtype)).to(dev)
+                for a in arrs]
+    got = target(anchors, *on(cuda, np.float32, label, cls_pred), **tkw)
+    want = target(want_anchors.double(),
+                  *on("cpu", np.float64, label, cls_pred), **tkw)
+    loc_t, loc_m, cls_t = (g.double().cpu() for g in got)
+    loc_err = ((loc_t - want[0]).abs().max()
+               / want[0].abs().max().clamp_min(1)).item()
+    diff = (int((cls_t != want[2]).sum()), int((loc_m != want[1]).sum()),
+            int(((loc_t - want[0]).abs() > SSD_LOC_TOL
+                 * want[0].abs().max().clamp_min(1)).sum()))
+    print("ssd multibox_target B=%d A=%d label_width=3 positives=%d "
+          "negatives=%d ignored=%d differing cls_target=%d loc_mask=%d "
+          "loc_target=%d loc_target_rel_err=%.3e (card float32 vs CPU "
+          "float64)" % ((SSD_BATCH, SSD_ANCHORS, int((want[2] > 0).sum()),
+                        int((want[2] == 0).sum()),
+                        int((want[2] < 0).sum())) + diff + (loc_err,)))
+    if any(diff) or loc_err > SSD_LOC_TOL:
+        fail("ssd: MultiBoxTarget on the card differs from float64 on the "
+             "CPU (%d, %d, %d entries)" % diff)
+    cp, lp = on(cuda, np.float32, cls_prob, loc_pred)
+    n0 = contrib.nms_launches
+    out = detect(cp, lp, anchors)
+    torch.cuda.synchronize()
+    if contrib.nms_launches != n0 + 1:
+        fail("ssd: MultiBoxDetection launched the NMS kernel %d times"
+             % (contrib.nms_launches - n0))
+    cid, score, boxes = contrib.detection_rows(cp, lp, anchors)
+    ids_ref = contrib.greedy_nms_ref(boxes, cid, 0.5)
+    ref = torch.cat([ids_ref[..., None],
+                     torch.where(ids_ref >= 0, score, -1.0)[..., None],
+                     boxes], -1)
+    kernel_err = (out - ref).abs().max().item()
+    if not torch.equal(out[..., 0], ref[..., 0]) \
+            or kernel_err > SSD_DET_TOL:
+        fail("ssd: the NMS kernel's ids differ from greedy_nms_ref's on the "
+             "card (%d rows; max error %r)"
+             % (int((out[..., 0] != ref[..., 0]).sum()), kernel_err))
+    want_det = detect(*on("cpu", np.float64, cls_prob, loc_pred),
+                      want_anchors)
+    det_err = (out.double().cpu() - want_det).abs().max().item()
+    kept = (out[..., 0] >= 0).cpu()
+    print("ssd multibox_detection B=%d A=%d kept=%d (per image %s) "
+          "kernel_vs_plain ids_equal=True max_abs_err=%r; card float32 vs "
+          "CPU float64 differing_ids=%d max_abs_err=%.3e"
+          % (SSD_BATCH, SSD_ANCHORS, int(kept.sum()),
+             kept.sum(1).tolist(), kernel_err,
+             int((out[..., 0].cpu().double() != want_det[..., 0]).sum()),
+             det_err))
+    if not torch.equal(out[..., 0].cpu().double(), want_det[..., 0]) \
+            or det_err > SSD_DET_TOL:
+        fail("ssd: MultiBoxDetection on the card differs from float64 on "
+             "the CPU (max error %r)" % det_err)
+
+    lab_d, pred_d = on(cuda, np.float32, label, cls_pred)
+
+    def ops():
+        a = ssd_anchors(torch, get_op, ssd, cuda)
+        target(a, lab_d, pred_d, **tkw)
+        detect(cp, lp, a)
+    sync_free(torch, "ssd multibox ops", ops)
+    ms = time_ms(torch, lambda: contrib.greedy_nms(boxes, cid, 0.5))
+    plain_ms = time_ms(torch, lambda: contrib.greedy_nms_ref(boxes, cid,
+                                                             0.5), iters=2)
+    # the work this run's data needs: each kept row i compares the rows
+    # after it; the boxes and ids read once, the ids written once
+    rows = [np.nonzero(k)[0] for k in kept.numpy()]
+    pairs = sum(int((SSD_ANCHORS - 1 - r).sum()) for r in rows)
+    nbytes = SSD_BATCH * SSD_ANCHORS * (4 + 1 + 1) * 4
+    chain_ms = max(len(r) for r in rows) * NMS_BARRIER_CYCLES / NMS_SM_HZ \
+        * 1e3
+    ops_ms = max(pairs * NMS_IOU_OPS / PEAK_OPS["float32"] * 1e3, chain_ms)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    print("ssd nms kernel_ms=%r plain_ms=%r bound_ms=%r (chain of %d "
+          "barriers %r ms, %d IoU pairs %r ms, %d bytes %r ms)"
+          % (ms, plain_ms, max(ops_ms, bytes_ms), max(len(r) for r in rows),
+             chain_ms, pairs, pairs * NMS_IOU_OPS / PEAK_OPS["float32"]
+             * 1e3, nbytes, bytes_ms))
+    return {"max_abs_err": kernel_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def ssd_state(mt, net):
+    """The step check's state as numpy: parameters from TrainStep.init's
+    default initializer at SEED, and the example's first batch."""
+    ts = mt.TrainStep(net, mt.optimizer.SGD(learning_rate=SSD_LR),
+                      data_names=("data",), label_names=("label",),
+                      ctx=mt.cpu())
+    shapes = ({"data": (SSD_BATCH, 3, 64, 64)}, {"label": (SSD_BATCH, 3, 5)})
+    params, _, _ = ts.init(*shapes, seed=SEED)
+    return ({n: v.numpy() for n, v in params.items()}, shapes)
+
+
+def ssd_step(torch, mt, net, params, data, ctx, dtype):
+    """One SGD-momentum step from ``params`` on ``data`` at ``dtype`` on
+    ``ctx``: ((first momenta, updates) as float64 CPU tensors, outputs,
+    (TrainStep, params, opt_state, aux, batch) after it)."""
+    ts = mt.TrainStep(net, mt.optimizer.SGD(
+        learning_rate=SSD_LR, momentum=0.9, wd=5e-4,
+        rescale_grad=1.0 / SSD_BATCH), data_names=("data",),
+        label_names=("label",), ctx=ctx)
+    p, s, a = mt.convert.train_state_from_numpy(
+        {n: v.astype(dtype) for n, v in params.items()},
+        {n: (np.zeros_like(v, dtype),) for n, v in params.items()}, {},
+        ctx=ctx)
+    batch = ts.shard_batch({k: v.astype(dtype) for k, v in data.items()})
+    before = {n: v.double().cpu().clone() for n, v in p.items()}
+    p, s, a, outs = ts(p, s, a, batch)
+    return (({n: st[0].double().cpu() for n, st in s.items()},
+             {n: v.double().cpu() - before[n] for n, v in p.items()}),
+            outs, (ts, p, s, a, batch))
+
+
+def ssd_step_check(torch, mt, st, ssd):
+    """(b) of the ssd phase: one float32 step on the card against the
+    float64 step on the CPU, each leaf within RESNET_FLOOR_X times its
+    float32 floor; the step under sync_free."""
+    net = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    params, shapes = ssd_state(mt, net)
+    d, lab = st.synthetic_detection_batch(np.random.RandomState(0),
+                                          SSD_BATCH, SSD_CLASSES)
+    data = {"data": d, "label": lab}
+    t0 = time.perf_counter()
+    want, want_outs, _ = ssd_step(torch, mt, net, params, data, mt.cpu(),
+                                  np.float64)
+    floors = []
+    for i in range(RESNET_FLOOR_SAMPLES):
+        p = nudged_values(params, SEED + 100 + i) if i else params
+        x = nudged_values(data, SEED + 200 + i, skip=("label",)) if i \
+            else data
+        floors.append(ssd_step(torch, mt, net, p, x, mt.cpu(),
+                               np.float32)[0])
+    print("ssd_train steps=cpu_f64+%d cpu_f32 seconds=%r"
+          % (RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
+    got, outs, (ts, p, s, a, batch) = ssd_step(
+        torch, mt, net, params, data, mt.gpu(0), np.float32)
+    cls_t = outs[2].double().cpu()
+    if not torch.equal(cls_t, want_outs[2]):
+        fail("ssd_train: the card's cls_target differs from the float64 "
+             "step's in %d entries" % int((cls_t != want_outs[2]).sum()))
+    print("ssd_train cls_target equal to the float64 step's: positives=%d "
+          "negatives=%d ignored=%d" % (int((cls_t > 0).sum()),
+                                       int((cls_t == 0).sum()),
+                                       int((cls_t < 0).sum())))
+    resnet50_check_rows(torch, "ssd_train", resnet50_leaf_rows(
+        torch, got, want, floors, kinds=("grad", "update")),
+        "float32 floor")
+    sync_free(torch, "ssd_train step", lambda: ts(p, s, a, batch))
+
+
+def ssd_phase(torch, mt, card):
+    """The SSD slice: (a) the MultiBox ops and the NMS kernel, (b) one
+    training step held to float64, (c) Module.fit through
+    bench/ssd_train.py and the detection symbol, then a timing fit."""
+    from mxnet_tpu_torch.bench import ssd_train as st
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import contrib
+    nms = ssd_ops_check(torch, mt, contrib, st, ssd)
+    ssd_step_check(torch, mt, st, ssd)
+    contrib.nms_launches = 0
+    rec, _, out = st.run(SSD_CLASSES, SSD_BATCH, lr=SSD_LR)
+    timing, _, _ = st.run(**SSD_TIMING)
+    launches = contrib.nms_launches
+    # each run: one warm detection forward, then the timed ones
+    forwards = 2 + rec["detect_forwards"] + timing["detect_forwards"]
+    print("ssd fit %s" % json.dumps(rec))
+    print("ssd fit %s" % json.dumps(timing))
+    if not rec["fused_path"]:
+        fail("ssd: Module.fit took the general path")
+    if not rec["loc_l1"][1] < rec["loc_l1"][0]:
+        fail("ssd: LocL1 did not fall: %r" % rec["loc_l1"])
+    if out.shape != (SSD_BATCH, SSD_ANCHORS, 6) \
+            or rec["kept_detections"] < 1 or not np.isfinite(out).all():
+        fail("ssd: detections %r with %d kept rows"
+             % (out.shape, rec["kept_detections"]))
+    if launches != forwards or rec["nms_launches"] != rec["detect_forwards"]:
+        fail("ssd: %d NMS launches in %d detection forwards"
+             % (launches, forwards))
+    print("ssd nms launches=%d in %d detection forwards, 0 in the fits"
+          % (launches, forwards))
+    print("ssd img_per_s classes=%d batch=%d: %r (host %r ms a batch, "
+          "busy %r, peak %r GB); classes=%d batch=%d: %r (host %r ms, busy "
+          "%r, peak %r GB) (%s)"
+          % (SSD_CLASSES, SSD_BATCH, rec["value"], rec["host_ms_per_batch"],
+             rec.get("device_busy_share"), rec.get("peak_mem_gb"),
+             SSD_TIMING["num_classes"], SSD_TIMING["batch_size"],
+             timing["value"], timing["host_ms_per_batch"],
+             timing.get("device_busy_share"), timing.get("peak_mem_gb"),
+             card))
+    return dict(nms, launches=launches)
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -3175,6 +3454,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import mxnet_tpu_torch as mt
+        from mxnet_tpu_torch.ops import contrib
         from mxnet_tpu_torch.ops import flash_attention as fa
         from mxnet_tpu_torch.ops import norm_conv as nc
     except ImportError as exc:
@@ -3210,7 +3490,8 @@ def main():
 
     t0 = time.perf_counter()
     build_all([("norm_conv", nc.build), ("flash_attention", fa.build),
-               ("flash_attention_bwd", fa.build_bwd)])
+               ("flash_attention_bwd", fa.build_bwd),
+               ("multibox_nms", contrib.build)])
     print("build all seconds=%r" % (time.perf_counter() - t0))
     phase_done("build")
 
@@ -3269,6 +3550,8 @@ def main():
     phase_done("module_fit")
     lstm_bucketing_phase(torch, mt, card)
     phase_done("lstm_bucketing")
+    nms = ssd_phase(torch, mt, card)
+    phase_done("ssd")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -3374,7 +3657,15 @@ def main():
         "launches": rt["launches"], "max_abs_err": rt["max_abs_err"],
         "ms": rt["ms"], "plain_ms": rt["plain_ms"],
         "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
-        "library_ms": rt["library_ms"]}]}))
+        "library_ms": rt["library_ms"]}, {
+        "name": "multibox_nms", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/multibox_nms.cu",
+        "replaces": "mxnet_tpu/ops/contrib.py:229 (XLA fori_loop, not "
+                    "pl.pallas_call)",
+        "launches": nms["launches"], "max_abs_err": nms["max_abs_err"],
+        "ms": nms["ms"], "plain_ms": nms["plain_ms"],
+        "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"],
+        "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

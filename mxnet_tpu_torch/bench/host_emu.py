@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's CUDA kernel sources on the CPU.
 
-    python3 mxnet_tpu_torch/bench/host_emu.py [--kernel fwd|bwd|nc|all]
+    python3 mxnet_tpu_torch/bench/host_emu.py [--kernel fwd|bwd|nc|nms|all]
                                               [--against OTHER.cu]
 
 ``host_library`` rewrites a source of ``csrc/`` into host C++ (each
@@ -30,7 +30,11 @@ bit that of another source of the same kernels.  ``--kernel nc`` launches
 and off, both tiles, 16-byte and element-wise loads, float32 and
 bfloat16)
 and prints the plan it took and y's and the statistics' errors against
-``norm_conv_ref``.
+``norm_conv_ref``.  ``--kernel nms`` launches ``csrc/multibox_nms.cu`` at
+the cases of ``NMS_CASES`` (several images, a row count that is not a
+multiple of the block, every box suppressed, ``force_suppress``, IoUs
+exactly at the threshold, float32 and float64) and prints whether its ids
+equal ``greedy_nms_ref``'s.
 """
 import argparse
 import ctypes
@@ -48,12 +52,13 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from mxnet_tpu_torch.base import MXNetError  # noqa: E402
+from mxnet_tpu_torch.ops import contrib  # noqa: E402
 from mxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from mxnet_tpu_torch.ops import norm_conv as nc  # noqa: E402
 from mxnet_tpu_torch.ops.kernel_build import c_argtypes  # noqa: E402
 
 __all__ = ["translate", "host_library", "fwd_on_host", "bwd_on_host",
-           "nc_on_host"]
+           "nc_on_host", "nms_on_host"]
 
 
 def translate(text):
@@ -161,6 +166,56 @@ def nc_on_host(lib, x, w, scale, shift, kernel, stride, pad, relu=True,
     if err:
         raise MXNetError("host_emu: launch refused (%d)" % err)
     return y, ysum, ysq, p
+
+
+def nms_on_host(lib, boxes, ids, nms_threshold, force_suppress=False):
+    """The ids after the NMS kernel of ``lib`` on CPU tensors, launched as
+    ``ops/contrib.greedy_nms`` launches it on the card."""
+    out = ids.contiguous().clone()
+    b, n = ids.shape
+    err = lib.multibox_nms_launch(
+        boxes.contiguous().data_ptr(), out.data_ptr(), b, n,
+        float(nms_threshold), int(force_suppress),
+        int(boxes.dtype == torch.float64), None)
+    if err:
+        raise MXNetError("host_emu: launch refused (%d)" % err)
+    return out
+
+
+# (images, rows, classes, kind, nms_threshold, force_suppress, dtype): 300
+# rows span two rounds of the 256-thread block; "same" boxes are one box
+# repeated, so every row after the first of a class is suppressed; "tie"
+# boxes are unit-grid squares whose IoUs with each other are exactly 1/3,
+# 1/7 or 0, held against thresholds at those values
+NMS_CASES = [(3, 300, 3, "random", 0.5, False, torch.float32),
+             (2, 300, 3, "random", 0.45, True, torch.float64),
+             (2, 40, 1, "same", 0.5, False, torch.float32),
+             (2, 40, 4, "same", 0.5, True, torch.float32),
+             (2, 64, 2, "tie", 1.0 / 3.0, False, torch.float32),
+             (2, 64, 2, "tie", 1.0 / 7.0, True, torch.float64),
+             (1, 5, 2, "random", 0.5, False, torch.float32)]
+
+
+def nms_inputs(case, gen):
+    """(boxes, ids) on the CPU for one NMS_CASES case, the rows as
+    MultiBoxDetection hands them over: score-sorted, with the rows past a
+    random kept count at id -1."""
+    b, n, classes, kind, _, _, dtype = case
+    if kind == "random":
+        xy = torch.rand(b, n, 2, generator=gen, dtype=torch.float64) * 0.7
+        wh = torch.rand(b, n, 2, generator=gen, dtype=torch.float64) * 0.3 \
+            + 0.05
+        boxes = torch.cat([xy, xy + wh], -1)
+    elif kind == "same":
+        boxes = torch.tensor([0.1, 0.2, 0.5, 0.7],
+                             dtype=torch.float64).expand(b, n, 4)
+    else:   # unit squares on a grid of quarter steps
+        xy = torch.randint(0, 8, (b, n, 2), generator=gen).double() * 0.25
+        boxes = torch.cat([xy, xy + 1.0], -1)
+    ids = torch.randint(0, classes, (b, n), generator=gen).double()
+    kept = torch.randint(n // 2, n + 1, (b, 1), generator=gen)
+    ids = torch.where(torch.arange(n) < kept, ids, -1.0)
+    return boxes.to(dtype).contiguous(), ids.to(dtype)
 
 
 # (N, H, Cin, Cout, K, S, P, dtype, relu, prologue, stats, tile, splits):
@@ -271,13 +326,24 @@ def inputs(shape, dtype, layout, gen):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("fwd", "bwd", "nc", "all"),
+    ap.add_argument("--kernel", choices=("fwd", "bwd", "nc", "nms", "all"),
                     default="all")
     ap.add_argument("--against", help="another flash_attention_bwd.cu whose "
                     "outputs are compared bit for bit")
     args = ap.parse_args()
     out = os.path.join(ROOT, "build", "host_emu")
     csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
+    if args.kernel in ("nms", "all"):
+        lib = host_library(os.path.join(csrc, "multibox_nms.cu"), out)
+        for i, case in enumerate(NMS_CASES):
+            boxes, ids = nms_inputs(case, torch.Generator().manual_seed(i))
+            got = nms_on_host(lib, boxes, ids, case[4], case[5])
+            want = contrib.greedy_nms_ref(boxes, ids, case[4], case[5])
+            print("host_emu nms case=%d images=%d rows=%d %s threshold=%r "
+                  "force_suppress=%d %s kept=%d ids_equal=%s" % (
+                      i, case[0], case[1], case[3], case[4], case[5],
+                      str(case[6]).split(".")[1], int((got >= 0).sum()),
+                      torch.equal(got, want)), flush=True)
     if args.kernel in ("nc", "all"):
         lib = host_library(os.path.join(csrc, "norm_conv.cu"), out)
         for i, case in enumerate(NC_CASES):

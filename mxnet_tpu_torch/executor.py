@@ -80,6 +80,19 @@ def _is_arr(v):
     return isinstance(v, torch.Tensor) and v.dim() >= 3
 
 
+def head_grads(outs, seeds, leaves, **kwargs):
+    """``torch.autograd.grad`` of the outputs seeded with ``seeds`` into
+    ``leaves``, skipping the outputs that no leaf reaches (a MakeLoss of
+    MultiBoxTarget's targets, say): they contribute nothing, as in the JAX
+    package's vjp.  A leaf no output reaches gets None."""
+    pairs = [(o, g) for o, g in zip(outs, seeds) if o.requires_grad]
+    if not pairs:
+        return [None] * len(leaves)
+    return torch.autograd.grad([o for o, _ in pairs], leaves,
+                               [g for _, g in pairs], allow_unused=True,
+                               **kwargs)
+
+
 class _ScaleBackward(torch.autograd.Function):
     """Identity forward, cotangent-times-scale backward (counterpart: the
     JAX package's ``_make_scale_backward``).
@@ -781,8 +794,8 @@ class Executor(object):
                 out_grads = [out_grads]
             ogs = [(g.value if isinstance(g, nd.NDArray) else g)
                    .to(o.device, o.dtype) for g, o in zip(out_grads, outs)]
-        grads = torch.autograd.grad(outs, [leaves[n] for n in gnames], ogs,
-                                    retain_graph=True, allow_unused=True)
+        grads = head_grads(outs, ogs, [leaves[n] for n in gnames],
+                           retain_graph=True)
         for name, g in zip(gnames, grads):
             tgt = self.grad_dict[name]
             if g is None:        # the output does not depend on it

@@ -2,6 +2,7 @@
 from . import lenet
 from . import mlp
 from . import resnet
+from . import ssd
 from . import transformer
 
 get_lenet = lenet.get_symbol

@@ -2,8 +2,8 @@
 
 Importing this package registers the ops of the ported paths (ResNet-50
 inference, the transformer LM's inference and training, the imperative
-``mx.nd`` API, the sequences slice) before ``symbol.py`` and ``ndarray.py``
-generate their constructors and frontends.
+``mx.nd`` API, the sequences slice, the SSD slice) before ``symbol.py``
+and ``ndarray.py`` generate their constructors and frontends.
 """
 from . import registry   # noqa: F401
 
@@ -20,3 +20,4 @@ from . import attention  # noqa: F401  (dot_product_attention, LayerNorm, ...)
 from . import optimizer_ops  # noqa: F401  (sgd/adam/rmsprop updates)
 from . import sequence   # noqa: F401  (SequenceLast/Mask/Reverse)
 from . import rnn_op     # noqa: F401  (RNN: cuDNN on the card)
+from . import contrib    # noqa: F401  (MultiBox*: the NMS kernel on the card)

@@ -31,6 +31,17 @@ def _same_shape_infer(attrs, in_shapes):
     return [unified for _ in in_shapes], [unified], None
 
 
+def promoted(*xs):
+    """The tensors (None passes through) at their promoted dtype, as
+    ``jnp.dot`` promotes its operands: float32 with bfloat16 gives float32.
+    torch's matrix products refuse mixed dtypes."""
+    dt = None
+    for x in xs:
+        if x is not None:
+            dt = x.dtype if dt is None else torch.promote_types(dt, x.dtype)
+    return tuple(x if x is None or x.dtype == dt else x.to(dt) for x in xs)
+
+
 def _inexact(x):
     """``x`` itself when floating, else as float32 (jnp's promotion of
     integers to the default float type)."""

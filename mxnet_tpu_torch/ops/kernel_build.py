@@ -42,7 +42,8 @@ def _nvcc():
 def c_argtypes(text, name):
     """The ctypes types of the parameters of ``extern "C"`` function
     ``name`` in the source text: c_void_p for a pointer, c_longlong,
-    c_int and c_float for ``long long``, ``int`` and ``float``."""
+    c_int, c_float and c_double for ``long long``, ``int``, ``float`` and
+    ``double``."""
     m = re.search(r'extern "C"[^(;]*\b%s\s*\(([^)]*)\)' % re.escape(name),
                   text)
     if m is None:
@@ -54,9 +55,9 @@ def c_argtypes(text, name):
             types.append(ctypes.c_void_p)
         elif words[-2:] == ["long", "long"]:
             types.append(ctypes.c_longlong)
-        elif words[-1:] in (["int"], ["float"]):
-            types.append(ctypes.c_int if words[-1] == "int"
-                         else ctypes.c_float)
+        elif words[-1:] in (["int"], ["float"], ["double"]):
+            types.append({"int": ctypes.c_int, "float": ctypes.c_float,
+                          "double": ctypes.c_double}[words[-1]])
         else:
             raise MXNetError("%s: parameter type not known: %r"
                              % (name, param.strip()))
@@ -71,11 +72,13 @@ class CudaLibrary(object):
     bind   : bind(lib) sets the argtypes/restype of the C functions
     text   : the source text, when it is generated rather than a file of
              ``csrc/``; it is written beside the library it builds
+    flags  : nvcc flags of this source, after ``NVCC_FLAGS``
     """
 
-    def __init__(self, name, bind, text=None):
+    def __init__(self, name, bind, text=None, flags=()):
         self.name = name
         self.text = text
+        self.flags = list(flags)
         self.source = os.path.join(CSRC, name + ".cu") if text is None \
             else None
         self._bind = bind
@@ -92,8 +95,9 @@ class CudaLibrary(object):
     def so_path(self):
         """The library's file: ``.torch_kernels/<name>_<hash>.so``, the hash
         over the source text and the flags (the one cache rule)."""
-        digest = hashlib.sha256(self._source_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(
+            self._source_bytes()
+            + " ".join(NVCC_FLAGS + self.flags).encode()).hexdigest()
         return os.path.join(BUILD_DIR, "%s_%s.so" % (self.name, digest[:16]))
 
     def build(self):
@@ -113,7 +117,7 @@ class CudaLibrary(object):
                         f.write(self._source_bytes())
                 tmp = "%s.tmp-%d" % (so, os.getpid())
                 res = subprocess.run(
-                    [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+                    [_nvcc()] + NVCC_FLAGS + self.flags + ["-o", tmp, src],
                     capture_output=True, text=True)
                 if res.returncode != 0:
                     raise MXNetError("nvcc failed on %s:\n%s%s"

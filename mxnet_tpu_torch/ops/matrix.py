@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import promoted
 from .registry import register, parse_bool, parse_int, parse_str, parse_tuple
 
 
@@ -164,9 +165,9 @@ def _dot_infer(attrs, in_shapes):
 def _dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """numpy's dot (parity: matrix_op.cc dot): the last axis of lhs against
     the first of a 1-D rhs, else its second-to-last; ``transpose_*``
-    reverses every axis first."""
-    a = _rev(lhs) if transpose_a else lhs
-    b = _rev(rhs) if transpose_b else rhs
+    reverses every axis first; mixed float dtypes promote."""
+    a, b = promoted(_rev(lhs) if transpose_a else lhs,
+                    _rev(rhs) if transpose_b else rhs)
     if a.dim() <= 2 and b.dim() <= 2:
         return torch.matmul(a, b)
     return torch.tensordot(a, b, dims=([a.dim() - 1],
@@ -177,8 +178,8 @@ def _dot(lhs, rhs, transpose_a=False, transpose_b=False):
           attr_types={"transpose_a": parse_bool, "transpose_b": parse_bool},
           defaults={"transpose_a": False, "transpose_b": False})
 def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
-    a = lhs.transpose(-1, -2) if transpose_a else lhs
-    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    a, b = promoted(lhs.transpose(-1, -2) if transpose_a else lhs,
+                    rhs.transpose(-1, -2) if transpose_b else rhs)
     return torch.matmul(a, b)
 
 

@@ -1,12 +1,13 @@
 """Neural-network layers (counterpart: mxnet_tpu/ops/nn.py):
-FullyConnected, Activation, Convolution, Pooling, BatchNorm, the
-executor-fused _BatchNormReLU and Dropout.  Their backward is autograd's,
-except where the JAX package writes its own: BatchNorm and BatchNorm+ReLU in
-training (``BatchNormTrain``, ``BatchNormReLUTrain``, counterparts of its
-custom VJPs ``_bn_train_core`` and ``_bn_relu_train_core``), the executor's
-fused input BatchNorm + stem convolution (``InputBNConv``, counterpart of
-``_input_bn_conv_core``) and the max-pool equality-mask backward of
-``MXNET_POOL_MASK_BWD`` (``MaxPoolMask``).
+FullyConnected, Activation, SoftmaxActivation, Convolution, Pooling,
+BatchNorm, the executor-fused _BatchNormReLU and Dropout.  Their backward
+is autograd's, except where the JAX package writes its own: BatchNorm and
+BatchNorm+ReLU in training (``BatchNormTrain``, ``BatchNormReLUTrain``,
+counterparts of its custom VJPs ``_bn_train_core`` and
+``_bn_relu_train_core``), the executor's fused input BatchNorm + stem
+convolution (``InputBNConv``, counterpart of ``_input_bn_conv_core``) and
+the max-pool equality-mask backward of ``MXNET_POOL_MASK_BWD``
+(``MaxPoolMask``).
 
 Convolution and pooling call PyTorch's own (cuDNN on the card), as the JAX
 package leaves them to XLA.  With ``layout='NHWC'`` (set by the executor's
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .elemwise import relu
+from .elemwise import promoted, relu
 from .registry import (register, parse_bool, parse_float, parse_int,
                        parse_str, parse_tuple, shape_is_complete)
 
@@ -62,8 +63,8 @@ def _fc_infer(attrs, in_shapes):
           attr_types={"num_hidden": parse_int, "no_bias": parse_bool},
           defaults={"no_bias": False}, infer_shape=_fc_infer)
 def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False):
-    """y = x·Wᵀ + b"""
-    return F.linear(data.reshape(data.shape[0], -1), weight, bias)
+    """y = x·Wᵀ + b, at the promoted dtype of the three"""
+    return F.linear(*promoted(data.reshape(data.shape[0], -1), weight, bias))
 
 
 # ------------------------------------------------------------------ Activation
@@ -79,6 +80,17 @@ def _activation(data, act_type="relu"):
     if act_type == "softrelu":
         return F.softplus(data)
     raise MXNetError("unknown act_type %s" % act_type)
+
+
+@register("SoftmaxActivation", attr_types={"mode": parse_str},
+          defaults={"mode": "instance"})
+def _softmax_activation(data, mode="instance"):
+    """Softmax over axis 1 (``channel``) or over every axis after the first
+    (``instance``); autograd's gradient."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
 
 
 # ----------------------------------------------------------------- Convolution

@@ -25,6 +25,11 @@ W_i2h (G*H, I_layer), W_h2h (G*H, H), b_i2h (G*H,), b_h2h (G*H,) with G = 1
 (rnn_relu, rnn_tanh), 4 (lstm, gates i,f,g,o) or 3 (gru, gates r,z,n).  The
 GRU candidate is n = tanh(x W_in + b_in + r * (h W_hn + b_hn)), which is
 torch's (and cuDNN's) as well.
+
+Mixed float dtypes promote, as ``jnp.dot`` promotes them in the JAX
+package: under a bfloat16 policy the begin states stay float32, and so does
+the recurrence (the card route hands cuDNN every operand at the promoted
+dtype).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from .elemwise import promoted
 from .registry import register, parse_bool, parse_float, parse_int, parse_str
 
 __all__ = ["rnn_param_size", "rnn_unpack_params", "rnn_forward",
@@ -81,14 +87,15 @@ def rnn_unpack_params(params, mode, input_size, state_size, num_layers,
 def _cell_step(mode, xw, h, c, w_hh, b_hh):
     """One step given the precomputed input projection ``xw``."""
     H = h.shape[-1]
+    hh = torch.matmul(*promoted(h, w_hh.t()))
     if mode == "gru":
         # r and z add the whole h2h term; the candidate gates its own
-        hh = h @ w_hh.t() + b_hh
+        hh = hh + b_hh
         r = torch.sigmoid(xw[..., 0:H] + hh[..., 0:H])
         z = torch.sigmoid(xw[..., H:2 * H] + hh[..., H:2 * H])
         n = torch.tanh(xw[..., 2 * H:3 * H] + r * hh[..., 2 * H:3 * H])
         return (1 - z) * n + z * h, None
-    gates = xw + h @ w_hh.t() + b_hh
+    gates = xw + hh + b_hh
     if mode == "rnn_relu":
         return torch.relu(gates), None
     if mode == "rnn_tanh":
@@ -106,7 +113,7 @@ def _cell_step(mode, xw, h, c, w_hh, b_hh):
 def _run_layer(mode, x, h0, c0, w_ih, w_hh, b_ih, b_hh, reverse):
     """One direction of one layer, stepped over time.  x: (T, N, I)."""
     # the input projection of every step in one matmul
-    xw = torch.matmul(x, w_ih.t()) + b_ih
+    xw = torch.matmul(*promoted(x, w_ih.t())) + b_ih
     if reverse:
         xw = torch.flip(xw, (0,))
     h, c = h0, c0
@@ -143,6 +150,7 @@ def _cudnn_layer(mode, x, h0, c0, w, ndir):
                          " dtype %s); the op has no other card route"
                          % (torch.backends.cudnn.enabled, x.dtype))
     weights = [t for d in range(ndir) for t in w[d]]
+    x, h0, c0, *weights = promoted(x, h0, c0, *weights)
     fn = getattr(torch._VF, mode)
     hx = [h0, c0] if mode == "lstm" else h0
     # ``train`` keeps cuDNN's reserve space for the backward (the dropout

@@ -21,13 +21,6 @@ __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
            "ModifierCell", "DropoutCell", "ZoneoutCell", "ResidualCell"]
 
 
-def _is_float32(dt):
-    try:
-        return np.dtype(dt) == np.float32
-    except TypeError:           # torch.bfloat16, which numpy lacks
-        return False
-
-
 class RNNParams(object):
     """Container for a cell's parameter symbols (parity: RNNParams)."""
 
@@ -87,9 +80,8 @@ class BaseRNNCell(object):
                     kwargs = {"shape": node.params["shape"],
                               "batch_axis": batch_axis,
                               "value": float(value or 0.0)}
-                    dt = node.params.get("dtype")
-                    if dt is not None and not _is_float32(dt):
-                        kwargs["dtype"] = dt
+                    if node.params.get("dtype") is not None:
+                        kwargs["dtype"] = node.params["dtype"]
                     out.append(symbol.create("_state_init", like, **kwargs))
                 else:
                     raise MXNetError(

@@ -48,7 +48,7 @@ from .context import Context, cpu, current_context
 from . import amp as _amp
 from . import ndarray as nd
 from . import random as _random
-from .executor import _Lowered
+from .executor import _Lowered, head_grads
 from .ops.registry import get_op
 from .optimizer import adadelta_rule, adagrad_rule, nag_rule
 
@@ -241,6 +241,8 @@ class _FunctionalOptimizer(object):
 
 
 def _to_device(batch, dev):
+    """A batch dict (numpy arrays, tensors or NDArrays) as tensors on
+    ``dev``, each at its own dtype."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, nd.NDArray):
@@ -415,9 +417,8 @@ class TrainStep(object):
                                       None if lsc is None else lsc["scale"])
         seeds = [torch.ones((), dtype=o.dtype, device=o.device)
                  .expand(o.shape) for o in outs]
-        grads = torch.autograd.grad(outs, [leaves[n] for n in
-                                           self.param_names],
-                                    seeds, allow_unused=True)
+        grads = head_grads(outs, seeds,
+                           [leaves[n] for n in self.param_names])
         del leaves
         grads = [torch.zeros_like(params[n]) if g is None
                  else g.to(params[n].dtype)
@@ -466,10 +467,12 @@ class TrainStep(object):
 
     def __call__(self, params, opt_state, aux, batch, rng=None):
         """One step.  Returns (params, opt_state, aux, outputs); the first
-        three are the dicts passed in, updated in place.  ``rng`` is
-        accepted for the JAX signature: an op that draws random numbers
-        (Dropout, the samplers) draws from the generator of the step's
-        device (``random.generator``)."""
+        three are the dicts passed in, updated in place.  ``batch`` may lie
+        on the host (``shard_batch`` places it, as the JAX package's jit
+        does).  ``rng`` is accepted for the JAX signature: an op that draws
+        random numbers (Dropout, the samplers) draws from the generator of
+        the step's device (``random.generator``)."""
+        batch = self.shard_batch(batch)
         hyper = self.fopt.hyper(self.num_update)
         self.num_update += 1
         return self._step(params, opt_state, aux, batch, hyper,
@@ -488,6 +491,7 @@ class TrainStep(object):
         bias correction) advances per step, and the loss-scale state is
         carried from step to step, so the result equals sequential
         stepping.  Returns (params, opt_state, aux, last_outputs)."""
+        batch = self.shard_batch(batch)
         if stacked:
             for k, v in batch.items():
                 if v.shape[0] != num_steps + 1:
@@ -511,7 +515,9 @@ class EvalStep(object):
     tuple, computed without autograd.  ``dtype=`` casts the float32 inputs
     (labels excepted) and the parameters to that dtype; ``policy=``
     contributes only its compute dtype (no backward, so no loss scale).
-    The outputs stay in the compute dtype."""
+    The outputs stay in the compute dtype.  A host batch (numpy arrays,
+    NDArrays) moves to the parameters' device, as the JAX package's jit
+    moves it."""
 
     def __init__(self, symbol, mesh=None, dtype=None,
                  label_names=("softmax_label",), policy=None):
@@ -521,7 +527,9 @@ class EvalStep(object):
         self.label_names = tuple(label_names)
 
     def __call__(self, params, aux, batch, rng=None):
-        vals = dict(batch)
+        dev = next(iter(params.values())).device if params \
+            else current_context().torch_device()
+        vals = _to_device(batch, dev)
         if self._dtype is not None:
             vals = _cast_inputs(vals, self._dtype, self.label_names)
             params = {k: v.to(self._dtype) for k, v in params.items()}
