@@ -116,19 +116,24 @@ fatal on failure:
    The MultiBox ops at those shapes: MultiBoxPrior on the card equal to the
    CPU's; MultiBoxTarget (the training symbol's settings) on the card in
    float32 against float64 on the CPU, cls_target and loc_mask entry for
-   entry, loc_target within SSD_LOC_TOL; MultiBoxDetection's NMS kernel
-   against greedy_nms_ref on the card (ids equal), the detections against
-   float64 on the CPU (ids equal, the rest within SSD_DET_TOL); the three
-   ops under set_sync_debug_mode ("warn", then "error"); the kernel and
-   the plain loop timed, beside a bound (the kept rows' chain of
-   barriers).  (b) One SGD-momentum TrainStep step from a seed's
+   entry, loc_target within SSD_LOC_TOL; MultiBoxDetection's NMS kernels
+   (the mask, then the scan) against greedy_nms_ref on the card (ids
+   equal), the detections against float64 on the CPU (ids equal, the rest
+   within SSD_DET_TOL); the three ops under set_sync_debug_mode ("warn",
+   then "error"); the kernels event-timed over raw launches queued behind
+   a spin of the card, the wrapper's host us a call, the detection
+   forward's ms and the plain loop, beside a bound (the kept rows' chain
+   of dependent steps, one a kept row); the kernels at NMS_LARGE (SSD300's
+   8,732 anchors, 4 images of random boxes) against the plain loop on the
+   card, ids equal, and timed.  (b) One SGD-momentum TrainStep step from a
+   seed's
    parameters, float32 on the card (TF32 off) against float64 on the CPU:
    cls_target equal, each first momentum and parameter update within
    RESNET_FLOOR_X times its float32 floor; the step under
    set_sync_debug_mode.  (c) Module.fit through bench/ssd_train.py at the
    example's defaults (3 classes, batch 8, 10 batches, 2 epochs): the
    fused path, LocL1 lower in epoch 2, the detection symbol's (8, 1344, 6)
-   with a kept row, one NMS launch a detection forward and none in the
+   with a kept row, two NMS launches a detection forward and none in the
    fits; then a timing fit at SSD_TIMING (20 classes, batch 32); images/s,
    host ms a batch, device-busy share, peak memory;
 5. flash: the flash-attention forward kernel against its plain version
@@ -192,8 +197,11 @@ fatal on failure:
    to its plain version (axpb and transpose bitwise, exp5 within EXP5_TOL
    relative, sgd_mom within IMPERATIVE_TOL of the largest |w|); first-push
    seconds (nvcc), ``rtc.builds`` unchanged on a second push, host us per
-   push, kernel / plain / ``torch.add`` / bound ms of axpb; a source with
-   a syntax error must raise MXNetError carrying nvcc's log.
+   push, kernel / plain / ``torch.add`` / bound ms of axpb; axpb pushed on
+   views one element off alignment, all three (its float4 branch after a
+   head) and x alone (one element at a time), bitwise and timed;
+   a source with a syntax error must raise MXNetError carrying nvcc's
+   log.
 
 Prints the card's name and power limit, whether ml_dtypes imports,
 per-geometry numbers, serving qps and latency, the ResNet-50 training
@@ -433,13 +441,25 @@ SSD_LOC_TOL = 1e-5
 SSD_DET_TOL = 1e-6
 SSD_LR = 0.005
 SSD_TIMING = dict(num_classes=20, batch_size=32, num_batches=10)
-# the NMS kernel's bound: its kept rows are a chain of dependent steps, one
-# block-wide barrier each, taken at NMS_BARRIER_CYCLES cycles of the SM
-# clock (an assumed barrier latency, not measured here) at the H100 SXM's
-# 1,980 MHz boost clock (data sheet); NMS_IOU_OPS operations a pair
-NMS_BARRIER_CYCLES = 24
+# the NMS kernels' bound: the kept rows are a chain of dependent steps, one
+# a kept row, taken at NMS_STEP_CYCLES cycles of the SM clock each at the
+# H100 SXM's 1,980 MHz boost clock (data sheet); NMS_IOU_OPS operations a
+# pair.  A step is the scan's bit test and conditional OR of the removed
+# bits, three dependent instructions in its SASS (LOP3 to a predicate, SEL,
+# LOP3); NMS_STEP_CYCLES is what that chain alone takes on the card, each
+# row's word in a register (bench/nms_variants.py's walk, mode "step",
+# clock64 over 262,144 rows: H100 80GB HBM3, 700.00 W, the SM at 1.99 GHz)
+NMS_STEP_CYCLES = 13.219451904296875
 NMS_SM_HZ = 1.98e9
 NMS_IOU_OPS = 20
+# the NMS kernels at SSD300's anchor count on random boxes (host_emu's
+# "random" rows: 20 classes, the rows past a random count invalid), held
+# to the plain loop on the card: (images, anchors, classes, threshold)
+NMS_LARGE = (4, 8732, 20, 0.45)
+# rounds of the NMS kernels' event timing, and the spin of the card (s)
+# that the rounds are queued behind
+NMS_TIMING_ROUNDS = 50
+QUEUE_SPIN_S = 0.05
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
 # float32 and bfloat16
 FLASH_CHECKS = [
@@ -493,6 +513,69 @@ def time_ms(torch, fn, iters=ITERS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, steps, rounds):
+    """Device ms of each of ``steps`` (callables that enqueue work on the
+    current stream): CUDA events between the steps of ``rounds`` rounds,
+    all queued behind a QUEUE_SPIN_S spin of the card, so that the device
+    runs them back to back whatever the host's pace; the mean over the
+    rounds, a list in the order of ``steps``."""
+    for fn in steps:
+        fn()
+    torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True)
+               for _ in range(len(steps) + 1)] for _ in range(rounds)]
+    torch.cuda._sleep(int(QUEUE_SPIN_S * NMS_SM_HZ))
+    for row in events:
+        row[0].record()
+        for fn, ev in zip(steps, row[1:]):
+            fn()
+            ev.record()
+    torch.cuda.synchronize()
+    return [sum(row[k].elapsed_time(row[k + 1]) for row in events) / rounds
+            for k in range(len(steps))]
+
+
+def nms_kernel_ms(torch, contrib, boxes, ids, threshold,
+                  rounds=NMS_TIMING_ROUNDS, lib=None):
+    """(mask ms, scan ms, both ms) of the NMS kernels on ``boxes`` and
+    ``ids``: raw launches of ``contrib.nms_launch`` (every band of
+    ``nms_plan``) through ``queued_ms``, the ids restored from ``ids``
+    before each round (the copy not counted); once with an event recorded
+    after each launch (by the launch check), which times the kernels one by
+    one, then all of them between one pair of events (each event pair adds
+    a few microseconds of its own); ``lib`` another library of the same
+    launchers (default: the committed one)."""
+    check = contrib._refused if lib else contrib._kernel.check
+    lib = lib or contrib._kernel.get()
+    out = ids.clone()
+    stream = torch.cuda.current_stream().cuda_stream
+    marks = []
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    def marked(err, what):
+        check(err, what)
+        mark()
+
+    def apart():
+        mark()
+        contrib.nms_launch(lib, boxes, out, threshold, stream=stream,
+                           check=marked)
+
+    def both():
+        contrib.nms_launch(lib, boxes, out, threshold, stream=stream,
+                           check=check)
+    ms = queued_ms(torch, [lambda: out.copy_(ids), apart,
+                           lambda: out.copy_(ids), both], rounds)
+    per = len(marks) // (rounds + 1)      # the warm-up's marks come first
+    gaps = [[marks[k + q].elapsed_time(marks[k + q + 1])
+             for q in range(per - 1)] for k in range(per, len(marks), per)]
+    return (sum(sum(g[0::2]) for g in gaps) / rounds,
+            sum(sum(g[1::2]) for g in gaps) / rounds, ms[3])
 
 
 def resnet50_geometries(mt, batch):
@@ -2825,16 +2908,36 @@ def rtc_phase(torch, mt, weights):
         ms = time_ms(torch, lambda: r.push(ins, outs, **launch))
         print("rtc time kernel=%s ms=%r" % (name, ms))
     r, launch = kernels[0][1]
-    res = {"ms": time_ms(torch, lambda: r.push([x, y], [out], **launch)),
+    # the kernel and torch.add in turns: kernel, add, add, kernel
+    turns = [time_ms(torch, lambda: r.push([x, y], [out], **launch)),
+             time_ms(torch, lambda: torch.add(y.value, x.value, alpha=2.0)),
+             time_ms(torch, lambda: torch.add(y.value, x.value, alpha=2.0)),
+             time_ms(torch, lambda: r.push([x, y], [out], **launch))]
+    res = {"ms": (turns[0] + turns[3]) / 2,
            "plain_ms": time_ms(torch, lambda: rk.axpb_plain(x.value,
                                                             y.value)),
-           "library_ms": time_ms(torch, lambda: torch.add(
-               y.value, x.value, alpha=2.0)),
+           "library_ms": (turns[1] + turns[2]) / 2,
            "bound_ms": 12.0 * n / PEAK_BYTES * 1e3, "bound_by": "bytes",
            "max_abs_err": axpb_err, "launches": per_kernel["axpb"]}
-    print("rtc axpb n=%d kernel_ms=%r plain_ms=%r library_ms=%r bound_ms=%r "
-          "bound_by=bytes" % (n, res["ms"], res["plain_ms"],
-                              res["library_ms"], res["bound_ms"]))
+    print("rtc axpb n=%d launch=%s kernel_ms=%r plain_ms=%r library_ms=%r "
+          "bound_ms=%r bound_by=bytes (turns kernel, add, add, kernel: %r)"
+          % (n, launch, res["ms"], res["plain_ms"], res["library_ms"],
+             res["bound_ms"], turns))
+    # views one element off 16-byte alignment: x, y and out alike (the
+    # float4 branch after a head of three), and x alone (one element at a
+    # time)
+    r1, launch1 = rk.make_axpb(n - 1)
+    for offsets in ((1, 1, 1), (1, 0, 0)):
+        x1, y1, out1 = (card(t.value[k:k + n - 1])
+                        for t, k in zip((x, y, out), offsets))
+        r1.push([x1, y1], [out1], **launch1)
+        torch.cuda.synchronize()
+        if not torch.equal(out1.value, rk.axpb_plain(x1.value, y1.value)):
+            fail("rtc axpb on views at element offsets %s differs from "
+                 "x * 2 + y" % (offsets,))
+        print("rtc axpb unaligned n=%d element offsets (x, y, out)=%s "
+              "bitwise=True kernel_ms=%r" % (n - 1, offsets, time_ms(
+                  torch, lambda: r1.push([x1, y1], [out1], **launch1))))
 
     bad = rtc.Rtc("broken", ["x"], ["y"], "  y[0] = x[0] +;")
     try:
@@ -3197,6 +3300,21 @@ def ssd_anchors(torch, get_op, ssd, dev):
     return torch.cat(parts, 1)
 
 
+def ssd_head_outputs():
+    """(cls_pred, cls_prob, loc_pred) of the ssd phase's MultiBox checks,
+    float32 numpy from SEED: class scores for MultiBoxTarget, class
+    probabilities and box offsets for MultiBoxDetection."""
+    rng = np.random.default_rng(SEED)
+    cls_pred = rng.standard_normal(
+        (SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)).astype(np.float32)
+    logits = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS))
+    cls_prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)) \
+        .astype(np.float32)
+    loc_pred = (rng.standard_normal((SSD_BATCH, SSD_ANCHORS * 4))
+                * 0.5).astype(np.float32)
+    return cls_pred, cls_prob, loc_pred
+
+
 def ssd_ops_check(torch, mt, contrib, st, ssd):
     """(a) of the ssd phase: the MultiBox ops at the SSD's shapes on the
     card against the float64 CPU version, the NMS kernel against its plain
@@ -3210,16 +3328,9 @@ def ssd_ops_check(torch, mt, contrib, st, ssd):
             or not torch.equal(anchors.cpu(), want_anchors):
         fail("ssd: MultiBoxPrior on the card %s differs from the CPU's"
              % (tuple(anchors.shape),))
-    rng = np.random.default_rng(SEED)
     _, label = st.synthetic_detection_batch(np.random.RandomState(0),
                                             SSD_BATCH, SSD_CLASSES)
-    cls_pred = rng.standard_normal(
-        (SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)).astype(np.float32)
-    logits = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS))
-    cls_prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)) \
-        .astype(np.float32)
-    loc_pred = (rng.standard_normal((SSD_BATCH, SSD_ANCHORS * 4))
-                * 0.5).astype(np.float32)
+    cls_pred, cls_prob, loc_pred = ssd_head_outputs()
     tkw = dict(overlap_threshold=0.5, ignore_label=-1.0,
                negative_mining_ratio=3.0, minimum_negative_samples=0,
                negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2))
@@ -3248,12 +3359,13 @@ def ssd_ops_check(torch, mt, contrib, st, ssd):
         fail("ssd: MultiBoxTarget on the card differs from float64 on the "
              "CPU (%d, %d, %d entries)" % diff)
     cp, lp = on(cuda, np.float32, cls_prob, loc_pred)
+    per_call = 2 * contrib.nms_plan(SSD_BATCH, SSD_ANCHORS)[2]
     n0 = contrib.nms_launches
     out = detect(cp, lp, anchors)
     torch.cuda.synchronize()
-    if contrib.nms_launches != n0 + 1:
-        fail("ssd: MultiBoxDetection launched the NMS kernel %d times"
-             % (contrib.nms_launches - n0))
+    if contrib.nms_launches != n0 + per_call:
+        fail("ssd: MultiBoxDetection launched the NMS kernels %d times, "
+             "not %d" % (contrib.nms_launches - n0, per_call))
     cid, score, boxes = contrib.detection_rows(cp, lp, anchors)
     ids_ref = contrib.greedy_nms_ref(boxes, cid, 0.5)
     ref = torch.cat([ids_ref[..., None],
@@ -3288,7 +3400,20 @@ def ssd_ops_check(torch, mt, contrib, st, ssd):
         target(a, lab_d, pred_d, **tkw)
         detect(cp, lp, a)
     sync_free(torch, "ssd multibox ops", ops)
-    ms = time_ms(torch, lambda: contrib.greedy_nms(boxes, cid, 0.5))
+    mask_ms, scan_ms, ms = nms_kernel_ms(torch, contrib, boxes, cid, 0.5)
+    reps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        contrib.greedy_nms(boxes, cid, 0.5)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        detect(cp, lp, anchors)
+    torch.cuda.synchronize()
+    detect_ms = (time.perf_counter() - t0) / reps * 1e3
     plain_ms = time_ms(torch, lambda: contrib.greedy_nms_ref(boxes, cid,
                                                              0.5), iters=2)
     # the work this run's data needs: each kept row i compares the rows
@@ -3296,18 +3421,54 @@ def ssd_ops_check(torch, mt, contrib, st, ssd):
     rows = [np.nonzero(k)[0] for k in kept.numpy()]
     pairs = sum(int((SSD_ANCHORS - 1 - r).sum()) for r in rows)
     nbytes = SSD_BATCH * SSD_ANCHORS * (4 + 1 + 1) * 4
-    chain_ms = max(len(r) for r in rows) * NMS_BARRIER_CYCLES / NMS_SM_HZ \
+    chain_ms = max(len(r) for r in rows) * NMS_STEP_CYCLES / NMS_SM_HZ \
         * 1e3
     ops_ms = max(pairs * NMS_IOU_OPS / PEAK_OPS["float32"] * 1e3, chain_ms)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    print("ssd nms kernel_ms=%r plain_ms=%r bound_ms=%r (chain of %d "
-          "barriers %r ms, %d IoU pairs %r ms, %d bytes %r ms)"
-          % (ms, plain_ms, max(ops_ms, bytes_ms), max(len(r) for r in rows),
-             chain_ms, pairs, pairs * NMS_IOU_OPS / PEAK_OPS["float32"]
-             * 1e3, nbytes, bytes_ms))
+    print("ssd nms kernels_ms=%r (event-timed together; apart: mask %r, "
+          "scan %r; %d launches a call) wrapper_host_us_per_call=%r "
+          "detect_ms=%r "
+          "(MultiBoxDetection forward, host clock) plain_ms=%r bound_ms=%r "
+          "(a chain of %d dependent steps, one a kept row, %r ms; %d IoU "
+          "pairs %r ms; %d bytes %r ms)"
+          % (ms, mask_ms, scan_ms, per_call, host_us, detect_ms, plain_ms,
+             max(ops_ms, bytes_ms), max(len(r) for r in rows), chain_ms,
+             pairs, pairs * NMS_IOU_OPS / PEAK_OPS["float32"] * 1e3, nbytes,
+             bytes_ms))
+    nms_large_check(torch, contrib)
     return {"max_abs_err": kernel_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nms_large_check(torch, contrib):
+    """The NMS kernels at NMS_LARGE on random boxes: ids equal to the plain
+    loop's on the card; the kernels event-timed."""
+    from mxnet_tpu_torch.bench import host_emu
+    b, n, classes, thr = NMS_LARGE
+    boxes, ids = host_emu.nms_inputs(
+        (b, n, classes, "random", thr, False, torch.float32),
+        torch.Generator().manual_seed(SEED))
+    boxes, ids = boxes.cuda(), ids.cuda()
+    got = contrib.greedy_nms(boxes, ids, thr)
+    t0 = time.perf_counter()
+    want = contrib.greedy_nms_ref(boxes, ids, thr)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        fail("ssd: the NMS kernels' ids differ from greedy_nms_ref's at "
+             "B=%d A=%d (%d rows)" % (b, n, int((got != want).sum())))
+    mask_ms, scan_ms, ms = nms_kernel_ms(torch, contrib, boxes, ids, thr)
+    kept = (want >= 0).sum(1)
+    print("ssd nms_large B=%d A=%d classes=%d threshold=%r valid=%d kept=%d "
+          "(fullest image %d) ids_equal=True bands=%d kernels_ms=%r (apart: "
+          "mask %r, scan %r) plain_seconds=%r bound_ms=%r (a chain of %d "
+          "steps)"
+          % (b, n, classes, thr, int((ids >= 0).sum()), int(kept.sum()),
+             int(kept.max()), contrib.nms_plan(b, n)[2], ms,
+             mask_ms, scan_ms, plain_s,
+             int(kept.max()) * NMS_STEP_CYCLES / NMS_SM_HZ * 1e3,
+             int(kept.max())))
 
 
 def ssd_state(mt, net):
@@ -3403,11 +3564,19 @@ def ssd_phase(torch, mt, card):
             or rec["kept_detections"] < 1 or not np.isfinite(out).all():
         fail("ssd: detections %r with %d kept rows"
              % (out.shape, rec["kept_detections"]))
-    if launches != forwards or rec["nms_launches"] != rec["detect_forwards"]:
-        fail("ssd: %d NMS launches in %d detection forwards"
-             % (launches, forwards))
-    print("ssd nms launches=%d in %d detection forwards, 0 in the fits"
-          % (launches, forwards))
+    per_call = 2 * contrib.nms_plan(SSD_BATCH, SSD_ANCHORS)[2]
+    want = per_call * (1 + rec["detect_forwards"]) + 2 * contrib.nms_plan(
+        SSD_TIMING["batch_size"], SSD_ANCHORS)[2] \
+        * (1 + timing["detect_forwards"])
+    if launches != want \
+            or rec["nms_launches"] != per_call * rec["detect_forwards"]:
+        fail("ssd: %d NMS launches in %d detection forwards (%d expected)"
+             % (launches, forwards, want))
+    print("ssd nms launches=%d in %d detection forwards (%d a forward: the "
+          "mask and the scan), 0 in the fits; detect_ms=%r (batch %d) %r "
+          "(batch %d)" % (launches, forwards, per_call, rec["detect_ms"],
+                          SSD_BATCH, timing["detect_ms"],
+                          SSD_TIMING["batch_size"]))
     print("ssd img_per_s classes=%d batch=%d: %r (host %r ms a batch, "
           "busy %r, peak %r GB); classes=%d batch=%d: %r (host %r ms, busy "
           "%r, peak %r GB) (%s)"

@@ -3,9 +3,10 @@
 // compiler and runs on the CPU (host_emu.py).  A launch runs its blocks
 // one after another (x fastest, then y, then z) on one std::thread per
 // CUDA thread, and __syncthreads is a barrier.  A warp shuffle
-// (__shfl_xor_sync, full mask, blocks of whole warps) posts each lane's
-// value to a slot of its warp, waits at the warp's barrier, reads its
-// partner's slot and waits again before the slots are reused.
+// (__shfl_xor_sync, __shfl_sync; full mask, blocks of whole warps) posts
+// each lane's value to a slot of its warp, waits at the warp's barrier,
+// reads its partner's slot and waits again before the slots are reused;
+// __ballot_sync and __reduce_or_sync read all 32 slots the same way.
 // Atomics are std::atomic_ref operations and __threadfence a sequentially
 // consistent fence; as blocks run in order, the last of a tile's split-K
 // slices is always the block with the highest z.
@@ -54,6 +55,9 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 template <typename T> inline T atomicAdd(T* p, T v) {
   return std::atomic_ref<T>(*p).fetch_add(v);
+}
+template <typename T> inline T atomicOr(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_or(v);
 }
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
@@ -139,6 +143,38 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return r;
 }
 
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "shuffle of a wide type");
+  const unsigned t = threadIdx.x, base = t & ~31u;
+  std::barrier<>& bar = (*emu_warp_barriers)[t / 32];
+  std::memcpy(&emu_shfl_slots[t], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, &emu_shfl_slots[base + ((unsigned)src_lane & 31u)],
+              sizeof(T));
+  bar.arrive_and_wait();
+  return r;
+}
+// the OR of v over the 32 lanes of the calling thread's warp
+inline unsigned emu_warp_or(unsigned v) {
+  const unsigned t = threadIdx.x, base = t & ~31u;
+  std::barrier<>& bar = (*emu_warp_barriers)[t / 32];
+  emu_shfl_slots[t] = v;
+  bar.arrive_and_wait();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32; ++l) r |= (unsigned)emu_shfl_slots[base + l];
+  bar.arrive_and_wait();
+  return r;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return emu_warp_or(pred ? 1u << (threadIdx.x & 31u) : 0u);
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return emu_warp_or(v);
+}
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+
 // kernel<<<grid, threads, smem, stream>>>(args...) is rewritten into
 // emu_launch(kernel, grid, threads, smem, stream, args...)
 template <typename K, typename... A>
@@ -173,4 +209,14 @@ inline void emu_launch(K kernel, dim3 grid, unsigned threads, size_t smem,
           }
     });
   for (auto& th : pool) th.join();
+}
+// a launch with a dim3 block (an Rtc launcher's): one-dimensional blocks
+template <typename K, typename... A>
+inline void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem,
+                       cudaStream_t stream, A... args) {
+  if (block.y != 1 || block.z != 1) {
+    emu_error = cudaErrorInvalidValue;
+    return;
+  }
+  emu_launch(kernel, grid, block.x, smem, stream, args...);
 }

@@ -30,11 +30,13 @@ bit that of another source of the same kernels.  ``--kernel nc`` launches
 and off, both tiles, 16-byte and element-wise loads, float32 and
 bfloat16)
 and prints the plan it took and y's and the statistics' errors against
-``norm_conv_ref``.  ``--kernel nms`` launches ``csrc/multibox_nms.cu`` at
-the cases of ``NMS_CASES`` (several images, a row count that is not a
-multiple of the block, every box suppressed, ``force_suppress``, IoUs
-exactly at the threshold, float32 and float64) and prints whether its ids
-equal ``greedy_nms_ref``'s.
+``norm_conv_ref``.  ``--kernel nms`` launches the two kernels of
+``csrc/multibox_nms.cu`` at the cases of ``NMS_CASES`` (several images, row
+counts of 1, 65 and 300 that are not a multiple of the 64-row word, the
+SSD's 1,344 rows, 2,200 rows with more words than the scan stages,
+rows in several bands, every box suppressed, ``force_suppress``, IoUs
+exactly at the threshold, a workspace filled with all-ones bits, float32
+and float64) and prints whether their ids equal ``greedy_nms_ref``'s.
 """
 import argparse
 import ctypes
@@ -58,12 +60,12 @@ from mxnet_tpu_torch.ops import norm_conv as nc  # noqa: E402
 from mxnet_tpu_torch.ops.kernel_build import c_argtypes  # noqa: E402
 
 __all__ = ["translate", "host_library", "fwd_on_host", "bwd_on_host",
-           "nc_on_host", "nms_on_host"]
+           "nc_on_host", "nms_library", "nms_on_host"]
 
 
 def translate(text):
     """The CUDA source text as host C++ for ``host_emu.h``."""
-    text = re.sub(r"(\w+<[^<>]*(?:<[^<>]*>[^<>]*)*>)<<<([^>]*)>>>\(",
+    text = re.sub(r"(\w+(?:<[^<>]*(?:<[^<>]*>[^<>]*)*>)?)<<<([^>]*)>>>\(",
                   r"emu_launch(\1, \2, ", text)
     text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                   r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", text)
@@ -168,40 +170,120 @@ def nc_on_host(lib, x, w, scale, shift, kernel, stride, pad, relu=True,
     return y, ysum, ysq, p
 
 
-def nms_on_host(lib, boxes, ids, nms_threshold, force_suppress=False):
-    """The ids after the NMS kernel of ``lib`` on CPU tensors, launched as
-    ``ops/contrib.greedy_nms`` launches it on the card."""
+# the scan cut down by nms_small_source: a block of at most
+# SMALL_SCAN_THREADS threads (two word slots), and shared memory for
+# SMALL_SCAN_STAGE words a staged row beside a band of SMALL_SCAN_BAND
+# removed words
+SMALL_SCAN_THREADS = 64
+SMALL_SCAN_STAGE = 4
+SMALL_SCAN_BAND = 16
+
+
+def nms_small_source():
+    """The text of ``csrc/multibox_nms.cu`` with its scan cut down
+    (SMALL_SCAN_*) by substituting two constants, so that small cases reach
+    the paths the card takes only at large A: a thread folding several
+    words, and a fold reading words past the stage from global memory."""
+    cu = os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "multibox_nms.cu")
+    with open(cu) as f:
+        text = f.read()
+    smem = 8 * (2 + (SMALL_SCAN_BAND + 1) // 2 * 2
+                + 3 * 64 * (1 + SMALL_SCAN_STAGE))
+    for old, new in (("NMS_SMEM = 232448;", "NMS_SMEM = %d;" % smem),
+                     ("NMS_SCAN_THREADS = 512;",
+                      "NMS_SCAN_THREADS = %d;" % SMALL_SCAN_THREADS)):
+        if old not in text:
+            raise MXNetError("host_emu: %r not found in %s" % (old, cu))
+        text = text.replace(old, new)
+    return text
+
+
+def nms_library(out_dir, small_scan=False):
+    """``csrc/multibox_nms.cu`` compiled for the host, with its scan cut
+    down (``nms_small_source``) when ``small_scan``."""
+    cu = os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "multibox_nms.cu")
+    if small_scan:
+        os.makedirs(out_dir, exist_ok=True)
+        cu = os.path.join(out_dir, "multibox_nms_small.cu")
+        with open(cu, "w") as f:
+            f.write(nms_small_source())
+    return host_library(cu, out_dir)
+
+
+def nms_band_bytes(b, n, band_rows):
+    """An NMS_WORKSPACE_BYTES under which ``contrib.nms_plan`` bands ``b``
+    images of ``n`` rows ``band_rows`` rows at a time."""
+    return 8 * b * -(-n // 64) * band_rows
+
+
+def nms_on_host(lib, boxes, ids, nms_threshold, force_suppress=False,
+                band_rows=0, fill=None):
+    """The ids after the NMS kernels of ``lib`` on CPU tensors, launched as
+    ``ops/contrib.greedy_nms`` launches them on the card (``band_rows`` > 0:
+    with ``contrib.NMS_WORKSPACE_BYTES`` set so that the rows are banded
+    that many at a time; ``fill``: an int64 the workspace is filled with
+    first, else it is left as ``torch.empty`` makes it)."""
     out = ids.contiguous().clone()
     b, n = ids.shape
-    err = lib.multibox_nms_launch(
-        boxes.contiguous().data_ptr(), out.data_ptr(), b, n,
-        float(nms_threshold), int(force_suppress),
-        int(boxes.dtype == torch.float64), None)
-    if err:
-        raise MXNetError("host_emu: launch refused (%d)" % err)
+    saved = contrib.NMS_WORKSPACE_BYTES
+    if band_rows:
+        contrib.NMS_WORKSPACE_BYTES = nms_band_bytes(b, n, band_rows)
+    try:
+        ws = None
+        if fill is not None:
+            words, rows, _ = contrib.nms_plan(b, n)
+            ws = torch.full((b * (rows + 1) * words,), fill,
+                            dtype=torch.int64)
+        contrib.nms_launch(lib, boxes.contiguous(), out, nms_threshold,
+                           force_suppress, None, ws)
+    finally:
+        contrib.NMS_WORKSPACE_BYTES = saved
     return out
 
 
-# (images, rows, classes, kind, nms_threshold, force_suppress, dtype): 300
-# rows span two rounds of the 256-thread block; "same" boxes are one box
-# repeated, so every row after the first of a class is suppressed; "tie"
-# boxes are unit-grid squares whose IoUs with each other are exactly 1/3,
-# 1/7 or 0, held against thresholds at those values
-NMS_CASES = [(3, 300, 3, "random", 0.5, False, torch.float32),
-             (2, 300, 3, "random", 0.45, True, torch.float64),
-             (2, 40, 1, "same", 0.5, False, torch.float32),
-             (2, 40, 4, "same", 0.5, True, torch.float32),
-             (2, 64, 2, "tie", 1.0 / 3.0, False, torch.float32),
-             (2, 64, 2, "tie", 1.0 / 7.0, True, torch.float64),
-             (1, 5, 2, "random", 0.5, False, torch.float32)]
+# (images, rows, classes, kind, nms_threshold, force_suppress, dtype,
+# launch options for nms_on_host): "dense" rows are random boxes, every
+# one valid; "same" boxes are one box repeated, so every row after the
+# first of a class is suppressed; "tie" boxes are unit-grid squares whose
+# IoUs with each other are exactly 1/3, 1/7 or 0, held against thresholds
+# at those values.  Rows of 1, 5, 40, 65 and 300
+# end inside a 64-row word; 1,344 are the SSD's 21 words; 2,200 rows are 35
+# words, more than the 2 word slots of the small scan (nms_library's
+# small_scan) and more than the 4 words a row it stages, so its threads
+# fold several words each, some read from global memory.  fill=-1 fills
+# the workspace with all-ones bits, so that a word that the scan reads but
+# no kernel wrote shows as a wrong suppression; band_rows splits the rows
+# into bands whose state carries over.
+NMS_CASES = [(3, 300, 3, "random", 0.5, False, torch.float32, {}),
+             (2, 300, 3, "random", 0.45, True, torch.float64, {}),
+             (2, 40, 1, "same", 0.5, False, torch.float32, {}),
+             (2, 40, 4, "same", 0.5, True, torch.float32, {}),
+             (2, 64, 2, "tie", 1.0 / 3.0, False, torch.float32, {}),
+             (2, 64, 2, "tie", 1.0 / 7.0, True, torch.float64, {}),
+             (1, 5, 2, "random", 0.5, False, torch.float32, {}),
+             (1, 1, 2, "random", 0.5, False, torch.float32, {"fill": -1}),
+             (2, 65, 3, "random", 0.5, False, torch.float64, {"fill": -1}),
+             (2, 300, 3, "random", 0.5, False, torch.float32,
+              {"fill": -1, "band_rows": 128}),
+             (2, 1344, 3, "random", 0.5, False, torch.float32, {}),
+             (1, 2200, 2, "dense", 0.45, True, torch.float64,
+              {"fill": -1, "band_rows": 1024, "small_scan": True})]
+
+
+def nms_case_id(case):
+    """A test id for one NMS_CASES case."""
+    return "%dx%d-c%d-%s-t%.3f-f%d-%s" % (
+        case[0], case[1], case[2], case[3], case[4], case[5],
+        str(case[6]).split(".")[1]) + "".join(
+            "-%s%d" % (k, v) for k, v in sorted(case[7].items()))
 
 
 def nms_inputs(case, gen):
     """(boxes, ids) on the CPU for one NMS_CASES case, the rows as
     MultiBoxDetection hands them over: score-sorted, with the rows past a
-    random kept count at id -1."""
-    b, n, classes, kind, _, _, dtype = case
-    if kind == "random":
+    random kept count at id -1 (none for "dense")."""
+    b, n, classes, kind, _, _, dtype = case[:7]
+    if kind in ("random", "dense"):
         xy = torch.rand(b, n, 2, generator=gen, dtype=torch.float64) * 0.7
         wh = torch.rand(b, n, 2, generator=gen, dtype=torch.float64) * 0.3 \
             + 0.05
@@ -213,8 +295,9 @@ def nms_inputs(case, gen):
         xy = torch.randint(0, 8, (b, n, 2), generator=gen).double() * 0.25
         boxes = torch.cat([xy, xy + 1.0], -1)
     ids = torch.randint(0, classes, (b, n), generator=gen).double()
-    kept = torch.randint(n // 2, n + 1, (b, 1), generator=gen)
-    ids = torch.where(torch.arange(n) < kept, ids, -1.0)
+    if kind != "dense":
+        kept = torch.randint(n // 2, n + 1, (b, 1), generator=gen)
+        ids = torch.where(torch.arange(n) < kept, ids, -1.0)
     return boxes.to(dtype).contiguous(), ids.to(dtype)
 
 
@@ -334,16 +417,19 @@ def main():
     out = os.path.join(ROOT, "build", "host_emu")
     csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
     if args.kernel in ("nms", "all"):
-        lib = host_library(os.path.join(csrc, "multibox_nms.cu"), out)
+        libs = {}
         for i, case in enumerate(NMS_CASES):
+            opts = dict(case[7])
+            small = opts.pop("small_scan", False)
+            if small not in libs:
+                libs[small] = nms_library(out, small)
             boxes, ids = nms_inputs(case, torch.Generator().manual_seed(i))
-            got = nms_on_host(lib, boxes, ids, case[4], case[5])
+            got = nms_on_host(libs[small], boxes, ids, case[4], case[5],
+                              **opts)
             want = contrib.greedy_nms_ref(boxes, ids, case[4], case[5])
-            print("host_emu nms case=%d images=%d rows=%d %s threshold=%r "
-                  "force_suppress=%d %s kept=%d ids_equal=%s" % (
-                      i, case[0], case[1], case[3], case[4], case[5],
-                      str(case[6]).split(".")[1], int((got >= 0).sum()),
-                      torch.equal(got, want)), flush=True)
+            print("host_emu nms case=%s kept=%d ids_equal=%s" % (
+                nms_case_id(case), int((got >= 0).sum()),
+                torch.equal(got, want)), flush=True)
     if args.kernel in ("nc", "all"):
         lib = host_library(os.path.join(csrc, "norm_conv.cu"), out)
         for i, case in enumerate(NC_CASES):

@@ -20,7 +20,8 @@ over the gaps between their batch ends) and over the fit's wall time with
 its set-up, the host ms a batch (median gap), ``LocL1`` at each epoch's
 end, whether ``Module.fit`` took the fused ``TrainStep`` path, the
 detection forward's ms, the kept detections, ``contrib.nms_launches`` of
-the timed detection forwards, and on the card peak memory (the fit and the
+the timed detection forwards (two a forward at these shapes: the NMS mask
+kernel and the scan), and on the card peak memory (the fit and the
 detections), the device-busy share of the batch loop (one more epoch,
 profiled after the detections) and the card's name and power limit.
 """

@@ -9,10 +9,11 @@ with -1 / -inf instead of compacted, and the per-image loops run under
 stock PyTorch ops that never read a value back to the host (no ``.item()``,
 no data-dependent shape), so that a training step stays free of host syncs.
 The one loop that does not batch is ``MultiBoxDetection``'s greedy NMS, a
-sequential walk over the score-sorted boxes: on the card it is one launch
-of the hand-written kernel ``csrc/multibox_nms.cu`` (``greedy_nms``,
-counted in ``nms_launches``); on the host its plain version
-``greedy_nms_ref``, a loop that mirrors ``_greedy_nms``.
+sequential walk over the score-sorted boxes: on the card it is the two
+hand-written kernels of ``csrc/multibox_nms.cu``, a suppression mask over
+the whole card and a scan over it, one launch each a band of rows
+(``greedy_nms``, counted in ``nms_launches``); on the host its plain
+version ``greedy_nms_ref``, a loop that mirrors ``_greedy_nms``.
 
 Not ported here: ``Proposal`` and ``CTCLoss`` (the rest of the operator
 surface).
@@ -30,17 +31,24 @@ from .kernel_build import CudaLibrary
 from .registry import register, parse_bool, parse_float, parse_int
 
 __all__ = ["greedy_nms", "greedy_nms_ref", "detection_rows", "build",
-           "nms_launches"]
+           "nms_plan", "nms_launch", "nms_launches"]
 
-# launches of the NMS kernel since import (or since a caller reset it to 0)
+# launches of the NMS kernels since import (or since a caller reset it to 0)
 nms_launches = 0
+# rows are banded so that the NMS kernels' mask stays within this size, and
+# a band holds at most NMS_MAX_BAND_ROWS (the scan keeps a band's removed
+# words, one a 64 rows, in shared memory)
+NMS_WORKSPACE_BYTES = 1 << 28
+NMS_MAX_BAND_ROWS = 64 * 4096
 
 
 def _bind(lib):
-    lib.multibox_nms_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.multibox_nms_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.multibox_nms_mask_launch.argtypes = [p, p, p, i, i, i, i,
+                                             ctypes.c_double, i, i, p]
+    lib.multibox_nms_mask_launch.restype = i
+    lib.multibox_nms_scan_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.multibox_nms_scan_launch.restype = i
 
 
 # --fmad=false: the IoU is rounded step by step as _iou_matrix's (see the
@@ -291,7 +299,7 @@ def _mbdet_infer(attrs, in_shapes):
 
 
 def greedy_nms_ref(boxes, ids, nms_threshold, force_suppress=False):
-    """The plain version of the NMS kernel, on any device: boxes (B, A, 4)
+    """The plain version of the NMS kernels, on any device: boxes (B, A, 4)
     and ids (B, A), each image's rows sorted by descending score; returns
     the ids with every suppressed row at -1.  A loop over the rows that
     mirrors the JAX package's ``_greedy_nms``, batched over the images."""
@@ -307,9 +315,59 @@ def greedy_nms_ref(boxes, ids, nms_threshold, force_suppress=False):
     return ids
 
 
+def nms_plan(b, n):
+    """(words a mask row, rows a band, bands) of the NMS kernels over ``b``
+    images of ``n`` rows: a band's mask is b x rows x words 64-bit words,
+    the rows the largest multiple of 64 that keeps it within
+    NMS_WORKSPACE_BYTES, at most NMS_MAX_BAND_ROWS."""
+    words = -(-n // 64)
+    rows = NMS_WORKSPACE_BYTES // (8 * b * words) // 64 * 64
+    rows = min(max(rows, 64), 64 * words, NMS_MAX_BAND_ROWS)
+    return words, rows, -(-64 * words // rows)
+
+
+def _refused(err, what):
+    if err:
+        raise MXNetError("%s kernel launch refused (error %d)" % (what, err))
+
+
+def nms_launch(lib, boxes, ids, nms_threshold, force_suppress=False,
+               stream=None, workspace=None, check=None):
+    """Launch the NMS kernels of ``lib`` on contiguous ``boxes`` (B, A, 4)
+    and ``ids`` (B, A) of one float dtype, updating ``ids`` in place: a band
+    of rows at a time (``nms_plan``), the mask kernel then the scan.
+    ``workspace``: int64, at least B x (rows + 1) x words elements (the
+    band's mask, then the removed words), else made with ``torch.empty`` on
+    the ids' device.  ``check(err, what)`` is called after each launch and
+    raises on a refused one (default: an MXNetError with the code).
+    Returns the number of launches."""
+    check = check or _refused
+    b, n = ids.shape
+    words, rows, bands = nms_plan(b, n)
+    need = b * (rows + 1) * words
+    if workspace is None:
+        workspace = torch.empty(need, dtype=torch.int64, device=ids.device)
+    elif workspace.dtype != torch.int64 or workspace.numel() < need \
+            or not workspace.is_contiguous():
+        raise MXNetError("multibox_nms: the workspace must be contiguous "
+                         "int64 of at least %d elements" % need)
+    mask = workspace.data_ptr()
+    removed = mask + 8 * b * rows * words
+    f64 = int(boxes.dtype == torch.float64)
+    for row0 in range(0, 64 * words, rows):
+        check(lib.multibox_nms_mask_launch(
+            boxes.data_ptr(), ids.data_ptr(), mask, b, n, row0, rows,
+            float(nms_threshold), int(bool(force_suppress)), f64, stream),
+            "multibox_nms mask")
+        check(lib.multibox_nms_scan_launch(
+            ids.data_ptr(), mask, removed, b, n, row0, rows, f64, stream),
+            "multibox_nms scan")
+    return 2 * bands
+
+
 def greedy_nms(boxes, ids, nms_threshold, force_suppress=False):
     """Greedy NMS of score-sorted rows (see ``greedy_nms_ref``).  A CPU
-    tensor goes to the plain version, a CUDA tensor to the kernel (float32
+    tensor goes to the plain version, a CUDA tensor to the kernels (float32
     or float64, boxes and ids of one dtype), or raises."""
     global nms_launches
     if not boxes.is_cuda:
@@ -328,13 +386,10 @@ def greedy_nms(boxes, ids, nms_threshold, force_suppress=False):
     bx = boxes.detach().contiguous()
     out = ids.detach().contiguous().clone()
     with torch.cuda.device(bx.device):
-        stream = torch.cuda.current_stream(bx.device).cuda_stream
-        err = lib.multibox_nms_launch(
-            bx.data_ptr(), out.data_ptr(), b, n, float(nms_threshold),
-            int(bool(force_suppress)), int(bx.dtype == torch.float64),
-            stream)
-    _kernel.check(err, "multibox_nms")
-    nms_launches += 1
+        nms_launches += nms_launch(
+            lib, bx, out, nms_threshold, force_suppress,
+            torch.cuda.current_stream(bx.device).cuda_stream,
+            check=_kernel.check)
     return out
 
 

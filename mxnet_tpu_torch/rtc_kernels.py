@@ -9,8 +9,15 @@ the ``Rtc`` for the given size (sizes and constants are formatted into the
 source, as the reference MXRtc required) and the ``push`` keywords of its
 grid and block.
 
-- ``axpb``: out = x * 2 + y, a grid-stride loop (the twin of the JAX
-  package's ``test_rtc_pallas_kernel``); bound by bytes, 12 per element.
+- ``axpb``: out = x * 2 + y (the twin of the JAX package's
+  ``test_rtc_pallas_kernel``); bound by bytes, 12 per element.  When x, y
+  and out sit at one offset within 16 bytes (tested in the body: aligned
+  arrays, or views one element off, as slices are), ``float4`` loads and
+  stores, AXPB_UNROLL of each input in flight a thread, one tile of
+  AXPB_UNROLL x BLOCK float4 a block, and the at most three elements
+  before and after one at a time; otherwise one element at a time, four in
+  flight a thread.  The grid is a multiple of the card's SM count that
+  covers the tiles.
 - ``exp5_shared``: y = expf(5 x) through a ``__shared__`` buffer, one
   block of 10 threads (the reference MXNet 0.9 Rtc test's body).
 - ``transpose_tiled``: x (H, W) -> x^T through a 32 x 33 shared tile,
@@ -34,11 +41,57 @@ __all__ = ["make_axpb", "axpb_plain", "make_exp5_shared", "exp5_plain",
 
 BLOCK = 256
 MAX_BLOCKS = 4096      # grid-stride loops: enough blocks to fill the card
+AXPB_UNROLL = 4        # float4 loads of each input a thread
 
 AXPB = r"""
   const long long n = %(n)dLL;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x)
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long nt = (long long)gridDim.x * blockDim.x;
+  // float4 over the elements [h, h + 4 n4) when x, y and out sit at one
+  // offset within 16 bytes; the rest one at a time
+  const unsigned long long ax = reinterpret_cast<unsigned long long>(x) & 15;
+  long long h = 0, n4 = 0;
+  if (ax == (reinterpret_cast<unsigned long long>(y) & 15)
+      && ax == (reinterpret_cast<unsigned long long>(out) & 15)) {
+    h = (long long)((16 - ax) & 15) / 4;
+    if (h > n) h = n;
+    n4 = (n - h) / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x + h);
+    const float4* y4 = reinterpret_cast<const float4*>(y + h);
+    float4* o4 = reinterpret_cast<float4*>(out + h);
+    const long long tile = %(unroll)d * (long long)blockDim.x;
+    for (long long k = blockIdx.x * tile + threadIdx.x; k < n4;
+         k += gridDim.x * tile) {
+      float4 a[%(unroll)d], b[%(unroll)d];
+#pragma unroll
+      for (int u = 0; u < %(unroll)d; ++u)
+        if (k + u * blockDim.x < n4) {
+          a[u] = x4[k + u * blockDim.x];
+          b[u] = y4[k + u * blockDim.x];
+        }
+#pragma unroll
+      for (int u = 0; u < %(unroll)d; ++u)
+        if (k + u * blockDim.x < n4)
+          o4[k + u * blockDim.x] = make_float4(
+              a[u].x * 2.0f + b[u].x, a[u].y * 2.0f + b[u].y,
+              a[u].z * 2.0f + b[u].z, a[u].w * 2.0f + b[u].w);
+    }
+  }
+  for (long long i = t; i < h; i += nt)
+    out[i] = x[i] * 2.0f + y[i];
+  long long i = h + 4 * n4 + t;
+  for (; i + 3 * nt < n; i += 4 * nt) {
+    float a[4], b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a[u] = x[i + u * nt];
+      b[u] = y[i + u * nt];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      out[i + u * nt] = a[u] * 2.0f + b[u];
+  }
+  for (; i < n; i += nt)
     out[i] = x[i] * 2.0f + y[i];
 """
 
@@ -91,10 +144,25 @@ def _stride_launch(n):
             "block_dim_x": BLOCK}
 
 
+def sm_count():
+    """The current card's SM count, or 1 without a card (where ``push``
+    raises)."""
+    if not torch.cuda.is_available():
+        return 1
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
 def make_axpb(n):
-    """out = x * 2 + y over ``n`` float32 elements."""
-    return (Rtc("axpb", ["x", "y"], ["out"], AXPB % {"n": n}),
-            _stride_launch(n))
+    """out = x * 2 + y over ``n`` float32 elements.  The grid is a multiple
+    of ``sm_count()``: one tile of AXPB_UNROLL x BLOCK float4 a block,
+    rounded up to whole SMs."""
+    sms = sm_count()
+    tiles = -(-(n // 4) // (AXPB_UNROLL * BLOCK))
+    grid = sms * min(max(1, -(-tiles // sms)), (2 ** 31 - 1) // sms)
+    src = AXPB % {"n": n, "unroll": AXPB_UNROLL}
+    return (Rtc("axpb", ["x", "y"], ["out"], src),
+            {"grid_dim_x": grid, "block_dim_x": BLOCK})
 
 
 def axpb_plain(x, y):

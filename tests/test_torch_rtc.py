@@ -140,6 +140,53 @@ def test_cache_key_follows_source_and_dtypes():
         rk.make_axpb(9)[0].source(f32 * 2, f32)
 
 
+@pytest.mark.parametrize("n,sms,grid", [
+    (163087441, 132, 132 * 302), (8, 132, 132),
+    (4096 * 132 * 3, 132, 132 * 3), (4096 * 132 * 3 + 5, 132, 132 * 4),
+    (1001, 4, 4), (16 * 256 * 9 - 1, 4, 12)])
+def test_axpb_launch_keywords(n, sms, grid, monkeypatch):
+    """The grid is a multiple of the card's SM count (``sm_count``, set
+    here): one tile of AXPB_UNROLL x BLOCK float4 a block (163,087,441
+    floats: 39,817 tiles), rounded up to whole SMs; the size is in the
+    source."""
+    monkeypatch.setattr(rk, "sm_count", lambda: sms)
+    r, launch = rk.make_axpb(n)
+    assert launch == {"grid_dim_x": grid, "block_dim_x": rk.BLOCK}
+    assert launch["grid_dim_x"] % sms == 0
+    assert "const long long n = %dLL;" % n in r.kernel
+
+
+@pytest.mark.parametrize("n,offsets", [
+    (1001, (0, 0, 0)), (1001, (1, 1, 1)), (4096 + 3, (0, 0, 0)),
+    (16 * 256 * 4 * 2 + 2, (0, 0, 0)), (16 * 256 * 4 * 2 + 2, (3, 3, 3)),
+    (3, (0, 0, 0)), (7, (1, 1, 1)), (2, (2, 2, 2)), (1001, (0, 1, 0)),
+    (16 * 256 * 4 * 3 + 1, (1, 0, 2))])
+def test_axpb_body_on_host_emulation(n, offsets, tmp_path, monkeypatch):
+    """The axpb source push compiles, run on the CPU through
+    bench/host_emu.h at a 4-SM grid: bitwise x * 2 + y and nothing written
+    outside out, with the float4 path and its head and n % 4 tail (x, y and
+    out at one offset within 16 bytes: aligned, or 1 to 3 elements off) or
+    one element at a time (x, y and out at different offsets)."""
+    from mxnet_tpu_torch.bench import host_emu
+    monkeypatch.setattr(rk, "sm_count", lambda: 4)
+    r, launch = rk.make_axpb(n)
+    cu = tmp_path / "axpb.cu"
+    cu.write_text(r.source([torch.float32] * 2, [torch.float32]))
+    lib = host_emu.host_library(str(cu), str(tmp_path))
+    gen = torch.Generator().manual_seed(n)
+    x, y = (torch.randn(n + 8, generator=gen)[k:k + n]
+            for k in offsets[:2])
+    base = torch.full((n + 8,), float("nan"))
+    out = base[offsets[2]:offsets[2] + n]
+    assert base.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 4 * offsets[0]
+    assert lib.axpb_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                           launch["grid_dim_x"], 1, 1, launch["block_dim_x"],
+                           1, 1, None) == 0
+    assert torch.equal(out, rk.axpb_plain(x, y))
+    assert torch.isnan(base[:offsets[2]]).all()
+    assert torch.isnan(base[offsets[2] + n:]).all()
+
+
 # ------------------------------------------ plain versions vs the JAX Rtc
 def _jax_rtc(name, ins, outs, body, arrays, out_shapes):
     """Run ``body`` through mxnet_tpu's Rtc in interpret mode; numpy
