@@ -202,6 +202,30 @@ fatal on failure:
    head) and x alone (one element at a time), bitwise and timed;
    a source with a syntax error must raise MXNetError carrying nvcc's
    log.
+11. parallel: the single-process parallel slice.  (a) BASELINE #5, the
+   model-parallel LSTM of ``bench/model_parallel_lstm.py`` at the widths
+   of MXNet's ``lstm_ptb.py`` (8 LSTM layers of 400, an embedding of 200,
+   seq_len 35, batch 20, 10,000 words; a synthetic corpus, no dropout) on
+   the reference's ngpu = 1 plan (every group on gpu(0)): no placed walk
+   and 0 cross-device copies, one step bitwise equal to the unplaced
+   bind's (or, on leaves where two unplaced steps differ, within the
+   rule below) and within RESNET_FLOOR_X times its float32 floor of the
+   float64 step on the CPU, no host sync in a step
+   (``set_sync_debug_mode``), tokens/s, host ms a batch and the
+   device-busy share beside the unplaced bind, twice in turns.  (b) The
+   ngpu = 2 plan over [gpu(0), cpu()] (embed and layers 0-3 on the card,
+   layers 4-7 and decode on the host): ``executor.cross_device_copies``
+   of a forward and of a step equal to the count the group boundaries
+   imply, one step within the floor rule of the float64 step and within
+   twice it of (a)'s, a few batches with the perplexity falling,
+   tokens/s.  (c) ``Module.fit`` over two contexts with a store: LeNet
+   over [gpu(0), cpu()] with kvstore "local" (accuracy rising over two
+   epochs) and ResNet-50 at full width over [gpu(0), gpu(0)] with
+   "device", batch 32, img/s beside the one-context general path
+   (MXNET_FUSED_FIT=0); one step of each (ResNet-50 at batch 8, two
+   slices of 4) within the floor rule of the float64 two-context step
+   over [cpu(0), cpu(1)] (gradients summed over the devices, updates,
+   each device's moving statistics).
 
 Prints the card's name and power limit, whether ml_dtypes imports,
 per-geometry numbers, serving qps and latency, the ResNet-50 training
@@ -210,7 +234,8 @@ the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
 profiles (float32 and AMP), the Module layer's checks and timings, the
 sequences slice's and the SSD slice's checks, times and rates, Updater and
-Rtc numbers, each phase's seconds,
+Rtc numbers, the parallel slice's checks, copies and rates, each phase's
+seconds,
 a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel),
@@ -460,6 +485,38 @@ NMS_LARGE = (4, 8732, 20, 0.45)
 # that the rounds are queued behind
 NMS_TIMING_ROUNDS = 50
 QUEUE_SPIN_S = 0.05
+# parallel: (a) BASELINE #5 at the widths of MXNet's
+# example/model-parallel-lstm/lstm_ptb.py through
+# bench/model_parallel_lstm.py (its loop: SGD at MP_LR, rescale 1 / (batch
+# x seq_len), its Zipf corpus), one step from SEED's state on the one-card
+# plan against the unplaced bind (bitwise) and, with (b) the two-device
+# plan over [gpu(0), cpu()], within RESNET_FLOOR_X times each leaf's
+# float32 floor (RESNET_FLOOR_SAMPLES float32 CPU steps from the state and
+# nudges of it) of the float64 step on the CPU; MP_BATCHES batches timed
+# (the first MP_WARMUP untimed), twice in turns with the unplaced bind;
+# MP_TWO_BATCHES batches of the two-device plan, the perplexity over
+# windows of MP_WINDOW batches.  (c) Module over two contexts with a store:
+# LeNet (BASELINE #1, MNIST's shape, synthetic digits) over [gpu(0),
+# cpu()] with "local", LENET_EPOCHS epochs of LENET_BATCHES batches of
+# LENET_BATCH; ResNet-50 (BASELINE #2) over [gpu(0), gpu(0)] with
+# "device", DP_RESNET_BATCHES batches of DP_RESNET_BATCH timed beside the
+# one-context general path; one step each (ResNet-50 at
+# DP_RESNET_CHECK_BATCH) within the floor rule of the float64 two-context
+# step over [cpu(0), cpu(1)].
+MP_WIDTHS = dict(num_layers=8, num_hidden=400, num_embed=200, seq_len=35,
+                 batch_size=20, vocab_size=10000)
+MP_LR = 0.2
+MP_BATCHES = 10
+MP_WARMUP = 2
+MP_TWO_BATCHES = 8
+MP_WINDOW = 4
+LENET_BATCH = 64
+LENET_BATCHES = 8
+LENET_EPOCHS = 2
+LENET_LR = 0.1
+DP_RESNET_BATCH = 32
+DP_RESNET_BATCHES = 6
+DP_RESNET_CHECK_BATCH = 8
 # (B, H, T, D), causal, scale: the shapes checked besides the LM's, each in
 # float32 and bfloat16
 FLASH_CHECKS = [
@@ -3589,6 +3646,384 @@ def ssd_phase(torch, mt, card):
     return dict(nms, launches=launches)
 
 
+# ------------------------------------------------- parallel (the slice)
+def mp_implied(net, plan, default, grads):
+    """(forward, backward) copies one training step of ``net`` bound with
+    ``plan`` implies, read off the graph's group boundaries: an op runs on
+    its group's device (``default``'s for a variable outside the plan, its
+    first input's for an op), a value consumed on another device than its
+    producer's is copied there once, and back in the backward when it
+    needs a gradient (it descends from an argument in ``grads``, not
+    through ``_state_init``, a fill that reads only its input's shape)."""
+    from mxnet_tpu_torch.symbol import _topo
+    dev, grad = {}, {}
+    fwd, bwd = set(), set()
+    for n in _topo([o for o, _ in net._outputs]):
+        grp = n.attr.get("ctx_group") or n.attr.get("__ctx_group__")
+        own = plan[grp].torch_device() if grp in plan else None
+        if n.is_var:
+            dev[id(n)] = own or default.torch_device()
+            grad[id(n)] = n.name in grads
+            continue
+        dev[id(n)] = own or dev[id(n.inputs[0][0])]
+        grad[id(n)] = n.op.name != "_state_init" and any(
+            grad[id(c)] for c, _ in n.inputs)
+        for c, i in n.inputs:
+            if dev[id(c)] != dev[id(n)]:
+                fwd.add((id(c), i, dev[id(n)]))
+                if grad[id(c)]:
+                    bwd.add((id(c), i, dev[id(n)]))
+    return len(fwd), len(bwd)
+
+
+def mp_leaves(torch, tr):
+    """A Trainer's step as float64 CPU tensors: every parameter's gradient
+    and the softmax output."""
+    out = {n: torch.from_numpy(g.asnumpy()).double()
+           for n, g in tr.ex.grad_dict.items()
+           if n not in ("data", "softmax_label")}
+    out["softmax_output"] = torch.from_numpy(
+        tr.ex.outputs[0].asnumpy()).double()
+    return out
+
+
+def mp_step(torch, mt, mpl, net, ctx, plan, state, batch, dtype):
+    """(leaves, Trainer) of one step of the bench's loop from ``state``."""
+    w = MP_WIDTHS
+    tr = mpl.Trainer(mt, net, ctx, plan, state, w["batch_size"],
+                     w["seq_len"], MP_LR, dtype)
+    tr.load(*batch)
+    tr.step()
+    return mp_leaves(torch, tr), tr
+
+
+def mp_timed(torch, mt, mpl, net, ctx, plan, state, batches, on_card,
+             window=None):
+    """The bench's loop over ``batches`` from ``state``: (tokens/s over the
+    batches after MP_WARMUP, host ms a batch (median), copies a batch,
+    perplexity per window, device-busy share of a profiled step)."""
+    w = MP_WIDTHS
+    tr = mpl.Trainer(mt, net, ctx, plan, state, w["batch_size"],
+                     w["seq_len"], MP_LR)
+    ends, ppl, copies = mpl.train(mt, tr, batches, w["batch_size"],
+                                  w["seq_len"], w["vocab_size"], SEED,
+                                  window or batches)
+    gaps = np.diff(ends[MP_WARMUP:]) * 1e3
+    busy = mpl.busy_share(tr.step)[0] if on_card else None
+    return (w["batch_size"] * w["seq_len"] / (gaps.mean() * 1e-3),
+            float(np.median(gaps)), copies[-1], ppl, busy)
+
+
+def mp_phase(torch, mt, card, gpu, host):
+    """(a) and (b) of the parallel phase: BASELINE #5 on the one-card plan
+    and on the two-device plan, against the unplaced bind and float64."""
+    from mxnet_tpu_torch import executor as exm
+    from mxnet_tpu_torch.bench import model_parallel_lstm as mpl
+    w = MP_WIDTHS
+    net = mpl.model(mt, w["num_layers"], w["seq_len"], w["num_hidden"],
+                    w["num_embed"], w["vocab_size"])
+    state = mpl.init_state(mt, net, w["batch_size"], w["seq_len"], SEED)
+    nparam = sum(v.size for v in state.values())
+    batch = mpl.synthetic_batch(np.random.RandomState(SEED),
+                                w["batch_size"], w["seq_len"],
+                                w["vocab_size"])
+    t0 = time.perf_counter()
+    want = mp_step(torch, mt, mpl, net, mt.cpu(), None, state, batch,
+                   np.float64)[0]
+    floors = [mp_step(torch, mt, mpl, net, mt.cpu(), None,
+                      nudged_values(state, SEED + 100 + i) if i else state,
+                      batch, np.float32)[0]
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    print("parallel lstm widths=%s parameters=%d cpu_f64+%d cpu_f32 "
+          "steps seconds=%r" % (json.dumps(w), nparam, RESNET_FLOOR_SAMPLES,
+                                time.perf_counter() - t0))
+    # (a) the reference's ngpu = 1: every group on the card
+    plan1 = mpl.placement([gpu], w["num_layers"])
+    before = exm.cross_device_copies
+    one, tr1 = mp_step(torch, mt, mpl, net, gpu, plan1, state, batch,
+                       np.float32)
+    copies1 = exm.cross_device_copies - before
+    if tr1.ex._place is not None or copies1:
+        fail("parallel one-card plan: %d copies (placed walk %s)"
+             % (copies1, tr1.ex._place is not None))
+    plain = [mp_step(torch, mt, mpl, net, gpu, None, state, batch,
+                     np.float32)[0] for _ in range(2)]
+    differ = [n for n in one if not torch.equal(one[n], plain[0][n])]
+    nondet = [n for n in plain[0] if not torch.equal(plain[0][n],
+                                                      plain[1][n])]
+    if set(differ) - set(nondet):
+        fail("parallel one-card plan: %s differ from the unplaced bind's "
+             "step, and two unplaced steps agree there"
+             % sorted(set(differ) - set(nondet)))
+    print("parallel one_card step vs unplaced bind: %s (leaves that differ "
+          "%s; between two unplaced steps %s) copies=%d"
+          % ("bitwise" if not differ else "within the rule below",
+             differ, nondet, copies1))
+    floor_check(torch, "parallel one_card", one, want, floors)
+    on_card = gpu.device_type == "gpu"
+    if on_card:
+        tr1.load(*batch)
+        sync_free(torch, "parallel one_card step", tr1.step)
+    del tr1
+    rows = {}
+    for turn in range(2):
+        for name, plan in (("one_card", plan1), ("unplaced", None)):
+            rows.setdefault(name, []).append(mp_timed(
+                torch, mt, mpl, net, gpu, plan, state, MP_BATCHES,
+                on_card))
+    for name, runs in rows.items():
+        print("parallel lstm %s tokens_per_s=%r host_ms_per_batch=%r "
+              "copies_per_batch=%r device_busy_share=%r perplexity=%r "
+              "(%d batches after %d, two turns) [%s]"
+              % (name, [r[0] for r in runs], [r[1] for r in runs],
+                 [r[2] for r in runs], [r[4] for r in runs],
+                 [r[3] for r in runs], MP_BATCHES - MP_WARMUP, MP_WARMUP,
+                 card))
+        if any(r[2] for r in runs):
+            fail("parallel lstm %s: copies %r" % (name, runs))
+    # (b) ngpu = 2 over [gpu(0), cpu()]
+    plan2 = mpl.placement([gpu, host], w["num_layers"])
+    tr2 = mpl.Trainer(mt, net, gpu, plan2, state, w["batch_size"],
+                      w["seq_len"], MP_LR)
+    fwd, bwd = mp_implied(net, plan2, gpu, tr2.ex.grad_dict)
+    tr2.load(*batch)
+    before = exm.cross_device_copies
+    tr2.ex.forward(is_train=False)
+    c_fwd = exm.cross_device_copies - before
+    before = exm.cross_device_copies
+    tr2.step()
+    c_step = exm.cross_device_copies - before
+    print("parallel two_device plan=%s copies forward=%d step=%d implied "
+          "forward=%d backward=%d outputs on %s"
+          % (json.dumps({g: str(c) for g, c in sorted(plan2.items())}),
+             c_fwd, c_step, fwd, bwd, tr2.ex.outputs[0].context))
+    if on_card and ((c_fwd, c_step) != (fwd, fwd + bwd)
+                    or fwd < w["seq_len"]):
+        fail("parallel two_device: copies forward %d step %d, the group "
+             "boundaries imply %d and %d" % (c_fwd, c_step, fwd, fwd + bwd))
+    floor_check(torch, "parallel two_device", mp_leaves(torch, tr2), want,
+                floors, pair=one)
+    del tr2
+    t_ps, t_ms, t_copies, t_ppl, t_busy = mp_timed(
+        torch, mt, mpl, net, gpu, plan2, state, MP_TWO_BATCHES, on_card,
+        MP_WINDOW)
+    print("parallel lstm two_device tokens_per_s=%r host_ms_per_batch=%r "
+          "copies_per_batch=%d device_busy_share=%r perplexity per %d "
+          "batches=%r [%s]" % (t_ps, t_ms, t_copies, t_busy, MP_WINDOW,
+                               t_ppl, card))
+    if not t_ppl[-1] < t_ppl[0] or (on_card and t_copies != fwd + bwd):
+        fail("parallel two_device training: perplexity %r, copies %d"
+             % (t_ppl, t_copies))
+
+
+def synthetic_digits(n, seed):
+    """MNIST-shaped rows (1x28x28, 10 classes): a fixed random template a
+    class plus noise; float32 numpy (x, y)."""
+    rng = np.random.default_rng(seed)
+    templates = rng.uniform(0, 1, (10, 1, 28, 28))
+    y = rng.integers(0, 10, n)
+    x = templates[y] + rng.normal(0, 0.5, (n, 1, 28, 28))
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def dp_module(torch, mt, net, ctxs, kvstore, args, aux, shapes, dtype, lr):
+    """A Module over ``ctxs`` bound for ``shapes`` ({name: shape}), with
+    ``args``/``aux`` (numpy) and SGD(lr, momentum 0.9) on ``kvstore``; with
+    dtype float64 every bound array and the host dicts are widened before
+    the store takes its copies."""
+    mod = mt.Module(net, context=ctxs)
+    mod.bind([(n, s) for n, s in shapes.items() if n == "data"],
+             [(n, s) for n, s in shapes.items() if n != "data"])
+    mod.init_params(arg_params={n: mt.nd.array(v, ctx=mt.cpu())
+                                for n, v in args.items()},
+                    aux_params={n: mt.nd.array(v, ctx=mt.cpu())
+                                for n, v in aux.items()})
+    if dtype == np.float64:
+        for ex in mod._exec_group.execs:
+            for d in (ex.arg_dict, ex.grad_dict, ex.aux_dict):
+                for a in d.values():
+                    a._set_value(a.value.double())
+        for d in (mod._arg_params, mod._aux_params):
+            for a in d.values():
+                a._set_value(a.value.double())
+    mod.init_optimizer(kvstore=kvstore, optimizer_params={
+        "learning_rate": lr, "momentum": 0.9})
+    return mod
+
+
+def dp_step(torch, mt, net, ctxs, kvstore, state, dtype, lr):
+    """One forward_backward and update of a ``dp_module`` on ``state``'s
+    batch: {kind:name: float64 CPU tensor} of each parameter's gradient
+    summed over the devices, its update and each device's moving
+    statistics."""
+    args, aux, data = state
+    mod = dp_module(torch, mt, net, ctxs, kvstore, args, aux,
+                    {n: v.shape for n, v in data.items()}, dtype, lr)
+    batch = mt.io.DataBatch(
+        data=[mt.nd.array(data["data"], ctx=mt.cpu(), dtype=dtype)],
+        label=[mt.nd.array(data["softmax_label"], ctx=mt.cpu(),
+                           dtype=dtype)])
+    grp = mod._exec_group
+    before = [torch.from_numpy(p[0].asnumpy()).double()
+              for p in grp.param_arrays]
+    mod.forward_backward(batch)
+    out = {}
+    for n, gl in zip(grp.param_names, grp.grad_arrays):
+        out["grad:" + n] = sum(torch.from_numpy(g.asnumpy()).double()
+                               for g in gl)
+    mod.update()
+    for n, pl, b in zip(grp.param_names, grp.param_arrays, before):
+        out["update:" + n] = torch.from_numpy(pl[0].asnumpy()).double() - b
+    for k, ex in enumerate(grp.execs):
+        for n, a in ex.aux_dict.items():
+            out["aux%d:%s" % (k, n)] = torch.from_numpy(
+                a.asnumpy()).double()
+    return out
+
+
+def floor_summary(torch, tag, got, want, floors):
+    """``floor_check``'s rule over many leaves, printing the worst three
+    by multiple of their floor; returns the worst multiple."""
+    rows = resnet50_leaf_rows(torch, (got,), (want,),
+                              [(f,) for f in floors], kinds=(tag,))
+    rows.sort(key=lambda r: -max(r[4:6]))
+    for r in rows[:3]:
+        print("%s %s max_rel=%.3e norm_rel=%.3e floor=%.3e/%.3e "
+              "x_floor=%.3f/%.3f" % ((tag, r[7]) + r[:6]))
+    print("%s leaves=%d worst_x_floor=%.3f (tol %g x)"
+          % (tag, len(rows), max(rows[0][4:6]), RESNET_FLOOR_X))
+    if max(rows[0][4:6]) > RESNET_FLOOR_X:
+        fail("%s: %s at %r x its float32 floor" % (tag, rows[0][7],
+                                                   rows[0][4:6]))
+    return max(rows[0][4:6])
+
+
+def dp_check(torch, mt, tag, net, ctxs, cpu_ctxs, kvstore, state, lr):
+    """One two-context step on the card (``ctxs``) in float32 within the
+    floor rule of the float64 step over ``cpu_ctxs`` on the CPU."""
+    t0 = time.perf_counter()
+    want = dp_step(torch, mt, net, cpu_ctxs, kvstore, state, np.float64, lr)
+    args, aux, data = state
+    floors = [dp_step(torch, mt, net, cpu_ctxs, kvstore,
+                      (nudged_values(args, SEED + 200 + i),
+                       nudged_values(aux, SEED + 300 + i),
+                       nudged_values(data, SEED + 400 + i,
+                                     skip=("softmax_label",)))
+                      if i else state, np.float32, lr)
+              for i in range(RESNET_FLOOR_SAMPLES)]
+    seconds = time.perf_counter() - t0
+    got = dp_step(torch, mt, net, ctxs, kvstore, state, np.float32, lr)
+    print("%s contexts=%s kvstore=%s batch=%d references cpu_f64+%d "
+          "cpu_f32 seconds=%r" % (tag, ctxs, kvstore,
+                                  len(data["softmax_label"]),
+                                  RESNET_FLOOR_SAMPLES, seconds))
+    return floor_summary(torch, tag, got, want, floors)
+
+
+def dp_fit_rate(torch, mt, net, ctxs, kvstore, x, y, batch, lr, epochs=1,
+                env=None):
+    """img/s of ``Module.fit`` over (x, y) (the batch-end gaps after the
+    first two of each epoch), each epoch's training accuracy."""
+    gaps, accs, last = [], [], [None]
+    metric = mt.metric.Accuracy()
+
+    def batch_end(param):
+        now = time.perf_counter()
+        if param.nbatch >= 2:
+            gaps.append(now - last[0])
+        last[0] = now
+
+    def epoch_end(epoch, sym, arg, aux):
+        accs.append(metric.get()[1])
+
+    def fit():
+        it = mt.io.NDArrayIter(x, y, batch_size=batch)
+        mod = mt.Module(net, context=ctxs)
+        mt.random.seed(SEED)
+        mod.fit(it, num_epoch=epochs, kvstore=kvstore, eval_metric=metric,
+                optimizer_params={"learning_rate": lr, "momentum": 0.9},
+                initializer=mt.init.Xavier(magnitude=2.0),
+                batch_end_callback=batch_end, epoch_end_callback=epoch_end)
+        return mod
+    mod = module_env(env or {}, fit)
+    return batch / float(np.mean(gaps)), accs, mod
+
+
+def dp_phase(torch, mt, card, gpu, host):
+    """(c) of the parallel phase: Module.fit over two contexts with a
+    store, LeNet and ResNet-50."""
+    lenet = mt.models.lenet.get_symbol(num_classes=10)
+    x, y = synthetic_digits(LENET_BATCH * LENET_BATCHES, SEED)
+    two, one = [gpu, host], [gpu]
+    rate2, accs, mod = dp_fit_rate(torch, mt, lenet, two, "local", x, y,
+                                   LENET_BATCH, LENET_LR, LENET_EPOCHS)
+    if not mod._update_on_kvstore or mod._kvstore.type != "local" or \
+            [c.context for c in mod._exec_group.param_arrays[0]] != two:
+        fail("parallel lenet: the fit did not update on its local store "
+             "over %s" % two)
+    if not accs[-1] > accs[0]:
+        fail("parallel lenet: training accuracy %r did not rise" % accs)
+    rate1 = dp_fit_rate(torch, mt, lenet, one, "local", x, y, LENET_BATCH,
+                        LENET_LR, env={"MXNET_FUSED_FIT": "0"})[0]
+    print("parallel lenet fit contexts=%s kvstore=local img_per_s=%r "
+          "train_accuracy=%r; one context, general path img_per_s=%r "
+          "(batch %d) [%s]" % (two, rate2, accs, rate1, LENET_BATCH,
+                               card))
+    arg_shapes, _, aux_shapes = lenet.infer_shape(
+        data=(LENET_BATCH, 1, 28, 28))
+    rng = np.random.default_rng(SEED + 7)
+    args = {n: rng.uniform(-1, 1, s) * (3.0 / max(1, np.prod(s[1:]))) ** 0.5
+            for n, s in zip(lenet.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    xs, ys = synthetic_digits(LENET_BATCH, SEED + 8)
+    dp_check(torch, mt, "parallel lenet step", lenet, two,
+             [mt.cpu(0), mt.cpu(1)], "local",
+             (args, {}, {"data": xs.astype(np.float64),
+                         "softmax_label": ys.astype(np.float64)}), LENET_LR)
+    # ResNet-50 at full width over [gpu(0), gpu(0)] with "device"
+    net = mt.models.resnet.get_symbol(CLASSES, 50, "3,%d,%d"
+                                      % (IMAGE, IMAGE))
+    rng = np.random.default_rng(SEED + 9)
+    n_img = DP_RESNET_BATCH * DP_RESNET_BATCHES
+    xr = rng.uniform(-1, 1, (n_img, 3, IMAGE, IMAGE)).astype(np.float32)
+    yr = rng.integers(0, CLASSES, n_img).astype(np.float32)
+    same = [gpu, gpu]
+    rate_dp, _, mod = dp_fit_rate(torch, mt, net, same, "device", xr, yr,
+                                  DP_RESNET_BATCH, RESNET_LR)
+    execs = mod._exec_group.execs
+    if mod._kvstore is None or mod._kvstore.type != "device" or \
+            execs[0].arg_dict["fc1_weight"].value.data_ptr() == \
+            execs[1].arg_dict["fc1_weight"].value.data_ptr():
+        fail("parallel resnet50: two executors on %s did not train apart "
+             "through the device store" % same)
+    del mod
+    rate_one = dp_fit_rate(torch, mt, net, one, "device", xr, yr,
+                           DP_RESNET_BATCH, RESNET_LR,
+                           env={"MXNET_FUSED_FIT": "0"})[0]
+    print("parallel resnet50 fit contexts=%s kvstore=device img_per_s=%r; "
+          "one context, general path (MXNET_FUSED_FIT=0) img_per_s=%r "
+          "(batch %d, %d batches, the first 2 untimed) [%s]"
+          % (same, rate_dp, rate_one, DP_RESNET_BATCH, DP_RESNET_BATCHES,
+             card))
+    if gpu.device_type == "gpu":
+        torch.cuda.empty_cache()
+    args, _, aux, data = resnet50_state(mt, net, DP_RESNET_CHECK_BATCH)
+    dp_check(torch, mt, "parallel resnet50 step", net, same,
+             [mt.cpu(0), mt.cpu(1)], "device", (args, aux, data), RESNET_LR)
+
+
+def parallel_phase(torch, mt, card, gpu=None, host=None):
+    """The single-process parallel slice: (a) and (b) through ``mp_phase``,
+    (c) through ``dp_phase``, on ``gpu`` (gpu(0)) and ``host`` (cpu());
+    ``card`` names the card in the printed lines."""
+    gpu = gpu or mt.gpu(0)
+    host = host or mt.cpu()
+    mp_phase(torch, mt, card, gpu, host)
+    if gpu.device_type == "gpu":
+        torch.cuda.empty_cache()
+    dp_phase(torch, mt, card, gpu, host)
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -3754,6 +4189,10 @@ def main():
     phase_done("graph_device+imperative")
     rt = rtc_phase(torch, mt, weights)
     phase_done("rtc")
+    del weights
+    torch.cuda.empty_cache()
+    parallel_phase(torch, mt, card)
+    phase_done("parallel")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
 
     print(json.dumps({"kernels": [{

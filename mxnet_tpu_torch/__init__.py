@@ -15,8 +15,11 @@ float32 or under an ``amp.Policy``) and through ``Module.fit`` (with the
 data iterators, metrics, callbacks and checkpoints of ``io``, ``metric``,
 ``callback`` and ``model``), the sequences slice (the ``RNN`` op, cuDNN on
 the card; the sequence ops; the ``rnn`` cells and ``BucketSentenceIter``;
-``module.BucketingModule``), and the imperative entry point: ``mx.nd`` ops
-and views, the optimizers' ``update`` and ``Updater``, and ``rtc``.
+``module.BucketingModule``), the SSD slice, the imperative entry point:
+``mx.nd`` ops and views, the optimizers' ``update`` and ``Updater``, and
+``rtc``; and the single-process parallel slice: ``group2ctx`` model
+parallelism (``AttrScope(ctx_group=...)``, ``_CrossDeviceCopy``), the
+``local`` and ``device`` ``kvstore`` and ``Module`` over several contexts.
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
@@ -25,8 +28,10 @@ from . import ndarray as nd
 from . import ops
 from . import symbol
 from . import symbol as sym
-from .symbol import Variable
+from .symbol import Variable, Group
 from . import executor
+from .executor import Executor
+from .attribute import AttrScope
 from . import predictor
 from .predictor import Predictor
 from . import serving
@@ -44,6 +49,8 @@ from .train import TrainStep, EvalStep
 from . import io
 from . import metric
 from . import callback
+from . import kvstore
+from . import kvstore as kv
 from . import model
 from . import module
 from . import module as mod
@@ -51,7 +58,8 @@ from .module import Module
 from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
-           "ndarray", "sym", "symbol", "Variable", "executor", "Predictor",
+           "ndarray", "sym", "symbol", "Variable", "Group", "executor",
+           "Executor", "AttrScope", "kvstore", "kv", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
            "lr_scheduler", "initializer", "init", "optimizer", "rtc", "amp",
            "train", "TrainStep", "EvalStep", "io", "metric", "callback",

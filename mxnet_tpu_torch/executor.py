@@ -32,8 +32,23 @@ batch statistics and its updated moving statistics land in ``aux_dict``.
 gradient and aux arrays from inferred shapes; ``copy_params_from`` loads
 parameters into them and ``reshape`` rebinds to new input shapes, sharing
 every array whose shape is unchanged.
+
+Model parallelism (``group2ctx``, parity: the JAX package's ``_walk``): an
+op whose ``ctx_group`` the map names runs on that group's device, any other
+op on the device of its first input (one with no input on the bind
+context's).  The placement is resolved once at bind (``_Lowered.placement``);
+where it spans two torch devices the walk moves each input that sits on
+another device with one ``to_device`` a value and device, and autograd
+carries the backward across it.  ``cross_device_copies`` counts every copy
+that moves a tensor between two torch devices, in the walk, its backward,
+the head gradients and the write-back into bound arrays; ``cpu(0)`` and
+``cpu(1)`` are one torch device, so a plan over them copies nothing.  A
+peephole fires only where every node it fuses sits on one device.  A graph
+that resolves to one device walks as it does without ``group2ctx``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as _np
 import torch
@@ -49,6 +64,44 @@ from .ops.registry import get_op
 from .symbol import _topo
 
 __all__ = ["Executor"]
+
+# copies that moved a tensor between two torch devices (see to_device)
+cross_device_copies = 0
+
+
+class _DeviceCopy(torch.autograd.Function):
+    """``x.to(device)`` whose forward and backward copies are each counted
+    in ``cross_device_copies`` (parity: the reference's _CrossDeviceCopy
+    node and its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, device):
+        global cross_device_copies
+        ctx.src = x.device
+        cross_device_copies += 1
+        return x.to(device)
+
+    @staticmethod
+    def backward(ctx, g):
+        global cross_device_copies
+        cross_device_copies += 1
+        return g.to(ctx.src), None
+
+
+def to_device(v, device):
+    """``v`` on ``device``: ``v`` itself when it is there, else one counted
+    copy (through autograd when ``v`` needs a gradient)."""
+    global cross_device_copies
+    if v.device == device:
+        return v
+    if v.requires_grad and torch.is_grad_enabled():
+        return _DeviceCopy.apply(v, device)
+    cross_device_copies += 1
+    return v.to(device)
+
+
+def _group(node):
+    return node.attr.get("ctx_group") or node.attr.get("__ctx_group__")
 
 
 def _hwio(w):
@@ -151,6 +204,51 @@ class _Lowered(object):
                 self.fused_relu[id(n)] = act
         self._init_norm_conv(consumers, outs)
         self._init_stem(consumers, outs)
+
+    def placement(self, group2ctx, var_ctx, default_ctx):
+        """{node id: Context} of every node (parity: the JAX package's
+        ``want_dev``, resolved once at bind): an op whose ``ctx_group`` is
+        in ``group2ctx`` on that group's context, any other op on its first
+        input's, an op with no input on ``default_ctx``; a variable on its
+        bound array's context (``var_ctx``), else ``default_ctx``."""
+        ctx_of = {}
+        for node in self.order:
+            if node.is_var:
+                c = var_ctx.get(node.name, default_ctx)
+            else:
+                grp = _group(node)
+                if grp is not None and grp in group2ctx:
+                    c = group2ctx[grp]
+                elif node.inputs:
+                    c = ctx_of[id(node.inputs[0][0])]
+                else:
+                    c = default_ctx
+            ctx_of[id(node)] = c
+        return ctx_of
+
+    def unfusable(self, dev):
+        """The peepholes whose fused nodes would sit on two devices of
+        ``dev`` ({node id: torch.device}), as ("relu" | "nc" | "stem",
+        BatchNorm id): fusing them would move an op off its device."""
+        def spans(nodes):
+            return len({dev[id(n)] for n in nodes}) > 1
+        by_id = {id(n): n for n in self.order}
+        out = set()
+        for b_id, act in self.fused_relu.items():
+            if spans((by_id[b_id], act)):
+                out.add(("relu", b_id))
+        for b_id, info in self.nc_bn.items():
+            region = [info["bn"]] + info["convs"]
+            if info["act"] is not None:
+                region.append(info["act"])
+            if b_id in self.nc_stats_src:
+                region.append(self.nc_stats_src[b_id])
+            if spans(region):
+                out.add(("nc", b_id))
+        for b_id, info in self.stem_fuse.items():
+            if spans((by_id[b_id], info["conv"])):
+                out.add(("stem", b_id))
+        return frozenset(out)
 
     def _init_stem(self, consumers, outs):
         """Stem map (parity: the JAX package's ``stem_fuse``): a training
@@ -259,16 +357,17 @@ class _Lowered(object):
                 self.nc_stats_for.setdefault(id(src), []).append(b_id)
 
     def _nc_run_bn(self, node, values, nhwc, aux_updates, nc_ctx, is_train,
-                   skip):
+                   skip, take):
         """Resolve a fused BatchNorm to per-channel (scale, shift): in
         training from the batch statistics (the producer conv's epilogue
         sums when it emitted them, one reduce otherwise), updating the
         moving statistics into ``aux_updates``; else from the moving
         statistics.  The apply pass only materialises for consumers that
-        are not fused convolutions."""
+        are not fused convolutions.  ``take(key)`` reads a value on the
+        region's device."""
         info = self.nc_bn[id(node)]
         xk = (id(node.inputs[0][0]), node.inputs[0][1])
-        x = values[xk]
+        x = take(xk)
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
             return False
         if x.dtype not in PEEPHOLE_DTYPES:
@@ -278,7 +377,7 @@ class _Lowered(object):
         attrs = info["attrs"]
         eps = float(attrs.get("eps", 1e-3))
         fix_gamma = attrs.get("fix_gamma", True)
-        gamma, beta, mm, mv = (values[(id(c), i)]
+        gamma, beta, mm, mv = (take((id(c), i))
                                for c, i in node.inputs[1:5])
         if is_train and not attrs.get("use_global_stats"):
             acc = torch.promote_types(x.dtype, torch.float32)
@@ -300,7 +399,7 @@ class _Lowered(object):
                 child = node.inputs[pos][0]
                 if child.is_var:
                     aux_updates[child.name] = _bn_moving(
-                        values[(id(child), 0)], stat, momentum)
+                        take((id(child), 0)), stat, momentum)
             inv = torch.rsqrt(var + eps)
             g = torch.ones_like(gamma) if fix_gamma else gamma
             scale = g.to(acc) * inv
@@ -319,16 +418,16 @@ class _Lowered(object):
             skip.add(id(info["act"]))
         return True
 
-    def _nc_run_conv(self, node, values, nhwc, nc_ctx, is_train):
+    def _nc_run_conv(self, node, values, nhwc, nc_ctx, is_train, take):
         """Run a Convolution as the fused NormConv: the BatchNorm(+relu)
         resolved by _nc_run_bn is its prologue.  In training it runs
         through the ``NormConv`` Function and emits the epilogue statistics
         when a BatchNorm below reads them (pseudo-slots 1 and 2 of the
         conv's values)."""
         scale, shift, xk, relu = nc_ctx[self.nc_conv[id(node)]]
-        x = values[xk]
+        x = take(xk)
         x_cl = x.contiguous() if xk in nhwc else _to_cl(x)
-        w = values[(id(node.inputs[1][0]), node.inputs[1][1])]  # (O, I, k, k)
+        w = take((id(node.inputs[1][0]), node.inputs[1][1]))  # (O, I, k, k)
         g = self._nc_conv_attrs(node)
         if is_train:
             stats = bool(self.nc_stats_for.get(id(node)))
@@ -344,18 +443,19 @@ class _Lowered(object):
         nhwc.add((id(node), 0))
 
     def _stem_run(self, node, values, nhwc, aux_updates, skip, arg_vals,
-                  s2d):
+                  s2d, take, device):
         """Run a fused input BatchNorm + conv pair (see ``_init_stem``):
         the conv's output channel-last, the BatchNorm's moving statistics
-        into ``aux_updates``."""
+        into ``aux_updates``; each operand on ``device`` when the walk is
+        placed."""
         info = self.stem_fuse[id(node)]
         xk = (id(node.inputs[0][0]), node.inputs[0][1])
-        x = values[xk]
+        x = take(xk)
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
             return False
         x_cl = x if xk in nhwc else _to_cl(x)
         conv = info["conv"]
-        beta = values[(id(node.inputs[2][0]), node.inputs[2][1])]
+        beta = take((id(node.inputs[2][0]), node.inputs[2][1]))
         # the conv's weight variable comes after the BatchNorm in walk
         # order, so it is not in values yet: read it from the arguments
         wvar = conv.inputs[1][0]
@@ -364,6 +464,8 @@ class _Lowered(object):
             if not wvar.is_var or wvar.name not in arg_vals:
                 return False
             w = arg_vals[wvar.name]
+        if device is not None:
+            w = to_device(w, device)
         out, mean, var = input_bn_conv(x_cl, beta, w, info["eps"],
                                        info["kernel"], info["stride"],
                                        info["pad"], s2d=s2d)
@@ -371,14 +473,15 @@ class _Lowered(object):
             child = node.inputs[pos][0]
             if child.is_var:
                 aux_updates[child.name] = _bn_moving(
-                    values[(id(child), 0)], stat, info["momentum"])
+                    take((id(child), 0)), stat, info["momentum"])
         values[(id(conv), 0)] = out
         nhwc.add((id(conv), 0))
         skip.add(id(conv))
         return True
 
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
-            device=None, head_grad_scale=None):
+            device=None, head_grad_scale=None, place=None,
+            unfusable=frozenset()):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
@@ -390,11 +493,17 @@ class _Lowered(object):
         the first bound value) is where an op with no input runs, as in
         ``registry.imperative_invoke``: creation and sampling ops build
         their tensors there, and a sampling op draws from that device's
-        generator (``random.generator``)."""
+        generator (``random.generator``).
+
+        ``place`` ({node id: torch.device}, from ``placement``) runs each op
+        on its device, each input moved there by ``to_device`` once a walk
+        (an input's layout tag comes with it); ``unfusable`` (from
+        ``unfusable``) names the peepholes that stay off."""
         with torch.set_grad_enabled(bool(is_train)):
             return self._run(arg_vals, aux_vals, bool(is_train),
                              frozenset(no_grad_inputs), device,
-                             head_grad_scale if is_train else None)
+                             head_grad_scale if is_train else None, place,
+                             unfusable)
 
     @staticmethod
     def _device(device, arg_vals, aux_vals):
@@ -408,7 +517,7 @@ class _Lowered(object):
         return torch.device("cpu")
 
     def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device,
-             head_grad_scale):
+             head_grad_scale, place, unfusable):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
@@ -422,6 +531,17 @@ class _Lowered(object):
         skip = set()
         aux_updates = {}
         dev = None        # resolved at the first op with no input
+        moved = {}        # (value key, device) -> the value there
+
+        def take_to(k, tgt):
+            v = values[k]
+            if tgt is None or not isinstance(v, torch.Tensor) \
+                    or v.device == tgt:
+                return v
+            m = moved.get((k, tgt))
+            if m is None:
+                m = moved[(k, tgt)] = to_device(v, tgt)
+            return m
         for node in self.order:
             if node.is_var:
                 if node.name in arg_vals:
@@ -436,26 +556,33 @@ class _Lowered(object):
                 continue
             if id(node) in skip:
                 continue
+            tgt = place[id(node)] if place is not None else None
+            take = values.__getitem__ if tgt is None \
+                else functools.partial(take_to, tgt=tgt)
             stem = self.stem_fuse.get(id(node)) if stem_on else None
             if stem is not None and stem["var"] in no_grad_inputs \
+                    and ("stem", id(node)) not in unfusable \
                     and not (nc_on and (id(node) in self.nc_bn
                                         or id(stem["conv"]) in self.nc_conv)):
                 if self._stem_run(node, values, nhwc, aux_updates, skip,
-                                  arg_vals, stem_s2d):
+                                  arg_vals, stem_s2d, take, tgt):
                     continue
-            if nc_on and id(node) in self.nc_bn:
+            if nc_on and id(node) in self.nc_bn \
+                    and ("nc", id(node)) not in unfusable:
                 if self._nc_run_bn(node, values, nhwc, aux_updates, nc_ctx,
-                                   is_train, skip):
+                                   is_train, skip, take):
                     continue
             if nc_on and id(node) in self.nc_conv \
                     and self.nc_conv[id(node)] in nc_ctx:
-                self._nc_run_conv(node, values, nhwc, nc_ctx, is_train)
+                self._nc_run_conv(node, values, nhwc, nc_ctx, is_train, take)
                 continue
             fused_act = self.fused_relu.get(id(node))
+            if ("relu", id(node)) in unfusable:
+                fused_act = None
             op = get_op("_BatchNormReLU") if fused_act is not None \
                 else node.op
             in_keys = [(id(c), i) for c, i in node.inputs]
-            ins = [values[k] for k in in_keys]
+            ins = [take(k) for k in in_keys]
             params = node.params
             out_cl = False
             rule = op.layout_rule if use_nhwc else None
@@ -467,14 +594,14 @@ class _Lowered(object):
             if rule == "aware" and ins and _is_arr(ins[0]):
                 li = set(op.layout_inputs)
 
-                def place(j, v):
+                def lay(j, v):
                     if not _is_arr(v):
                         return v
                     tagged = in_keys[j] in nhwc
                     if j in li:          # activation input: channel-last
                         return v if tagged else _to_cl(v)
                     return _to_cf(v) if tagged else v
-                ins = [place(j, v) for j, v in enumerate(ins)]
+                ins = [lay(j, v) for j, v in enumerate(ins)]
                 params = dict(params, layout="NHWC")
                 out_cl = True
             elif rule == "transparent":
@@ -496,12 +623,12 @@ class _Lowered(object):
             call = op.make_callable(params, is_train)
             if not ins and dev is None:
                 dev = self._device(device, arg_vals, aux_vals)
-            at = ins[0].device if ins else dev
+            at = ins[0].device if ins else (dev if tgt is None else tgt)
             args = ([_random.generator(at)] if op.needs_rng else []) + ins
             if ins:
                 out = call(*args)
             else:
-                with torch.device(dev):
+                with torch.device(at):
                     out = call(*args)
             if not isinstance(out, (tuple, list)):
                 out = (out,)
@@ -529,18 +656,43 @@ class _Lowered(object):
         return outputs, aux_updates
 
 
+def _check_group2ctx(group2ctx):
+    group2ctx = dict(group2ctx or {})
+    bad = {g: c for g, c in group2ctx.items() if not isinstance(c, Context)}
+    if bad:
+        raise MXNetError("group2ctx maps a ctx_group to a Context, got %s"
+                         % bad)
+    return group2ctx
+
+
+def _write(arr, t):
+    """``arr._set_value(t)``, the copy counted in ``cross_device_copies``
+    when it moves ``t`` to another torch device."""
+    global cross_device_copies
+    if t.device != arr.value.device:
+        cross_device_copies += 1
+    arr._set_value(t)
+
+
 class Executor(object):
     """Bound computation (parity: mx.executor.Executor).
 
     grad_req : 'write', 'add' or 'null', as one string for every argument,
         a list in argument order or a dict by name (missing names: 'null').
         Gradients are computed for the arguments whose request is not
-        'null' and that have an array in ``args_grad``."""
+        'null' and that have an array in ``args_grad``.
+    group2ctx : {ctx_group: Context}: each op of a named group runs on its
+        context (see the module's docstring); each output array lives where
+        its op runs, reported as the bind context when that is the same
+        torch device.
+    shared_exec : taken for the reference's signature; ``simple_bind``
+        is where it shares arrays."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, group2ctx=None, shared_exec=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._group2ctx = _check_group2ctx(group2ctx)
         self._low = _Lowered(symbol)
         self.arg_names = self._low.arg_names
         self.aux_names = self._low.aux_names
@@ -570,14 +722,45 @@ class Executor(object):
         types = {n: a.dtype for n, a in self.arg_dict.items()
                  if isinstance(a.dtype, _np.dtype)}
         _, out_types, _ = symbol.infer_type(**types)
+        out_ctxs = self._plan()
         self._output_nds = [
-            nd.zeros(s if s else (1,), ctx=self._ctx,
+            nd.zeros(s if s else (1,), ctx=c,
                      dtype=t if t is not None else _np.float32)
-            for s, t in zip(out_shapes, out_types)]
+            for s, t, c in zip(out_shapes, out_types, out_ctxs)]
         # the last forward(is_train=True) with gradients: (outputs still in
         # the autograd graph, {name: leaf tensor})
         self._graph = None
         self._warned_default_heads = False
+
+    def _plan(self):
+        """Resolve where the walk runs: ``_place`` ({node id:
+        torch.device}, or None when the graph sits on one device),
+        ``_unfusable``, ``_run_device`` (where an op with no input runs
+        when ``_place`` is None); returns each output's Context."""
+        self._place, self._unfusable = None, frozenset()
+        self._run_device = self._ctx
+        bound = list(self.arg_dict.values()) + list(self.aux_dict.values())
+        n_out = len(self._low.out_keys)
+        if not self._group2ctx and \
+                len({a.value.device for a in bound}) <= 1:
+            return [self._ctx] * n_out
+        ctx_of = self._low.placement(
+            self._group2ctx, {n: a.context for n, a in
+                              list(self.arg_dict.items())
+                              + list(self.aux_dict.items())}, self._ctx)
+        devs = {c: c.torch_device() for c in set(ctx_of.values())}
+        place = {k: devs[c] for k, c in ctx_of.items()}
+        if len(set(devs.values())) > 1:
+            self._place = place
+            self._unfusable = self._low.unfusable(place)
+        elif devs:
+            self._run_device = next(iter(ctx_of.values()))
+        home = self._ctx.torch_device()
+        outs = []
+        for nid, _ in self._low.out_keys:
+            c = ctx_of[nid]
+            outs.append(self._ctx if devs[c] == home else c)
+        return outs
 
     @staticmethod
     def _dictify(data, names, what, allow_none=False, partial=False):
@@ -609,21 +792,28 @@ class Executor(object):
         request is not 'null' is allocated.  With ``shared_exec`` every
         argument, gradient and aux array of that executor whose name and
         shape match is taken as it is, not allocated: bucketed executors
-        bind onto one set of parameters.  One device only: ``group2ctx``
-        arrives with the parallel slice."""
-        if group2ctx:
-            raise MXNetError("simple_bind(group2ctx=...) is not ported yet: "
-                             "it arrives with the parallel slice")
+        bind onto one set of parameters.  With ``group2ctx`` each argument
+        and its gradient are allocated on the context of the variable's
+        ``ctx_group`` (the bind context when the map does not name it) and
+        the aux states on the bind context (parity: the JAX package's
+        ``node_ctx``)."""
+        group2ctx = _check_group2ctx(group2ctx)
         shared = ((shared_exec.arg_dict, shared_exec.grad_dict,
                    shared_exec.aux_dict) if shared_exec is not None
                   else ({}, {}, {}))
+        ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        var_ctx = {}
+        if group2ctx:
+            for n in _topo([x for x, _ in symbol._outputs]):
+                if n.is_var and _group(n) in group2ctx:
+                    var_ctx[n.name] = group2ctx[_group(n)]
 
         def alloc(which, name, shape, dt):
             have = shared[which].get(name)
             if have is not None and tuple(have.shape) == tuple(shape):
                 return have
-            return nd.zeros(shape, ctx=ctx, dtype=dt)
-        ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+            return nd.zeros(shape, ctx=var_ctx.get(name, ctx) if which < 2
+                            else ctx, dtype=dt)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
         if arg_shapes is None:
             raise MXNetError("simple_bind: could not infer all shapes from %s"
@@ -648,7 +838,8 @@ class Executor(object):
                             else _np.float32)
                 for name, shape, at in zip(symbol.list_auxiliary_states(),
                                            aux_shapes, aux_types)}
-        return Executor(symbol, ctx, args, grads, grad_req, auxs)
+        return Executor(symbol, ctx, args, grads, grad_req, auxs,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
     @property
     def outputs(self):
@@ -712,7 +903,7 @@ class Executor(object):
         auxs = {n: keep(self.aux_dict[n], s)
                 for n, s in zip(self.aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, args, grads, self.grad_req,
-                        auxs)
+                        auxs, group2ctx=self._group2ctx)
 
     def _grad_arg_names(self):
         return [n for n in self.arg_names
@@ -744,14 +935,15 @@ class Executor(object):
         outs, aux_upd = self._low.run(
             args, {n: a.value for n, a in self.aux_dict.items()}, is_train,
             no_grad_inputs=[n for n in self.arg_names if n not in leaves],
-            device=self._ctx)
+            device=self._run_device, place=self._place,
+            unfusable=self._unfusable)
         if leaves:
             self._graph = (outs, leaves)
         for ndarr, v in zip(self._output_nds, outs):
-            ndarr._set_value(v.detach())
+            _write(ndarr, v.detach())
         for name, v in aux_upd.items():
             if name in self.aux_dict:
-                self.aux_dict[name]._set_value(v.detach())
+                _write(self.aux_dict[name], v.detach())
         return self._output_nds
 
     def _check_default_heads(self):
@@ -790,10 +982,13 @@ class Executor(object):
             ogs = [torch.ones((), dtype=o.dtype, device=o.device)
                    .expand(o.shape) for o in outs]
         else:
+            # each head gradient on its output's device (parity: the JAX
+            # package's _out_devices)
             if isinstance(out_grads, nd.NDArray):
                 out_grads = [out_grads]
-            ogs = [(g.value if isinstance(g, nd.NDArray) else g)
-                   .to(o.device, o.dtype) for g, o in zip(out_grads, outs)]
+            ogs = [to_device((g.value if isinstance(g, nd.NDArray) else g)
+                             .detach(), o.device).to(o.dtype)
+                   for g, o in zip(out_grads, outs)]
         grads = head_grads(outs, ogs, [leaves[n] for n in gnames],
                            retain_graph=True)
         for name, g in zip(gnames, grads):
@@ -801,6 +996,7 @@ class Executor(object):
             if g is None:        # the output does not depend on it
                 g = torch.zeros_like(leaves[name])
             if self.grad_req[name] == "add":
-                tgt._set_value(tgt.value + g)
+                # accumulated on the gradient array's device
+                tgt._set_value(tgt.value + to_device(g, tgt.value.device))
             else:
-                tgt._set_value(g)
+                _write(tgt, g)

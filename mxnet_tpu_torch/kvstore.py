@@ -1,0 +1,167 @@
+"""KVStore: the single-process key-value store (counterpart:
+mxnet_tpu/kvstore.py, its ``local`` and ``device`` types).
+
+``init`` keeps a copy of each key's value on that value's context.  ``push``
+sums the values given for a key, one per device, at the first value's
+context (``_reduce``: each value on another device is copied there first),
+sums duplicate keys of one push, and hands the sum to the updater
+(``set_optimizer``: the optimizer runs where the stored value is) or,
+without one, stores it in place of the value (the reference's
+``local = merged``).  ``pull`` copies the stored value into each output
+array.  ``local`` and ``device`` share these semantics, as in the JAX
+package; the reference's CommCPU / CommDevice split is not kept.  ``rank``
+is 0 and ``num_workers`` 1.  The ``dist*`` types arrive with the
+distributed slice and raise ``MXNetError``.
+"""
+from __future__ import annotations
+
+from .base import MXNetError, atomic_write, string_types
+from . import ndarray as nd
+from . import optimizer as opt
+
+__all__ = ["KVStore", "create"]
+
+LOCAL_TYPES = ("local", "device", "local_allreduce_cpu",
+               "local_allreduce_device")
+DIST_TYPES = ("dist_sync", "dist_async", "dist_sync_device",
+              "dist_async_device", "dist", "dist_tpu")
+
+
+def _key_list(key):
+    if isinstance(key, (int, string_types)):
+        return [key], True
+    return list(key), False
+
+
+def _value_list(vals, single):
+    """One list of per-device values for each key."""
+    if single:
+        if isinstance(vals, list) and vals and isinstance(vals[0], list):
+            return vals
+        return [vals if isinstance(vals, list) else [vals]]
+    return [v if isinstance(v, list) else [v] for v in vals]
+
+
+def _refuse_dist(kv_type):
+    raise MXNetError("kvstore type %r is not ported yet: it arrives with "
+                     "the distributed slice" % kv_type)
+
+
+def _reduce(vlist):
+    """The sum of per-device values at the first value's context (parity:
+    the JAX package's ``_reduce``), summed left to right."""
+    if len(vlist) == 1:
+        return vlist[0]
+    dev = vlist[0].value.device
+    out = vlist[0].value
+    for v in vlist[1:]:
+        out = out + v.value.to(dev)
+    return nd.NDArray(out, ctx=vlist[0].context)
+
+
+class KVStore(object):
+    """A key-value store for parameter synchronisation (parity:
+    mx.kvstore.KVStore, single process)."""
+
+    def __init__(self, kv_type="local"):
+        if kv_type in DIST_TYPES:
+            _refuse_dist(kv_type)
+        if kv_type not in LOCAL_TYPES:
+            raise MXNetError("unknown kvstore type %s" % kv_type)
+        self.type = kv_type
+        self._store = {}
+        self._updater = None
+
+    def init(self, key, value):
+        """Keep a copy of each key's (first) value; a key is initialised
+        once."""
+        keys, single = _key_list(key)
+        for k, vlist in zip(keys, _value_list(value, single)):
+            if k in self._store:
+                raise MXNetError("key %s already initialized" % str(k))
+            self._store[k] = vlist[0].copy()
+
+    def push(self, key, value, priority=0):
+        """Sum each key's values and update the stored value with the sum
+        (the updater) or replace it by the sum (no updater)."""
+        keys, single = _key_list(key)
+        merged_by_key = {}
+        uniq = []
+        for k, vlist in zip(keys, _value_list(value, single)):
+            m = _reduce(vlist)
+            if k in merged_by_key:
+                merged_by_key[k] = merged_by_key[k] + m
+            else:
+                merged_by_key[k] = m
+                uniq.append(k)
+        for k in uniq:
+            merged = merged_by_key[k]
+            if self._updater is not None:
+                if k not in self._store:
+                    raise MXNetError("key %s not initialized" % str(k))
+                local = self._store[k]
+                if merged.value.device != local.value.device:
+                    merged = merged.copyto(local.context)
+                self._updater(k, merged, local)
+            else:
+                self._store[k] = merged.copy()
+
+    def pull(self, key, out=None, priority=0):
+        """Copy each key's stored value into its output array(s)."""
+        assert out is not None
+        keys, single = _key_list(key)
+        for k, olist in zip(keys, _value_list(out, single)):
+            if k not in self._store:
+                raise MXNetError("key %s not initialized" % str(k))
+            src = self._store[k].value
+            for o in olist:
+                o._set_value(src)
+
+    def set_optimizer(self, optimizer):
+        """Run ``optimizer`` on the stored values at each push (the
+        reference's update on the store)."""
+        self._set_updater(opt.get_updater(optimizer))
+
+    def _set_updater(self, updater):
+        self._updater = updater
+
+    def set_updater(self, updater):
+        """``updater(key, merged, stored)`` updates ``stored`` in place at
+        each push."""
+        self._set_updater(updater)
+
+    @property
+    def rank(self):
+        return 0
+
+    @property
+    def num_workers(self):
+        return 1
+
+    def barrier(self):
+        """Wait for every card's pending work (one process: no peer)."""
+        nd.waitall()
+
+    def save_optimizer_states(self, fname):
+        """The updater's states, pickled, through ``atomic_write``."""
+        if self._updater is None:
+            raise MXNetError("the store has no optimizer: set_optimizer "
+                             "first")
+        with atomic_write(fname) as fout:
+            fout.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        if self._updater is None:
+            raise MXNetError("the store has no optimizer: set_optimizer "
+                             "first")
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
+
+
+def create(name="local"):
+    """A KVStore of type ``name``: ``local``, ``device``,
+    ``local_allreduce_cpu`` or ``local_allreduce_device``; the ``dist*``
+    types raise ``MXNetError`` (the distributed slice)."""
+    if not isinstance(name, string_types):
+        raise TypeError("name must be a string")
+    return KVStore(name)

@@ -1,20 +1,26 @@
 """Model-level helpers shared by Module and FeedForward (counterpart:
-mxnet_tpu/model.py): the kvstore decision, the parameter update loop, the
+mxnet_tpu/model.py): the kvstore decision, the parameter update loops, the
 checkpoint format and the legacy ``FeedForward``.
 
-One device only: a kvstore object and the ``dist*`` kvstores arrive with
-the parallel slice.  Checkpoints are ``prefix-symbol.json`` and
-``prefix-%04d.params`` in the JAX package's byte format, so a checkpoint
-saved by either package loads in the other.
+With several devices or a ``KVStore``, gradients are summed across the
+devices by the store (``local`` or ``device``) or in process, and each
+device's parameters are updated, on the store or by the ``Updater`` with a
+state per device.  The ``dist*`` kvstores arrive with the distributed
+slice.  Checkpoints are ``prefix-symbol.json`` and ``prefix-%04d.params``
+in the JAX package's byte format, so a checkpoint saved by either package
+loads in the other.
 """
 from __future__ import annotations
 
 import logging
 from collections import namedtuple
 
+import numpy as np
+
 from .base import MXNetError, string_types
 from .context import cpu
 from . import io
+from . import kvstore as kvs
 from . import ndarray as nd
 from . import symbol as sym_mod
 
@@ -24,36 +30,85 @@ BatchEndParam = namedtuple("BatchEndParams",
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
            "FeedForward"]
 
+# a "local" store above this many elements in one parameter leaves the
+# update to each device (parity: the reference's model.py:58-62)
+UPDATE_ON_KVSTORE_MAX = 1024 * 1024 * 16
+
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """(kvstore, update_on_kvstore) (parity: model._create_kvstore): for
-    one device, ``None``, ``"local"`` and ``"device"`` need no kvstore and
-    give ``(None, False)``.  Anything that would make one raises."""
+    """(kvstore, update_on_kvstore) (parity: model._create_kvstore): one
+    device and a store name that is not ``dist*`` need no store; a
+    ``local`` store leaves the update to the devices when one parameter has
+    more than ``UPDATE_ON_KVSTORE_MAX`` elements (read from the shapes);
+    without a store there is no update on it.  ``dist*`` raises
+    ``MXNetError`` (the distributed slice)."""
+    update_on_kvstore = True
     if kvstore is None:
-        return None, False
-    if not isinstance(kvstore, string_types):
-        raise MXNetError("kvstore=%r: a KVStore object is not ported yet "
-                         "(it arrives with the parallel slice); pass None, "
-                         "'local' or 'device'" % (kvstore,))
-    if "dist" in kvstore or num_device != 1:
-        raise MXNetError("kvstore=%r over %d device(s) is not ported yet: it "
-                         "arrives with the parallel slice"
-                         % (kvstore, num_device))
-    return None, False
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, string_types):
+        if "dist" in kvstore:
+            kvs.create(kvstore)                # raises, naming the slice
+        if num_device == 1:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(param.shape))
+                               for param in arg_params.values())
+                if max_size > UPDATE_ON_KVSTORE_MAX:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, string or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
 
 
-def _update_params(param_arrays, grad_arrays, updater, num_device,
-                   kvstore=None):
-    """Apply ``updater`` to every parameter that has a gradient (parity:
-    model._update_params, one device without a kvstore)."""
-    if kvstore is not None or num_device != 1:
-        raise MXNetError("aggregating gradients over devices is not ported "
-                         "yet: it arrives with the parallel slice")
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Each parameter into the store under its index; with the update on
+    the store every device pulls it (parity: model._initialize_kvstore)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """Push every gradient, pull every updated parameter (parity:
+    model._update_params_on_kvstore)."""
     for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                       grad_arrays)):
         if grad_list[0] is None:
             continue
-        updater(index, grad_list[0], arg_list[0])
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None):
+    """Sum each gradient across the devices, through the store (push, then
+    pull the sum back into every gradient) or in process, then update each
+    device's copy with ``updater`` under index ``index * num_device + k``,
+    so that each device keeps its own optimizer state (parity:
+    model._update_params)."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            kvstore.push(index, grad_list, priority=-index)
+            kvstore.pull(index, grad_list, priority=-index)
+        elif num_device > 1:
+            merged = grad_list[0].copy()
+            for g in grad_list[1:]:
+                merged += g.copyto(merged.context)
+            for g in grad_list:
+                g._set_value(merged.value)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updater(index * num_device + k, g, w)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -32,8 +32,8 @@ OBSERVABILITY_KNOBS = ("MXNET_TELEMETRY", "MXNET_TELEMETRY_FUSED",
                        "MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
                        "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR",
                        "MXNET_MONITOR")
-# the fused fit's pipeline and ZeRO levers (the parallel slice), with the
-# values that leave them off: one pipeline stage, ZeRO level 0
+# the fused fit's pipeline and ZeRO levers (the distributed slice), with
+# the values that leave them off: one pipeline stage, ZeRO level 0
 PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1")), ("MXNET_ZERO", ("", "0")))
 
 
@@ -74,7 +74,7 @@ def _refuse_unported(monitor):
     for knob, off in PARALLEL_KNOBS:
         if get_env(knob, "") not in off:
             raise MXNetError("%s=%r is not ported yet: it arrives with the "
-                             "parallel slice; unset it"
+                             "distributed slice; unset it"
                              % (knob, get_env(knob)))
 
 

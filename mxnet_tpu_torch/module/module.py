@@ -1,18 +1,21 @@
-"""Module: one symbol trained on one device (counterpart:
-mxnet_tpu/module/module.py).
+"""Module: one symbol trained on one device or data-parallel over several
+(counterpart: mxnet_tpu/module/module.py).
 
 ``Module(context=None)`` runs on ``gpu(0)``; without a card it raises
 ``MXNetError``, as ``Predictor`` does.  ``fit`` trains through the fused
 path (``_FusedFit``: one ``TrainStep`` call a batch, forward, backward and
 the optimizer rule on the card) when the common case holds, and through
 the executor group and the ``Updater`` otherwise or under
-``MXNET_FUSED_FIT=0``; ``_start_fused_fit`` logs why.
+``MXNET_FUSED_FIT=0``; ``_start_fused_fit`` logs why.  Over a list of
+contexts the group binds one executor a context and splits each batch by
+the workload; ``init_optimizer(kvstore=...)`` makes the store
+(``model._create_kvstore``) and ``update`` sums the gradients through it or
+in process (``model._update_params*``).
 
-Not ported here, each refused with ``MXNetError`` naming its slice:
-several contexts, kvstore objects and the ``dist*`` kvstores, and the fused
-fit's pipeline, ZeRO, elastic-resume, sharded-checkpoint and live-resize
-branches (the parallel slice); the Monitor bridge (the observability
-slice).
+Not ported here, each refused with ``MXNetError`` naming its slice: the
+``dist*`` kvstores and the fused fit's pipeline, ZeRO, elastic-resume,
+sharded-checkpoint and live-resize branches (the distributed slice); the
+Monitor bridge (the observability slice).
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -31,7 +34,8 @@ from .. import io as _io
 from .. import ndarray as nd
 from .. import optimizer as opt
 from ..initializer import InitDesc, Uniform
-from ..model import (_create_kvstore, _update_params, load_checkpoint,
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint,
                      save_checkpoint)
 from ..train import TrainStep
 from .base_module import BaseModule, _check_input_names
@@ -41,8 +45,10 @@ __all__ = ["Module"]
 
 
 class Module(BaseModule):
-    """A symbol with its bound executor, parameters and optimizer (parity:
-    mxnet_tpu.Module).  ``context``: one Context (default ``gpu(0)``)."""
+    """A symbol with its bound executors, parameters and optimizer (parity:
+    mxnet_tpu.Module).  ``context``: a Context (default ``gpu(0)``) or a
+    list of them, one executor each (the same context may repeat);
+    ``work_load_list``: each context's share of a batch."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging, context=None,
@@ -53,15 +59,12 @@ class Module(BaseModule):
             context = gpu(0)
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError("Module over %d contexts is not ported yet: "
-                             "data parallelism arrives with the parallel "
-                             "slice" % len(context))
-        context[0].torch_device()      # no card: MXNetError here
+        for ctx in context:
+            ctx.torch_device()         # no card: MXNetError here
         self._context = list(context)
         if work_load_list is None:
-            work_load_list = [1]
-        assert len(work_load_list) == 1
+            work_load_list = [1] * len(self._context)
+        assert len(work_load_list) == len(self._context)
         self._work_load_list = work_load_list
 
         self._symbol = symbol
@@ -279,10 +282,12 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """The optimizer and its ``Updater``; a named optimizer gets
-        ``rescale_grad = 1 / batch_size`` unless given one (parity:
-        Module.init_optimizer).  The fused step and the ``Updater`` read the
-        same optimizer object."""
+        """The store (``model._create_kvstore``), the optimizer and its
+        ``Updater``, or the optimizer installed on the store when the
+        update runs there; a named optimizer gets ``rescale_grad = 1 /
+        batch_size`` (the whole batch over every context) unless given one
+        (parity: Module.init_optimizer).  The fused step and the
+        ``Updater`` read the same optimizer object."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
@@ -290,7 +295,14 @@ class Module(BaseModule):
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         if isinstance(optimizer, string_types):
-            idx2name = dict(enumerate(self._exec_group.param_names))
+            n_dev = len(self._context)
+            names = self._exec_group.param_names
+            if update_on_kvstore:
+                idx2name = dict(enumerate(names))
+            else:
+                # the Updater's index of device k's copy: i * n_dev + k
+                idx2name = {i * n_dev + k: n for k in range(n_dev)
+                            for i, n in enumerate(names)}
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = \
@@ -303,7 +315,17 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt.get_updater(optimizer)
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._exec_group.param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -329,13 +351,23 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """One ``Updater`` pass over the parameters with gradients."""
+        """One update of every parameter with a gradient: through the store
+        when the update runs there, else the gradients summed over the
+        devices (by the store, or in process) and each device's copy
+        updated by the ``Updater`` (parity: Module.update)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=1)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -366,8 +398,12 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """The ``Updater``'s states, pickled, through ``atomic_write``."""
+        """The ``Updater``'s states (the store's when the update runs
+        there), pickled, through ``atomic_write``."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with atomic_write(fname) as fout:
             fout.write(self._updater.get_states())
 
@@ -376,6 +412,9 @@ class Module(BaseModule):
         # the fused fit starts from the Updater's states only as it exported
         # them: explicitly loaded states route fit to the general path
         self._loaded_opt_states = True
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as fin:
             self._updater.set_states(fin.read())
 
@@ -385,13 +424,15 @@ class Module(BaseModule):
         general path), with the reason logged (parity:
         Module._start_fused_fit).
 
-        The fused path needs: ``MXNET_FUSED_FIT`` not "0"; no state inputs,
-        fixed parameters or input gradients; no explicitly loaded optimizer
-        states; grad_req "write"; a rule ``TrainStep`` has (SGD, ccSGD, NAG,
-        Adam, RMSProp, AdaGrad, AdaDelta).  Several contexts and the
-        ``dist*`` kvstores, the reference's other two gates, raise earlier
-        (the parallel slice).  ``policy`` (or ``MXNET_AMP``, read here)
-        trains in mixed precision; the general path trains float32."""
+        The fused path needs: ``MXNET_FUSED_FIT`` not "0"; one context (a
+        module over several trains on the general path, "multi-context
+        binding"); no state inputs, fixed parameters or input gradients; no
+        explicitly loaded optimizer states; grad_req "write"; a rule
+        ``TrainStep`` has (SGD, ccSGD, NAG, Adam, RMSProp, AdaGrad,
+        AdaDelta).  The ``dist*`` kvstores, the reference's other gate,
+        raise earlier (the distributed slice).  ``policy`` (or
+        ``MXNET_AMP``, read here) trains in mixed precision; the general
+        path trains float32."""
         policy = _amp.resolve_policy(policy)
 
         def fallback(why):
@@ -403,6 +444,8 @@ class Module(BaseModule):
 
         if get_env("MXNET_FUSED_FIT", "1") == "0":
             return fallback("MXNET_FUSED_FIT=0")
+        if len(self._context) != 1:
+            return fallback("multi-context binding")
         if self._state_names or self._fixed_param_names or \
                 self.inputs_need_grad:
             return fallback("states/fixed-params/inputs_need_grad")
@@ -411,7 +454,7 @@ class Module(BaseModule):
         if self._exec_group._default_grad_req != "write":
             return fallback("grad_req != 'write'")
         if getattr(self, "_ckpt_resume", None) is not None:
-            _refuse("an elastic resume of the fused state", "parallel")
+            _refuse("an elastic resume of the fused state", "distributed")
         try:
             return _FusedFit(self, policy)
         except MXNetError as e:
@@ -497,11 +540,19 @@ class _FusedFit(object):
         self._merge_updater_state()
         self._input_names = module._data_names + module._label_names
 
+    def _updater(self):
+        """The module's ``Updater``, or the store's when the update runs
+        there (one context with a ``KVStore`` object)."""
+        mod = self._mod
+        if mod._updater is None and mod._kvstore is not None:
+            return mod._kvstore._updater
+        return mod._updater
+
     def _merge_updater_state(self):
         """Continue from the ``Updater``'s states (a second fit continues
         momentum and Adam's moments as the general path does) and from the
         optimizer's update count (Adam's bias correction, lr schedules)."""
-        updater = self._mod._updater
+        updater = self._updater()
         if updater is None or not updater.states:
             return
         for idx, name in enumerate(self._ts.param_names):
@@ -547,13 +598,13 @@ class _FusedFit(object):
     # the JAX package's hooks for its sharded step checkpoints, live resize
     # and the Monitor bridge: not ported yet
     def save_checkpoint(self, checkpointer, epoch=0, nbatch=0, extra=None):
-        _refuse("sharded checkpoints of the live fused state", "parallel")
+        _refuse("sharded checkpoints of the live fused state", "distributed")
 
     def export_state(self, epoch=0, nbatch=0):
-        _refuse("exporting the fused state for a live resize", "parallel")
+        _refuse("exporting the fused state for a live resize", "distributed")
 
     def apply_resize(self, man, params, opt_state, aux):
-        _refuse("a live resize of the fused state", "parallel")
+        _refuse("a live resize of the fused state", "distributed")
 
     def monitor_tic(self, monitor):
         _refuse("the Monitor bridge", "observability")
@@ -580,10 +631,10 @@ class _FusedFit(object):
 
     def sync_back(self):
         """Copy the trained state into the module: the executor's arrays,
-        the host dicts of ``get_params`` and the ``Updater``'s states, each
-        a copy (TrainStep writes into its tensors in place, so an alias
-        would change under the next fit), and continue the optimizer's
-        update counts."""
+        the host dicts of ``get_params``, a store's values and the
+        ``Updater``'s states, each a copy (TrainStep writes into its
+        tensors in place, so an alias would change under the next fit),
+        and continue the optimizer's update counts."""
         mod = self._mod
         mod._exec_group.set_params(
             {n: nd.NDArray(v.clone()) for n, v in self._params.items()},
@@ -592,6 +643,11 @@ class _FusedFit(object):
             mod._arg_params[n]._set_value(v.clone())
         for n, v in self._aux.items():
             mod._aux_params[n]._set_value(v.clone())
+        if mod._kvstore is not None:
+            # the store's values are what a later update pulls
+            for idx, n in enumerate(self._ts.param_names):
+                if idx in mod._kvstore._store:
+                    mod._kvstore._store[idx]._set_value(self._params[n])
         mod._params_dirty = False
         mod._active_fused = None
         opt_ = mod._optimizer
@@ -599,7 +655,8 @@ class _FusedFit(object):
             opt_._index_update_count[idx] = self._ts.num_update
         opt_.num_update = max(opt_.num_update, self._ts.num_update)
         kind = self._ts.fopt.kind
+        updater = self._updater()
         for idx, name in enumerate(self._ts.param_names):
-            mod._updater.states[idx] = _updater_state(
+            updater.states[idx] = _updater_state(
                 kind, tuple(nd.NDArray(s.clone())
                             for s in self._state[name]))

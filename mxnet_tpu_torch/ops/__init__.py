@@ -21,3 +21,4 @@ from . import optimizer_ops  # noqa: F401  (sgd/adam/rmsprop updates)
 from . import sequence   # noqa: F401  (SequenceLast/Mask/Reverse)
 from . import rnn_op     # noqa: F401  (RNN: cuDNN on the card)
 from . import contrib    # noqa: F401  (MultiBox*: the NMS kernel on the card)
+from . import misc       # noqa: F401  (_CrossDeviceCopy)

@@ -272,14 +272,16 @@ class Symbol(object):
                                     shared_exec=shared_exec, **kwargs)
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """Bind arguments, gradient arrays and aux states into an
         :class:`Executor` (parity: Symbol.bind); gradients are computed
         for the arguments with an array in ``args_grad`` and a grad_req
-        other than 'null'."""
+        other than 'null'.  ``group2ctx`` places each ``ctx_group`` on a
+        context (model parallelism, see ``executor``)."""
         from .executor import Executor
         return Executor(self, ctx or current_context(), args, args_grad,
-                        grad_req, aux_states)
+                        grad_req, aux_states, group2ctx=group2ctx,
+                        shared_exec=shared_exec)
 
 
 def _attr_str(v):

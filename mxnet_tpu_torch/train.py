@@ -56,9 +56,9 @@ __all__ = ["TrainStep", "EvalStep"]
 
 # TrainStep/EvalStep arguments not ported yet -> the slice of the port that
 # brings them
-_NOT_PORTED = (("mesh", "the parallel slice"),
-               ("param_shardings", "the parallel slice"),
-               ("zero", "the parallel slice"))
+_NOT_PORTED = (("mesh", "the distributed slice"),
+               ("param_shardings", "the distributed slice"),
+               ("zero", "the distributed slice"))
 
 # remat="dots": the matrix products without batch dimensions whose outputs
 # the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither

@@ -702,9 +702,9 @@ def test_remat_refuses_unknown_mode():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "the parallel slice"),
-    ({"param_shardings": {"x": None}}, "the parallel slice"),
-    ({"zero": 1}, "the parallel slice")])
+    ({"mesh": object()}, "the distributed slice"),
+    ({"param_shardings": {"x": None}}, "the distributed slice"),
+    ({"zero": 1}, "the distributed slice")])
 def test_only_the_parallel_arguments_refuse(kw, item):
     with pytest.raises(mt.MXNetError, match="arrives with %s" % item):
         mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)

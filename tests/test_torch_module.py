@@ -427,8 +427,8 @@ def _small():
     ("MXNET_WATCHDOG_SEC", "30", "observability"),
     ("MXNET_DIAG_DIR", "/tmp", "observability"),
     ("MXNET_MONITOR", "every:1", "observability"),
-    ("MXNET_PP", "2", "parallel"),
-    ("MXNET_ZERO", "1", "parallel")])
+    ("MXNET_PP", "2", "distributed"),
+    ("MXNET_ZERO", "1", "distributed")])
 def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
     """Each knob the JAX package's fit reads for an unported layer raises,
     naming the slice; "0" leaves it off and fit trains."""
@@ -446,13 +446,14 @@ def test_refusals_name_their_slice():
         mod.fit(it, num_epoch=1, monitor=object())
     with pytest.raises(mt.MXNetError, match="observability slice"):
         mod.install_monitor(object())
-    with pytest.raises(mt.MXNetError, match="parallel slice"):
-        mt.Module(mt.models.get_mlp(num_classes=4),
-                  context=[mt.cpu(0), mt.cpu(1)])
-    for kv in ("dist_sync", object()):
-        _, mod = _small()
-        with pytest.raises(mt.MXNetError, match="parallel slice"):
-            mod.fit(it, num_epoch=1, kvstore=kv)
+    # several contexts and KVStore objects train (the parallel slice); a
+    # kvstore that is neither a KVStore, a string nor None is a TypeError,
+    # as in the JAX package
+    _, mod = _small()
+    with pytest.raises(mt.MXNetError, match="distributed slice"):
+        mod.fit(it, num_epoch=1, kvstore="dist_sync")
+    with pytest.raises(TypeError, match="kvstore"):
+        mod.fit(it, num_epoch=1, kvstore=object())
     with pytest.raises(mt.MXNetError, match="checkpoint slice"):
         mt.callback.do_step_checkpoint(mod, None, 10)
     mod.bind(it.provide_data, it.provide_label, force_rebind=True)
@@ -460,15 +461,15 @@ def test_refusals_name_their_slice():
     mod.init_optimizer()
     ff = mod._start_fused_fit()
     for hook, args, slice_ in (
-            ("save_checkpoint", (None,), "parallel"),
-            ("export_state", (), "parallel"),
-            ("apply_resize", (None, None, None, None), "parallel"),
+            ("save_checkpoint", (None,), "distributed"),
+            ("export_state", (), "distributed"),
+            ("apply_resize", (None, None, None, None), "distributed"),
             ("monitor_tic", (None,), "observability"),
             ("monitor_feed", (None,), "observability")):
         with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
             getattr(ff, hook)(*args)
     mod._ckpt_resume = "ck"
-    with pytest.raises(mt.MXNetError, match="parallel slice"):
+    with pytest.raises(mt.MXNetError, match="distributed slice"):
         mod._start_fused_fit()
     ff = mt.model.FeedForward(mt.models.get_mlp(num_classes=4),
                               ctx=mt.cpu(), num_epoch=1, numpy_batch_size=10)

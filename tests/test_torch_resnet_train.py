@@ -338,9 +338,19 @@ def test_copy_params_from_and_reshape_match_mxnet_tpu(jx):
 
 
 def test_simple_bind_refuses_group2ctx():
-    net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=2)
-    with pytest.raises(mt.MXNetError, match="parallel slice"):
-        net.simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()}, data=(2, 3))
+    """``group2ctx`` binds (tests/test_torch_model_parallel.py); a map to
+    something other than a Context is refused, and so is a group on
+    ``gpu(0)`` on a machine without a card: nothing falls back."""
+    with mt.AttrScope(ctx_group="a"):
+        net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=2)
+    with pytest.raises(mt.MXNetError, match="Context"):
+        net.simple_bind(mt.cpu(), group2ctx={"a": "gpu0"}, data=(2, 3))
+    if not torch.cuda.is_available():
+        with pytest.raises(mt.MXNetError, match="CUDA device"):
+            net.simple_bind(mt.cpu(), group2ctx={"a": mt.gpu(0)},
+                            data=(2, 3))
+    ex = net.simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()}, data=(2, 3))
+    assert ex.forward()[0].shape == (2, 2)
 
 
 def test_simple_bind_refuses_shared_exec():

@@ -291,9 +291,9 @@ def test_eval_step_matches_mxnet_tpu(f64):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "the parallel slice"),
-    ({"param_shardings": {"x": None}}, "the parallel slice"),
-    ({"zero": 1}, "the parallel slice")])
+    ({"mesh": object()}, "the distributed slice"),
+    ({"param_shardings": {"x": None}}, "the distributed slice"),
+    ({"zero": 1}, "the distributed slice")])
 def test_trainstep_refuses_what_is_not_ported(kw, item):
     with pytest.raises(mt.MXNetError, match="arrives with %s" % item):
         mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
