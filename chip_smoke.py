@@ -136,6 +136,26 @@ fatal on failure:
    with a kept row, two NMS launches a detection forward and none in the
    fits; then a timing fit at SSD_TIMING (20 classes, batch 32); images/s,
    host ms a batch, device-busy share, peak memory;
+4f. observability (after module_fit): ResNet-50 at full width, batch
+   OBS_BATCH, float32, through ``Module.fit``.  (a) ``MXNET_TELEMETRY``
+   set: the general path, OBS_BATCHES batches, each batch's data_wait,
+   forward, backward, update, metric and step ms and their medians over
+   the steady batches (the input copies and the executor's spans inside
+   them too); the children cover 0.8-1.0 of every steady step;
+   tools/telemetry_report.py, run as a subprocess on the file, names the
+   spans.  (b) ``MXNET_TELEMETRY_FUSED=1`` with ``MXNET_NORM_CONV=1``: one
+   ``fused_step`` span a batch, ``model_flops`` the graph's count (the
+   same with the lever off), ``mfu`` in (0, 1) against ``cost``'s H100
+   row, 52 NormConv launches a step.  (c) ``profiler.set_state("run")``
+   around OBS_PROFILED fused steps: ``train_step[n]`` in the chrome trace,
+   every ``nc_kernel`` of the torch trace inside a ``train_step`` range,
+   the device ms under each.  (d) ``Monitor(2)``: on the fused path the
+   parameter rows within OBS_MONITOR_TOL of |w|/sqrt(size) of the
+   parameters before the armed step; on the general path a row for every
+   node output, by name, then every argument.  (e) Every knob unset: a
+   fit's img/s beside module_fit's, one fused and one general-path step
+   under ``set_sync_debug_mode``.  (f) NaiveEngine: the stream idle after
+   each imperative op;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -233,8 +253,9 @@ checks, rates and profiles (unfused and fused, float32 and bfloat16 AMP),
 the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
 profiles (float32 and AMP), the Module layer's checks and timings, the
-sequences slice's and the SSD slice's checks, times and rates, Updater and
-Rtc numbers, the parallel slice's checks, copies and rates, each phase's
+sequences slice's and the SSD slice's checks, times and rates, the
+observability phase's host split, MFU, profile ranges and checks, Updater
+and Rtc numbers, the parallel slice's checks, copies and rates, each phase's
 seconds,
 a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
@@ -532,6 +553,25 @@ FLASH_CHECKS = [
 # Updater keeps Adam's step scalars in float64 where the fused rule rounds
 # them to float32, as the JAX package's Updater and TrainStep do: a relative
 # 1e-7 of each update, orders below this bound.
+# the observability phase: ResNet-50 batch OBS_BATCH through Module.fit;
+# the general path's host split over OBS_BATCHES batches, the fused path
+# with the MFU gauges over OBS_FUSED_BATCHES, the profiler over
+# OBS_PROFILED, Monitor(2) over OBS_MONITOR_BATCHES; the fused Monitor's
+# rows within OBS_MONITOR_TOL (relative) of |w|/sqrt(size) in float64 (a
+# float32 sum of squares of up to 2.4M terms on the card)
+OBS_BATCH = 32
+OBS_BATCHES = 6
+OBS_FUSED_BATCHES = 4
+OBS_PROFILED = 2
+OBS_MONITOR_BATCHES = 4
+OBS_MONITOR_TOL = 1e-5
+OBS_SPANS = ("data_wait", "forward", "backward", "update", "metric", "step")
+OBS_INNER = ("exec_group.load_data", "executor.forward", "executor.backward")
+# every observability knob the port reads, unset for (e)
+OBS_KNOBS = ("MXNET_TELEMETRY", "MXNET_TELEMETRY_FUSED",
+             "MXNET_FLIGHT_RECORDER", "MXNET_PROFILER_AUTOSTART",
+             "MXNET_ENGINE_TYPE", "MXNET_OPT_STATS", "MXNET_PEAK_FLOPS",
+             "MXNET_PEAK_BW")
 IMPERATIVE_TOL = 1e-6
 IMP_PASSES = 3
 # exp5_shared vs torch.exp(5 x), relative: expf and torch's exp are each
@@ -1774,7 +1814,8 @@ def module_fit_resnet(torch, mt, nc, bench_img_s):
              bench_img_s))
     # (e) the same module fit again under MXNET_NORM_CONV=1: the lever is
     # read at every run, so the cached TrainStep serves it
-    counted = {"norm_conv": 0, "norm_conv_stats": 0, "norm_conv_bf16": 0}
+    counted = {"norm_conv": 0, "norm_conv_stats": 0, "norm_conv_bf16": 0,
+               "fit_img_s": 1e3 * b / median(fit_runs)}
     _, got_nc = launches(nb, (RESNET_NC_PER_STEP, RESNET_NC_STATS_PER_STEP,
                               0),
                          lambda: fit(mod, it, 1, {"MXNET_NORM_CONV": "1"}),
@@ -4024,6 +4065,412 @@ def parallel_phase(torch, mt, card, gpu=None, host=None):
     dp_phase(torch, mt, card, gpu, host)
 
 
+def obs_events(path):
+    """The JSON-lines events of a telemetry file."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def obs_step_spans(events):
+    """{nbatch: {span name: ms}} of the fit loop's step spans (epoch 0)."""
+    out = {}
+    for e in events:
+        tags = e.get("tags") or {}
+        if e["type"] != "span" or e.get("cat") != "step" \
+                or "nbatch" not in tags:
+            continue
+        row = out.setdefault(tags["nbatch"], {})
+        row[e["name"]] = row.get(e["name"], 0.0) + e["dur"] / 1e3
+    return out
+
+
+def obs_median(v):
+    v = sorted(v)
+    return v[len(v) // 2]
+
+
+def obs_resnet(mt, b, nb):
+    """ResNet-50's symbol, seed-0 parameters and aux states as numpy, and
+    ``nb`` synthetic batches of ``b`` (seeded) as host arrays."""
+    net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, a0 = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
+                         {"softmax_label": (b,)}, seed=SEED)
+    args = {n: v.numpy() for n, v in p0.items()}
+    aux = {n: v.numpy() for n, v in a0.items()}
+    rng = np.random.default_rng(SEED + 11)
+    x = rng.uniform(-1, 1, (nb * b, 3, IMAGE, IMAGE)).astype(np.float32)
+    y = rng.integers(0, CLASSES, nb * b).astype(np.float32)
+    return net, args, aux, x, y
+
+
+def obs_fit(mt, net, args, aux, x, y, b, env, monitor=None, callback=None):
+    """A fresh Module on gpu(0) fit for one epoch over (x, y) in batches of
+    ``b`` with the MXNET_* variables of ``env``; the module."""
+    mod = mt.Module(net, context=mt.gpu(0))
+    module_env(env, lambda: mod.fit(
+        mt.io.NDArrayIter(x, y, batch_size=b), num_epoch=1,
+        optimizer="sgd", arg_params=args, aux_params=aux,
+        optimizer_params=dict(learning_rate=RESNET_LR, momentum=0.9,
+                              wd=1e-4),
+        monitor=monitor, batch_end_callback=callback))
+    return mod
+
+
+def obs_torch_trace(torch_json, ranges_prefix="train_step["):
+    """From a torch.profiler chrome trace: {range name: (device ms of the
+    kernels that ran inside it, NormConv kernels inside)} over the host
+    ranges named ``ranges_prefix``..., and the NormConv kernels outside
+    every such range.  Each step waits for the card at its end while the
+    profiler runs, so a step's kernels run inside its host range on the
+    trace's one clock."""
+    with open(torch_json) as f:
+        evs = json.load(f)["traceEvents"]
+    ranges = [e for e in evs if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith(ranges_prefix)]
+    kernels = [e for e in evs if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    out = {}
+    outside = 0
+    for k in kernels:
+        end = k["ts"] + k["dur"]
+        host = [r for r in ranges if r["ts"] <= k["ts"]
+                and end <= r["ts"] + r["dur"]]
+        is_nc = "nc_kernel" in k["name"]
+        if not host:
+            outside += int(is_nc)
+            continue
+        ms, nc = out.get(host[0]["name"], (0.0, 0))
+        out[host[0]["name"]] = (ms + k["dur"] / 1e3, nc + int(is_nc))
+    gpu_ranges = sum(1 for e in evs if e.get("cat") == "gpu_user_annotation"
+                     and str(e.get("name", "")).startswith(ranges_prefix))
+    return out, outside, len(kernels), gpu_ranges
+
+
+def observability_phase(torch, mt, nc, card, fit_img_s):
+    """The observability slice's first half on ResNet-50 at full width
+    (OBS_BATCH, float32, TF32 off): (a) the general path's host split from
+    MXNET_TELEMETRY spans, read back by tools/telemetry_report.py; (b) the
+    fused path under MXNET_TELEMETRY_FUSED=1 and MXNET_NORM_CONV=1 with
+    the MFU gauges against the card's row of ``cost``; (c) the profiler's
+    chrome trace and torch trace around OBS_PROFILED fused batches, the
+    NormConv kernel inside the ``train_step`` ranges; (d) Monitor(2) on the
+    fused and the general path; (e) with every knob unset, one fused and
+    one general-path step without a host sync, and a fit's img/s; (f)
+    NaiveEngine: the stream idle after each imperative op.  Returns the
+    NormConv launches of the phase."""
+    tel, prof, cost = mt.telemetry, mt.profiler, mt.cost
+    b = OBS_BATCH
+    nb = max(OBS_BATCHES, OBS_FUSED_BATCHES, OBS_MONITOR_BATCHES)
+    net, args, aux, x, y = obs_resnet(mt, b, nb)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "observability")
+    os.makedirs(work, exist_ok=True)
+    knobs_off = {k: None for k in OBS_KNOBS}
+    launches = 0
+    try:
+        # (a) the general path's host split: MXNET_TELEMETRY set, the
+        # knob that a user sets, read as at import
+        path_a = os.path.join(work, "general.jsonl")
+
+        def general_fit():
+            if not tel._autostart():
+                fail("observability: MXNET_TELEMETRY=%s did not start "
+                     "telemetry" % path_a)
+            try:
+                return obs_fit(mt, net, args, aux, x[:OBS_BATCHES * b],
+                               y[:OBS_BATCHES * b], b,
+                               {"MXNET_NORM_CONV": "0"})
+            finally:
+                tel.stop()
+        mod = module_env(dict(knobs_off, MXNET_TELEMETRY=path_a),
+                         general_fit)
+        if mod._fused_ts_cache is not None:
+            fail("observability (a): telemetry kept the fused path")
+        steps = obs_step_spans(obs_events(path_a))
+        if sorted(steps) != list(range(OBS_BATCHES)):
+            fail("observability (a): step spans for batches %s"
+                 % sorted(steps))
+        shares = []
+        for n in sorted(steps):
+            row = steps[n]
+            kids = sum(row.get(k, 0.0) for k in OBS_SPANS[:-1])
+            share = kids / row["step"]
+            shares.append(share)
+            print("observability general batch=%d %s children_share=%r"
+                  % (n, " ".join("%s_ms=%r" % (k, row.get(k))
+                                 for k in OBS_SPANS), share))
+        steady = sorted(steps)[1:]
+        med = {k: obs_median([steps[n][k] for n in steady])
+               for k in OBS_SPANS}
+        share = obs_median(shares[1:])
+        print("observability general host split, median of batches %d-%d "
+              "(ResNet-50 batch %d, float32; %s): %s; children cover %r of "
+              "step (min %r, max %r)"
+              % (steady[0], steady[-1], b, card,
+                 " ".join("%s_ms=%r" % (k, med[k]) for k in OBS_SPANS),
+                 share, min(shares[1:]), max(shares[1:])))
+        # inside forward and backward: the input copies and the executor's
+        # own spans, in batch order (they carry no batch tag)
+        inner = {}
+        for e in obs_events(path_a):
+            if e["type"] == "span" and e["name"] in OBS_INNER:
+                inner.setdefault(e["name"], []).append(e["dur"] / 1e3)
+        print("observability general inner spans, median of batches %d-%d: "
+              "%s" % (steady[0], steady[-1], " ".join(
+                  "%s_ms=%r" % (k, obs_median(inner[k][1:]))
+                  for k in OBS_INNER if len(inner.get(k, ())) > 1)))
+        bad = [s for s in shares[1:] if not 0.8 <= s <= 1.0]
+        if bad:
+            fail("observability (a): the children cover %s of a steady "
+                 "step, outside [0.8, 1.0]" % bad)
+        rep = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "tools", "telemetry_report.py"), path_a,
+             "--steps"], capture_output=True, text=True, timeout=120)
+        table = rep.stdout[rep.stdout.find("Step-time breakdown"):]
+        table = table[:table.find("Counters")].strip()
+        print("observability tools/telemetry_report.py exit=%d\n%s"
+              % (rep.returncode, table))
+        missing = [k for k in OBS_SPANS[:-1] if k not in table]
+        if rep.returncode != 0 or not table or missing:
+            fail("observability (a): telemetry_report.py rc=%d, breakdown "
+                 "lacks %s: %s" % (rep.returncode, missing,
+                                   rep.stderr[-400:]))
+        del mod
+
+        # (b) the fused path under MXNET_TELEMETRY_FUSED=1 and NormConv
+        peaks = module_env(knobs_off,
+                           lambda: cost.resolve_peaks(refresh=True))
+        if peaks != cost.DEVICE_PEAKS[0][1:]:
+            fail("observability (b): cost resolved %s on %s, not the H100 "
+                 "row" % (peaks, torch.cuda.get_device_name(0)))
+        shapes = {"data": (b, 3, IMAGE, IMAGE), "softmax_label": (b,)}
+        counts = [module_env({"MXNET_NORM_CONV": v},
+                             lambda: cost.graph_flops(net, shapes))
+                  for v in ("0", "1")]
+        path_b = os.path.join(work, "fused.jsonl")
+        nc.launches = nc.stats_launches = 0
+
+        def fused_fit():
+            tel.start(path_b)
+            try:
+                return obs_fit(mt, net, args, aux,
+                               x[:OBS_FUSED_BATCHES * b],
+                               y[:OBS_FUSED_BATCHES * b], b,
+                               {"MXNET_NORM_CONV": "1",
+                                "MXNET_TELEMETRY_FUSED": "1"})
+            finally:
+                tel.stop()
+        mod = module_env(knobs_off, fused_fit)
+        torch.cuda.synchronize()
+        got_nc = (nc.launches, nc.stats_launches)
+        launches += nc.launches
+        evs = obs_events(path_b)
+        fused = [e["tags"]["nbatch"] for e in evs
+                 if e.get("name") == "fused_step"]
+        flops = [e["value"] for e in evs if e.get("name") == "model_flops"]
+        mfus = [e["value"] for e in evs if e.get("name") == "mfu"]
+        fsteps = obs_step_spans(evs)
+        print("observability fused (MXNET_TELEMETRY_FUSED=1, "
+              "MXNET_NORM_CONV=1) fused_step_ms=%s step_ms=%s mfu=%s "
+              "model_flops=%s graph_flops norm_conv=0:%d norm_conv=1:%d "
+              "norm_conv launches=%d stats=%d in %d steps; peaks %s (%s)"
+              % ([fsteps[n].get("fused_step") for n in sorted(fsteps)],
+                 [fsteps[n].get("step") for n in sorted(fsteps)], mfus,
+                 sorted(set(flops)), counts[0], counts[1], got_nc[0],
+                 got_nc[1], OBS_FUSED_BATCHES, peaks, card))
+        if mod._fused_ts_cache is None or \
+                fused != list(range(OBS_FUSED_BATCHES)):
+            fail("observability (b): fused_step spans for batches %s"
+                 % fused)
+        if counts[0] != counts[1] or not flops or \
+                set(flops) != {counts[0]} or \
+                mod._fused_ts_cache[1].step_flops() != counts[0]:
+            fail("observability (b): model_flops %s, graph count %s"
+                 % (sorted(set(flops)), counts))
+        if len(mfus) != OBS_FUSED_BATCHES or \
+                not all(0.0 < v < 1.0 for v in mfus):
+            fail("observability (b): mfu %s not in (0, 1) each step" % mfus)
+        if got_nc != (OBS_FUSED_BATCHES * RESNET_NC_PER_STEP,
+                      OBS_FUSED_BATCHES * RESNET_NC_STATS_PER_STEP):
+            fail("observability (b): NormConv launched %s in %d steps"
+                 % (got_nc, OBS_FUSED_BATCHES))
+        print("observability mfu median=%r (float32 step against the bf16 "
+              "tensor-core peak %r FLOP/s, model FLOPs %d a step) on %s"
+              % (obs_median(mfus), peaks[0], counts[0], card))
+
+        # (c) the profiler around OBS_PROFILED fused batches
+        path_c = os.path.join(work, "profile.json")
+        prof.set_config(mode="symbolic", filename=path_c)
+        fast = module_env({"MXNET_NORM_CONV": "1"}, mod._start_fused_fit)
+        staged = [mt.io.DataBatch(
+            [mt.nd.array(x[i * b:(i + 1) * b], ctx=mt.cpu())],
+            [mt.nd.array(y[i * b:(i + 1) * b], ctx=mt.cpu())])
+            for i in range(OBS_PROFILED)]
+        nc.launches = 0
+
+        def profiled():
+            prof.set_state("run")
+            try:
+                for batch in staged:
+                    fast.step(batch)
+            finally:
+                prof.set_state("stop")
+        module_env(dict(knobs_off, MXNET_NORM_CONV="1"), profiled)
+        fast.sync_back()
+        launches += nc.launches
+        prof.dump_profile()
+        with open(path_c) as f:
+            chrome = json.load(f)["traceEvents"]
+        ts_names = [e["name"] for e in chrome
+                    if e.get("name", "").startswith("train_step[")]
+        by_range, outside, n_kernels, gpu_ranges = obs_torch_trace(
+            path_c + ".torch.json")
+        for name in sorted(by_range):
+            print("observability profile range %s device_ms=%r "
+                  "nc_kernel=%d" % ((name,) + by_range[name]))
+        print("observability profile chrome train_step events=%s; torch "
+              "trace kernels=%d, nc_kernel outside the ranges=%d, "
+              "gpu_user_annotation train_step rows=%d"
+              % (ts_names, n_kernels, outside, gpu_ranges))
+        nc_in = sum(v[1] for v in by_range.values())
+        if len(ts_names) != OBS_PROFILED or \
+                nc_in != OBS_PROFILED * RESNET_NC_PER_STEP or outside:
+            fail("observability (c): %d train_step events, %d nc_kernel "
+                 "events inside train_step ranges (%d outside), expected "
+                 "%d and %d" % (len(ts_names), nc_in, outside, OBS_PROFILED,
+                                OBS_PROFILED * RESNET_NC_PER_STEP))
+        del mod, fast
+
+        # (d) Monitor(2): on the fused path, parameter rows equal to
+        # |w|/sqrt(size) of the parameters before the armed step
+        rows = []
+        before = {}
+
+        class Capture(mt.Monitor):
+            def toc_print(self):
+                rows.extend(self.toc())
+
+        def snapshot(p):
+            if p.nbatch % 2 == 1:          # before step nbatch + 1
+                ff = p.locals["fast"]
+                before[p.nbatch + 1] = {
+                    n: float(v.double().square().sum().sqrt()) / np.sqrt(
+                        v.numel()) for n, v in ff._params.items()}
+        before[0] = {n: float(np.sqrt(np.square(v.astype(np.float64)).sum())
+                              / np.sqrt(v.size)) for n, v in args.items()}
+        mod = module_env(knobs_off, lambda: obs_fit(
+            mt, net, args, aux, x[:OBS_MONITOR_BATCHES * b],
+            y[:OBS_MONITOR_BATCHES * b], b, {"MXNET_NORM_CONV": "0"},
+            monitor=Capture(2), callback=snapshot))
+        if mod._fused_ts_cache is None:
+            fail("observability (d): the default Monitor left the fused "
+                 "path")
+        worst = 0.0
+        for step, name, shown in rows:
+            v = float(str(shown).strip("[] "))
+            want = before[step][name]
+            worst = max(worst, abs(v - want) / want if want else abs(v))
+        armed = sorted({s for s, _, _ in rows})
+        print("observability monitor fused rows=%d at steps %s, worst "
+              "relative distance from |w|/sqrt(size) on the card=%r"
+              % (len(rows), armed, worst))
+        if armed != list(range(0, OBS_MONITOR_BATCHES, 2)) or \
+                len(rows) != len(armed) * len(args) or \
+                worst > OBS_MONITOR_TOL:
+            fail("observability (d): fused Monitor rows at %s (%d), worst "
+                 "%r (tol %g)" % (armed, len(rows), worst, OBS_MONITOR_TOL))
+        del mod
+        rows.clear()
+        mod = module_env(dict(knobs_off, MXNET_FUSED_FIT="0"), lambda: obs_fit(
+            mt, net, args, aux, x[:2 * b], y[:2 * b], b,
+            {"MXNET_NORM_CONV": "0"}, monitor=Capture(2)))
+        outs = [nm for _, nm, _ in rows if "_output" in nm]
+        n_nodes = sum(node.op.num_outputs_for(node.params)
+                      for node in net._nodes() if not node.is_var)
+        argrows = [nm for _, nm, _ in rows][len(outs):]
+        finite = all(np.isfinite(float(str(sh).strip("[] ")))
+                     for _, _, sh in rows)
+        print("observability monitor general rows=%d (%d node outputs of "
+              "%d, sorted by name: %s; %d arguments in list_arguments "
+              "order: %s), finite: %s"
+              % (len(rows), len(outs), n_nodes, outs == sorted(outs),
+                 len(argrows), argrows == net.list_arguments(), finite))
+        if mod._fused_ts_cache is not None or len(outs) != n_nodes or \
+                outs != sorted(outs) or argrows != net.list_arguments() \
+                or not finite:
+            fail("observability (d): general-path Monitor rows wrong")
+        del mod
+
+        # (e) every knob unset: a fit's img/s, one fused step and one
+        # general-path step without a host sync
+        ends = []
+        mod = module_env(knobs_off, lambda: obs_fit(
+            mt, net, args, aux, x[:OBS_FUSED_BATCHES * b],
+            y[:OBS_FUSED_BATCHES * b], b, {"MXNET_NORM_CONV": "0"},
+            callback=lambda p: ends.append(time.perf_counter())))
+        torch.cuda.synchronize()
+        gaps = [t1 - t0 for t0, t1 in zip(ends, ends[1:])]
+        print("observability knobs off: fit img_per_s=%r (host ms a batch "
+              "%s); module_fit phase fit img_per_s=%r (this call, for the "
+              "record)" % (b / obs_median(gaps), [1e3 * g for g in gaps],
+                           fit_img_s))
+        if tel._enabled or prof.is_running() or mt.engine.is_naive():
+            fail("observability (e): a knob is still on")
+        fast = module_env(knobs_off, mod._start_fused_fit)
+        host = staged[0]
+        sync_free(torch, "observability fused step, knobs off",
+                  lambda: fast.step(fast._stage(host)))
+        fast.sync_back()
+        dev = mt.gpu(0)
+        dev_batch = mt.io.DataBatch(
+            [mt.nd.array(x[:b], ctx=dev)], [mt.nd.array(y[:b], ctx=dev)])
+        metric = mt.metric.Accuracy()
+
+        def general_step():
+            mod.forward_backward(dev_batch)
+            mod.update()
+            mod.update_metric(metric, dev_batch.label)
+        sync_free(torch, "observability general-path step, knobs off",
+                  general_step)
+        del mod, fast
+
+        # (f) NaiveEngine: the stream is idle after each imperative op
+        old = mt.engine.engine_type()
+        mt.engine.set_engine_type("NaiveEngine")
+        try:
+            idle = []
+            a = mt.nd.array(np.random.default_rng(SEED).standard_normal(
+                (2048, 2048)).astype(np.float32), ctx=dev)
+            for what, fn in (("mul", lambda: a * 0.5),
+                             ("dot", lambda: mt.nd.dot(a, a)),
+                             ("exp", lambda: mt.nd.exp(a / 64.0)),
+                             ("sum", lambda: mt.nd.sum(a)),
+                             ("transpose", lambda: a.T)):
+                fn()
+                idle.append((what, torch.cuda.current_stream().query()))
+        finally:
+            mt.engine.set_engine_type(old)
+        big = mt.nd.dot(a, a)
+        after_threaded = torch.cuda.current_stream().query()
+        del big
+        print("observability NaiveEngine stream idle after each op: %s; "
+              "after a threaded-engine dot: %s" % (idle, after_threaded))
+        if not all(q for _, q in idle):
+            fail("observability (f): the stream was busy after an op "
+                 "under NaiveEngine: %s" % idle)
+    finally:
+        if prof.is_running():
+            prof.set_state("stop")
+        tel.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -4152,6 +4599,8 @@ def main():
     phase_done("resnet50_train_amp_fused")
     mf = module_fit_phase(torch, mt, nc, fa, unfused["img_s"])
     phase_done("module_fit")
+    obs_launches = observability_phase(torch, mt, nc, card, mf["fit_img_s"])
+    phase_done("observability")
     lstm_bucketing_phase(torch, mt, card)
     phase_done("lstm_bucketing")
     nms = ssd_phase(torch, mt, card)
@@ -4200,7 +4649,7 @@ def main():
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
-        + mf["norm_conv"],
+        + mf["norm_conv"] + obs_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],

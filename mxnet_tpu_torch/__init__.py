@@ -19,9 +19,17 @@ the card; the sequence ops; the ``rnn`` cells and ``BucketSentenceIter``;
 ``mx.nd`` ops and views, the optimizers' ``update`` and ``Updater``, and
 ``rtc``; and the single-process parallel slice: ``group2ctx`` model
 parallelism (``AttrScope(ctx_group=...)``, ``_CrossDeviceCopy``), the
-``local`` and ``device`` ``kvstore`` and ``Module`` over several contexts.
+``local`` and ``device`` ``kvstore`` and ``Module`` over several contexts;
+the observability slice's first half: ``telemetry`` (spans, counters,
+gauges, histograms, scalars, the JSON-lines sink), ``profiler`` (the
+chrome trace, with a ``torch.profiler`` trace of the card beside it),
+``engine`` (``MXNET_ENGINE_TYPE=NaiveEngine``), ``monitor.Monitor`` and
+``cost`` (MFU against the card's peaks).
 """
 from .base import MXNetError
+from . import telemetry
+from . import engine
+from . import profiler
 from .context import Context, cpu, gpu, current_context
 from . import ndarray
 from . import ndarray as nd
@@ -56,8 +64,12 @@ from . import module
 from . import module as mod
 from .module import Module
 from . import rnn
+from . import cost
+from . import monitor
+from .monitor import Monitor
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
+__all__ = ["MXNetError", "telemetry", "engine", "profiler", "cost",
+           "monitor", "Monitor", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "Group", "executor",
            "Executor", "AttrScope", "kvstore", "kv", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",

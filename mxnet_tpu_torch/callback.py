@@ -2,10 +2,11 @@
 
 Batch-end callbacks receive a ``model.BatchEndParam`` (``epoch``,
 ``nbatch``, ``eval_metric``, ``locals``); epoch-end callbacks receive
-``(epoch, symbol, arg_params, aux_params)``.  ``Speedometer`` counts samples
-as ``nbatch * batch_size`` (the telemetry sample counter it reads in the
-JAX package arrives with the observability slice); ``do_step_checkpoint``
-(sharded step checkpoints) arrives with the checkpoint slice.
+``(epoch, symbol, arg_params, aux_params)``.  ``Speedometer`` reads the
+fit loop's ``fit_samples`` telemetry counter while telemetry records, and
+``nbatch * batch_size`` otherwise, as in the JAX package;
+``do_step_checkpoint`` (sharded step checkpoints) arrives with the
+checkpoint slice.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import logging
 import time
 
 from .base import MXNetError
+from . import telemetry as _tel
 
 __all__ = ["do_checkpoint", "module_checkpoint", "do_step_checkpoint",
            "log_train_metric", "Speedometer", "ProgressBar"]
@@ -77,28 +79,57 @@ def log_train_metric(period, auto_reset=False):
 
 class Speedometer(object):
     """Batch-end callback that logs samples/s every ``frequent`` batches
-    (parity: callback.Speedometer, batch-index arithmetic).  It keeps one
-    (batch index, clock) mark; each report measures the span since the mark
-    and re-arms, and a batch index that moves back (a new epoch) drops the
-    mark.  A report reads the metric, which syncs the host with the card."""
+    (parity: callback.Speedometer).  It keeps one (batch index, samples,
+    clock, source) mark; each report measures the span since the mark and
+    re-arms, and a batch index that moves back (a new epoch) drops the
+    mark.
+
+    While telemetry records, the sample position is the fit loop's
+    ``fit_samples`` counter (variable batch sizes report true throughput),
+    else ``nbatch * batch_size``; a window where the counter did not move
+    (a ``score()`` loop) falls back to the batch index.  Each reported
+    rate is also a ``throughput`` scalar.  A report reads the metric,
+    which waits for the card."""
 
     def __init__(self, batch_size, frequent=50):
         self.batch_size = batch_size
         self.frequent = frequent
-        self._mark = None   # (nbatch, perf_counter) of the last report
+        # (nbatch, samples, perf_counter, source) of the last report
+        self._mark = None
+
+    def _position(self, nbatch):
+        """(cumulative sample count, source) at this callback."""
+        if _tel.enabled():
+            pos = _tel.value("fit_samples")
+            if pos is not None:
+                return pos, "telemetry"
+        return nbatch * self.batch_size, "batch"
 
     def __call__(self, param):
         now = time.perf_counter()
         n = param.nbatch
+        pos, src = self._position(n + 1)  # the callback fires after it
         if self._mark is not None and n < self._mark[0]:
             self._mark = None
         if self._mark is None:
-            self._mark = (n, now)
+            self._mark = (n, pos, now, src)
             return
         if n % self.frequent != 0 or n == self._mark[0]:
             return
-        rate = (n - self._mark[0]) * self.batch_size / max(
-            now - self._mark[1], 1e-12)
+        span = max(now - self._mark[2], 1e-12)
+        delta = pos - self._mark[1]
+        stale = delta <= 0 or src != self._mark[3]
+        if stale:
+            # the counter did not move over the window, or telemetry
+            # toggled within it: batch-index arithmetic
+            delta = (n - self._mark[0]) * self.batch_size
+        rate = delta / span
+        if _tel.enabled():
+            # the logged number as a curve point, on the fit loop's global
+            # batch axis while the counter feeds (the loop's own index
+            # otherwise)
+            gb = None if stale else _tel.value("fit_batches")
+            _tel.scalar("throughput", gb - 1 if gb else n, rate)
         pairs = _metric_pairs(param.eval_metric)
         if pairs:
             param.eval_metric.reset()
@@ -108,7 +139,7 @@ class Speedometer(object):
         else:
             _LOG.info("Epoch[%d] Batch[%d]  %.2f samples/s",
                       param.epoch, n, rate)
-        self._mark = (n, now)
+        self._mark = (n, pos, now, src)
 
 
 class ProgressBar(object):

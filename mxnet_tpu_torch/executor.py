@@ -55,8 +55,11 @@ import torch
 
 from .base import MXNetError, get_env, string_types
 from .context import Context
+from . import engine as _engine
 from . import ndarray as nd
+from . import profiler as _profiler
 from . import random as _random
+from . import telemetry as _tel
 from .ops.nn import _bn_moving, bn_scale_shift, input_bn_conv
 from .ops.norm_conv import (NormConv, PEEPHOLE_DTYPES, _apply, geometry_ok,
                              norm_conv)
@@ -481,7 +484,7 @@ class _Lowered(object):
 
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
             device=None, head_grad_scale=None, place=None,
-            unfusable=frozenset()):
+            unfusable=frozenset(), collect=False):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
@@ -498,12 +501,17 @@ class _Lowered(object):
         ``place`` ({node id: torch.device}, from ``placement``) runs each op
         on its device, each input moved there by ``to_device`` once a walk
         (an input's layout tag comes with it); ``unfusable`` (from
-        ``unfusable``) names the peepholes that stay off."""
+        ``unfusable``) names the peepholes that stay off.
+
+        ``collect`` (the Monitor) also returns {node output name: tensor}
+        of every op output in walk order, in logical layout and detached,
+        as a third value; the peepholes stay off so that every node's
+        output exists (parity: the JAX package's ``collect``)."""
         with torch.set_grad_enabled(bool(is_train)):
             return self._run(arg_vals, aux_vals, bool(is_train),
                              frozenset(no_grad_inputs), device,
                              head_grad_scale if is_train else None, place,
-                             unfusable)
+                             unfusable, collect)
 
     @staticmethod
     def _device(device, arg_vals, aux_vals):
@@ -517,13 +525,14 @@ class _Lowered(object):
         return torch.device("cpu")
 
     def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device,
-             head_grad_scale, place, unfusable):
+             head_grad_scale, place, unfusable, collect):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
-        nc_on = (use_nhwc and bool(self.nc_bn)
+        nc_on = (use_nhwc and not collect and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
-        stem_on = (use_nhwc and is_train and bool(self.stem_fuse)
-                   and bool(no_grad_inputs)
+        stem_on = (use_nhwc and is_train and not collect
+                   and bool(self.stem_fuse) and bool(no_grad_inputs)
                    and get_env("MXNET_STEM_FUSE", "1") == "1")
+        collected = {}
         stem_s2d = get_env("MXNET_STEM_S2D", "0") == "1"
         nc_ctx = {}
         values = {}
@@ -577,7 +586,7 @@ class _Lowered(object):
                 self._nc_run_conv(node, values, nhwc, nc_ctx, is_train, take)
                 continue
             fused_act = self.fused_relu.get(id(node))
-            if ("relu", id(node)) in unfusable:
+            if collect or ("relu", id(node)) in unfusable:
                 fused_act = None
             op = get_op("_BatchNormReLU") if fused_act is not None \
                 else node.op
@@ -637,6 +646,12 @@ class _Lowered(object):
                 values[(id(node), i)] = out[i]
                 if out_cl and _is_arr(out[i]):
                     nhwc.add((id(node), i))
+                if collect and isinstance(out[i], torch.Tensor):
+                    nm = node.name + ("_output" if n_vis == 1
+                                      else "_output%d" % i)
+                    v = out[i]
+                    collected[nm] = (_to_cf(v) if out_cl and _is_arr(v)
+                                     else v).detach()
             if fused_act is not None:
                 # the relu consumer's value IS the fused output
                 values[(id(fused_act), 0)] = out[0]
@@ -653,6 +668,8 @@ class _Lowered(object):
                         aux_updates[child.name] = out[n_vis + k]
         outputs = [_to_cf(values[k]) if k in nhwc else values[k]
                    for k in self.out_keys]
+        if collect:
+            return outputs, aux_updates, collected
         return outputs, aux_updates
 
 
@@ -731,6 +748,7 @@ class Executor(object):
         # the autograd graph, {name: leaf tensor})
         self._graph = None
         self._warned_default_heads = False
+        self._monitor_cb = None
 
     def _plan(self):
         """Resolve where the walk runs: ``_place`` ({node id:
@@ -914,7 +932,19 @@ class Executor(object):
         """Run the graph forward (parity: Executor::Forward).  Keyword
         arguments replace bound inputs first.  With ``is_train`` and
         gradient arguments the walk is recorded for :meth:`backward`;
-        otherwise it runs without autograd."""
+        otherwise it runs without autograd.  The region is the profiler
+        range ``executor.forward[train|test]`` and, while telemetry
+        records, the span ``executor.forward``."""
+        mode = "train" if is_train else "test"
+        with _profiler.Scope("executor.forward[%s]" % mode, "symbolic"):
+            if not _tel._enabled:
+                return self._forward_impl(is_train, **kwargs)
+            # mirror=False: the profiler Scope above records this region
+            with _tel.span("executor.forward", cat="executor",
+                           mirror=False, mode=mode):
+                return self._forward_impl(is_train, **kwargs)
+
+    def _forward_impl(self, is_train=False, **kwargs):
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward input %s" % k)
@@ -932,11 +962,13 @@ class Executor(object):
         gnames = self._grad_arg_names() if is_train else []
         leaves = {n: args[n].detach().requires_grad_(True) for n in gnames}
         args.update(leaves)
-        outs, aux_upd = self._low.run(
+        monitor = self._monitor_cb is not None
+        res = self._low.run(
             args, {n: a.value for n, a in self.aux_dict.items()}, is_train,
             no_grad_inputs=[n for n in self.arg_names if n not in leaves],
             device=self._run_device, place=self._place,
-            unfusable=self._unfusable)
+            unfusable=self._unfusable, collect=monitor)
+        outs, aux_upd = res[0], res[1]
         if leaves:
             self._graph = (outs, leaves)
         for ndarr, v in zip(self._output_nds, outs):
@@ -944,6 +976,18 @@ class Executor(object):
         for name, v in aux_upd.items():
             if name in self.aux_dict:
                 _write(self.aux_dict[name], v.detach())
+        if monitor:
+            # by name, as the JAX package's jitted walk returns them (a
+            # pytree dict); in walk order on a placed walk, as its eager
+            # multi-device walk streams them
+            items = res[2].items()
+            for name, v in (items if self._place is not None
+                            else sorted(items)):
+                self._monitor_cb(name, nd.NDArray(v))
+        # NaiveEngine, a running profiler or telemetry: wait here, so a
+        # fault surfaces at this forward and the span covers its device
+        # time
+        _engine.settle(self._output_nds)
         return self._output_nds
 
     def _check_default_heads(self):
@@ -969,7 +1013,17 @@ class Executor(object):
         gradient arrays, written or added per grad_req (parity:
         Executor::Backward).  Without ``out_grads`` every output is seeded
         with ones (the loss heads ignore it).  The recorded graph is kept,
-        so backward may run again until the next forward."""
+        so backward may run again until the next forward.  The region is
+        the profiler range ``executor.backward`` and, while telemetry
+        records, the span of that name."""
+        with _profiler.Scope("executor.backward", "symbolic"):
+            if not _tel._enabled:
+                return self._backward_impl(out_grads)
+            with _tel.span("executor.backward", cat="executor",
+                           mirror=False):
+                return self._backward_impl(out_grads)
+
+    def _backward_impl(self, out_grads=None):
         gnames = self._grad_arg_names()
         if not gnames:
             return
@@ -1000,3 +1054,15 @@ class Executor(object):
                 tgt._set_value(tgt.value + to_device(g, tgt.value.device))
             else:
                 _write(tgt, g)
+        _engine.settle([self.grad_dict[n] for n in gnames])
+
+    def set_monitor_callback(self, callback):
+        """Install a per-op output monitor (parity:
+        MXExecutorSetMonitorCallback): each forward then calls
+        ``callback(name, NDArray)`` for every node output of its one walk
+        (``<node>_output``, ``<node>_output<i>`` for several outputs) after
+        the outputs are written: by name, or in walk order on a walk placed
+        over several devices, as in the JAX package.  The walk runs with the
+        peepholes off while a callback is installed, so that every node's
+        output exists; ``None`` removes it."""
+        self._monitor_cb = callback

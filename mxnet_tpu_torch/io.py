@@ -16,8 +16,13 @@ the copies, and the consumer makes its compute stream wait on that event
 and marks the staged tensors as used by that stream (``record_stream``)
 before the step reads them.
 
-Not ported: the telemetry counters and spans (the observability slice),
-and ``ImageRecordIter`` / ``ImageIter`` (the image slice).
+While telemetry records, ``DataIter.next`` counts ``io_batches`` (tagged
+with the iterator's class), ``PrefetchingIter`` times its wait on the
+producers as the span ``io.queue_wait`` and counts
+``io_prefetch_batches``, and ``DevicePrefetchIter`` counts
+``io_device_prefetch_batches``, as in the JAX package.
+
+Not ported: ``ImageRecordIter`` / ``ImageIter`` (the image slice).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import os
 import queue
 import struct
 import threading
+import time
 from collections import namedtuple
 
 import numpy as np
@@ -34,6 +40,7 @@ import torch
 from .base import MXNetError, get_env
 from .context import cpu
 from . import ndarray as nd
+from . import telemetry as _tel
 from .ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
@@ -84,8 +91,13 @@ class DataIter(object):
 
     def next(self):
         if self.iter_next():
-            return DataBatch(data=self.getdata(), label=self.getlabel(),
-                             pad=self.getpad(), index=self.getindex())
+            batch = DataBatch(data=self.getdata(), label=self.getlabel(),
+                              pad=self.getpad(), index=self.getindex())
+            # counted once the batch exists: a getdata() that raises
+            # reports no batch
+            if _tel._enabled:
+                _tel.counter("io_batches", iter=type(self).__name__)
+            return batch
         raise StopIteration
 
     def __next__(self):
@@ -472,7 +484,20 @@ class PrefetchingIter(DataIter):
     def iter_next(self):
         if self._exhausted:
             return False
-        parts = [q.get() for q in self._queues]
+        telem = _tel._enabled
+        if telem:
+            # the wait on the producers apart: a long one means the
+            # pipeline is input-bound despite the prefetch depth
+            wall = time.time()
+            t0 = time.perf_counter()
+            parts = [q.get() for q in self._queues]
+            wait = time.perf_counter() - t0
+            if not any(p is _STOP or isinstance(p, _Raised)
+                       for p in parts):
+                _tel.record_span("io.queue_wait", wall, wait, cat="io")
+                _tel.counter("io_prefetch_batches")
+        else:
+            parts = [q.get() for q in self._queues]
         for p in parts:
             if isinstance(p, _Raised):
                 self._exhausted = True
@@ -621,6 +646,8 @@ class DevicePrefetchIter(object):
         if isinstance(item, _Raised):
             self._exhausted = True
             raise item.exc
+        if _tel._enabled:
+            _tel.counter("io_device_prefetch_batches")
         return item
 
     next = __next__

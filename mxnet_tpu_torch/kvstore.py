@@ -8,7 +8,10 @@ sums duplicate keys of one push, and hands the sum to the updater
 (``set_optimizer``: the optimizer runs where the stored value is) or,
 without one, stores it in place of the value (the reference's
 ``local = merged``).  ``pull`` copies the stored value into each output
-array.  ``local`` and ``device`` share these semantics, as in the JAX
+array.  While telemetry records, ``push`` counts ``kvstore_push`` (keys)
+and ``kvstore_push_bytes`` (the summed values' bytes), ``pull`` counts
+``kvstore_pull`` (output arrays) and ``kvstore_pull_bytes``, as in the JAX
+package.  ``local`` and ``device`` share these semantics, as in the JAX
 package; the reference's CommCPU / CommDevice split is not kept.  ``rank``
 is 0 and ``num_workers`` 1.  The ``dist*`` types arrive with the
 distributed slice and raise ``MXNetError``.
@@ -18,6 +21,8 @@ from __future__ import annotations
 from .base import MXNetError, atomic_write, string_types
 from . import ndarray as nd
 from . import optimizer as opt
+from . import telemetry as _tel
+from .telemetry import nbytes_of as _nbytes
 
 __all__ = ["KVStore", "create"]
 
@@ -105,17 +110,34 @@ class KVStore(object):
                 self._updater(k, merged, local)
             else:
                 self._store[k] = merged.copy()
+        # counted after the loop, so a raising push reports no traffic
+        if _tel._enabled:
+            _tel.counter("kvstore_push", len(uniq))
+            _tel.counter("kvstore_push_bytes",
+                         sum(_nbytes(merged_by_key[k]) for k in uniq))
 
     def pull(self, key, out=None, priority=0):
         """Copy each key's stored value into its output array(s)."""
         assert out is not None
         keys, single = _key_list(key)
+        telem = _tel._enabled
+        pulls = 0
+        pulled_bytes = 0
         for k, olist in zip(keys, _value_list(out, single)):
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % str(k))
             src = self._store[k].value
             for o in olist:
                 o._set_value(src)
+            if telem:
+                # one pull an output array: a fan-out over several devices
+                # moves that many copies of the key
+                pulls += len(olist)
+                pulled_bytes += _nbytes(src) * len(olist)
+        # counted after the loop, so a raising pull reports no traffic
+        if telem:
+            _tel.counter("kvstore_pull", pulls)
+            _tel.counter("kvstore_pull_bytes", pulled_bytes)
 
     def set_optimizer(self, optimizer):
         """Run ``optimizer`` on the stored values at each push (the

@@ -3,17 +3,28 @@
 The schedulers are pure functions of ``num_update``, as in the JAX package:
 the decayed rate is recomputed each call, so ``TrainStep.run_steps`` may
 jump the update count by a whole chunk between calls.  ``base_lr`` stays a
-plain attribute because the Optimizer assigns it after construction.  (The
-JAX package also publishes an ``lr`` telemetry scalar at each decay; the
-port has no telemetry yet.)
+plain attribute because the Optimizer assigns it after construction.
+While telemetry records, each decay boundary is an ``lr`` scalar at its
+update count, as in the JAX package: the fit loop samples its per-step
+``lr`` point by ``MXNET_SCALARS_EVERY``, and the step where the rate
+changes must never be sampled away.
 """
 from __future__ import annotations
 
 import logging
 
+from . import telemetry as _tel
+
 __all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
 
 _LOG = logging.getLogger(__name__)
+
+
+def _record_decay(lr, num_update):
+    """Publish an ``lr`` scalar at a decay boundary (parity:
+    lr_scheduler._record_decay)."""
+    if _tel._enabled:
+        _tel.scalar("lr", num_update, lr)
 
 
 class LRScheduler(object):
@@ -65,6 +76,7 @@ class FactorScheduler(LRScheduler):
             else:
                 _LOG.info("lr schedule: %.5e after %d decay(s) "
                           "(update %d)", lr, k, num_update)
+            _record_decay(lr, num_update)
         return lr
 
 
@@ -109,4 +121,5 @@ class MultiFactorScheduler(LRScheduler):
             self._last_logged = k
             _LOG.info("lr schedule: %.5e after boundary %d of %d "
                       "(update %d)", lr, k, len(self.step), num_update)
+            _record_decay(lr, num_update)
         return lr

@@ -23,6 +23,7 @@ from . import io
 from . import kvstore as kvs
 from . import ndarray as nd
 from . import symbol as sym_mod
+from . import telemetry as _tel
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -78,13 +79,18 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
 
 def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
     """Push every gradient, pull every updated parameter (parity:
-    model._update_params_on_kvstore)."""
+    model._update_params_on_kvstore); while telemetry records, the count
+    of updated parameters is the counter ``param_updates``."""
+    updated = 0
     for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                       grad_arrays)):
         if grad_list[0] is None:
             continue
         kvstore.push(index, grad_list, priority=-index)
         kvstore.pull(index, arg_list, priority=-index)
+        updated += 1
+    if _tel._enabled:
+        _tel.counter("param_updates", updated, on_kvstore=True)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
@@ -94,6 +100,7 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
     device's copy with ``updater`` under index ``index * num_device + k``,
     so that each device keeps its own optimizer state (parity:
     model._update_params)."""
+    updated = 0
     for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                       grad_arrays)):
         if grad_list[0] is None:
@@ -109,6 +116,9 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
                 g._set_value(merged.value)
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
             updater(index * num_device + k, g, w)
+        updated += 1
+    if _tel._enabled:
+        _tel.counter("param_updates", updated, on_kvstore=False)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -5,11 +5,19 @@ mxnet_tpu/module/base_module.py): ``fit``, ``score``, ``predict`` and
 
 ``fit`` trains through ``Module._start_fused_fit``'s fused ``TrainStep``
 when it engages (one step a batch, batches staged on the card by a producer
-thread) and through forward, backward and the ``Updater`` otherwise.  The
-JAX package's telemetry spans, sentinel, diagnostics snapshots and MFU
-gauges are not ported: they arrive with the observability slice, and
-``fit`` raises ``MXNetError`` when one of their knobs is set rather than
-ignore it.
+thread) and through forward, backward and the ``Updater`` otherwise.
+While telemetry records (``MXNET_TELEMETRY``, ``telemetry.start``), each
+batch is the spans ``data_wait``, ``forward``/``backward`` (or
+``forward_backward``, or ``fused_step``), ``update``, ``metric`` and
+``step``, with the counters ``fit_batches``/``fit_samples``/``fit_epochs``,
+the ``epoch_time`` gauge, the ``train_*``, ``lr``, ``samples_per_sec`` and
+``val_*`` scalars and, on the fused path with a known peak, the MFU gauges
+``model_flops``, ``achieved_flops`` and ``mfu``, under the JAX package's
+names.  ``fit(monitor=)`` and ``install_monitor`` take a ``Monitor``.
+
+The JAX package's numerics sentinel, watchdog, diagnostics snapshots and
+``MXNET_MONITOR`` arrive with the numerics slice: ``fit`` raises
+``MXNetError`` when one of their knobs is set rather than ignore it.
 """
 from __future__ import annotations
 
@@ -19,19 +27,21 @@ import time
 from ..base import MXNetError, get_env
 from ..context import cpu
 from .. import amp as _amp
+from .. import cost as _cost
+from .. import io as _io
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from .. import telemetry as _tel
 from ..model import BatchEndParam, _split_params
 
 __all__ = ["BaseModule"]
 
 # the JAX package's fit reads these knobs; they turn on work of the
-# observability slice (telemetry, the numerics sentinel, the watchdog and
-# crash snapshots, the numerics monitor).  "" and "0" leave them off.
-OBSERVABILITY_KNOBS = ("MXNET_TELEMETRY", "MXNET_TELEMETRY_FUSED",
-                       "MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
-                       "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR",
-                       "MXNET_MONITOR")
+# numerics slice (the numerics sentinel, the step-anomaly sentinel, the
+# watchdog and crash snapshots, the numerics monitor).  "" and "0" leave
+# them off.
+NUMERICS_KNOBS = ("MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
+                  "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR", "MXNET_MONITOR")
 # the fused fit's pipeline and ZeRO levers (the distributed slice), with
 # the values that leave them off: one pipeline stage, ZeRO level 0
 PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1")), ("MXNET_ZERO", ("", "0")))
@@ -61,15 +71,30 @@ def _check_input_names(symbol, names, typename, throw):
         logging.warning(msg)
 
 
-def _refuse_unported(monitor):
-    """Raise for every fit argument and knob whose work is not ported."""
-    if monitor is not None:
-        raise MXNetError("fit(monitor=...) is not ported yet: the Monitor "
-                         "arrives with the observability slice")
-    for knob in OBSERVABILITY_KNOBS:
+def _lr_point(module, default_step):
+    """(lr, step) of the fit loop's ``lr`` curve point, or (None, _)
+    (parity: base_module._lr_point).  The step axis is the optimizer's
+    update count, the axis schedules are functions of; on the fused path
+    the live count is the TrainStep's."""
+    opt = getattr(module, "_optimizer", None)
+    if opt is None:
+        return None, default_step
+    ff = getattr(module, "_active_fused", None)
+    num_update = ff._ts.num_update if ff is not None \
+        else getattr(opt, "num_update", None)
+    step = default_step if num_update is None else num_update
+    sched = getattr(opt, "lr_scheduler", None)
+    if sched is not None and num_update is not None:
+        return sched(num_update), step
+    return getattr(opt, "lr", None), step
+
+
+def _refuse_unported():
+    """Raise for every fit knob whose work is not ported."""
+    for knob in NUMERICS_KNOBS:
         if get_env(knob, "") not in ("", "0"):
             raise MXNetError("%s=%r is not ported yet: it arrives with the "
-                             "observability slice; unset it"
+                             "numerics slice; unset it"
                              % (knob, get_env(knob)))
     for knob, off in PARALLEL_KNOBS:
         if get_env(knob, "") not in off:
@@ -170,10 +195,11 @@ class BaseModule(object):
         """Train over ``num_epoch`` epochs of ``train_data`` (parity:
         BaseModule.fit).  ``policy`` (an ``amp.Policy``, True or a dtype
         string; by default ``MXNET_AMP`` decides) trains in mixed precision
-        on the fused path.  ``monitor`` and the observability and parallel
-        knobs raise ``MXNetError``: not ported yet."""
+        on the fused path.  ``monitor`` (a ``Monitor``) collects per-tensor
+        statistics.  The numerics and parallel knobs raise ``MXNetError``:
+        not ported yet."""
         assert num_epoch is not None, "please specify number of epochs"
-        _refuse_unported(monitor)
+        _refuse_unported()
         from .. import initializer as init_mod
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
@@ -191,36 +217,163 @@ class BaseModule(object):
             eval_metric = metric_mod.create(eval_metric)
 
         fast = getattr(self, "_start_fused_fit",
-                       lambda policy=None: None)(policy=policy)
-        if fast is None and _amp.resolve_policy(policy) is not None:
-            # never train float32 silently while the caller asked for AMP
-            self.logger.warning("fit: mixed-precision policy (MXNET_AMP/"
-                                "policy=) ignored: the general path trains "
-                                "float32")
+                       lambda policy=None, monitor=None: None)(
+                           policy=policy, monitor=monitor)
+        if fast is None:
+            if monitor is not None:
+                # the general path: per-op observation through the
+                # executors' callback
+                self.install_monitor(monitor)
+            if _amp.resolve_policy(policy) is not None:
+                # never train float32 silently while the caller asked for
+                # AMP
+                self.logger.warning(
+                    "fit: mixed-precision policy (MXNET_AMP/policy=) "
+                    "ignored: the general path trains float32%s",
+                    " (a custom Monitor stat_func forces the general path)"
+                    if monitor is not None else "")
+        # per-step MFU: only while telemetry records on the fused path and
+        # a peak FLOP rate resolves (MXNET_PEAK_FLOPS or the card's row)
+        mfu_on = fast is not None and _tel._enabled and _cost.enabled()
+        peak_flops = _cost.resolve_peaks()[0] if mfu_on else None
+        # the batch axis for sample counting: time-major iterators
+        # (layout 'TN') put the batch on axis 1
+        desc0 = (train_data.provide_data or [None])[0]
+        batch_axis = max(0, _io.DataDesc.get_batch_axis(
+            getattr(desc0, "layout", None))) if desc0 is not None else 0
 
+        # the global batch index over the whole fit: the step axis of the
+        # training-curve scalars
+        gstep = 0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            nbatch = 0
+            epoch_samples = 0
             data_iter = iter(train_data)
             if fast is not None:
                 # batch N+1 is staged on the card while step N runs
                 data_iter = fast.prefetch(data_iter)
             try:
-                for nbatch, data_batch in enumerate(data_iter):
+                while True:
+                    # with telemetry off the loop body is the untimed one:
+                    # no span objects, no tag dicts, no clock reads
+                    telem = _tel._enabled
+                    if telem:
+                        step_wall = time.time()
+                        step_t0 = time.perf_counter()
+                        # the iterator's fetch apart, so the breakdown
+                        # tells input starvation from compute
+                        with _tel.span("data_wait", cat="step", epoch=epoch,
+                                       nbatch=nbatch) as dsp:
+                            try:
+                                data_batch = next(data_iter)
+                            except StopIteration:
+                                dsp.cancel()
+                                break
+                    else:
+                        try:
+                            data_batch = next(data_iter)
+                        except StopIteration:
+                            break
+                    if monitor is not None:
+                        monitor.tic()
+                        if fast is not None:
+                            # an armed tic() has the step sample its
+                            # parameter norms on the card
+                            fast.monitor_tic(monitor)
                     if fast is not None:
-                        outputs, dev_labels = fast.step(data_batch)
-                        eval_metric.update(dev_labels or data_batch.label,
-                                           outputs)
+                        if telem:
+                            with _tel.span("fused_step", cat="step",
+                                           epoch=epoch, nbatch=nbatch):
+                                outputs, dev_labels = fast.step(data_batch)
+                            with _tel.span("metric", cat="step", epoch=epoch,
+                                           nbatch=nbatch):
+                                eval_metric.update(
+                                    dev_labels or data_batch.label, outputs)
+                        else:
+                            outputs, dev_labels = fast.step(data_batch)
+                            eval_metric.update(dev_labels or data_batch.label,
+                                               outputs)
+                    elif telem:
+                        if type(self).forward_backward is not \
+                                BaseModule.forward_backward:
+                            # a subclass's own forward_backward is one span
+                            with _tel.span("forward_backward", cat="step",
+                                           epoch=epoch, nbatch=nbatch):
+                                self.forward_backward(data_batch)
+                        else:
+                            with _tel.span("forward", cat="step", epoch=epoch,
+                                           nbatch=nbatch):
+                                self.forward(data_batch, is_train=True)
+                            with _tel.span("backward", cat="step",
+                                           epoch=epoch, nbatch=nbatch):
+                                self.backward()
+                        with _tel.span("update", cat="step", epoch=epoch,
+                                       nbatch=nbatch):
+                            self.update()
+                        with _tel.span("metric", cat="step", epoch=epoch,
+                                       nbatch=nbatch):
+                            self.update_metric(eval_metric, data_batch.label)
                     else:
                         self.forward_backward(data_batch)
                         self.update()
                         self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        if fast is not None:
+                            # rows for toc() from the sampled step's norms
+                            fast.monitor_feed(monitor)
+                        monitor.toc_print()
+                    if telem:
+                        # counted before the callbacks, so the Speedometer
+                        # reads a position that includes this batch; the
+                        # pad rows of a short last batch are no samples
+                        bs = data_batch.data[0].shape[batch_axis] \
+                            if data_batch.data else 0
+                        bs -= getattr(data_batch, "pad", None) or 0
+                        epoch_samples += bs
+                        _tel.counter("fit_batches")
+                        _tel.counter("fit_samples", bs)
+                        if _tel.scalar_due(gstep):
+                            # the metric's running values and the lr: a
+                            # host read, which MXNET_SCALARS_EVERY bounds
+                            for mname, mval in eval_metric.get_name_value():
+                                _tel.scalar("train_%s" % mname, gstep, mval)
+                            lr, lr_step = _lr_point(self, gstep)
+                            if lr is not None:
+                                _tel.scalar("lr", lr_step, lr)
+                            amp = fast.amp_stats() if fast is not None \
+                                else None
+                            if amp is not None:
+                                _tel.scalar("train_loss_scale", gstep, amp[0])
+                                _tel.gauge("loss_scale", amp[0])
+                                if amp[1]:
+                                    _tel.counter("amp_overflow_steps", amp[1])
                     if batch_end_callback is not None:
                         param = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                               eval_metric=eval_metric,
                                               locals=locals())
                         for callback in _as_list(batch_end_callback):
                             callback(param)
+                    if telem:
+                        # the whole step: data_wait + compute + callbacks
+                        total_s = time.perf_counter() - step_t0
+                        _tel.record_span("step", step_wall, total_s,
+                                         cat="step", epoch=epoch,
+                                         nbatch=nbatch)
+                        if mfu_on and total_s > 0:
+                            # the graph's FLOPs over the step's wall time,
+                            # against the resolved peak
+                            flops = fast.step_flops()
+                            if flops:
+                                achieved = flops / total_s
+                                _tel.gauge("model_flops", flops)
+                                _tel.gauge("achieved_flops",
+                                           round(achieved, 3))
+                                _tel.gauge("mfu",
+                                           round(achieved / peak_flops, 4))
+                    nbatch += 1
+                    gstep += 1
             finally:
                 # an exception mid-epoch must not leave the prefetch
                 # producer blocked in queue.put holding staged batches
@@ -229,8 +382,17 @@ class BaseModule(object):
                     drain()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+            toc = time.time()
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+            if _tel._enabled:
+                _tel.counter("fit_epochs")
+                _tel.gauge("epoch_time", toc - tic, epoch=epoch)
+                _tel.record_span("epoch", tic, toc - tic, cat="epoch",
+                                 epoch=epoch, batches=nbatch,
+                                 samples=epoch_samples)
+                if epoch_samples and toc > tic:
+                    _tel.scalar("samples_per_sec", gstep,
+                                epoch_samples / (toc - tic))
             if fast is not None:
                 fast.sync_back()
             arg_params_, aux_params_ = self.get_params()
@@ -245,6 +407,9 @@ class BaseModule(object):
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
+                    if _tel._enabled:
+                        # the eval curve on the train_* scalars' step axis
+                        _tel.scalar("val_%s" % name, gstep, val)
             train_data.reset()
 
     # ------------------------------------------------------------- param API
@@ -285,8 +450,7 @@ class BaseModule(object):
         assert not states and not value
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor is not ported yet: the Monitor "
-                         "arrives with the observability slice")
+        raise NotImplementedError()
 
     # ----------------------------------------------------------- computation
     def forward(self, data_batch, is_train=None):

@@ -231,5 +231,8 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor is not ported yet: the Monitor "
-                         "arrives with the observability slice")
+        """Hook ``mon`` into the executors of every bucket bound so far
+        (parity: BucketingModule.install_monitor)."""
+        assert self.binded
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 
 from .. import ndarray as nd
+from .. import telemetry as _tel
 from ..io import DataDesc
 
 __all__ = ["DataParallelExecutorGroup", "_split_input_slice"]
@@ -165,10 +166,17 @@ class DataParallelExecutorGroup(object):
                         arr.value if whole else arr.value[sl])
 
     def forward(self, data_batch, is_train=None):
+        """Copy each executor's slices in, then run every executor's
+        forward; while telemetry records, the copies are the span
+        ``exec_group.load_data`` (parity: executor_group.forward)."""
         if is_train is None:
             is_train = self.for_training
-        self._load_batch(data_batch.data,
-                         data_batch.label if self.label_shapes else None)
+        label = data_batch.label if self.label_shapes else None
+        if _tel._enabled:
+            with _tel.span("exec_group.load_data", cat="io"):
+                self._load_batch(data_batch.data, label)
+        else:
+            self._load_batch(data_batch.data, label)
         for ex in self.execs:
             ex.forward(is_train=is_train)
 
@@ -221,6 +229,12 @@ class DataParallelExecutorGroup(object):
             for name in self.state_names:
                 for ex in self.execs:
                     ex.arg_dict[name][:] = value
+
+    def install_monitor(self, mon):
+        """Hook ``mon`` into every executor (parity:
+        executor_group.install_monitor)."""
+        for ex in self.execs:
+            mon.install(ex)
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())

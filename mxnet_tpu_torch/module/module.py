@@ -12,10 +12,17 @@ the workload; ``init_optimizer(kvstore=...)`` makes the store
 (``model._create_kvstore``) and ``update`` sums the gradients through it or
 in process (``model._update_params*``).
 
+Observability (parity: the JAX package): while telemetry records, ``fit``
+takes the general path so that the step splits into spans, unless
+``MXNET_TELEMETRY_FUSED=1`` keeps the fused path (one ``fused_step`` span
+a batch); a ``Monitor`` with the default statistic rides the fused path
+(parameter rows from norms the step computes on the card:
+``_FusedFit.monitor_tic`` / ``monitor_feed``), a custom ``stat_func``
+takes the general path; ``install_monitor`` hooks every executor.
+
 Not ported here, each refused with ``MXNetError`` naming its slice: the
 ``dist*`` kvstores and the fused fit's pipeline, ZeRO, elastic-resume,
-sharded-checkpoint and live-resize branches (the distributed slice); the
-Monitor bridge (the observability slice).
+sharded-checkpoint and live-resize branches (the distributed slice).
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -24,6 +31,7 @@ and aux tensors and shares its host dicts and optimizer: the buckets of a
 from __future__ import annotations
 
 import logging
+import math
 
 import torch
 
@@ -418,8 +426,14 @@ class Module(BaseModule):
         with open(fname, "rb") as fin:
             self._updater.set_states(fin.read())
 
+    def install_monitor(self, mon):
+        """Hook ``mon`` into every executor of the group (parity:
+        Module.install_monitor)."""
+        assert self.binded
+        self._exec_group.install_monitor(mon)
+
     # ------------------------------------------------- fused fit fast path
-    def _start_fused_fit(self, policy=None):
+    def _start_fused_fit(self, policy=None, monitor=None):
         """A ``_FusedFit`` when the common case holds, else None (the
         general path), with the reason logged (parity:
         Module._start_fused_fit).
@@ -432,7 +446,16 @@ class Module(BaseModule):
         AdaDelta).  The ``dist*`` kvstores, the reference's other gate,
         raise earlier (the distributed slice).  ``policy`` (or
         ``MXNET_AMP``, read here) trains in mixed precision; the general
-        path trains float32."""
+        path trains float32.
+
+        ``monitor`` rides the fused path when its stat_func is the default
+        RMS (its rows are then the parameters' RMS, computed on the card
+        by the step); a custom stat_func is host Python over every node
+        output and takes the general path.  While telemetry records, the
+        general path runs so that the step splits into spans, unless
+        ``MXNET_TELEMETRY_FUSED=1``."""
+        from .. import monitor as _mon_mod
+        from .. import telemetry as _tel
         policy = _amp.resolve_policy(policy)
 
         def fallback(why):
@@ -444,6 +467,25 @@ class Module(BaseModule):
 
         if get_env("MXNET_FUSED_FIT", "1") == "0":
             return fallback("MXNET_FUSED_FIT=0")
+        if monitor is not None:
+            if monitor.stat_func is not _mon_mod._rms:
+                return fallback(
+                    "Monitor with a custom stat_func cannot be served "
+                    "from the fused step's on-device stats (the fused "
+                    "step samples the default RMS of the parameters "
+                    "only)")
+            logging.info(
+                "Module.fit: Monitor served from the fused step's "
+                "on-device parameter norms (parameter rows; per-op "
+                "activation streaming needs the general path — "
+                "MXNET_FUSED_FIT=0)")
+        if _tel.enabled() and get_env("MXNET_TELEMETRY_FUSED", "0") != "1":
+            # the fused step cannot be split into forward/backward/update
+            # spans; telemetry asks for that breakdown, so the general path
+            # runs.  MXNET_TELEMETRY_FUSED=1 keeps the fused path, with one
+            # fused_step span a batch
+            return fallback("telemetry step breakdown active "
+                            "(MXNET_TELEMETRY_FUSED=1 keeps the fused path)")
         if len(self._context) != 1:
             return fallback("multi-context binding")
         if self._state_names or self._fixed_param_names or \
@@ -525,6 +567,10 @@ class _FusedFit(object):
                                  label_names=tuple(module._label_names),
                                  policy=policy, ctx=module._context[0])
             module._fused_ts_cache = (key, self._ts)
+        # the fit loop emits the AMP telemetry (train_loss_scale, the
+        # gauge and the counter at the scalar_due cadence): one read a
+        # step, not two
+        self._ts._amp_emit = False
         dev = module._context[0].torch_device()
         self._dev = dev
         # the side stream the prefetch producer copies batches on
@@ -536,6 +582,9 @@ class _FusedFit(object):
                         for n in self._ts.param_names}
         self._aux = {n: aux_params[n].value.detach().to(dev, copy=True)
                      for n in self._ts.aux_names}
+        # element counts for the Monitor bridge (RMS = norm / sqrt(size))
+        self._param_sizes = {n: int(v.numel())
+                             for n, v in self._params.items()}
         self._state = self._ts.fopt.init_state(self._params)
         self._merge_updater_state()
         self._input_names = module._data_names + module._label_names
@@ -595,8 +644,47 @@ class _FusedFit(object):
         None.  Reads two scalars from the device."""
         return self._ts.amp_stats()
 
-    # the JAX package's hooks for its sharded step checkpoints, live resize
-    # and the Monitor bridge: not ported yet
+    def step_flops(self):
+        """Model FLOPs of one fused step, counted from the graph (the fit
+        loop's MFU numerator), or None before the first step."""
+        return self._ts.step_flops()
+
+    # ------------------------------------------------------ monitor bridge
+    def monitor_tic(self, monitor):
+        """Monitor bridge, tic half: the monitor armed itself for this
+        batch — the step samples the parameters' squared norms on the
+        card."""
+        if monitor is not None and monitor._armed:
+            self._ts._mon_force = True
+
+    def monitor_feed(self, monitor):
+        """Monitor bridge, toc half: the sampled step's parameter norms
+        become the monitor's ``(step, name, stat)`` rows — the RMS
+        (norm / sqrt(size)), the default stat — so ``toc()`` and
+        ``toc_print()`` render and stream them as on the general path."""
+        if monitor is None or not monitor._armed:
+            return
+        entry = self.last_monitor_entry()
+        if entry is None:
+            return
+        for name, norm in sorted((entry.get("param_norms") or {}).items()):
+            if not monitor._name_ok(name):
+                continue
+            size = self._param_sizes.get(name)
+            if size:
+                monitor._rows.append((monitor._armed_step, name,
+                                      norm / math.sqrt(size)))
+
+    def last_monitor_entry(self):
+        """The entry the most recent step published, or None when that
+        step did not sample."""
+        entry = self._ts._last_mon_entry
+        if entry is None or entry.get("update") != self._ts.num_update - 1:
+            return None
+        return entry
+
+    # the JAX package's hooks for its sharded step checkpoints and live
+    # resize: not ported yet
     def save_checkpoint(self, checkpointer, epoch=0, nbatch=0, extra=None):
         _refuse("sharded checkpoints of the live fused state", "distributed")
 
@@ -605,12 +693,6 @@ class _FusedFit(object):
 
     def apply_resize(self, man, params, opt_state, aux):
         _refuse("a live resize of the fused state", "distributed")
-
-    def monitor_tic(self, monitor):
-        _refuse("the Monitor bridge", "observability")
-
-    def monitor_feed(self, monitor):
-        _refuse("the Monitor bridge", "observability")
 
     def step(self, data_batch):
         """One fused step: (outputs, labels on the device) as NDArrays, for

@@ -29,6 +29,7 @@ import torch
 from .base import (MXNetError, _TORCH2NP, atomic_write, np_bfloat16,
                    numpy_dtype, torch_dtype)
 from .context import Context, current_context
+from . import engine as _engine
 from . import ops as _ops  # noqa: F401  (every op, before the frontends)
 from .ops import registry as _reg
 
@@ -364,7 +365,11 @@ def _invoke(op_name, nds, attrs, ctx=None, out=None):
         outs_nd = out if isinstance(out, (list, tuple)) else [out]
         for o, v in zip(outs_nd, vis):
             o._set_value(v)
+        _engine.maybe_wait(outs_nd)
         return out
+    # NaiveEngine: the copies above (a view op's output, the aux writes)
+    # are done too before the op returns
+    _engine.maybe_wait(vis)
     wrapped = [NDArray(v, ctx=ctx) for v in vis]
     return wrapped[0] if len(wrapped) == 1 else tuple(wrapped)
 
@@ -464,10 +469,11 @@ def onehot_encode(indices, out):
 
 def waitall():
     """Block until the pending work of every card in use is done (parity:
-    MXNDArrayWaitAll)."""
+    MXNDArrayWaitAll), through the engine's wait."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
+        from . import engine as _engine
+        _engine._wait([torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())])
 
 
 def maximum(lhs, rhs):

@@ -19,6 +19,8 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, Registry, get_env
+from .. import engine as _engine
+from .. import profiler as _prof
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "OPS", "parse_tuple",
            "parse_int", "parse_float", "parse_bool", "parse_str",
@@ -274,9 +276,11 @@ def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
     ``device`` is where the op runs when it has no inputs (creation and
     sampling ops build their tensors there); an op with inputs runs where
     its inputs are.  An op with ``needs_rng`` draws from ``rng``, by default
-    the generator of that device (``random.generator``).  The JAX package's
-    NaiveEngine, profiler and sanitizer hooks are not ported here: they
-    arrive with the observability slice."""
+    the generator of that device (``random.generator``).  Under
+    ``MXNET_ENGINE_TYPE=NaiveEngine`` the op waits for its results (parity:
+    naive_engine.cc); while the profiler runs in ``imperative`` or ``all``
+    mode each op is one chrome-trace event, timed to its results.  The JAX
+    package's sanitizer hooks arrive with a later slice."""
     op = get_op(op_name) if isinstance(op_name, str) else op_name
     attrs = op.normalize_attrs(attrs or {})
     dev = inputs[0].device if inputs else torch.device(device or "cpu")
@@ -287,6 +291,11 @@ def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
             from .. import random as _random
             rng = _random.generator(dev)
         args = (rng,) + args
+    profiling = _prof._state["running"] and \
+        _prof._state["mode"] in ("imperative", "all")
+    if profiling:
+        import time as _time
+        t0 = _time.time()
     if inputs:
         out = call(*args)
     else:
@@ -294,4 +303,9 @@ def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,
             out = call(*args)
     if not isinstance(out, (tuple, list)):
         out = (out,)
+    if profiling:
+        _engine._wait({dev})
+        _prof.record_event(op.name, t0 * 1e6, (_time.time() - t0) * 1e6,
+                           "imperative")
+    _engine.maybe_wait(out)
     return tuple(out), op

@@ -3,14 +3,16 @@ its per-argument lr/wd multipliers, ``rescale_grad`` and ``clip_gradient``;
 SGD, ccSGD, NAG, SGLD, DCASGD, Adam, AdaGrad, RMSProp, AdaDelta and Test,
 each with the imperative ``create_state`` / ``update`` on NDArrays; the
 ``Updater`` closure with per-index states; ``register``, ``create`` and
-``get_updater``.
+``get_updater``; ``opt_stats_enabled``.
 
 ``update`` writes the new weight and states into the NDArrays it was given,
 in place, so a view of a weight sees the step.  SGD, Adam and RMSProp run
 the registered update ops (``mx.nd.sgd_mom_update``, ...); NAG, AdaGrad and
 AdaDelta run the tensor rules below, which ``train._FunctionalOptimizer``
-(TrainStep's fused path) shares.  The ``Updater``'s ``MXNET_OPT_STATS``
-telemetry is not ported: it arrives with the observability slice.
+(TrainStep's fused path) shares.  Under ``MXNET_OPT_STATS=1`` while
+telemetry records, the ``Updater`` records each parameter's
+``grad_norm``, ``weight_norm`` and ``update_ratio`` scalars, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -19,13 +21,22 @@ import pickle
 
 import torch
 
-from .base import MXNetError, Registry, string_types
+from .base import MXNetError, Registry, get_env, string_types
 from . import ndarray as nd
+from . import telemetry as _tel
 from .ndarray import NDArray
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "ccSGD", "DCASGD", "Adam",
            "AdaGrad", "RMSProp", "AdaDelta", "Test", "Updater", "create",
-           "get_updater", "register"]
+           "get_updater", "register", "opt_stats_enabled"]
+
+
+def opt_stats_enabled():
+    """True when ``MXNET_OPT_STATS=1`` opts the ``Updater`` into optimizer
+    introspection: per-parameter ``grad_norm`` / ``weight_norm`` /
+    ``update_ratio`` scalars around each update, while telemetry records,
+    sampled by ``MXNET_SCALARS_EVERY``.  Read live, not cached."""
+    return get_env("MXNET_OPT_STATS") in ("1", "true", "True")
 
 _OPTIMIZERS = Registry("optimizer")
 
@@ -433,7 +444,40 @@ class Updater(object):
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+        if _tel._enabled and opt_stats_enabled():
+            # the update writes in place: keep the weight before it
+            w0 = weight.value.detach().clone()
+            self.optimizer.update(index, weight, grad, self.states[index])
+            self._record_stats(index, w0, weight, grad)
+        else:
+            self.optimizer.update(index, weight, grad, self.states[index])
+
+    def _record_stats(self, index, w0, weight, grad):
+        """``MXNET_OPT_STATS``: the gradient's norm, the weight's norm
+        before the update and the update-to-weight ratio ``‖w₁−w₀‖/‖w₀‖``,
+        reduced on the weight's device in float32 and read as one stacked
+        3-scalar transfer a parameter; ``scalar_due`` gates the whole
+        computation.  The gradient is the one handed to the optimizer
+        (before rescale_grad and clipping).  Step axis: the 0-based update
+        index within this run (``num_update - 1 - begin_num_update``), the
+        fit's global batch step (parity: Updater._record_stats)."""
+        opt = self.optimizer
+        step = opt.num_update - 1 - opt.begin_num_update
+        if not _tel.scalar_due(step):
+            return
+        f32 = torch.float32
+        g = grad.value.to(f32)
+        w0 = w0.to(f32)
+        w1 = weight.value.to(f32)
+        norms = torch.sqrt(torch.stack([g.square().sum(), w0.square().sum(),
+                                        (w1 - w0).square().sum()]))
+        gn, wn, up = norms.cpu().tolist()
+        name = opt.idx2name.get(index, str(index))
+        _tel.scalar("grad_norm", step, gn, param=name)
+        _tel.scalar("weight_norm", step, wn, param=name)
+        _tel.scalar("update_ratio", step,
+                    up / wn if wn else (0.0 if up == 0 else float("inf")),
+                    param=name)
 
     def set_states(self, states):
         self.states = pickle.loads(states)

@@ -14,6 +14,7 @@ from .base import MXNetError
 from .context import Context
 from . import ndarray as nd
 from . import symbol as sym_mod
+from . import telemetry as _tel
 
 __all__ = ["Predictor", "read_checkpoint"]
 
@@ -138,11 +139,20 @@ class Predictor(object):
             raise MXNetError("unknown input %s (have %s)"
                              % (name, self._input_names))
         arr = self._executor.arg_dict[name]
-        arr[:] = _np.asarray(value, dtype=arr.dtype)
+        if _tel._enabled:
+            # the host-to-card staging copy, timed (parity: the JAX
+            # package's predict.set_input span)
+            with _tel.span("predict.set_input", cat="serve", input=name):
+                arr[:] = _np.asarray(value, dtype=arr.dtype)
+        else:
+            arr[:] = _np.asarray(value, dtype=arr.dtype)
 
     def forward(self, **inputs):
         """Run the forward; keyword arguments stage inputs first, each at
-        its bound dtype, as ``set_input`` does."""
+        its bound dtype, as ``set_input`` does.  While telemetry records,
+        each call is a ``predict.forward`` span (the executor waits for
+        the card then, so the span is the serving latency) and counts
+        ``predict_requests`` and ``predict_samples``."""
         staged = {}
         for name, value in inputs.items():
             if name not in self._input_names:
@@ -150,7 +160,15 @@ class Predictor(object):
                                  % (name, self._input_names))
             staged[name] = _np.asarray(
                 value, dtype=self._executor.arg_dict[name].dtype)
-        self._outputs = self._executor.forward(is_train=False, **staged)
+        if not _tel._enabled:
+            self._outputs = self._executor.forward(is_train=False, **staged)
+            return
+        with _tel.span("predict.forward", cat="serve"):
+            self._outputs = self._executor.forward(is_train=False, **staged)
+        _tel.counter("predict_requests")
+        if self._input_names:
+            _tel.counter("predict_samples", int(
+                self._executor.arg_dict[self._input_names[0]].shape[0]))
 
     def get_output_shape(self, index=0):
         outs = self._outputs or self._executor.outputs

@@ -1,6 +1,6 @@
 """Serving — concurrent predictor with dynamic bucketed batching
-(counterpart: mxnet_tpu/serving.py, without its HTTP front end and
-telemetry, which arrive in later slices).
+(counterpart: mxnet_tpu/serving.py, without its HTTP front end, which
+arrives in a later slice).
 
 Concurrent callers ``submit()`` single-sample requests into a queue; a
 batcher thread coalesces whatever is in flight into one forward per tick,
@@ -10,9 +10,16 @@ scatters the rows back to per-request futures.  Padded rows are zeros and
 their outputs are dropped before the scatter, so padding never leaks into a
 result.  The first request of a tick waits at most ``max_wait_ms`` (default
 2 ms, ``MXNET_SERVE_WAIT_MS``) for company.
+
+While telemetry records, each tick records every request's
+``serve.queue_wait`` span, the ``serve_batch_size`` and
+``serve_queue_depth`` gauges and the ``serve.batch`` span, and counts
+``serve_requests`` and ``serve_padded_slots``, tagged with the model's
+name, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib as _contextlib
 import queue as _queue_mod
 import threading
 import time
@@ -23,6 +30,7 @@ import numpy as _np
 from .base import MXNetError, get_env
 from .context import Context
 from .predictor import Predictor, _load_params, _on_ctx, read_checkpoint
+from . import telemetry as _tel
 
 __all__ = ["bucket_ladder", "ServedModel", "Server"]
 
@@ -65,12 +73,13 @@ def _env_wait_s():
 class _Request(object):
     """One enqueued sample: staged inputs + the future its row resolves."""
 
-    __slots__ = ("inputs", "future", "t0")
+    __slots__ = ("inputs", "future", "wall", "t0")
 
     def __init__(self, inputs):
         self.inputs = inputs
         self.future = Future()
-        self.t0 = time.perf_counter()
+        self.wall = time.time()          # span start (wall clock)
+        self.t0 = time.perf_counter()    # queue-wait base
 
 
 class _WarmRequest(object):
@@ -312,17 +321,33 @@ class ServedModel(object):
         n = len(batch)
         bucket = self._bucket_for(n)
         try:
-            pred = self._predictor(bucket)
-            padded = {}
-            for k, shape in self._sample_shapes.items():
-                buf = _np.zeros((bucket,) + shape, dtype=self._input_types[k])
-                for i, r in enumerate(batch):
-                    buf[i] = r.inputs[k]
-                padded[k] = buf
-            pred.forward(**padded)
-            outs = [pred.get_output(j) for j in range(pred.num_outputs)]
-            # only the n real rows are extracted: padding cannot leak
-            rows = [[_np.array(o[i]) for o in outs] for i in range(n)]
+            if _tel._enabled:
+                now = time.perf_counter()
+                for r in batch:
+                    # enqueue -> tick start, with the request's own stamps
+                    _tel.record_span("serve.queue_wait", r.wall, now - r.t0,
+                                     cat="serve", mirror=False,
+                                     model=self.name)
+                _tel.gauge("serve_batch_size", n, model=self.name)
+                _tel.gauge("serve_queue_depth", self._queue.qsize(),
+                           model=self.name)
+                batch_span = _tel.span("serve.batch", cat="serve",
+                                       model=self.name, bucket=bucket, n=n)
+            else:
+                batch_span = _contextlib.nullcontext()
+            with batch_span:
+                pred = self._predictor(bucket)
+                padded = {}
+                for k, shape in self._sample_shapes.items():
+                    buf = _np.zeros((bucket,) + shape,
+                                    dtype=self._input_types[k])
+                    for i, r in enumerate(batch):
+                        buf[i] = r.inputs[k]
+                    padded[k] = buf
+                pred.forward(**padded)
+                outs = [pred.get_output(j) for j in range(pred.num_outputs)]
+                # only the n real rows are extracted: padding cannot leak
+                rows = [[_np.array(o[i]) for o in outs] for i in range(n)]
         except Exception as exc:   # scatter the failure, keep serving
             with self._lock:
                 self._stats["errors"] += n
@@ -330,6 +355,11 @@ class ServedModel(object):
                 if r.future.set_running_or_notify_cancel():
                     r.future.set_exception(exc)
             return
+        if _tel._enabled:
+            _tel.counter("serve_requests", n, model=self.name)
+            if bucket > n:
+                _tel.counter("serve_padded_slots", bucket - n,
+                             model=self.name)
         with self._lock:
             st = self._stats
             st["requests"] += n

@@ -29,15 +29,23 @@ in the step.  ``remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``), replaying the explicit generator the Dropout
 and sampling ops draw from.
 
-Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the parallel
-slice), and the monitor, telemetry and sanitize hooks (the observability
-slice; the AMP telemetry, the ``loss_scale`` gauge and the
-``amp_overflow_steps`` counter, among them); SGLD, DCASGD and Test run
-through the imperative ``optimizer.Updater``, not here.
+Observability, as in the JAX package: each step is the profiler range
+``train_step[n]`` and, while telemetry records, the span ``train_step``,
+the AMP ``loss_scale`` gauge and ``amp_overflow_steps`` counter;
+``step_flops`` counts the model FLOPs of a step from the graph
+(``cost.graph_flops``); the Monitor bridge (``_mon_force``) samples the
+parameters' squared norms on the card before a step.
+
+Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the
+distributed slice); the ``MXNET_MONITOR`` statistics, their cadence,
+history ring and provenance replay (the numerics slice); the sanitizer's
+hooks; SGLD, DCASGD and Test run through the imperative
+``optimizer.Updater``, not here.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as _np
 import torch
@@ -46,8 +54,11 @@ import torch.utils.checkpoint as _ckpt
 from .base import MXNetError, torch_dtype
 from .context import Context, cpu, current_context
 from . import amp as _amp
+from . import engine as _engine
 from . import ndarray as nd
+from . import profiler as _profiler
 from . import random as _random
+from . import telemetry as _tel
 from .executor import _Lowered, head_grads
 from .ops.registry import get_op
 from .optimizer import adadelta_rule, adagrad_rule, nag_rule
@@ -307,6 +318,14 @@ class TrainStep(object):
         self.fopt = _FunctionalOptimizer(optimizer, self.param_names)
         self.optimizer = optimizer
         self.num_update = 0
+        # the AMP loss-scale gauge and overflow counter, emitted by the step
+        # while telemetry records (the fit loop turns this off: it emits
+        # them itself, with the train_loss_scale curve)
+        self._amp_emit = True
+        self._flops = {}              # input shapes -> step_flops()
+        self._last_shapes = None      # the input shapes of the last step
+        self._mon_force = False       # the Monitor bridge's force-sample
+        self._last_mon_entry = None   # the last sampled step's norms
 
     def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
         """Infer shapes, initialise the parameters and aux states with
@@ -465,18 +484,84 @@ class TrainStep(object):
             if k in aux:
                 put(aux[k], v)
 
+    # ------------------------------------------------------- observability
+    def step_flops(self):
+        """Model FLOPs of one step at the last step's input shapes (the fit
+        loop's MFU numerator), counted from the graph by
+        ``cost.graph_flops`` once a shape and kept; None before the first
+        step."""
+        key = self._last_shapes
+        if key is None:
+            return None
+        if key not in self._flops:
+            from . import cost as _cost
+            self._flops[key] = _cost.graph_flops(self.symbol, dict(key))
+        return self._flops[key]
+
+    def _param_sq(self, params):
+        """The squared norm of every parameter as one stacked tensor on the
+        step's device, reduced there (float32 at least, float64 kept) —
+        the Monitor bridge's sample, read after the step."""
+        sq = [params[n].detach().to(torch.promote_types(
+            params[n].dtype, torch.float32)).square().sum().to(torch.float64)
+            for n in self.param_names]
+        return torch.stack(sq) if sq else None
+
+    def _publish_monitor(self, sq, upd_idx):
+        """Read the sampled step's squared norms to the host (the one
+        planned read) and keep them as the last entry: ``{"update":
+        index, "param_norms": {name: norm}}``.  The JAX package's
+        ``MXNET_MONITOR`` statistics (gradient norms, update ratios, the
+        history ring) arrive with the numerics slice."""
+        host = sq.cpu().tolist() if sq is not None else []
+        norms = {n: math.sqrt(v) if math.isfinite(v) and v >= 0
+                 else float("nan") for n, v in zip(self.param_names, host)}
+        self._last_mon_entry = {"update": int(upd_idx),
+                                "param_norms": norms}
+
     def __call__(self, params, opt_state, aux, batch, rng=None):
         """One step.  Returns (params, opt_state, aux, outputs); the first
         three are the dicts passed in, updated in place.  ``batch`` may lie
         on the host (``shard_batch`` places it, as the JAX package's jit
         does).  ``rng`` is accepted for the JAX signature: an op that draws
         random numbers (Dropout, the samplers) draws from the generator of
-        the step's device (``random.generator``)."""
+        the step's device (``random.generator``).
+
+        The step is the profiler range ``train_step[n]`` and, while
+        telemetry records, the span ``train_step``; either waits for the
+        card at the step's end, as NaiveEngine does."""
         batch = self.shard_batch(batch)
+        self._last_shapes = tuple(sorted(
+            (k, tuple(v.shape)) for k, v in batch.items()))
+        upd_idx = self.num_update
         hyper = self.fopt.hyper(self.num_update)
         self.num_update += 1
-        return self._step(params, opt_state, aux, batch, hyper,
-                          self.num_update)
+        sq = None
+        if self._mon_force:
+            self._mon_force = False
+            sq = self._param_sq(params)
+        with _profiler.Scope("train_step[%d]" % self.num_update, "symbolic"):
+            if _tel._enabled:
+                with _tel.span("train_step", cat="executor", mirror=False,
+                               num_update=self.num_update):
+                    res = self._step(params, opt_state, aux, batch, hyper,
+                                     self.num_update)
+                    _engine.settle(res[3])
+            else:
+                res = self._step(params, opt_state, aux, batch, hyper,
+                                 self.num_update)
+                _engine.settle(res[3])
+        if self._has_scale and _tel._enabled and self._amp_emit \
+                and _tel.scalar_due(self.num_update):
+            # a telemetry read of two scalars: the scale gauge and the
+            # overflow counter
+            scale, overflow = self.amp_stats()
+            _tel.gauge("loss_scale", scale)
+            if overflow:
+                _tel.counter("amp_overflow_steps", overflow)
+        if sq is not None:
+            self._publish_monitor(sq, upd_idx)
+        return res
 
     def run_steps(self, params, opt_state, aux, batch, num_steps, rng=None,
                   stacked=False):
@@ -502,10 +587,18 @@ class TrainStep(object):
         hyper = self.fopt.hyper(self.num_update)
         t0 = self.num_update
         self.num_update += num_steps + 1
+        self._last_shapes = tuple(sorted(
+            (k, tuple(v.shape[1:] if stacked else v.shape))
+            for k, v in batch.items()))
         res = None
         for i in range(num_steps + 1):
             b = {k: v[i] for k, v in batch.items()} if stacked else batch
-            res = self._step(params, opt_state, aux, b, hyper, t0 + i + 1)
+            # each step its profiler range, as through __call__
+            with _profiler.Scope("train_step[%d]" % (t0 + i + 1),
+                                 "symbolic"):
+                res = self._step(params, opt_state, aux, b, hyper,
+                                 t0 + i + 1)
+                _engine.settle(res[3])
         return res
 
 

@@ -224,8 +224,15 @@ def test_bucketing_params_and_checkpoint(tmp_path):
     fresh.bind(it.provide_data, it.provide_label, for_training=False)
     fresh.set_params(loaded._arg_params, loaded._aux_params)
     assert _score(fresh, batches) == score
-    with pytest.raises(mt.MXNetError, match="observability slice"):
-        fresh.install_monitor(object())
+    # install_monitor hooks every bound bucket's executors (the
+    # observability slice): a scored forward streams its node outputs
+    mon = mt.Monitor(1, pattern=".*_output")
+    fresh.install_monitor(mon)
+    mon.tic()
+    fresh.forward(batches.batches[0], is_train=False)
+    names = [n for _, n, _ in mon.toc()]
+    assert names and all(n.endswith("_output") for n in names)
+    assert names == sorted(names)
 
 
 def test_module_bind_shared_module_and_borrow_optimizer():

@@ -19,11 +19,14 @@
   Executor, input gradients; each also against the JAX package's values.
 - Checkpoints: a port checkpoint loads in ``mxnet_tpu.Module.load`` and
   predicts the same, and the reverse.
-- The refusals, each naming its slice, and ``Module()`` on ``gpu(0)``.
+- The refusals, each naming its slice (the numerics and distributed
+  slices), the telemetry knobs and the Monitor at work (the observability
+  slice), and ``Module()`` on ``gpu(0)``.
 - On the card (``cuda`` marker): LeNet fit on ``gpu(0)`` with the device
   prefetch on and off, bitwise equal, every staged batch consumed in
   order.
 """
+import json
 import os
 
 import numpy as np
@@ -420,13 +423,11 @@ def _small():
 
 
 @pytest.mark.parametrize("knob,value,slice_", [
-    ("MXNET_TELEMETRY", "/tmp/t.jsonl", "observability"),
-    ("MXNET_TELEMETRY_FUSED", "1", "observability"),
-    ("MXNET_CHECK_NUMERICS", "raise", "observability"),
-    ("MXNET_SENTINEL", "step:3sigma", "observability"),
-    ("MXNET_WATCHDOG_SEC", "30", "observability"),
-    ("MXNET_DIAG_DIR", "/tmp", "observability"),
-    ("MXNET_MONITOR", "every:1", "observability"),
+    ("MXNET_CHECK_NUMERICS", "raise", "numerics"),
+    ("MXNET_SENTINEL", "step:3sigma", "numerics"),
+    ("MXNET_WATCHDOG_SEC", "30", "numerics"),
+    ("MXNET_DIAG_DIR", "/tmp", "numerics"),
+    ("MXNET_MONITOR", "every:1", "numerics"),
     ("MXNET_PP", "2", "distributed"),
     ("MXNET_ZERO", "1", "distributed")])
 def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
@@ -440,12 +441,48 @@ def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
     mod.fit(it, num_epoch=1)
 
 
+@pytest.mark.parametrize("knob,fused", [("MXNET_TELEMETRY", False),
+                                        ("MXNET_TELEMETRY_FUSED", True)])
+def test_fit_telemetry_knobs_work(monkeypatch, tmp_path, knob, fused):
+    """The telemetry knobs, refused before the observability slice, record
+    the fit: ``MXNET_TELEMETRY`` (started here as at import) takes the
+    general path and splits the step; with ``MXNET_TELEMETRY_FUSED=1`` the
+    fused path stays, one ``fused_step`` span a batch."""
+    tel = mt.telemetry
+    fname = str(tmp_path / "t.jsonl")
+    monkeypatch.setenv("MXNET_TELEMETRY", fname)
+    monkeypatch.delenv("MXTPU_PROCESS_ID", raising=False)
+    if knob == "MXNET_TELEMETRY_FUSED":
+        monkeypatch.setenv(knob, "1")
+    it, mod = _small()
+    assert tel._autostart()
+    try:
+        mod.fit(it, num_epoch=1)
+    finally:
+        tel.stop()
+    with open(fname) as f:
+        names = {json.loads(line).get("name") for line in f}
+    tel.reset()
+    assert (mod._fused_ts_cache is not None) == fused
+    assert {"data_wait", "metric", "step", "epoch"} <= names
+    assert ("fused_step" in names) == fused
+    assert ("forward" in names and "backward" in names) == (not fused)
+
+
 def test_refusals_name_their_slice():
     it, mod = _small()
-    with pytest.raises(mt.MXNetError, match="observability slice"):
-        mod.fit(it, num_epoch=1, monitor=object())
-    with pytest.raises(mt.MXNetError, match="observability slice"):
-        mod.install_monitor(object())
+    rows = []
+
+    class Capture(mt.Monitor):
+        def toc_print(self):
+            rows.extend(self.toc())
+    # the Monitor works (the observability slice): fit(monitor=) on the
+    # fused path, install_monitor on the general path
+    mod.fit(it, num_epoch=1, monitor=Capture(1))
+    assert rows and mod._fused_ts_cache is not None
+    assert {n for _, n, _ in rows} == set(mod._param_names)
+    mod.install_monitor(Capture(1))
+    assert mod._exec_group.execs[0]._monitor_cb is not None
     # several contexts and KVStore objects train (the parallel slice); a
     # kvstore that is neither a KVStore, a string nor None is a TypeError,
     # as in the JAX package
@@ -463,19 +500,28 @@ def test_refusals_name_their_slice():
     for hook, args, slice_ in (
             ("save_checkpoint", (None,), "distributed"),
             ("export_state", (), "distributed"),
-            ("apply_resize", (None, None, None, None), "distributed"),
-            ("monitor_tic", (None,), "observability"),
-            ("monitor_feed", (None,), "observability")):
+            ("apply_resize", (None, None, None, None), "distributed")):
         with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
             getattr(ff, hook)(*args)
+    # the Monitor bridge works: an armed tic samples the step's parameter
+    # norms, feed turns them into rows
+    mon = mt.Monitor(1)
+    mon.tic()
+    ff.monitor_tic(mon)
+    ff.step(next(iter(it)))
+    ff.monitor_feed(mon)
+    fed = mon.toc()
+    assert [n for _, n, _ in fed] == sorted(ff._params)
+    ff.monitor_feed(None)
+    ff.sync_back()
+    it.reset()
     mod._ckpt_resume = "ck"
     with pytest.raises(mt.MXNetError, match="distributed slice"):
         mod._start_fused_fit()
     ff = mt.model.FeedForward(mt.models.get_mlp(num_classes=4),
                               ctx=mt.cpu(), num_epoch=1, numpy_batch_size=10)
     x, y = _data("mlp", n=30)
-    with pytest.raises(mt.MXNetError, match="observability slice"):
-        ff.fit(x, y, monitor=object())
+    ff.fit(x, y, monitor=mt.Monitor(1))
     ff.fit(x, y)
     assert ff.predict(x).shape == (30, 4)
 
