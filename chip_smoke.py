@@ -156,6 +156,25 @@ fatal on failure:
    fit's img/s beside module_fit's, one fused and one general-path step
    under ``set_sync_debug_mode``.  (f) NaiveEngine: the stream idle after
    each imperative op;
+4g. operators (after ssd): the operator surface's first part.  (a) The
+   20 ops it ports (LeakyReLU, Deconvolution, InstanceNorm,
+   L2Normalization, LRN, UpSampling, softmax, log_softmax, topk, sort,
+   argsort, the 0-index ops, _broadcast, _onehot_encode,
+   IdentityAttachKLSparseReg, the slice assignments, Convolution_v1) at
+   small shapes on the card, forward and backward in float32, each output
+   and gradient within OPS_TOL of the same op in float64 on the host, the
+   indices equal; rrelu's training slopes within their bounds, their mean
+   near the midpoint.  (b) AlexNet (models/alexnet.py; train_imagenet.py
+   --network alexnet's defaults: 1000 classes, 3x224x224, batch 32, random
+   weights from a seed): one SGD-momentum step at batch 4 within
+   RESNET_FLOOR_X times its float32 floor of the float64 CPU step, under
+   MXNET_CONV_LAYOUT NHWC and NCHW, the Dropout masks injected; Module.fit,
+   6 batches fused and 3 general (MXNET_FUSED_FIT=0): img/s, host ms a
+   batch; the fused step's busy share and LRN's device ms.  (c) DCGAN
+   through bench/dcgan.py at the example's defaults (batch 32, code 64,
+   ngf = ndf = 32, Adam 2e-4, beta1 0.5), 10 iterations: finite losses,
+   d_loss moving, the samples moved; one iteration from the initial
+   parameters within the floor rule of the float64 one on the host;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -254,10 +273,10 @@ the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
 profiles (float32 and AMP), the Module layer's checks and timings, the
 sequences slice's and the SSD slice's checks, times and rates, the
-observability phase's host split, MFU, profile ranges and checks, Updater
-and Rtc numbers, the parallel slice's checks, copies and rates, each phase's
-seconds,
-a JSON line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
+operators phase's checks and rates, the observability phase's host
+split, MFU, profile ranges and checks, Updater and Rtc numbers, the
+parallel slice's checks, copies and rates, each phase's seconds, a JSON
+line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel),
 and as its last line
@@ -3687,6 +3706,482 @@ def ssd_phase(torch, mt, card):
     return dict(nms, launches=launches)
 
 
+# ------------------------------------------------ operators (the slice)
+# operators: (a) each of the 20 ops of the operator surface's first part
+# (OPERATOR_NAMES) at small shapes on the card, forward and backward,
+# float32 (TF32 off) against the same op in float64 on the host from the
+# same inputs: every output and input gradient within OPS_TOL of its
+# largest entry, the indices of topk/argsort and the one-hot rows equal;
+# rrelu in training by its slopes' bounds and mean.  (b) AlexNet
+# (models/alexnet.py; train_imagenet.py --network alexnet's defaults: 1000
+# classes, 3x224x224, batch ALEX_BATCH) through Module.fit, fused then
+# general; one SGD-momentum TrainStep step at ALEX_CHECK_BATCH within
+# RESNET_FLOOR_X times its float32 floor of the float64 CPU step, under
+# MXNET_CONV_LAYOUT NHWC and NCHW, the Dropout masks injected
+# (ops.nn.dropout_mask); (c) DCGAN through bench/dcgan.py at the example's
+# defaults, and one iteration within the floor rule of the float64 one.
+OPERATOR_NAMES = (
+    "LeakyReLU", "Deconvolution", "InstanceNorm", "L2Normalization", "LRN",
+    "UpSampling", "softmax", "log_softmax", "topk", "sort", "argsort",
+    "choose_element_0index", "fill_element_0index", "_broadcast",
+    "_onehot_encode", "IdentityAttachKLSparseReg", "_slice_assign",
+    "_crop_assign", "_crop_assign_scalar", "Convolution_v1")
+OPS_TOL = 1e-4
+RRELU_DRAWS = 1 << 20
+ALEX_BATCH = 32
+ALEX_FUSED_BATCHES = 6
+ALEX_GENERAL_BATCHES = 3
+ALEX_CHECK_BATCH = 4
+ALEX_PROFILED = 3
+ALEX_LR = 0.01
+GAN_ITERS = 10
+GAN_BATCH = 32
+GAN_CODE = 64
+
+
+def operator_cases():
+    """(op, attrs, float64 inputs, the inputs to differentiate, is_train)
+    for the 20 ops, from a seed: ties on a grid of halves for the ordering
+    ops, exact zeros at LeakyReLU's kink, indices in and out of range."""
+    rng = np.random.default_rng(SEED + 20)
+    r = rng.standard_normal
+
+    def kink(*s):
+        x = r(s)
+        x.flat[::4] = 0.0
+        return x
+
+    def ties(*s):
+        return np.round(r(s) * 2) / 2
+
+    idx = rng.integers(-120, 120, 64).astype(np.float64)
+    x4 = (8, 16, 12, 12)
+    return [
+        ("LeakyReLU", {"act_type": "leaky", "slope": 0.2}, [kink(*x4)],
+         (0,), False),
+        ("LeakyReLU", {"act_type": "elu", "slope": 0.3}, [kink(*x4)], (0,),
+         False),
+        ("LeakyReLU", {"act_type": "prelu"}, [kink(*x4), r(16)], (0, 1),
+         False),
+        ("LeakyReLU", {"act_type": "rrelu"}, [kink(*x4)], (0,), False),
+        ("Deconvolution", {"kernel": (4, 4), "stride": (2, 2),
+                           "pad": (1, 1), "num_filter": 64},
+         [r((8, 128, 8, 8)), r((128, 64, 4, 4)) * 0.05], (0, 1), False),
+        ("Deconvolution", {"kernel": (3, 3), "stride": (2, 2),
+                           "pad": (1, 1), "adj": (2, 2), "num_filter": 8,
+                           "no_bias": False},
+         [r((4, 16, 7, 7)), r((16, 8, 3, 3)) * 0.1, r(8)], (0, 1, 2), False),
+        ("Deconvolution", {"kernel": (3, 3), "stride": (2, 2),
+                           "target_shape": (16, 16), "num_filter": 8,
+                           "num_group": 2},
+         [r((4, 16, 8, 8)), r((16, 4, 3, 3)) * 0.1], (0, 1), False),
+        ("InstanceNorm", {}, [r(x4), r(16), r(16)], (0, 1, 2), False),
+        ("L2Normalization", {}, [r(x4)], (0,), False),
+        ("L2Normalization", {"mode": "channel"}, [r(x4)], (0,), False),
+        ("L2Normalization", {"mode": "spatial"}, [r(x4)], (0,), False),
+        ("LRN", {"nsize": 5, "alpha": 1e-2}, [r((8, 96, 14, 14))], (0,),
+         False),
+        ("LRN", {"nsize": 5, "alpha": 1e-2, "layout": "NHWC"},
+         [r((8, 14, 14, 96))], (0,), False),
+        ("UpSampling", {"scale": 2, "num_args": 1}, [r(x4)], (0,), False),
+        ("UpSampling", {"scale": 2, "sample_type": "bilinear",
+                        "num_args": 1}, [r(x4)], (0,), False),
+        ("UpSampling", {"scale": 2, "num_args": 2},
+         [r((4, 8, 12, 12)), r((4, 8, 6, 6))], (0, 1), False),
+        ("UpSampling", {"scale": 2, "num_args": 2,
+                        "multi_input_mode": "sum"},
+         [r((4, 8, 12, 12)), r((4, 8, 6, 6))], (0, 1), False),
+        ("softmax", {"axis": 1, "temperature": 2.0}, [r((64, 1000))], (0,),
+         False),
+        ("softmax", {"temperature": 0.0}, [r((64, 1000))], (0,), False),
+        ("log_softmax", {}, [r((64, 1000))], (0,), False),
+        ("topk", {"k": 5, "ret_typ": "both"}, [ties(64, 1000)], (0,),
+         False),
+        ("topk", {"k": 3, "axis": 0, "is_ascend": True}, [ties(50, 20)],
+         (0,), False),
+        ("sort", {"is_ascend": False}, [ties(64, 1000)], (0,), False),
+        ("argsort", {"axis": 0}, [ties(50, 20)], (0,), False),
+        ("choose_element_0index", {}, [r((64, 100)), idx], (0,), False),
+        ("fill_element_0index", {}, [r((64, 100)), r(64), idx], (0, 1),
+         False),
+        ("_broadcast", {"axis": 1, "size": 64}, [r((32, 1, 16))], (0,),
+         False),
+        ("_onehot_encode", {}, [idx, np.zeros((64, 100))], (), False),
+        ("IdentityAttachKLSparseReg", {"sparseness_target": 0.1,
+                                       "penalty": 0.01},
+         [rng.uniform(0.1, 0.9, (64, 128)), rng.uniform(0.2, 0.7, 128)],
+         (0,), True),
+        ("_slice_assign", {"begin": (2, 3), "end": (10, 40)},
+         [r((16, 64)), r((8, 37))], (0, 1), False),
+        ("_crop_assign", {"begin": (0, 10), "end": (16, 12)},
+         [r((16, 64)), r((16, 2))], (0, 1), False),
+        ("_crop_assign_scalar", {"begin": (1, 0), "end": (9, 20),
+                                 "scalar": 3.5}, [r((16, 64))], (0,), False),
+        ("Convolution_v1", {"kernel": (3, 3), "num_filter": 32,
+                            "pad": (1, 1)},
+         [r(x4), r((32, 16, 3, 3)) * 0.1, r(32)], (0, 1, 2), False)]
+
+
+def operator_leaves(torch, mt, case, dev, dtype):
+    """{output k / gradient of input i: float64 CPU tensor} of one case at
+    ``dtype`` on ``dev``; the cotangents from a seed."""
+    name, attrs, arrays, diff, is_train = case
+    ins = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=i in diff)
+           for i, a in enumerate(arrays)]
+    outs, op = mt.ops.registry.imperative_invoke(name, ins, attrs,
+                                                 is_train=is_train)
+    leaves = {"out%d" % i: o.detach() for i, o in enumerate(outs)}
+    n_vis = op.num_outputs_for(op.normalize_attrs(attrs))
+    heads = [o for o in outs[:n_vis] if o.requires_grad]
+    if heads:
+        g = np.random.default_rng(SEED + 21)
+        cots = [torch.tensor(g.standard_normal(tuple(h.shape)), dtype=dtype,
+                             device=dev) for h in heads]
+        grads = torch.autograd.grad(heads, [ins[i] for i in diff], cots,
+                                    allow_unused=True)
+        leaves.update(("d%d" % i, gr.detach())
+                      for i, gr in zip(diff, grads) if gr is not None)
+    return {k: v.double().cpu() for k, v in leaves.items()}
+
+
+def operators_ops_check(torch, mt):
+    """(a): the 20 ops on the card against float64 on the host; rrelu's
+    training draws.  Returns {op: worst relative error}."""
+    cases = operator_cases()
+    if sorted({c[0] for c in cases}) != sorted(OPERATOR_NAMES):
+        fail("operators: the cases cover %s" % sorted({c[0] for c in cases}))
+    worst = {}
+    for case in cases:
+        name, attrs = case[:2]
+        got = operator_leaves(torch, mt, case, mt.gpu(0).torch_device(),
+                              torch.float32)
+        want = operator_leaves(torch, mt, case, "cpu", torch.float64)
+        if sorted(got) != sorted(want):
+            fail("operators: %s %r gives %s on the card, %s on the host"
+                 % (name, attrs, sorted(got), sorted(want)))
+        exact = name in ("argsort", "_onehot_encode") or (
+            name == "topk" and attrs.get("ret_typ") != "value")
+        for k, w in want.items():
+            a = got[k]
+            if a.shape != w.shape or not torch.equal(a.isnan(), w.isnan()):
+                fail("operators: %s %r %s: shape or NaN positions differ"
+                     % (name, attrs, k))
+            a, w = a.nan_to_num(), w.nan_to_num()
+            index_out = exact and (k == "out0" if attrs.get("ret_typ")
+                                   != "both" else k == "out1")
+            if index_out and not torch.equal(a, w):
+                fail("operators: %s %r %s: the indices differ in %d entries"
+                     % (name, attrs, k, int((a != w).sum())))
+            err = ((a - w).abs().max()
+                   / w.abs().max().clamp_min(1e-30)).item() if w.numel() \
+                else 0.0
+            if err > OPS_TOL:
+                fail("operators: %s %r %s at %.3g of its largest entry "
+                     "from float64 (tol %g)" % (name, attrs, k, err,
+                                                OPS_TOL))
+            worst[name] = max(worst.get(name, 0.0), err)
+    for name in OPERATOR_NAMES:
+        print("operators op %s worst_rel_err=%r" % (name, worst[name]))
+    lo, hi = 0.125, 0.334
+    x = -torch.ones(RRELU_DRAWS, device=mt.gpu(0).torch_device())
+    (y,), _ = mt.ops.registry.imperative_invoke(
+        "LeakyReLU", [x], {"act_type": "rrelu", "lower_bound": lo,
+                           "upper_bound": hi}, is_train=True)
+    s = -y
+    sd = (hi - lo) / 12 ** 0.5 / RRELU_DRAWS ** 0.5
+    mean = s.mean().item()
+    if s.min().item() < lo or s.max().item() >= hi \
+            or abs(mean - (lo + hi) / 2) > 5 * sd:
+        fail("operators: rrelu slopes in [%r, %r], mean %r (bounds %r, %r)"
+             % (s.min().item(), s.max().item(), mean, lo, hi))
+    print("operators rrelu training draws=%d slopes in [%r, %r] mean=%r "
+          "(midpoint %r, 5 sd %r)" % (RRELU_DRAWS, s.min().item(),
+                                      s.max().item(), mean, (lo + hi) / 2,
+                                      5 * sd))
+    print("operators ops checked=%d cases=%d worst_rel_err=%r (tol %g, "
+          "card float32 vs host float64)"
+          % (len(worst), len(cases), max(worst.values()), OPS_TOL))
+    return worst
+
+
+def inject_masks(torch, masks):
+    """Dropout draws ``masks`` (numpy, in graph order, cyclically) on any
+    device; returns the patch's undo."""
+    from mxnet_tpu_torch.ops import nn as pnn
+    real, turn = pnn.dropout_mask, [0]
+
+    def given(shape, keep, rng, device):
+        m = masks[turn[0] % len(masks)]
+        turn[0] += 1
+        if tuple(m.shape) != tuple(shape):
+            fail("operators: a Dropout of %r, the mask is %r"
+                 % (tuple(shape), m.shape))
+        return torch.from_numpy(m).to(device)
+    pnn.dropout_mask = given
+
+    def undo():
+        pnn.dropout_mask = real
+    return undo
+
+
+def alexnet_step(torch, mt, net, params, data, masks, ctx, dtype):
+    """One SGD-momentum TrainStep step from ``params`` on ``data`` at
+    ``dtype`` on ``ctx``, Dropout taking ``masks``: (first momenta,
+    updates) as float64 CPU tensors."""
+    undo = inject_masks(torch, masks)
+    try:
+        ts = mt.TrainStep(net, mt.optimizer.SGD(
+            learning_rate=ALEX_LR, momentum=0.9, wd=5e-4,
+            rescale_grad=1.0 / ALEX_CHECK_BATCH), ctx=ctx)
+        p, s, a = mt.convert.train_state_from_numpy(
+            {n: v.astype(dtype) for n, v in params.items()},
+            {n: (np.zeros_like(v, dtype),) for n, v in params.items()}, {},
+            ctx=ctx)
+        before = {n: v.double().cpu().clone() for n, v in p.items()}
+        p, s, a, _ = ts(p, s, a, ts.shard_batch(
+            {k: v.astype(dtype) for k, v in data.items()}))
+    finally:
+        undo()
+    return ({n: st[0].double().cpu() for n, st in s.items()},
+            {n: v.double().cpu() - before[n] for n, v in p.items()})
+
+
+def alexnet_step_check(torch, mt, net):
+    """(b)'s step: float32 on the card under each layout against float64
+    on the host; floors from float32 host steps from the state and nudges."""
+    b = ALEX_CHECK_BATCH
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, _ = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
+                        {"softmax_label": (b,)},
+                        initializer=mt.initializer.Xavier(magnitude=2.0),
+                        seed=SEED)
+    params = {n: v.numpy() for n, v in p0.items()}
+    rng = np.random.default_rng(SEED + 22)
+    data = {"data": rng.uniform(-1, 1, (b, 3, IMAGE, IMAGE)),
+            "softmax_label": rng.integers(0, CLASSES, b).astype(np.float64)}
+    masks = [rng.random((b, 4096)) < 0.5 for _ in range(2)]
+    t0 = time.perf_counter()
+    want = alexnet_step(torch, mt, net, params, data, masks, mt.cpu(),
+                        np.float64)
+    floors = []
+    for i in range(RESNET_FLOOR_SAMPLES):
+        p = nudged_values(params, SEED + 120 + i) if i else params
+        x = nudged_values(data, SEED + 220 + i, skip=("softmax_label",)) \
+            if i else data
+        floors.append(alexnet_step(torch, mt, net, p, x, masks, mt.cpu(),
+                                   np.float32))
+    print("alexnet_train steps=cpu_f64+%d cpu_f32 batch=%d seconds=%r"
+          % (RESNET_FLOOR_SAMPLES, b, time.perf_counter() - t0))
+    for layout in ("NHWC", "NCHW"):
+        got = module_env({"MXNET_CONV_LAYOUT": layout}, lambda: alexnet_step(
+            torch, mt, net, params, data, masks, mt.gpu(0), np.float32))
+        resnet50_check_rows(torch, "alexnet_train %s" % layout,
+                            resnet50_leaf_rows(torch, got, want, floors,
+                                               kinds=("grad", "update")),
+                            "float32 floor")
+
+
+def alexnet_fit(torch, mt, net, args, x, y, env):
+    """Module.fit on gpu(0) for one epoch over (x, y) under ``env``:
+    (img/s from the card's end of the first batch to its end of the last,
+    host ms a batch (median gap between batch ends), fused path taken).
+    The epoch's end (the fused path's copy of the parameters back to the
+    host) is outside the rate."""
+    b = ALEX_BATCH
+    n = len(x) // b
+    mod = mt.Module(net, context=mt.gpu(0))
+    ends = []
+
+    def batch_end(param):
+        if param.nbatch in (0, n - 1):
+            torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    module_env(env, lambda: mod.fit(
+        mt.io.NDArrayIter(x, y, batch_size=b), num_epoch=1,
+        optimizer="sgd", arg_params=args,
+        optimizer_params=dict(learning_rate=ALEX_LR, momentum=0.9,
+                              wd=5e-4), batch_end_callback=batch_end))
+    if len(ends) != n:
+        fail("alexnet: %d batch ends in a fit of %d batches" % (len(ends), n))
+    gaps = [(t1 - t0) * 1e3 for t0, t1 in zip(ends, ends[1:])]
+    return ((n - 1) * b / (ends[-1] - ends[0]), obs_median(gaps),
+            mod._fused_ts_cache is not None)
+
+
+def busy_steps(torch, fn, reps):
+    """(device ms, wall ms, launches) a call of ``fn`` over ``reps`` calls
+    inside one torch.profiler context, the wall clock started and stopped
+    inside it (the profiler's start and stop outside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if is_kernel(e, DeviceType)]
+    return (sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
+            wall * 1e3 / reps, sum(e.count for e in kernels) // reps)
+
+
+def lrn_step_ms(torch, mt):
+    """Device ms of AlexNet's two LRNs, forward and backward, at the
+    batch-ALEX_BATCH step's shapes channel-last (the executor's layout),
+    timed alone by CUDA events."""
+    op = mt.ops.registry.get_op("LRN")
+    call = op.make_callable(op.normalize_attrs(
+        {"alpha": 0.0001, "beta": 0.75, "knorm": 2, "nsize": 5,
+         "layout": "NHWC"}), True)
+    ins = [torch.randn(ALEX_BATCH, h, h, c, device=mt.gpu(0).torch_device(),
+                       requires_grad=True) for h, c in ((54, 96), (26, 256))]
+    gs = [torch.randn_like(x) for x in ins]
+
+    def both():
+        for x, g in zip(ins, gs):
+            torch.autograd.backward(call(x), g)
+    return time_ms(torch, both, iters=10)
+
+
+def alexnet_phase(torch, mt, card):
+    """(b): AlexNet at train_imagenet.py's defaults."""
+    net = mt.models.alexnet.get_symbol(num_classes=CLASSES)
+    alexnet_step_check(torch, mt, net)
+    b = ALEX_BATCH
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, _ = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
+                        {"softmax_label": (b,)},
+                        initializer=mt.initializer.Xavier(magnitude=2.0),
+                        seed=SEED)
+    args = {n: mt.nd.array(v.numpy(), ctx=mt.cpu()) for n, v in p0.items()}
+    n_params = sum(int(v.size) for v in args.values())
+    rng = np.random.default_rng(SEED + 23)
+    x = rng.uniform(-1, 1, (ALEX_FUSED_BATCHES * b, 3, IMAGE, IMAGE)) \
+        .astype(np.float32)
+    y = rng.integers(0, CLASSES, ALEX_FUSED_BATCHES * b).astype(np.float32)
+    fused = alexnet_fit(torch, mt, net, args, x, y, {})
+    nb = ALEX_GENERAL_BATCHES * b
+    general = alexnet_fit(torch, mt, net, args, x[:nb], y[:nb],
+                          {"MXNET_FUSED_FIT": "0"})
+    if not fused[2] or general[2]:
+        fail("alexnet: fused path taken %r (fused) %r (general)"
+             % (fused[2], general[2]))
+    # the fused step (one TrainStep call on a device batch) profiled: the
+    # card's busy share of its wall time
+    ts = mt.TrainStep(net, mt.optimizer.SGD(learning_rate=ALEX_LR,
+                                            momentum=0.9), ctx=mt.gpu(0))
+    p, s, a = ts.init({"data": (b, 3, IMAGE, IMAGE)},
+                      {"softmax_label": (b,)}, seed=SEED)
+    batch = ts.shard_batch({"data": x[:b], "softmax_label": y[:b]})
+    for _ in range(2):
+        ts(p, s, a, batch)
+    dev_ms, wall_ms, launches = busy_steps(
+        torch, lambda: ts(p, s, a, batch), ALEX_PROFILED)
+    lrn_ms = lrn_step_ms(torch, mt)
+    print("alexnet params=%d fit img_per_s batch=%d fused=%r (host %r ms a "
+          "batch, %d batches) general=%r (host %r ms a batch, %d batches); "
+          "fused step profiled (%d steps): device_ms=%r wall_ms=%r "
+          "device_busy_share=%r launches=%d; LRN forward+backward (both "
+          "layers, alone, channel-last) device_ms=%r, %r of the step's "
+          "device ms (%s)"
+          % (n_params, b, fused[0], fused[1], ALEX_FUSED_BATCHES,
+             general[0], general[1], ALEX_GENERAL_BATCHES, ALEX_PROFILED,
+             dev_ms, wall_ms, dev_ms / wall_ms, launches, lrn_ms,
+             lrn_ms / dev_ms, card))
+    return {"fused_img_s": fused[0], "general_img_s": general[0]}
+
+
+def gan_leaves(mods, names):
+    """The parameters and moving statistics named ``names`` of both
+    networks, read off the executors, as float64 CPU tensors."""
+    out = {}
+    for m in mods:
+        ex = m._exec_group.execs[0]
+        for n, v in list(ex.arg_dict.items()) + list(ex.aux_dict.items()):
+            if n in names:
+                out[n] = v.value.detach().double().cpu()
+    return out
+
+
+def dcgan_phase(torch, mt, card):
+    """(c): DCGAN through bench/dcgan.py at the example's defaults."""
+    from mxnet_tpu_torch.bench import dcgan
+    g0, d0, _ = dcgan.train(epochs=0, batch=GAN_BATCH, steps_per_epoch=0,
+                            code_dim=GAN_CODE, ctx=mt.cpu())
+    params = {}
+    for m in (g0, d0):
+        arg, aux = m.get_params()
+        params.update({n: v.asnumpy() for n, v in
+                       list(arg.items()) + list(aux.items())})
+
+    def one(ctx, p, dtype="float32"):
+        g, d, _ = dcgan.train(epochs=1, batch=GAN_BATCH, steps_per_epoch=1,
+                              code_dim=GAN_CODE, ctx=ctx, params=p,
+                              dtype=dtype)
+        return gan_leaves((g, d), params)
+    t0 = time.perf_counter()
+    want = one(mt.cpu(), params, "float64")
+    floors = [one(mt.cpu(), nudged_values(params, SEED + 320 + i, skip=[
+        n for n in params if "moving" in n]) if i else params)
+        for i in range(RESNET_FLOOR_SAMPLES)]
+    print("dcgan_iteration iterations=cpu_f64+%d cpu_f32 seconds=%r"
+          % (RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
+    got = one(mt.gpu(0), params)
+    worst = floor_check(torch, "dcgan_iteration", got, want, floors)
+    rec, mod_g, _, hist = dcgan.run(epochs=1, batch=GAN_BATCH,
+                                    steps=GAN_ITERS, code_dim=GAN_CODE)
+    d = np.asarray(hist["d_loss"])
+    g = np.asarray(hist["g_loss"])
+    if not (np.isfinite(d).all() and np.isfinite(g).all()) \
+            or np.std(d) <= 1e-4:
+        fail("dcgan: d_loss %r g_loss %r" % (d.tolist(), g.tolist()))
+    samples = dcgan.sample(mod_g, 16, code_dim=GAN_CODE)
+    g_init, _, _ = dcgan.train(epochs=0, batch=GAN_BATCH, steps_per_epoch=0,
+                               code_dim=GAN_CODE)
+    untrained = dcgan.sample(g_init, 16, code_dim=GAN_CODE)
+    moved = float(np.abs(samples - untrained).max())
+    if samples.shape != (16, 1, 32, 32) or not np.isfinite(samples).all() \
+            or moved <= 1e-3:
+        fail("dcgan: samples %r, %r from the untrained generator's"
+             % (samples.shape, moved))
+    print("dcgan fit %s" % json.dumps(rec))
+    print("dcgan iterations=%d iterations_per_s=%r host_ms_per_iteration=%r "
+          "d_loss first=%r last=%r g_loss last=%r samples=%r moved=%r "
+          "iteration worst_x_floor=%r (%s)"
+          % (len(d), rec["value"], rec["host_ms_per_iteration"],
+             float(d[0]), float(d[-1]), float(g[-1]), samples.shape, moved,
+             worst, card))
+    return rec
+
+
+def operators_phase(torch, mt, card):
+    """The operator surface's first part: (a) the 20 ops, (b) AlexNet,
+    (c) DCGAN; none launches a kernel of the JSON line."""
+    from mxnet_tpu_torch.ops import contrib
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import norm_conv as nc
+    counts = (nc.launches, fa.launches, fa.bwd_dq_launches,
+              fa.bwd_dkv_launches, contrib.nms_launches)
+    t0 = time.perf_counter()
+    operators_ops_check(torch, mt)
+    print("operators ops seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    alex = alexnet_phase(torch, mt, card)
+    torch.cuda.empty_cache()
+    print("operators alexnet seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    gan = dcgan_phase(torch, mt, card)
+    print("operators dcgan seconds=%r" % (time.perf_counter() - t0))
+    after = (nc.launches, fa.launches, fa.bwd_dq_launches,
+             fa.bwd_dkv_launches, contrib.nms_launches)
+    print("operators kernel launches norm_conv=%d flash_fwd=%d dq=%d dkv=%d "
+          "nms=%d (none is on this path)"
+          % tuple(b - a for a, b in zip(counts, after)))
+    return dict(alex, dcgan_it_s=gan["value"])
+
+
 # ------------------------------------------------- parallel (the slice)
 def mp_implied(net, plan, default, grads):
     """(forward, backward) copies one training step of ``net`` bound with
@@ -4605,6 +5100,9 @@ def main():
     phase_done("lstm_bucketing")
     nms = ssd_phase(torch, mt, card)
     phase_done("ssd")
+    operators_phase(torch, mt, card)
+    torch.cuda.empty_cache()
+    phase_done("operators")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "

@@ -133,7 +133,8 @@ _CONV_ATTRS = {"kernel": parse_tuple, "stride": parse_tuple,
 _CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-@register("Convolution", arg_names=_conv_args, attr_types=_CONV_ATTRS,
+@register("Convolution", aliases=("Convolution_v1",), arg_names=_conv_args,
+          attr_types=_CONV_ATTRS,
           defaults={"stride": (), "dilate": (), "pad": (), "num_group": 1,
                     "no_bias": False},
           infer_shape=_conv_infer, layout_rule="aware")
@@ -709,5 +710,288 @@ def _dropout(data, rng=None, is_train=False, p=0.5):
     if not is_train or p <= 0.0:
         return data
     keep = 1.0 - p
-    mask = torch.rand(data.shape, generator=rng, device=data.device) < keep
+    mask = dropout_mask(data.shape, keep, rng, data.device)
     return torch.where(mask, data / keep, 0.0).to(data.dtype)
+
+
+def dropout_mask(shape, keep, rng, device):
+    """The kept elements of one Dropout draw: each with probability
+    ``keep``, from ``rng``.  A seam: a parity check replaces it to give
+    two runs (the card and the host, or the two packages) the same
+    masks."""
+    return torch.rand(shape, generator=rng, device=device) < keep
+
+
+# ------------------------------------------------------------------ LeakyReLU
+def _lrelu_args(attrs):
+    return ["data", "gamma"] if attrs.get("act_type", "leaky") == "prelu" \
+        else ["data"]
+
+
+def _lrelu_infer(attrs, in_shapes):
+    ins = list(in_shapes)
+    if len(ins) > 1 and ins[0] is not None:
+        ins[1] = (ins[0][1],)
+    return ins, [ins[0]], None
+
+
+@register("LeakyReLU", arg_names=_lrelu_args,
+          attr_types={"act_type": parse_str, "slope": parse_float,
+                      "lower_bound": parse_float, "upper_bound": parse_float},
+          defaults={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125,
+                    "upper_bound": 0.334},
+          input_init_attrs={"gamma": '["Constant", {"value": 0.25}]'},
+          infer_shape=_lrelu_infer, needs_rng=True, train_aware=True,
+          layout_rule=lambda attrs: None if attrs.get("act_type") == "prelu"
+          else "transparent")
+def _leaky_relu(data, gamma=None, rng=None, is_train=False, act_type="leaky",
+                slope=0.25, lower_bound=0.125, upper_bound=0.334):
+    """leaky, elu, prelu (a learnt slope a channel) and rrelu (slopes drawn
+    from U[lower_bound, upper_bound) in training from ``rng``, their
+    midpoint otherwise).  Each keeps x where x > 0, as the JAX package's
+    ``where(data > 0, ...)`` does, so the gradient at exactly 0 is the
+    slope.  Elementwise but for prelu, so the NHWC pass lets it through."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data > 0, data, g * data)
+    if act_type == "rrelu":
+        if is_train:
+            s = torch.rand(data.shape, generator=rng, device=data.device,
+                           dtype=data.dtype) \
+                * (upper_bound - lower_bound) + lower_bound
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise MXNetError("unknown act_type %s" % act_type)
+
+
+# --------------------------------------------------------------- Deconvolution
+_DECONV_FN = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+              3: F.conv_transpose3d}
+
+
+def _deconv_geometry(kernel, stride, dilate, pad, adj):
+    nd = len(kernel)
+    stride = _tup(stride, nd, 1)
+    dilate = _tup(dilate, nd, 1)
+    keff = tuple((k - 1) * d + 1 for k, d in zip(kernel, dilate))
+    return nd, stride, dilate, _tup(pad, nd, 0), _tup(adj, nd, 0), keff
+
+
+def _deconv_target_totals(in_sp, keff, stride, target):
+    """How far the largest output, (i - 1) * s + k_eff, overshoots
+    ``target_shape`` on each axis; a target above it is refused."""
+    if len(target) != len(keff):
+        raise MXNetError("Deconvolution target_shape %s must have %d "
+                         "spatial dims" % (tuple(target), len(keff)))
+    totals = tuple((i - 1) * s + k - t
+                   for i, k, s, t in zip(in_sp, keff, stride, target))
+    if any(t < 0 for t in totals):
+        raise MXNetError("Deconvolution target_shape %s is larger than the "
+                         "maximal output for input %s"
+                         % (tuple(target), tuple(in_sp)))
+    return totals
+
+
+def _deconv_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    nf = int(attrs.get("num_filter"))
+    ng = int(attrs.get("num_group", 1))
+    kernel = parse_tuple(attrs.get("kernel"))
+    nd, stride, _, pad, adj, keff = _deconv_geometry(
+        kernel, parse_tuple(attrs.get("stride", ())),
+        parse_tuple(attrs.get("dilate", ())),
+        parse_tuple(attrs.get("pad", ())), parse_tuple(attrs.get("adj", ())))
+    target = parse_tuple(attrs.get("target_shape", None) or ())
+    if target and len(target) != nd:
+        raise MXNetError("Deconvolution target_shape %s must have %d "
+                         "spatial dims" % (target, nd))
+    ins = list(in_shapes)
+    out = None
+    if data is not None:
+        ins[1] = (data[1], nf // ng) + kernel
+        if target:
+            _deconv_target_totals(data[2:], keff, stride, target)
+            spatial = tuple(target)
+        else:
+            spatial = tuple((i - 1) * s - 2 * p + k + a for i, k, s, p, a
+                            in zip(data[2:], keff, stride, pad, adj))
+        out = (data[0], nf) + spatial
+    if len(ins) > 2:
+        ins[2] = (nf,)
+    return ins, [out], None
+
+
+@register("Deconvolution", arg_names=_conv_args,
+          attr_types=dict(_CONV_ATTRS, adj=parse_tuple,
+                          target_shape=parse_tuple),
+          defaults={"stride": (), "dilate": (), "pad": (), "adj": (),
+                    "num_group": 1, "no_bias": True},
+          infer_shape=_deconv_infer)
+def _deconvolution(data, weight, bias=None, kernel=None, stride=(),
+                   dilate=(), pad=(), adj=(), target_shape=None,
+                   num_filter=None, num_group=1, workspace=None, no_bias=True,
+                   cudnn_tune=None, cudnn_off=False, layout=None):
+    """Transposed convolution, the adjoint of ``Convolution`` (parity:
+    mxnet_tpu/ops/nn.py _deconvolution); the weight is (in, out / group,
+    *kernel), PyTorch's own layout for it.
+
+    The output is the full transposed convolution, (i - 1) * s + k_eff
+    long, less ``pad`` on the low side and ``pad - adj`` on the high side
+    (zeros where adj > pad).  PyTorch's ``output_padding`` takes adj only
+    below stride or dilation; past that the full output is cropped and
+    padded here, which the JAX package's padded, input-dilated convolution
+    gives too.  ``target_shape`` sets pad = ceil(total / 2) and adj =
+    total % 2 of each axis's overshoot."""
+    nd, stride, dilate, pad, adj, keff = _deconv_geometry(
+        kernel, stride, dilate, pad, adj)
+    if nd not in _DECONV_FN:
+        raise MXNetError("Deconvolution supports 1-3 spatial dims")
+    if target_shape:
+        totals = _deconv_target_totals(tuple(data.shape[2:]), keff, stride,
+                                       target_shape)
+        pad = tuple((t + 1) // 2 for t in totals)
+        adj = tuple(t % 2 for t in totals)
+    fn = _DECONV_FN[nd]
+    if all(0 <= a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        out = fn(data, weight, bias, stride=stride, padding=pad,
+                 output_padding=adj, groups=num_group, dilation=dilate)
+    else:
+        full = fn(data, weight, None, stride=stride, groups=num_group,
+                  dilation=dilate)
+        out = F.pad(full, _pad_widths([(-p, a - p)
+                                       for p, a in zip(pad, adj)]))
+        if bias is not None:
+            out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+# ---------------------------------------------------- InstanceNorm, L2, LRN
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"),
+          attr_types={"eps": parse_float}, defaults={"eps": 1e-3},
+          infer_shape=lambda attrs, ins: (
+              [ins[0]] + [None if ins[0] is None else (ins[0][1],)] * 2,
+              [ins[0]], None))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalise each (instance, channel) over its spatial axes with the
+    population variance (ddof 0, as ``jnp.var``), then scale and shift a
+    channel."""
+    axes = tuple(range(2, data.dim()))
+    cshape = (1, -1) + (1,) * (data.dim() - 2)
+    mean = data.mean(dim=axes, keepdim=True)
+    var = (data - mean).square().mean(dim=axes, keepdim=True)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(cshape) \
+        + beta.reshape(cshape)
+
+
+_L2_AXES = {"instance": lambda n: tuple(range(1, n)),
+            "channel": lambda n: (1,),
+            "spatial": lambda n: tuple(range(2, n))}
+
+
+@register("L2Normalization", attr_types={"eps": parse_float,
+                                         "mode": parse_str},
+          defaults={"eps": 1e-10, "mode": "instance"},
+          infer_shape=lambda attrs, ins: (list(ins), [ins[0]], None))
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    """x / sqrt(sum(x^2) + eps) over every axis after the first
+    (``instance``), the channel axis or the spatial axes."""
+    if mode not in _L2_AXES:
+        raise MXNetError("unknown mode %s" % mode)
+    axes = _L2_AXES[mode](data.dim())
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True)
+                             + eps)
+
+
+@register("LRN", attr_types={"alpha": parse_float, "beta": parse_float,
+                             "knorm": parse_float, "nsize": parse_int,
+                             "layout": parse_str},
+          defaults={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0, "nsize": 5},
+          infer_shape=lambda attrs, ins: (list(ins), [ins[0]], None),
+          layout_rule="aware")
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, layout=None):
+    """Local response norm across channels: x / (knorm + alpha * S /
+    nsize)^beta, S the sum of squares over a window of ``nsize`` channels
+    zero-padded by nsize // 2 on both sides.
+
+    S / nsize is an average pool that counts the padding.  Channel-last
+    (layout='NHWC', from the executor's pass) the window runs along the
+    minor axis, so AlexNet's activations are never laid out again."""
+    half = nsize // 2
+    sq = data.square()
+    if layout == "NHWC":
+        flat = sq.reshape(-1, 1, sq.shape[-1])
+        mean = F.avg_pool1d(flat, nsize, 1, half).reshape(
+            sq.shape[:-1] + (-1,))
+    else:
+        # (N, 1, C, rest): the window along C, one position of the rest
+        cube = sq.reshape(sq.shape[0], 1, sq.shape[1], -1, 1)
+        mean = F.avg_pool3d(cube, (nsize, 1, 1), 1, (half, 0, 0)).reshape(
+            (sq.shape[0], -1) + tuple(sq.shape[2:]))
+    return data / torch.pow(knorm + alpha * mean, beta)
+
+
+# ------------------------------------------------------------------ UpSampling
+@register("UpSampling",
+          arg_names=lambda attrs: ["arg%d" % i for i in range(
+              int(attrs.get("num_args", 1)))],
+          key_var_num_args="num_args",
+          attr_types={"scale": parse_int, "num_filter": parse_int,
+                      "sample_type": parse_str, "multi_input_mode": parse_str,
+                      "num_args": parse_int, "workspace": parse_int},
+          defaults={"scale": 1, "sample_type": "nearest",
+                    "multi_input_mode": "concat"})
+def _upsampling(*args, num_args=None, scale=1, num_filter=0,
+                sample_type="nearest", multi_input_mode="concat",
+                workspace=None):
+    """Each input brought to the first's size times ``scale``: ``nearest``
+    repeats each pixel by the target over the input's own size,
+    ``bilinear`` resamples with half-pixel centres (``jax.image.resize``'s
+    rule; it takes no weight input, as in the JAX package).  Several inputs
+    are concatenated on the channels or summed."""
+    data = args[0]
+    target = (data.shape[2] * scale, data.shape[3] * scale)
+    outs = []
+    for x in args:
+        if sample_type == "nearest":
+            y = x.repeat_interleave(target[0] // x.shape[2], dim=2) \
+                .repeat_interleave(target[1] // x.shape[3], dim=3)
+        else:
+            y = F.interpolate(x, size=target, mode="bilinear",
+                              align_corners=False, antialias=False)
+        outs.append(y)
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        out = outs[0]
+        for y in outs[1:]:
+            out = out + y
+        return out
+    return torch.cat(outs, dim=1)
+
+
+# ------------------------------------------------------ softmax, log_softmax
+def _tempered(data, temperature):
+    """data / temperature; a temperature of None or 0 means none, as the
+    JAX package's ``if temperature`` reads it."""
+    return data / temperature if temperature else data
+
+
+@register("softmax", attr_types={"axis": parse_int,
+                                 "temperature": parse_float},
+          defaults={"axis": -1, "temperature": None},
+          infer_shape=lambda attrs, ins: (list(ins), [ins[0]], None))
+def _softmax(data, axis=-1, temperature=None):
+    return torch.softmax(_tempered(data, temperature), dim=axis)
+
+
+@register("log_softmax", attr_types={"axis": parse_int,
+                                     "temperature": parse_float},
+          defaults={"axis": -1, "temperature": None},
+          infer_shape=lambda attrs, ins: (list(ins), [ins[0]], None))
+def _log_softmax(data, axis=-1, temperature=None):
+    return torch.log_softmax(_tempered(data, temperature), dim=axis)

@@ -104,6 +104,9 @@ class OpDef(object):
         nothing filters on it)
     env_attrs : {attr: (MXNET_* variable, default string)}: an attr the
         caller leaves unset is read from the environment at dispatch
+    input_init_attrs : {input name: ``__init__`` JSON} given to the inputs
+        that composition creates as variables (LeakyReLU's prelu gamma
+        starts at 0.25)
     """
 
     def __init__(self, name, fn, arg_names=("data",), aux_names=(),
@@ -111,7 +114,7 @@ class OpDef(object):
                  infer_shape=None, infer_type=None, train_aware=False,
                  needs_rng=False, key_var_num_args=None, aliases=(),
                  hidden=False, doc=None, layout_rule=None, layout_inputs=(0,),
-                 is_loss=False, env_attrs=None):
+                 is_loss=False, env_attrs=None, input_init_attrs=None):
         self.name = name
         self.fn = fn
         self._arg_names = arg_names
@@ -127,6 +130,7 @@ class OpDef(object):
         self.key_var_num_args = key_var_num_args
         self.hidden = hidden
         self.env_attrs = dict(env_attrs or {})
+        self.input_init_attrs = dict(input_init_attrs or {})
         self.aliases = tuple(aliases)
         self.doc = doc or (fn.__doc__ if fn is not None else None)
         self.layout_rule = layout_rule

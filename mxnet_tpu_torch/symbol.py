@@ -376,6 +376,8 @@ def create(op_name, *args, **kwargs):
             # auto-create missing inputs as {name}_{arg} variables
             inherited = {k: v for k, v in attr.items()
                          if k.strip("_") in _HIDDEN_KEYS}
+            if an in op.input_init_attrs:
+                inherited.setdefault("__init__", op.input_init_attrs[an])
             s = Variable("%s_%s" % (name, an), attr=inherited or None)
         if len(s._outputs) != 1:
             raise MXNetError("cannot feed grouped symbol to input %s" % an)
