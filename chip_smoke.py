@@ -175,6 +175,29 @@ fatal on failure:
    ngf = ndf = 32, Adam 2e-4, beta1 0.5), 10 iterations: finite losses,
    d_loss moving, the samples moved; one iteration from the initial
    parameters within the floor rule of the float64 one on the host;
+4h. rcnn (after operators): the spatial ops, Proposal and CTCLoss.  (a)
+   The 11 names (Crop, GridGenerator, BilinearSampler, SpatialTransformer,
+   ROIPooling, Correlation, Proposal and _contrib_Proposal, CTCLoss,
+   _contrib_CTCLoss and ctc_loss) at small shapes on the card in float32,
+   each output and gradient within OPS_TOL of float64 on the host;
+   Proposal in float64 on the card (its NMS the row-6 kernels) the same
+   rows as the host's, its float32 rows counted.  (b) Faster R-CNN's test
+   width (VGG-16's conv5_3 of a 600x1000 image, 38x63, 9 anchors; pre-NMS
+   6,000, post-NMS 300, threshold 0.7, min size 16): Proposal timed and
+   profiled, two NMS launches a call, its NMS ids at 6,000 rows equal to
+   the plain loop's, the kernels event-timed beside the chain bound;
+   ROIPooling (7x7 at 1/16, 512 channels, Proposal's ROIs, a ReLU'd map)
+   against float64, forward and backward ms, peak memory above its inputs
+   under ROI_PEAK_BYTES; both ops under sync_free.  (c) Correlation at
+   FlowNetC's settings (two (8, 256, 48, 64) maps, max displacement 20,
+   stride2 2, pad 20: 441 channels) against float64, forward and backward
+   ms.  (d) CTCLoss at the warpctc OCR example's shapes (T 80, batch 32,
+   4 digits, 11 classes) against float64 on the host and F.ctc_loss
+   (loss and ms).  (e) The toy Faster R-CNN (bench/toy_rcnn.py): one
+   SGD-momentum step within RESNET_FLOOR_X times its float32 floor of the
+   float64 step, under sync_free; 12 epochs of Module.fit from each of
+   RCNN_SEEDS seeds, the fused path, two NMS launches a forward, the
+   median accuracy above RCNN_ACC; img/s, host ms a batch, busy share;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -273,12 +296,13 @@ the NormConv launches of serving and of fused training, flash timings, LM
 checks and profiles, flash backward timings, LM training checks, rates and
 profiles (float32 and AMP), the Module layer's checks and timings, the
 sequences slice's and the SSD slice's checks, times and rates, the
-operators phase's checks and rates, the observability phase's host
-split, MFU, profile ranges and checks, Updater and Rtc numbers, the
-parallel slice's checks, copies and rates, each phase's seconds, a JSON
+operators phase's checks and rates, the rcnn phase's checks and times,
+the observability phase's host split, MFU, profile ranges and checks,
+Updater and Rtc numbers, the parallel slice's checks, copies and rates, each phase's seconds, a JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
-row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel),
+row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
+with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing.
@@ -654,7 +678,7 @@ def queued_ms(torch, steps, rounds):
 
 
 def nms_kernel_ms(torch, contrib, boxes, ids, threshold,
-                  rounds=NMS_TIMING_ROUNDS, lib=None):
+                  rounds=NMS_TIMING_ROUNDS, lib=None, force_suppress=False):
     """(mask ms, scan ms, both ms) of the NMS kernels on ``boxes`` and
     ``ids``: raw launches of ``contrib.nms_launch`` (every band of
     ``nms_plan``) through ``queued_ms``, the ids restored from ``ids``
@@ -662,7 +686,8 @@ def nms_kernel_ms(torch, contrib, boxes, ids, threshold,
     after each launch (by the launch check), which times the kernels one by
     one, then all of them between one pair of events (each event pair adds
     a few microseconds of its own); ``lib`` another library of the same
-    launchers (default: the committed one)."""
+    launchers (default: the committed one); ``force_suppress`` as the
+    caller's."""
     check = contrib._refused if lib else contrib._kernel.check
     lib = lib or contrib._kernel.get()
     out = ids.clone()
@@ -679,12 +704,12 @@ def nms_kernel_ms(torch, contrib, boxes, ids, threshold,
 
     def apart():
         mark()
-        contrib.nms_launch(lib, boxes, out, threshold, stream=stream,
-                           check=marked)
+        contrib.nms_launch(lib, boxes, out, threshold, force_suppress,
+                           stream=stream, check=marked)
 
     def both():
-        contrib.nms_launch(lib, boxes, out, threshold, stream=stream,
-                           check=check)
+        contrib.nms_launch(lib, boxes, out, threshold, force_suppress,
+                           stream=stream, check=check)
     ms = queued_ms(torch, [lambda: out.copy_(ids), apart,
                            lambda: out.copy_(ids), both], rounds)
     per = len(marks) // (rounds + 1)      # the warm-up's marks come first
@@ -4182,6 +4207,507 @@ def operators_phase(torch, mt, card):
     return dict(alex, dcgan_it_s=gan["value"])
 
 
+# ----------------------------------------------------- rcnn (the slice)
+# rcnn: (a) the 11 names of the spatial ops, Proposal and CTCLoss at small
+# shapes on the card in float32 (TF32 off) against float64 on the host,
+# outputs and gradients within OPS_TOL of their largest entry; Proposal in
+# float64 on the card the same rows as on the host (its NMS on the card is
+# the row-6 kernels), its float32 rows counted.  (b) Faster R-CNN's test
+# width (Ren et al. 2015; py-faster-rcnn's TEST config on VGG-16's conv5_3
+# of a 600x1000 image): Proposal timed, its NMS at 6,000 rows against the
+# plain loop and the chain bound, ROIPooling (7x7 at 1/16 over 512
+# channels) forward and backward timed with its peak memory; both ops
+# under sync_free.  (c) Correlation at FlowNetC's settings (Dosovitskiy et
+# al. 2015).  (d) CTCLoss at the warpctc OCR example's shapes beside
+# F.ctc_loss.  (e) The toy Faster R-CNN through bench/toy_rcnn.py: one
+# SGD-momentum step held to float64 by the floor rule; 12 epochs of
+# Module.fit from each of RCNN_SEEDS initial parameters, the median
+# accuracy above RCNN_ACC (the example's bound lies inside the spread over
+# seeds: the JAX example itself scores 0.734-0.922 over its seeds 0-4 on
+# the host, so one seed is a draw, not a check).
+RCNN_NAMES = ("Crop", "GridGenerator", "BilinearSampler",
+              "SpatialTransformer", "ROIPooling", "Correlation",
+              "_contrib_Proposal", "Proposal", "_contrib_CTCLoss", "CTCLoss",
+              "ctc_loss")
+RCNN_F64_TOL = 1e-9
+FRCNN = dict(feature=(38, 63), channels=512, im_info=(600.0, 1000.0, 1.0),
+             attrs=dict(feature_stride=16, scales=(8.0, 16.0, 32.0),
+                        ratios=(0.5, 1.0, 2.0), rpn_pre_nms_top_n=6000,
+                        rpn_post_nms_top_n=300, threshold=0.7,
+                        rpn_min_size=16),
+             pooled=(7, 7), spatial_scale=1.0 / 16)
+ROI_PEAK_BYTES = 4e9
+FLOWNETC = dict(shape=(8, 256, 48, 64),
+                attrs=dict(kernel_size=1, max_displacement=20, stride1=1,
+                           stride2=2, pad_size=20))
+CTC_OCR = dict(steps=80, batch=32, digits=4, classes=11)
+RCNN_EPOCHS = 12
+RCNN_ACC = 0.8
+RCNN_SEEDS = 5
+RCNN_LR = 0.01
+
+
+def rcnn_cases():
+    """(op, attrs, float64 inputs, the inputs to differentiate, False) for
+    the 11 names but Proposal, from a seed: ROIPooling on a ReLU'd map
+    (ties at 0) with overlapping and empty bins, the sampler past the
+    border, Correlation with a 3x3 kernel and |a - b|, CTC labels with
+    repeats, an empty label and one that cannot fit."""
+    rng = np.random.default_rng(SEED + 30)
+    r = rng.standard_normal
+    rois = np.array([[0, 0, 0, 63, 47], [1, 8, 4, 40, 30], [1, 50, 40, 90,
+                     90], [0, 12, 12, 12, 12], [1, 3, 9, 27, 21]], np.float64)
+    labels = np.array([[1, 2, 2, 0], [3, 4, 5, 6], [0, 0, 0, 0],
+                       [7, 7, 7, 7]], np.float64)
+    ctc = (r((6, 4, 9)), labels)
+    return [
+        ("Crop", {"h_w": (12, 10), "offset": (3, 2)}, [r((4, 8, 16, 16))],
+         (0,)),
+        ("Crop", {"h_w": (9, 11), "center_crop": True}, [r((4, 8, 16, 16))],
+         (0,)),
+        ("Crop", {"num_args": 2}, [r((4, 8, 16, 16)), r((4, 3, 12, 7))],
+         (0,)),
+        ("GridGenerator", {"transform_type": "affine",
+                           "target_shape": (16, 20)}, [r((4, 6))], (0,)),
+        ("GridGenerator", {"transform_type": "warp"}, [r((4, 2, 16, 20))],
+         (0,)),
+        ("BilinearSampler", {}, [r((4, 8, 16, 20)),
+                                 rng.uniform(-1.2, 1.2, (4, 2, 12, 12))],
+         (0, 1)),
+        ("SpatialTransformer", {"target_shape": (12, 12)},
+         [r((4, 8, 16, 20)), r((4, 6)) * 0.5], (0, 1)),
+        ("ROIPooling", {"pooled_size": (7, 7), "spatial_scale": 0.25},
+         [np.maximum(r((2, 16, 12, 16)), 0.0), rois], (0,)),
+        ("Correlation", {"max_displacement": 4, "stride2": 2,
+                         "pad_size": 4}, [r((2, 16, 12, 16)),
+                                          r((2, 16, 12, 16))], (0, 1)),
+        ("Correlation", {"max_displacement": 2, "kernel_size": 3,
+                         "pad_size": 3, "is_multiply": False},
+         [r((2, 16, 12, 16)), r((2, 16, 12, 16))], (0, 1)),
+        ("_contrib_CTCLoss", {}, list(ctc), (0,)),
+        ("CTCLoss", {}, [r((12, 4, 9)), labels], (0,)),
+        ("ctc_loss", {}, [r((3, 4, 9)), labels[:, :3]], (0,))]
+
+
+def rcnn_proposal_inputs(rng, b, na, fh, fw, info):
+    """(cls_prob, bbox_pred, im_info) float64 numpy of an RPN head: each
+    anchor's background and foreground probabilities from one logit,
+    deltas 0.1 x randn."""
+    fg = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, na, fh, fw))))
+    return (np.concatenate([1.0 - fg, fg], 1),
+            rng.standard_normal((b, 4 * na, fh, fw)) * 0.1,
+            np.asarray(info, np.float64))
+
+
+def rcnn_rel(a, w):
+    return ((a - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() \
+        if w.numel() else 0.0
+
+
+def rcnn_ops_check(torch, mt, card):
+    """(a): the 11 names on the card against the host."""
+    cuda = mt.gpu(0).torch_device()
+    worst = {}
+    for name, attrs, arrays, diff in rcnn_cases():
+        case = (name, attrs, arrays, diff, False)
+        got = operator_leaves(torch, mt, case, cuda, torch.float32)
+        want = operator_leaves(torch, mt, case, "cpu", torch.float64)
+        if sorted(got) != sorted(want):
+            fail("rcnn: %s %r gives %s on the card, %s on the host"
+                 % (name, attrs, sorted(got), sorted(want)))
+        for k, w in want.items():
+            if got[k].shape != w.shape or not torch.isfinite(got[k]).all():
+                fail("rcnn: %s %r %s: shape %r or not finite"
+                     % (name, attrs, k, tuple(got[k].shape)))
+            err = rcnn_rel(got[k], w)
+            if err > OPS_TOL:
+                fail("rcnn: %s %r %s at %.3g of its largest entry from "
+                     "float64 (tol %g)" % (name, attrs, k, err, OPS_TOL))
+            worst[name] = max(worst.get(name, 0.0), err)
+    rng = np.random.default_rng(SEED + 31)
+    attrs = dict(feature_stride=16, scales=(2.0, 4.0, 8.0),
+                 ratios=(0.5, 1.0, 2.0), rpn_pre_nms_top_n=200,
+                 rpn_post_nms_top_n=50, threshold=0.7, rpn_min_size=16,
+                 output_score=True)
+    arrays = list(rcnn_proposal_inputs(rng, 2, 9, 6, 8,
+                                       [[96, 128, 1.0], [80, 120, 1.2]]))
+    for name in ("_contrib_Proposal", "Proposal"):
+        case = (name, attrs, arrays, (0, 1), False)
+        got = operator_leaves(torch, mt, case, cuda, torch.float64)
+        want = operator_leaves(torch, mt, case, "cpu", torch.float64)
+        rows, ref = got["out0"], want["out0"]
+        same = torch.equal(rows[:, 0], ref[:, 0]) and torch.equal(
+            rows[:, 1:].any(1), ref[:, 1:].any(1))
+        errs = {k: rcnn_rel(got[k], w) for k, w in want.items()}
+        if sorted(got) != sorted(want) or not same \
+                or max(errs.values()) > RCNN_F64_TOL:
+            fail("rcnn: %s in float64 on the card differs from the host: "
+                 "same rows %r, errors %r" % (name, same, errs))
+        f32 = operator_leaves(torch, mt, case, cuda, torch.float32)["out0"]
+        scale = ref.abs().max()
+        differ = int(((f32 - ref).abs().amax(1) > OPS_TOL * scale).sum())
+        print("rcnn op %s float64 card vs host: same rows (%d kept of %d) "
+              "not bitwise %d entries, worst_rel_err=%r; float32 card vs "
+              "float64 host: %d of %d rows differ beyond %g of the largest "
+              "corner (%s)"
+              % (name, int(ref[:, 1:].any(1).sum()), ref.shape[0],
+                 int((rows != ref).sum()), max(errs.values()), differ,
+                 ref.shape[0], OPS_TOL, card))
+        worst[name] = max(errs.values())
+    if sorted(worst) != sorted(RCNN_NAMES):
+        fail("rcnn: the cases cover %s" % sorted(worst))
+    for name in RCNN_NAMES:
+        print("rcnn op %s worst_rel_err=%r (%s)" % (name, worst[name],
+                                                   "card float64 vs host "
+                                                   "float64" if "Proposal"
+                                                   in name else
+                                                   "card float32 vs host "
+                                                   "float64"))
+    return worst
+
+
+def frcnn_check(torch, mt, contrib, card):
+    """(b): Proposal, its NMS at 6,000 rows and ROIPooling at Faster
+    R-CNN's test width.  Returns the NMS kernels' JSON numbers."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    cuda = mt.gpu(0).torch_device()
+    fh, fw = FRCNN["feature"]
+    a = FRCNN["attrs"]
+    na = len(a["scales"]) * len(a["ratios"])
+    rng = np.random.default_rng(SEED + 32)
+    cls_prob, bbox_pred, im_info = (
+        torch.tensor(x, dtype=torch.float32, device=cuda)
+        for x in rcnn_proposal_inputs(rng, 1, na, fh, fw,
+                                      [FRCNN["im_info"]]))
+    proposal = get_op("Proposal").fn
+    n0 = contrib.nms_launches
+    rois = proposal(cls_prob, bbox_pred, im_info, **a)
+    torch.cuda.synchronize()
+    per_call = 2 * contrib.nms_plan(1, a["rpn_pre_nms_top_n"])[2]
+    if contrib.nms_launches - n0 != per_call:
+        fail("rcnn: Proposal launched the NMS kernels %d times, not %d"
+             % (contrib.nms_launches - n0, per_call))
+    sync_free(torch, "rcnn proposal", lambda: proposal(
+        cls_prob, bbox_pred, im_info, **a))
+    prop_ms = time_ms(torch, lambda: proposal(cls_prob, bbox_pred, im_info,
+                                              **a))
+    prop_dev_ms, prop_wall_ms, prop_launches = busy_steps(
+        torch, lambda: proposal(cls_prob, bbox_pred, im_info, **a), 5)
+    boxes, scores = contrib.proposal_rows(
+        cls_prob, bbox_pred, im_info, a["rpn_pre_nms_top_n"],
+        a["rpn_min_size"], a["scales"], a["ratios"], a["feature_stride"])
+    ids = torch.zeros_like(scores)
+    got = contrib.greedy_nms(boxes, ids, a["threshold"], True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = contrib.greedy_nms_ref(boxes, ids, a["threshold"], True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        fail("rcnn: the NMS kernels' ids differ from the plain loop's at "
+             "%d rows (%d rows)" % (ids.shape[1], int((got != want).sum())))
+    mask_ms, scan_ms, nms_ms = nms_kernel_ms(torch, contrib, boxes, ids,
+                                             a["threshold"],
+                                             force_suppress=True)
+    kept = int((want >= 0).sum())
+    chain_ms = kept * NMS_STEP_CYCLES / NMS_SM_HZ * 1e3
+    n = ids.shape[1]
+    rows = np.nonzero((want >= 0).cpu().numpy()[0])[0]
+    pairs = int((n - 1 - rows).sum())
+    ops_ms = max(pairs * NMS_IOU_OPS / PEAK_OPS["float32"] * 1e3, chain_ms)
+    bytes_ms = n * (4 + 1 + 1) * 4 / PEAK_BYTES * 1e3
+    live = int(torch.isfinite(scores).sum())
+    print("rcnn proposal frcnn_test B=1 feature=%dx%d anchors=%d pre_nms=%d "
+          "(%d above the minimum size) post_nms=%d kept_by_nms=%d rois=%d "
+          "proposal_ms=%r (CUDA events, whole op; profiled: device_ms=%r "
+          "wall_ms=%r launches=%d a call) nms kernels_ms=%r "
+          "(apart: mask %r, scan %r; %d launches a call) ids_equal_plain=True "
+          "plain_seconds=%r bound_ms=%r (a chain of %d dependent steps, one "
+          "a kept row, %r ms; %d IoU pairs) (%s)"
+          % (fh, fw, fh * fw * na, n, live, a["rpn_post_nms_top_n"], kept,
+             int(rois[:, 1:].any(1).sum()), prop_ms, prop_dev_ms,
+             prop_wall_ms, prop_launches, nms_ms, mask_ms,
+             scan_ms, per_call, plain_s, max(ops_ms, bytes_ms), kept,
+             chain_ms, pairs, card))
+    roi_ms = frcnn_roi_pooling(torch, mt, rois, card)
+    return {"launches": per_call, "ms": nms_ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": (got - want).abs().max().item(),
+            "rows": n, "kept": kept, "proposal_ms": prop_ms,
+            "roi_pooling_ms": roi_ms}
+
+
+def frcnn_roi_pooling(torch, mt, rois, card):
+    """ROIPooling at Faster R-CNN's width on Proposal's ROIs over a ReLU'd
+    conv5_3 map: float32 against float64 on the card (the ROIs whose bins
+    the two dtypes place alike), forward and backward ms, peak memory
+    above the inputs, sync_free."""
+    from mxnet_tpu_torch.ops import spatial
+    from mxnet_tpu_torch.ops.registry import get_op
+    cuda = mt.gpu(0).torch_device()
+    fh, fw = FRCNN["feature"]
+    pool = get_op("ROIPooling").fn
+    kw = dict(pooled_size=FRCNN["pooled"],
+              spatial_scale=FRCNN["spatial_scale"])
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 33)
+    data = torch.relu(torch.randn((1, FRCNN["channels"], fh, fw),
+                                  generator=gen, device=cuda))
+    data.requires_grad_(True)
+    g = torch.randn((rois.shape[0], FRCNN["channels"]) + FRCNN["pooled"],
+                    generator=gen, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = pool(data, rois, **kw)
+    (grad,) = torch.autograd.grad(out, data, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # a bin edge is floor/ceil of a multiple of roi_h / 7, which float32
+    # and float64 round apart for some heights: float64 is a reference
+    # only for the ROIs whose bins both dtypes place alike
+    edges = [spatial.roi_bins(data.detach().to(dt), rois.to(dt),
+                              *FRCNN["pooled"], FRCNN["spatial_scale"])[1:]
+             for dt in (torch.float32, torch.float64)]
+    alike = torch.ones(rois.shape[0], dtype=torch.bool, device=cuda)
+    for m32, m64 in zip(*edges):
+        alike &= (m32 == m64).flatten(1).all(1)
+    sub = torch.nonzero(alike)[:, 0]
+    d64 = data.detach().double().requires_grad_(True)
+    out64 = pool(d64, rois[sub].double(), **kw)
+    (grad64,) = torch.autograd.grad(out64, d64, g[sub].double())
+    out32 = pool(data, rois[sub], **kw)
+    (grad32,) = torch.autograd.grad(out32, data, g[sub])
+    errs = (rcnn_rel(out32.double(), out64.detach()),
+            rcnn_rel(grad32.double(), grad64))
+    if max(errs) > OPS_TOL or peak > ROI_PEAK_BYTES \
+            or sub.numel() < rois.shape[0] // 2:
+        fail("rcnn: ROIPooling at Faster R-CNN width: errors %r from "
+             "float64 over %d ROIs, peak %d bytes above its inputs (limit "
+             "%d)" % (errs, sub.numel(), peak, ROI_PEAK_BYTES))
+
+    def both():
+        torch.autograd.grad(pool(data, rois, **kw), data, g)
+    sync_free(torch, "rcnn roi_pooling forward+backward", both)
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: pool(data, rois, **kw), iters=10)
+    out = pool(data, rois, **kw)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, data, g, retain_graph=True), iters=10)
+    ties = int((data == 0).sum())
+    print("rcnn roi_pooling frcnn_test rois=%d channels=%d map=%dx%d "
+          "pooled=%r scale=1/16 zeros_in_map=%d forward_ms=%r backward_ms=%r "
+          "peak_above_inputs_bytes=%d (limit %d) float32 vs float64 over "
+          "the %d ROIs whose bins both dtypes place alike: out=%r grad=%r "
+          "(%s)"
+          % (rois.shape[0], FRCNN["channels"], fh, fw, FRCNN["pooled"], ties,
+             fwd_ms, bwd_ms, peak, ROI_PEAK_BYTES, sub.numel(), errs[0],
+             errs[1], card))
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms, "peak": peak}
+
+
+def flownetc_check(torch, mt, card):
+    """(c): Correlation at FlowNetC's settings, float32 against float64 on
+    the card; forward and backward ms."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    cuda = mt.gpu(0).torch_device()
+    op = get_op("Correlation")
+    corr = op.make_callable(op.normalize_attrs(FLOWNETC["attrs"]), False)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 34)
+    a, b = (torch.randn(FLOWNETC["shape"], generator=gen, device=cuda,
+                        requires_grad=True) for _ in range(2))
+    out = corr(a, b)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad(out, [a, b], g)
+    a64, b64 = (x.detach().double().requires_grad_(True) for x in (a, b))
+    out64 = corr(a64, b64)
+    grads64 = torch.autograd.grad(out64, [a64, b64], g.double())
+    errs = [rcnn_rel(out.double(), out64.detach())] + [
+        rcnn_rel(x.double(), y) for x, y in zip(grads, grads64)]
+    del out64, grads64, a64, b64
+    grid = 2 * (FLOWNETC["attrs"]["max_displacement"]
+                // FLOWNETC["attrs"]["stride2"]) + 1
+    if max(errs) > OPS_TOL or out.shape[1] != grid * grid:
+        fail("rcnn: Correlation at FlowNetC's settings: %r channels (%d "
+             "expected), errors %r from float64"
+             % (out.shape[1], grid * grid, errs))
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: corr(a, b), iters=5)
+    out = corr(a, b)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, [a, b], g, retain_graph=True), iters=5)
+    print("rcnn correlation flownetc data=%r %r out=%r forward_ms=%r "
+          "backward_ms=%r float32 vs float64 out=%r grads=%r (%s)"
+          % (FLOWNETC["shape"], FLOWNETC["attrs"], tuple(out.shape), fwd_ms,
+             bwd_ms, errs[0], errs[1:], card))
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms}
+
+
+def ctc_ocr_check(torch, mt, card):
+    """(d): CTCLoss at the warpctc OCR example's shapes against float64 on
+    the host, beside F.ctc_loss on the same input."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    import torch.nn.functional as F
+    cuda = mt.gpu(0).torch_device()
+    t, b, d, c = (CTC_OCR[k] for k in ("steps", "batch", "digits",
+                                       "classes"))
+    rng = np.random.default_rng(SEED + 35)
+    acts = rng.standard_normal((t, b, c))
+    labels = rng.integers(1, c, (b, d)).astype(np.float64)
+    ctc = get_op("CTCLoss").fn
+
+    def run(dev, dtype):
+        x = torch.tensor(acts, dtype=dtype, device=dev, requires_grad=True)
+        loss = ctc(x, torch.tensor(labels, dtype=dtype, device=dev))
+        (gx,) = torch.autograd.grad(loss.sum(), x)
+        return x, loss, gx
+    x, loss, gx = run(cuda, torch.float32)
+    _, loss64, gx64 = run("cpu", torch.float64)
+    errs = (rcnn_rel(loss.double().cpu(), loss64.detach()),
+            rcnn_rel(gx.double().cpu(), gx64))
+    if max(errs) > OPS_TOL:
+        fail("rcnn: CTCLoss at the OCR shapes: errors %r from float64"
+             % (errs,))
+    lab = torch.tensor(labels, dtype=torch.int64, device=cuda)
+    lens_in = torch.full((b,), t, dtype=torch.int64, device=cuda)
+    lens_lab = torch.full((b,), d, dtype=torch.int64, device=cuda)
+
+    def lib():
+        return F.ctc_loss(torch.log_softmax(x, 2), lab, lens_in, lens_lab,
+                          blank=0, reduction="none")
+    lib_err = rcnn_rel(lib().detach().double(), loss.detach().double())
+    xd = x.detach()
+    with torch.no_grad():
+        op_ms = time_ms(torch, lambda: ctc(xd, lab.float()), iters=10)
+        lib_ms = time_ms(torch, lib, iters=10)
+    op_fb = time_ms(torch, lambda: torch.autograd.grad(
+        ctc(x, lab.float()).sum(), x), iters=10)
+    lib_fb = time_ms(torch, lambda: torch.autograd.grad(lib().sum(), x),
+                     iters=10)
+    print("rcnn ctc ocr T=%d batch=%d digits=%d classes=%d loss mean=%r "
+          "float32 vs float64 loss=%r grad=%r; F.ctc_loss loss rel_diff=%r; "
+          "forward ms op=%r F.ctc_loss=%r; forward+backward ms op=%r "
+          "F.ctc_loss=%r (%s)"
+          % (t, b, d, c, loss.mean().item(), errs[0], errs[1], lib_err,
+             op_ms, lib_ms, op_fb, lib_fb, card))
+    if lib_err > OPS_TOL:
+        fail("rcnn: CTCLoss differs from F.ctc_loss by %r" % lib_err)
+    return {"ms": op_fb, "library_ms": lib_fb}
+
+
+def rcnn_step(torch, mt, tr, net, params, data, ctx, dtype):
+    """One SGD-momentum TrainStep step of the toy R-CNN from ``params`` on
+    ``data`` at ``dtype`` on ``ctx``: ((first momenta, updates) as float64
+    CPU tensors, (TrainStep, params, opt_state, aux, batch) after it)."""
+    ts = mt.TrainStep(net, mt.optimizer.SGD(
+        learning_rate=RCNN_LR, momentum=0.9, rescale_grad=1.0 / tr.BATCH),
+        data_names=("data", "im_info", "rpn_heat"),
+        label_names=("softmax_label",), ctx=ctx)
+    p, s, a = mt.convert.train_state_from_numpy(
+        {n: v.astype(dtype) for n, v in params.items()},
+        {n: (np.zeros_like(v, dtype),) for n, v in params.items()}, {},
+        ctx=ctx)
+    batch = ts.shard_batch({k: v.astype(dtype) for k, v in data.items()})
+    before = {n: v.double().cpu().clone() for n, v in p.items()}
+    p, s, a, _ = ts(p, s, a, batch)
+    return (({n: st[0].double().cpu() for n, st in s.items()},
+             {n: v.double().cpu() - before[n] for n, v in p.items()}),
+            (ts, p, s, a, batch))
+
+
+def rcnn_step_check(torch, mt, tr):
+    """(e)'s step: float32 on the card against float64 on the host, each
+    leaf within RESNET_FLOOR_X times its float32 floor; under sync_free."""
+    b = tr.BATCH
+    net = tr.build_symbol(b)
+    x, y, heat = tr.make_data(b)
+    data = {"data": x, "im_info": np.tile([[64.0, 64.0, 1.0]], (b, 1)),
+            "rpn_heat": heat, "softmax_label": y}
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(),
+                       data_names=("data", "im_info", "rpn_heat"),
+                       label_names=("softmax_label",), ctx=mt.cpu())
+    p0, _, _ = ts0.init({k: v.shape for k, v in data.items()
+                         if k != "softmax_label"}, {"softmax_label": (b,)},
+                        initializer=mt.initializer.Xavier(magnitude=2.0),
+                        seed=SEED)
+    params = {n: v.numpy() for n, v in p0.items()}
+    t0 = time.perf_counter()
+    want, _ = rcnn_step(torch, mt, tr, net, params, data, mt.cpu(),
+                        np.float64)
+    floors = []
+    for i in range(RESNET_FLOOR_SAMPLES):
+        p = nudged_values(params, SEED + 130 + i) if i else params
+        d = nudged_values(data, SEED + 230 + i, skip=(
+            "softmax_label", "im_info", "rpn_heat")) if i else data
+        floors.append(rcnn_step(torch, mt, tr, net, p, d, mt.cpu(),
+                                np.float32)[0])
+    print("rcnn_train steps=cpu_f64+%d cpu_f32 seconds=%r"
+          % (RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
+    got, (ts, p, s, a, batch) = rcnn_step(torch, mt, tr, net, params, data,
+                                          mt.gpu(0), np.float32)
+    resnet50_check_rows(torch, "rcnn_train", resnet50_leaf_rows(
+        torch, got, want, floors, kinds=("grad", "update")),
+        "float32 floor")
+    sync_free(torch, "rcnn_train step", lambda: ts(p, s, a, batch))
+
+
+def rcnn_phase(torch, mt, card):
+    """The spatial ops, Proposal and CTCLoss: (a) the 11 names, (b) Faster
+    R-CNN's test width, (c) FlowNetC's Correlation, (d) the OCR CTC, (e)
+    the toy Faster R-CNN.  Returns the NMS kernels' numbers."""
+    from mxnet_tpu_torch.bench import toy_rcnn as tr
+    from mxnet_tpu_torch.ops import contrib
+    t0 = time.perf_counter()
+    rcnn_ops_check(torch, mt, card)
+    print("rcnn ops seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    frcnn = frcnn_check(torch, mt, contrib, card)
+    torch.cuda.empty_cache()
+    print("rcnn frcnn seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    flownetc_check(torch, mt, card)
+    torch.cuda.empty_cache()
+    ctc_ocr_check(torch, mt, card)
+    print("rcnn correlation+ctc seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    rcnn_step_check(torch, mt, tr)
+    contrib.nms_launches = 0
+    recs = [tr.run(RCNN_EPOCHS, seed=k, profile=k == 0)[0]
+            for k in range(RCNN_SEEDS)]
+    launches = contrib.nms_launches
+    batches = tr.IMAGES // tr.BATCH
+    for rec in recs:
+        print("rcnn fit %s" % json.dumps(rec))
+    # one forward a batch: each fit's 12 epochs and score, one profiled
+    # epoch
+    want = 2 * batches * ((RCNN_EPOCHS + 1) * RCNN_SEEDS + 1)
+    accs = [r["accuracy"] for r in recs]
+    median = float(np.median(accs))
+    if not all(r["fused_path"] for r in recs) or median <= RCNN_ACC \
+            or any(r["nms_launches_fit"] != 2 * batches * RCNN_EPOCHS
+                   or r["nms_launches_score"] != 2 * batches
+                   for r in recs) or launches != want:
+        fail("rcnn: toy R-CNN fits: fused %r, accuracies %r (median %r, "
+             "bound %r), NMS launches %r in the fits, %r in the scores, %d "
+             "in all (%d expected)"
+             % ([r["fused_path"] for r in recs], accs, median, RCNN_ACC,
+                [r["nms_launches_fit"] for r in recs],
+                [r["nms_launches_score"] for r in recs], launches, want))
+    rec = recs[0]
+    print("rcnn toy accuracy by seed %r median=%r (bound %r) seed 0: "
+          "train_accuracy last=%r rpn_loss first=%r last=%r img_per_s=%r "
+          "host_ms_per_batch=%r device_busy_share=%r peak %r GB; nms "
+          "launches=%d (2 a forward: %d a fit, %d a score) (%s)"
+          % (accs, median, RCNN_ACC, rec["train_accuracy"][-1],
+             rec["rpn_loss"][0], rec["rpn_loss"][-1], rec["value"],
+             rec["host_ms_per_batch"], rec.get("device_busy_share"),
+             rec.get("peak_mem_gb"), launches, rec["nms_launches_fit"],
+             rec["nms_launches_score"], card))
+    print("rcnn toy seconds=%r" % (time.perf_counter() - t0))
+    return dict(frcnn, launches=launches + frcnn["launches"])
+
+
 # ------------------------------------------------- parallel (the slice)
 def mp_implied(net, plan, default, grads):
     """(forward, backward) copies one training step of ``net`` bound with
@@ -5103,6 +5629,9 @@ def main():
     operators_phase(torch, mt, card)
     torch.cuda.empty_cache()
     phase_done("operators")
+    rc = rcnn_phase(torch, mt, card)
+    torch.cuda.empty_cache()
+    phase_done("rcnn")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -5217,10 +5746,17 @@ def main():
         "source": "mxnet_tpu_torch/csrc/multibox_nms.cu",
         "replaces": "mxnet_tpu/ops/contrib.py:229 (XLA fori_loop, not "
                     "pl.pallas_call)",
-        "launches": nms["launches"], "max_abs_err": nms["max_abs_err"],
+        "launches": nms["launches"] + rc["launches"],
+        "max_abs_err": max(nms["max_abs_err"], rc["max_abs_err"]),
         "ms": nms["ms"], "plain_ms": nms["plain_ms"],
         "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None,
+        "proposal_frcnn": {
+            "rows": rc["rows"], "kept": rc["kept"],
+            "launches": rc["launches"], "max_abs_err": rc["max_abs_err"],
+            "ms": rc["ms"], "plain_ms": rc["plain_ms"],
+            "bound_ms": rc["bound_ms"], "bound_by": rc["bound_by"],
+            "library_ms": None}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Importing this package registers the ops of the ported paths (ResNet-50
 inference, the transformer LM's inference and training, the imperative
 ``mx.nd`` API, the sequences slice, the SSD slice, the operator surface's
-``nn``, ordering and ``misc`` ops) before ``symbol.py``
+``nn``, ordering and ``misc`` ops, the spatial ops, Proposal and CTCLoss)
+before ``symbol.py``
 and ``ndarray.py`` generate their constructors and frontends.
 """
 from . import registry   # noqa: F401
@@ -24,3 +25,4 @@ from . import rnn_op     # noqa: F401  (RNN: cuDNN on the card)
 from . import contrib    # noqa: F401  (MultiBox*: the NMS kernel on the card)
 from . import ordering   # noqa: F401  (topk, sort, argsort)
 from . import misc       # noqa: F401  (0-index ops, KL sparse reg, ...)
+from . import spatial    # noqa: F401  (Crop, samplers, ROIPooling, ...)

@@ -1,6 +1,7 @@
-"""Contrib operators of the SSD slice (counterpart: mxnet_tpu/ops/contrib.py):
-MultiBoxPrior, MultiBoxTarget and MultiBoxDetection, each also under its
-``_contrib_`` name.
+"""Contrib operators (counterpart: mxnet_tpu/ops/contrib.py): the SSD
+slice's MultiBoxPrior, MultiBoxTarget and MultiBoxDetection, Faster
+R-CNN's Proposal, and CTCLoss, each also under its ``_contrib_`` name
+(CTCLoss as ``ctc_loss`` too).
 
 The JAX package writes them as fixed-shape XLA programs, not Pallas
 kernels: every tensor keeps a static shape, "removed" boxes are masked
@@ -14,9 +15,12 @@ hand-written kernels of ``csrc/multibox_nms.cu``, a suppression mask over
 the whole card and a scan over it, one launch each a band of rows
 (``greedy_nms``, counted in ``nms_launches``); on the host its plain
 version ``greedy_nms_ref``, a loop that mirrors ``_greedy_nms``.
+``Proposal`` sends its pre-NMS rows through the same ``greedy_nms``.
 
-Not ported here: ``Proposal`` and ``CTCLoss`` (the rest of the operator
-surface).
+CTCLoss is the JAX package's alpha recursion, a loop over time of stock
+PyTorch ops with autograd's gradient; its log-add takes the JAX rule's
+gradient (``_LogAddExp``), so that a label that cannot fit (log-zero
+-1e30 on every path) gets the same gradient as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from .kernel_build import CudaLibrary
 from .registry import register, parse_bool, parse_float, parse_int
 
 __all__ = ["greedy_nms", "greedy_nms_ref", "detection_rows", "build",
-           "nms_plan", "nms_launch", "nms_launches"]
+           "nms_plan", "nms_launch", "nms_launches", "proposal_rows"]
 
 # launches of the NMS kernels since import (or since a caller reset it to 0)
 nms_launches = 0
@@ -452,3 +456,231 @@ def detection_rows(cls_prob, loc_pred, anchor, clip=True, threshold=0.01,
     dt = torch.promote_types(cid.dtype, boxes.dtype)
     return (cid.gather(1, order).to(dt), score.gather(1, order).to(dt),
             boxes.gather(1, order[..., None].expand(-1, -1, 4)).to(dt))
+
+
+# -------------------------------------------------------------------- Proposal
+def _gen_base_anchors(base_size, ratios, scales):
+    """py-faster-rcnn's anchor enumeration (GenerateAnchors), float32: for
+    each ratio, for each scale, a box centred on the base box."""
+    base = _np.array([0, 0, base_size - 1, base_size - 1], _np.float32)
+    w = base[2] - base[0] + 1
+    h = base[3] - base[1] + 1
+    cx = base[0] + (w - 1) * 0.5
+    cy = base[1] + (h - 1) * 0.5
+    out = []
+    size = w * h
+    for r in ratios:
+        ws = _np.round(_np.sqrt(size / r))
+        hs = _np.round(ws * r)
+        for s in scales:
+            wss, hss = ws * s, hs * s
+            out.append([cx - (wss - 1) * 0.5, cy - (hss - 1) * 0.5,
+                        cx + (wss - 1) * 0.5, cy + (hss - 1) * 0.5])
+    return _np.array(out, _np.float32)
+
+
+def _proposal_anchors(fh, fw, feature_stride, ratios, scales, device):
+    """The shifted anchors (fh * fw * A, 4), float32, in the order (y, x,
+    anchor): the base anchors added to each pixel's shift as host
+    scalars, so that nothing is copied to the device."""
+    base = _gen_base_anchors(feature_stride, ratios, scales)
+    dt = torch.float32
+    sx = (torch.arange(fw, dtype=dt, device=device)
+          * feature_stride)[None, :].expand(fh, fw)
+    sy = (torch.arange(fh, dtype=dt, device=device)
+          * feature_stride)[:, None].expand(fh, fw)
+    per = [torch.stack([sx + b[0], sy + b[1], sx + b[2], sy + b[3]], -1)
+           for b in base.tolist()]
+    return torch.stack(per, 2).reshape(-1, 4)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: max with ``lo``, then min with ``hi`` (a tie splits
+    the gradient, as in the JAX package)."""
+    def bound(v):
+        return v if isinstance(v, torch.Tensor) \
+            else torch.full((), v, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
+def _proposal_infer(attrs, in_shapes):
+    cls = in_shapes[0]
+    if cls is None:
+        return list(in_shapes), [None], None
+    post = int(attrs.get("rpn_post_nms_top_n", 300))
+    shapes = [(cls[0] * post, 5)]
+    if parse_bool(attrs.get("output_score", False)):
+        shapes.append((cls[0] * post, 1))
+    return list(in_shapes), shapes, None
+
+
+def _proposal_nout(attrs):
+    return 2 if parse_bool(attrs.get("output_score", False)) else 1
+
+
+def proposal_rows(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+                  rpn_min_size=16, scales=(4.0, 8.0, 16.0, 32.0),
+                  ratios=(0.5, 1.0, 2.0), feature_stride=16):
+    """Proposal before its NMS: (boxes (B, pre_n, 4), scores (B, pre_n)),
+    the pre-NMS top N by score.  The shifted anchors decoded by
+    ``bbox_pred`` and clipped to the image; a box under ``rpn_min_size`` *
+    scale in either side scores -inf; a stable descending sort (ties: the
+    lower index first, as ``lax.top_k``)."""
+    b, twoa, fh, fw = cls_prob.shape
+    na = twoa // 2
+    anchors = _proposal_anchors(fh, fw, feature_stride, ratios, scales,
+                               cls_prob.device)
+    n = anchors.shape[0]
+    pre_n = min(rpn_pre_nms_top_n, n) if rpn_pre_nms_top_n > 0 else n
+    # foreground scores, channels A..2A of layout (A, fh, fw), and the
+    # deltas (A, 4, fh, fw), both in the anchors' (y, x, anchor) order
+    scores = cls_prob[:, na:].permute(0, 2, 3, 1).reshape(b, -1)
+    deltas = bbox_pred.reshape(b, na, 4, fh, fw).permute(
+        0, 3, 4, 1, 2).reshape(b, -1, 4)
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    ax = anchors[:, 0] + aw * 0.5
+    ay = anchors[:, 1] + ah * 0.5
+    cx = deltas[..., 0] * aw + ax
+    cy = deltas[..., 1] * ah + ay
+    w = torch.exp(_clip(deltas[..., 2], -10.0, 10.0)) * aw
+    hh = torch.exp(_clip(deltas[..., 3], -10.0, 10.0)) * ah
+    ih, iw, im_scale = (im_info[:, k, None] for k in range(3))
+    boxes = torch.stack(
+        [_clip(cx - 0.5 * (w - 1), 0, iw - 1),
+         _clip(cy - 0.5 * (hh - 1), 0, ih - 1),
+         _clip(cx + 0.5 * (w - 1), 0, iw - 1),
+         _clip(cy + 0.5 * (hh - 1), 0, ih - 1)], -1)
+    min_size = rpn_min_size * im_scale
+    bw = boxes[..., 2] - boxes[..., 0] + 1
+    bh = boxes[..., 3] - boxes[..., 1] + 1
+    scores = torch.where((bw >= min_size) & (bh >= min_size), scores,
+                         -float("inf"))
+    order = torch.sort(scores, dim=1, descending=True,
+                       stable=True)[1][:, :pre_n]
+    return (boxes.gather(1, order[..., None].expand(b, pre_n, 4)),
+            scores.gather(1, order))
+
+
+@register("_contrib_Proposal", aliases=("Proposal",),
+          arg_names=("cls_prob", "bbox_pred", "im_info"),
+          num_outputs=_proposal_nout,
+          attr_types={"rpn_pre_nms_top_n": parse_int,
+                      "rpn_post_nms_top_n": parse_int,
+                      "threshold": parse_float, "rpn_min_size": parse_int,
+                      "scales": _parse_floats, "ratios": _parse_floats,
+                      "feature_stride": parse_int, "output_score": parse_bool,
+                      "iou_loss": parse_bool},
+          defaults={"rpn_pre_nms_top_n": 6000, "rpn_post_nms_top_n": 300,
+                    "threshold": 0.7, "rpn_min_size": 16,
+                    "scales": (4.0, 8.0, 16.0, 32.0),
+                    "ratios": (0.5, 1.0, 2.0), "feature_stride": 16,
+                    "output_score": False, "iou_loss": False},
+          infer_shape=_proposal_infer)
+def _proposal(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+              rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
+              scales=(4.0, 8.0, 16.0, 32.0), ratios=(0.5, 1.0, 2.0),
+              feature_stride=16, output_score=False, iou_loss=False):
+    """RPN proposals: the pre-NMS rows of ``proposal_rows``; greedy NMS at
+    ``threshold`` over them (``greedy_nms``, every row one class), the
+    -inf rows alive in it; then the first ``post_n`` rows alive with a
+    finite score, in score order, zero rows after them.
+    Output (B * post_n, 5) rows [batch index, x1, y1, x2, y2], and with
+    ``output_score`` the scores (B * post_n, 1).  Static shapes: nothing
+    is read back to the host."""
+    if iou_loss:
+        raise MXNetError("Proposal: iou_loss=True not supported")
+    top_boxes, top_scores = proposal_rows(
+        cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n, rpn_min_size,
+        scales, ratios, feature_stride)
+    b, pre_n = top_scores.shape
+    post_n = rpn_post_nms_top_n
+    ids = greedy_nms(top_boxes, top_boxes.new_zeros((b, pre_n)), threshold,
+                     force_suppress=True)
+    alive = (ids >= 0) & torch.isfinite(top_scores)
+    sel = torch.sort((~alive).to(torch.uint8), dim=1,
+                     stable=True)[1][:, :post_n]
+    keep = alive.gather(1, sel)
+    out_boxes = torch.where(keep[..., None], top_boxes.gather(
+        1, sel[..., None].expand(-1, -1, 4)), 0.0)
+    out_scores = torch.where(keep, top_scores.gather(1, sel), 0.0)
+    batch_idx = torch.arange(b, dtype=out_boxes.dtype,
+                             device=out_boxes.device)[:, None, None]
+    rois = torch.cat([batch_idx.expand(-1, out_boxes.shape[1], 1),
+                      out_boxes], 2).reshape(-1, 5)
+    if output_score:
+        return rois, out_scores.reshape(-1, 1)
+    return rois
+
+
+# -------------------------------------------------------------------- CTCLoss
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) as ``jnp.logaddexp``, with its gradient
+    g * exp(a - out) (infinities read as 0): where both inputs are the
+    recursion's log-zero, each gets the whole gradient (torch's rule
+    would give each half)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        delta = a - b
+        out = torch.where(torch.isnan(delta), a + b, torch.maximum(a, b)
+                          + torch.log1p(torch.exp(-torch.abs(delta))))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+
+        def fin(x):
+            return torch.where(torch.isinf(x), 0.0, x)
+        return (g * torch.exp(fin(a) - fin(out)),
+                g * torch.exp(fin(b) - fin(out)))
+
+
+def _ctc_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return list(in_shapes), [None], None
+    return list(in_shapes), [(data[1],)], None
+
+
+@register("_contrib_CTCLoss", aliases=("CTCLoss", "ctc_loss"),
+          arg_names=("data", "label"), infer_shape=_ctc_infer)
+def _ctc_loss(data, label):
+    """CTC's negative log-likelihood a sequence, (B,): ``data`` (T, B, A)
+    activations (log-softmax taken here), ``label`` (B, L) class ids in
+    1..A-1 padded with 0, blank 0, the label's length its nonzero
+    entries.  The alpha recursion over the extended label (blank, l1,
+    blank, ..., blank) in log space with -1e30 as log-zero, so a label
+    that cannot fit in T steps gives a loss near 1e30."""
+    t_len, b, _ = data.shape
+    lab_w = label.shape[1]
+    lp = torch.log_softmax(data, dim=2)
+    labels = label.detach().to(torch.int64)
+    label_len = (labels > 0).sum(1)
+    s = 2 * lab_w + 1
+    dev = data.device
+    ext = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels
+    neg = -1e30
+    lae = _LogAddExp.apply
+    first = lp[0].gather(1, ext[:, 1:2])[:, 0]
+    alpha = torch.cat([lp[0, :, 0:1],
+                       torch.where(label_len > 0, first, neg)[:, None],
+                       torch.full((b, s - 2), neg, dtype=lp.dtype,
+                                  device=dev)], 1)
+    same = torch.cat([torch.ones((b, 2), dtype=torch.bool, device=dev),
+                      ext[:, 2:] == ext[:, :-2]], 1)
+    no_skip = (ext == 0) | same
+    pad1 = torch.full((b, 1), neg, dtype=lp.dtype, device=dev)
+    pad2 = torch.full((b, 2), neg, dtype=lp.dtype, device=dev)
+    for t in range(1, t_len):
+        prev1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        prev2 = torch.cat([pad2, alpha[:, :-2]], 1)
+        skip = torch.where(no_skip, neg, prev2)
+        alpha = lae(lae(alpha, prev1), skip) + lp[t].gather(1, ext)
+    last_blank = alpha.gather(1, (2 * label_len)[:, None])[:, 0]
+    last_label = alpha.gather(
+        1, torch.clamp(2 * label_len - 1, min=0)[:, None])[:, 0]
+    return -lae(last_blank, torch.where(label_len > 0, last_label, neg))

@@ -3,7 +3,7 @@ mxnet_tpu: topk, sort, argsort, choose_element_0index, fill_element_0index,
 ``_broadcast``, ``_onehot_encode``, IdentityAttachKLSparseReg,
 ``_slice_assign`` / ``_crop_assign``, ``_crop_assign_scalar`` and the
 ``Convolution_v1`` alias; and the registry, which holds every op of the JAX
-package but the 12 of the later operator-surface parts.
+package but ``Custom``, which the custom-op bridge ports later.
 
 The parity cases feed the same float64 numpy inputs from a seed (JAX's x64
 on) to the JAX op (forward, ``jax.vjp``) and the port's (forward,
@@ -22,10 +22,8 @@ from mxnet_tpu_torch.ops.registry import OPS as POPS, get_op as pget_op
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 
-# the JAX package's ops that later parts of the operator surface port
-LATER = ("BilinearSampler", "Correlation", "Crop", "GridGenerator",
-         "Proposal", "ROIPooling", "SpatialTransformer", "_contrib_Proposal",
-         "Custom", "CTCLoss", "_contrib_CTCLoss", "ctc_loss")
+# the JAX package's ops that a later part of the operator surface ports
+LATER = ("Custom",)
 
 
 @pytest.fixture
@@ -175,13 +173,13 @@ def test_infer_shape_matches_mxnet_tpu():
 
 
 def test_registry_holds_every_op_but_the_later_parts():
-    """The port registers every op name of the JAX package but the 12 that
-    the spatial/contrib part and the custom-op bridge port later, and
-    nothing the JAX package lacks."""
+    """The port registers every op name of the JAX package but the one
+    that the custom-op bridge ports later, and nothing the JAX package
+    lacks."""
     jnames, pnames = set(JOPS.list_names()), set(POPS.list_names())
     assert not pnames - jnames
     assert sorted(jnames - pnames) == sorted(LATER)
-    assert len(LATER) == 12
+    assert len(LATER) == 1
 
 
 def test_kl_sparse_reg_trains_its_moving_average_in_a_graph():
