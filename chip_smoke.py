@@ -198,6 +198,38 @@ fatal on failure:
    float64 step, under sync_free; 12 epochs of Module.fit from each of
    RCNN_SEEDS seeds, the fused path, two NMS launches a forward, the
    median accuracy above RCNN_ACC; img/s, host ms a batch, busy share;
+4i. imagenet (after rcnn): Inception-v3 at full width
+   (models/inception_v3.py through bench/train_imagenet.py: 1000 classes,
+   3x299x299, 23,834,568 parameters; 15 of its 94 convolutions fuse into
+   NormConv in 9 geometries, 5 of them with statistics, pad 0 among them),
+   then VGG-16.  The kernels phase holds and times the kernel at those 9
+   geometries ("inception_geom_train" lines: batches INCEPTION_CHECK_BATCH
+   and 32, y and both sums against the plain version, y bitwise over two
+   launches; at 32 beside cuDNN's conv and the bound).  (a) One
+   SGD-momentum step at batch INCEPTION_CHECK_BATCH, float32 on the card
+   with MXNET_NORM_CONV 0 and 1, each gradient and moving statistic within
+   RESNET_FLOOR_X times its float32 floor of the float64 CPU step; 15
+   NormConv launches, 5 with statistics, with the knob on, none off.  (b)
+   Module.fit at batch 32 over one synthetic batch repeated, fused (6
+   batches) and general (3), knob off and on: img/s, host ms a batch, peak
+   memory, the loss lower at the last batch than at the second, the busy
+   share of profiled steps, the launches (15 a batch on).  (c) Predictor
+   at batch INCEPTION_SERVE_BATCH under the knob: rows within SERVE_TOL of
+   the unfused Predictor, 15 launches a forward.  (d) VGG-16
+   (train_imagenet.py --network vgg): one step at batch VGG_CHECK_BATCH
+   within the floor rule, Dropout masks injected; a fused Module.fit of
+   VGG_FIT_BATCHES batches of 32, img/s and peak memory;
+4j. custom (after imagenet): the custom-op bridge.  The MLP of MXNet's
+   example/numpy-ops/custom_softmax.py (784-128-64-10, batch 100, 6
+   synthetic batches) with its Custom softmax head (numpy forward, backward
+   p - onehot, need_top_grad=False) through Module.fit, fused and general,
+   each parameter within RESNET_FLOOR_X times its float32 floor of the same
+   net with SoftmaxOutput; host ms a batch of both heads and the head's
+   host reads a batch.  test_custom_op.py's sqr, in mx.nd ops on the card,
+   inside a ResNet-style block under the NHWC pass: forward and gradients
+   within OPS_TOL of float64 on the CPU, a TrainStep step over it with no
+   host synchronisation.  bench/neural_style.py on the card: the loss after
+   STYLE_STEPS steps below the first;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -301,6 +333,8 @@ the observability phase's host split, MFU, profile ranges and checks,
 Updater and Rtc numbers, the parallel slice's checks, copies and rates, each phase's seconds, a JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
+row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
+geometries, batch 32, and its launches in the imagenet phase;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -723,11 +757,18 @@ def resnet50_geometries(mt, batch):
     """({(H, W, Cin, Cout, k, s, p): count} of the convolutions the NormConv
     peephole fuses in ResNet-50 at ``batch`` x 3 x IMAGE x IMAGE, {the same
     key: count of those that emit statistics in training})."""
-    from mxnet_tpu_torch.executor import _Lowered
     net = mt.models.resnet.get_symbol(CLASSES, 50, "3,%d,%d" % (IMAGE, IMAGE))
+    return norm_conv_geometries(net, (batch, 3, IMAGE, IMAGE))
+
+
+def norm_conv_geometries(net, data_shape):
+    """({(H, W, Cin, Cout, k, s, p): count} of the convolutions the NormConv
+    peephole fuses in ``net`` at ``data_shape``, {the same key: count of
+    those that emit statistics in training})."""
+    from mxnet_tpu_torch.executor import _Lowered
     low = _Lowered(net)
     internals = net.get_internals()
-    _, shapes, _ = internals.infer_shape(data=(batch, 3, IMAGE, IMAGE))
+    _, shapes, _ = internals.infer_shape(data=data_shape)
     shape_of = {(id(n), i): s for (n, i), s in zip(internals._outputs, shapes)}
     geoms, stats = {}, {}
     for node in low.order:
@@ -870,7 +911,8 @@ def kernel_phase(torch, nc, geoms):
 
 
 def kernel_train_phase(torch, nc, geoms, stats_geoms, dt=None,
-                       batches=(RESNET_CHECK_BATCH, RESNET_TRAIN_BATCH)):
+                       batches=(RESNET_CHECK_BATCH, RESNET_TRAIN_BATCH),
+                       label="geom_train"):
     """The kernel at the training step's geometries in ``dt`` (float32 by
     default), TF32 off: at each of ``batches``, every geometry with the
     statistics epilogue on, y and both sums against the plain version in
@@ -879,7 +921,8 @@ def kernel_train_phase(torch, nc, geoms, stats_geoms, dt=None,
     the plain version and cuDNN's conv in the same dtype timed beside the
     bound (``dt``'s bytes and peak).  Returns the totals of one
     batch-RESNET_TRAIN_BATCH training step's forward (RESNET_NC_PER_STEP
-    launches)."""
+    launches for ResNet-50's ``geoms``); each line starts with
+    ``label``."""
     dt = dt or torch.float32
     dname = str(dt).split(".")[1]
     stats_tol = STATS_TOL if dt == torch.float32 else STATS_TOL_BF16
@@ -915,10 +958,10 @@ def kernel_train_phase(torch, nc, geoms, stats_geoms, dt=None,
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             _, bm, bn, splits, _ = nc.plan(nc._kernel.get(), x.shape,
                                            wt.shape, s, p, device_index=0)
-            line = ("geom_train dtype=%s batch=%d H=%d W=%d Cin=%d Cout=%d "
+            line = ("%s dtype=%s batch=%d H=%d W=%d Cin=%d Cout=%d "
                     "k=%d s=%d p=%d count=%d stats_count=%d max_abs_err=%r "
                     "stats_rel_err=%r tile=%dx%d splits=%d"
-                    % (dname, batch, h, w, cin, cout, k, s, p, count,
+                    % (label, dname, batch, h, w, cin, cout, k, s, p, count,
                        n_stats, err, serr, bm, bn, splits))
             if batch != RESNET_TRAIN_BATCH:
                 print(line + " bitwise_repeat=True")
@@ -1062,17 +1105,18 @@ def serving_phase(torch, mt, nc, launches_per_forward):
     return launches
 
 
-def resnet50_state(mt, net, batch):
+def resnet50_state(mt, net, batch, image=IMAGE):
     """Seed-SEED parameters (the TrainStep initializer on the host), zero
-    momenta, moving statistics and a batch, as float64 numpy."""
+    momenta, moving statistics and a batch (3 x ``image`` x ``image``), as
+    float64 numpy."""
     ts = mt.TrainStep(net, mt.optimizer.SGD(learning_rate=RESNET_LR,
                                             momentum=0.9), ctx=mt.cpu())
-    p, s, a = ts.init({"data": (batch, 3, IMAGE, IMAGE)},
+    p, s, a = ts.init({"data": (batch, 3, image, image)},
                       {"softmax_label": (batch,)}, seed=SEED)
     rng = np.random.default_rng(SEED + 5)
     aux = {n: v.double().numpy() + rng.uniform(-0.1, 0.1, v.shape)
            for n, v in a.items()}
-    data = {"data": rng.uniform(-1, 1, (batch, 3, IMAGE, IMAGE)),
+    data = {"data": rng.uniform(-1, 1, (batch, 3, image, image)),
             "softmax_label": rng.integers(0, CLASSES, batch).astype(
                 np.float64)}
     return ({n: v.double().numpy() for n, v in p.items()},
@@ -3949,15 +3993,17 @@ def inject_masks(torch, masks):
     return undo
 
 
-def alexnet_step(torch, mt, net, params, data, masks, ctx, dtype):
-    """One SGD-momentum TrainStep step from ``params`` on ``data`` at
-    ``dtype`` on ``ctx``, Dropout taking ``masks``: (first momenta,
-    updates) as float64 CPU tensors."""
+def alexnet_step(torch, mt, net, params, data, masks, ctx, dtype,
+                 lr=ALEX_LR, batch=ALEX_CHECK_BATCH):
+    """One SGD-momentum TrainStep step (learning rate ``lr``, gradients
+    over ``batch``) from ``params`` on ``data`` at ``dtype`` on ``ctx``,
+    Dropout taking ``masks``: (first momenta, updates) as float64 CPU
+    tensors."""
     undo = inject_masks(torch, masks)
     try:
         ts = mt.TrainStep(net, mt.optimizer.SGD(
-            learning_rate=ALEX_LR, momentum=0.9, wd=5e-4,
-            rescale_grad=1.0 / ALEX_CHECK_BATCH), ctx=ctx)
+            learning_rate=lr, momentum=0.9, wd=5e-4,
+            rescale_grad=1.0 / batch), ctx=ctx)
         p, s, a = mt.convert.train_state_from_numpy(
             {n: v.astype(dtype) for n, v in params.items()},
             {n: (np.zeros_like(v, dtype),) for n, v in params.items()}, {},
@@ -5492,6 +5538,555 @@ def observability_phase(torch, mt, nc, card, fit_img_s):
     return launches
 
 
+# ------------------------------------------------------------------ imagenet
+INCEPTION_IMAGE = 299
+INCEPTION_NC_PER_STEP = 15
+INCEPTION_NC_STATS_PER_STEP = 5
+INCEPTION_GEOMS = 9
+INCEPTION_CHECK_BATCH = 2
+INCEPTION_FIT_BATCH = 32
+INCEPTION_FUSED_BATCHES = 6
+INCEPTION_GENERAL_BATCHES = 3
+INCEPTION_PROFILED = 2
+INCEPTION_LR = 0.1
+INCEPTION_SERVE_BATCH = 8
+INCEPTION_SERVE_FORWARDS = 3
+VGG_CHECK_BATCH = 1
+VGG_FIT_BATCH = 32
+VGG_FIT_BATCHES = 4
+VGG_LR = 0.01
+
+
+def imagenet_args(ti, network, batch, lr):
+    """train_imagenet.py's arguments for ``network`` at its defaults (1000
+    classes), batch ``batch``, learning rate ``lr``."""
+    size = INCEPTION_IMAGE if network == "inception-v3" else IMAGE
+    return ti.parser().parse_args(["--network", network, "--image-shape",
+                                   "3,%d,%d" % (size, size), "--batch-size",
+                                   str(batch), "--lr", repr(lr)])
+
+
+def inception_step_check(torch, mt, nc, net):
+    """(a): one SGD-momentum step at batch INCEPTION_CHECK_BATCH, float32
+    on the card with MXNET_NORM_CONV 0 and 1, against the float64 step on
+    the CPU (unfused), each gradient and moving statistic within
+    RESNET_FLOOR_X times its float32 floor; the kernel's launches and
+    launches with statistics in the step at the graph's counts, none with
+    the knob off.  Returns (the seed state, the launches counted)."""
+    b = INCEPTION_CHECK_BATCH
+    state = resnet50_state(mt, net, b, image=INCEPTION_IMAGE)
+    want, floors = module_env({"MXNET_NORM_CONV": "0"},
+                              lambda: resnet50_reference(
+                                  mt, net, state, b, tag="inception_train"))
+    launches = 0
+    for knob in ("0", "1"):
+        nc.launches = nc.stats_launches = 0
+        t0 = time.perf_counter()
+        got = module_env({"MXNET_NORM_CONV": knob}, lambda: resnet50_step(
+            mt, net, state, mt.gpu(0), np.float32, b)[0])
+        torch.cuda.synchronize()
+        counts = (nc.launches, nc.stats_launches)
+        launches += counts[0]
+        expect = (INCEPTION_NC_PER_STEP, INCEPTION_NC_STATS_PER_STEP) \
+            if knob == "1" else (0, 0)
+        tag = "inception_train MXNET_NORM_CONV=%s" % knob
+        print("%s step=card_float32 batch=%d seconds=%r norm_conv_launches=%d "
+              "with_statistics=%d" % ((tag, b, time.perf_counter() - t0)
+                                      + counts))
+        if counts != expect:
+            fail("%s: NormConv launches %r, the graph gives %r"
+                 % (tag, counts, expect))
+        resnet50_check_rows(torch, tag, resnet50_leaf_rows(torch, got, want,
+                                                           floors),
+                            "float32 floor")
+    return state, launches
+
+
+def imagenet_fit(torch, mt, ti, net, args, x, y, arg_params, aux_params,
+                 env):
+    """``train_imagenet.fit`` on gpu(0) for one epoch over (x, y) under
+    ``env``: {img_s (card's end of the first batch to its end of the
+    last), host_ms (median gap between batch ends), fused, peak_gb,
+    losses (each batch's cross-entropy before its update), module}."""
+    b = args.batch_size
+    n = len(x) // b
+    ends = []
+
+    def batch_end(param):
+        if param.nbatch in (0, n - 1):
+            torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod, loss = module_env(env, lambda: ti.fit(
+        args, net, mt.gpu(0), data=x, label=y,
+        arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                    for k, v in arg_params.items()},
+        aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                    for k, v in aux_params.items()},
+        batch_end_callback=batch_end))
+    if len(ends) != n:
+        fail("imagenet fit: %d batch ends in a fit of %d" % (len(ends), n))
+    gaps = [(t1 - t0) * 1e3 for t0, t1 in zip(ends, ends[1:])]
+    return {"img_s": (n - 1) * b / (ends[-1] - ends[0]),
+            "host_ms": obs_median(gaps),
+            "fused": mod._fused_ts_cache is not None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": loss.values(), "module": mod}
+
+
+def inception_fits(torch, mt, nc, ti, net, state, card):
+    """(b): Module.fit at batch INCEPTION_FIT_BATCH, fused and general,
+    knob off and on, over one synthetic batch repeated (so that the loss
+    must fall): img/s, host ms a batch, peak memory, the busy share of
+    profiled steps; the NormConv launches of the fits."""
+    params = {n: v.astype(np.float32) for n, v in state[0].items()}
+    aux = {n: v.astype(np.float32) for n, v in state[2].items()}
+    b = INCEPTION_FIT_BATCH
+    args = imagenet_args(ti, "inception-v3", b, INCEPTION_LR)
+    rng = np.random.default_rng(SEED + 30)
+    one = rng.uniform(-1, 1, (b, 3, INCEPTION_IMAGE, INCEPTION_IMAGE)) \
+        .astype(np.float32)
+    lab = rng.integers(0, CLASSES, b).astype(np.float32)
+    out = {}
+    for knob in ("0", "1"):
+        for path, nb in (("fused", INCEPTION_FUSED_BATCHES),
+                         ("general", INCEPTION_GENERAL_BATCHES)):
+            env = {"MXNET_NORM_CONV": knob,
+                   "MXNET_FUSED_FIT": "1" if path == "fused" else "0"}
+            nc.launches = nc.stats_launches = 0
+            r = imagenet_fit(torch, mt, ti, net, args,
+                             np.concatenate([one] * nb),
+                             np.concatenate([lab] * nb), params, aux, env)
+            counts = (nc.launches, nc.stats_launches)
+            if r["fused"] != (path == "fused"):
+                fail("inception fit %s: fused path taken %r"
+                     % (path, r["fused"]))
+            want = (nb * INCEPTION_NC_PER_STEP,
+                    nb * INCEPTION_NC_STATS_PER_STEP) if knob == "1" \
+                else (0, 0)
+            if counts != want:
+                fail("inception fit %s knob %s: NormConv launches %r, want %r"
+                     % (path, knob, counts, want))
+            losses = r["losses"]
+            if len(losses) != nb or not np.isfinite(losses).all() \
+                    or not losses[-1] < losses[1]:
+                fail("inception fit %s knob %s: the loss %r did not fall "
+                     "after the first batch" % (path, knob, losses))
+            mod = r.pop("module")
+            if path == "fused":
+                ts = mt.TrainStep(net, mt.optimizer.SGD(
+                    learning_rate=INCEPTION_LR, momentum=0.9,
+                    rescale_grad=1.0 / b), ctx=mt.gpu(0))
+                p, s, a = mt.convert.train_state_from_numpy(
+                    params, {n: (np.zeros_like(v),)
+                             for n, v in params.items()}, aux, ctx=mt.gpu(0))
+                dev = ts.shard_batch({"data": one, "softmax_label": lab})
+
+                def step():
+                    ts(p, s, a, dev)
+            else:
+                db = mt.io.DataBatch(data=[mt.nd.array(one, ctx=mt.cpu())],
+                                     label=[mt.nd.array(lab, ctx=mt.cpu())])
+
+                def step():
+                    mod.forward_backward(db)
+                    mod.update()
+
+            def profiled():
+                step()
+                step()
+                return busy_steps(torch, step, INCEPTION_PROFILED)
+            dev_ms, wall_ms, launches = module_env(env, profiled)
+            r.update(device_ms=dev_ms, wall_ms=wall_ms,
+                     busy=dev_ms / wall_ms, launches=launches,
+                     nc_launches=counts[0], nc_stats=counts[1])
+            print("inception fit path=%s MXNET_NORM_CONV=%s batch=%d "
+                  "batches=%d img_per_s=%r host_ms_per_batch=%r "
+                  "peak_mem_gb=%r loss first=%r after_one=%r last=%r "
+                  "norm_conv_launches=%d with_statistics=%d; profiled step "
+                  "(%d): device_ms=%r wall_ms=%r device_busy_share=%r "
+                  "launches=%d (%s)"
+                  % (path, knob, b, nb, r["img_s"], r["host_ms"],
+                     r["peak_gb"], losses[0], losses[1], losses[-1],
+                     counts[0], counts[1], INCEPTION_PROFILED, dev_ms,
+                     wall_ms, dev_ms / wall_ms, launches, card))
+            del mod, step
+            torch.cuda.empty_cache()
+            out[(path, knob)] = r
+    return out
+
+
+def inception_predictor_check(torch, mt, nc, net, state, card):
+    """(c): Predictor at batch INCEPTION_SERVE_BATCH with the knob on, its
+    rows within SERVE_TOL of the unfused Predictor's (cuDNN, TF32 off),
+    INCEPTION_NC_PER_STEP launches a forward, none unfused; host ms a
+    forward of each.  Returns the launches counted."""
+    blob = mt.convert.params_from_numpy(
+        {n: v.astype(np.float32) for n, v in state[0].items()},
+        {n: v.astype(np.float32) for n, v in state[2].items()},
+        ctx=mt.gpu(0))
+    shape = (INCEPTION_SERVE_BATCH, 3, INCEPTION_IMAGE, INCEPTION_IMAGE)
+    x = np.random.default_rng(SEED + 31).uniform(-1, 1, shape) \
+        .astype(np.float32)
+    res = {}
+    for knob in ("1", "0"):
+        def run():
+            pred = mt.Predictor(net, blob, {"data": shape})
+            pred.forward(data=x)
+            pred.get_output(0)
+            nc.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(INCEPTION_SERVE_FORWARDS):
+                pred.forward(data=x)
+                rows = pred.get_output(0)
+            return rows, (time.perf_counter() - t0) * 1e3 \
+                / INCEPTION_SERVE_FORWARDS, nc.launches
+        res[knob] = module_env({"MXNET_NORM_CONV": knob}, run)
+    got, want = res["1"][0], res["0"][0]
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    print("inception predictor batch=%d forwards=%d norm_conv_launches=%d "
+          "(unfused %d) host_ms_per_forward fused=%r unfused=%r "
+          "max_abs_diff=%r max_prob=%r tol=%g*max_prob argmax_agree=%d/%d "
+          "(%s)" % (INCEPTION_SERVE_BATCH, INCEPTION_SERVE_FORWARDS,
+                    res["1"][2], res["0"][2], res["1"][1], res["0"][1], err,
+                    scale, SERVE_TOL, agree, INCEPTION_SERVE_BATCH, card))
+    if res["1"][2] != INCEPTION_NC_PER_STEP * INCEPTION_SERVE_FORWARDS \
+            or res["0"][2] != 0:
+        fail("inception predictor: NormConv launches %d fused, %d unfused"
+             % (res["1"][2], res["0"][2]))
+    if got.shape != (INCEPTION_SERVE_BATCH, CLASSES) or \
+            not np.isfinite(got).all() or err > SERVE_TOL * scale:
+        fail("inception predictor: rows differ from the unfused Predictor "
+             "by %r (tol %g x %r)" % (err, SERVE_TOL, scale))
+    return res["1"][2]
+
+
+def vgg_phase(torch, mt, ti, card):
+    """(d): VGG-16 (train_imagenet.py --network vgg: 1000 classes,
+    3x224x224): one step at batch VGG_CHECK_BATCH held to its float32
+    floor, Dropout masks injected; a short Module.fit at VGG_FIT_BATCH."""
+    args = imagenet_args(ti, "vgg", VGG_FIT_BATCH, VGG_LR)
+    net = ti.get_symbol(args)
+    b = VGG_CHECK_BATCH
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, _ = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
+                        {"softmax_label": (b,)}, seed=SEED)
+    params = {n: v.numpy() for n, v in p0.items()}
+    n_params = sum(int(v.size) for v in params.values())
+    rng = np.random.default_rng(SEED + 32)
+    data = {"data": rng.uniform(-1, 1, (b, 3, IMAGE, IMAGE)),
+            "softmax_label": rng.integers(0, CLASSES, b).astype(np.float64)}
+    masks = [rng.random((b, 4096)) < 0.5 for _ in range(2)]
+    t0 = time.perf_counter()
+    want = alexnet_step(torch, mt, net, params, data, masks, mt.cpu(),
+                        np.float64, VGG_LR, b)
+    floors = []
+    for i in range(RESNET_FLOOR_SAMPLES):
+        pi = nudged_values(params, SEED + 130 + i) if i else params
+        xi = nudged_values(data, SEED + 230 + i, skip=("softmax_label",)) \
+            if i else data
+        floors.append(alexnet_step(torch, mt, net, pi, xi, masks, mt.cpu(),
+                                   np.float32, VGG_LR, b))
+    print("vgg16_train params=%d steps=cpu_f64+%d cpu_f32 batch=%d "
+          "seconds=%r" % (n_params, RESNET_FLOOR_SAMPLES, b,
+                          time.perf_counter() - t0))
+    got = alexnet_step(torch, mt, net, params, data, masks, mt.gpu(0),
+                       np.float32, VGG_LR, b)
+    resnet50_check_rows(torch, "vgg16_train",
+                        resnet50_leaf_rows(torch, got, want, floors,
+                                           kinds=("grad", "update")),
+                        "float32 floor")
+    rng = np.random.default_rng(SEED + 33)
+    x = rng.uniform(-1, 1, (VGG_FIT_BATCHES * VGG_FIT_BATCH, 3, IMAGE,
+                            IMAGE)).astype(np.float32)
+    y = rng.integers(0, CLASSES, len(x)).astype(np.float32)
+    r = imagenet_fit(torch, mt, ti, net, args, x, y,
+                     {n: v.astype(np.float32) for n, v in params.items()},
+                     {}, {})
+    del r["module"]
+    if not r["fused"] or not np.isfinite(r["losses"]).all():
+        fail("vgg16 fit: fused %r, losses %r" % (r["fused"], r["losses"]))
+    print("vgg16 fit params=%d batch=%d batches=%d img_per_s=%r "
+          "host_ms_per_batch=%r peak_mem_gb=%r losses=%r (%s)"
+          % (n_params, VGG_FIT_BATCH, VGG_FIT_BATCHES, r["img_s"],
+             r["host_ms"], r["peak_gb"], r["losses"], card))
+    return r
+
+
+def imagenet_phase(torch, mt, nc, card):
+    """Inception-v3 at full width (1000 classes, 3x299x299, 23,834,568
+    parameters), then VGG-16: (a)-(d) of the module docstring.  Returns
+    {"launches": the NormConv launches of the phase's counted runs,
+    "stats": those with statistics, "fits", "vgg"}."""
+    from mxnet_tpu_torch.bench import train_imagenet as ti
+    t0 = time.perf_counter()
+    args = imagenet_args(ti, "inception-v3", INCEPTION_FIT_BATCH,
+                         INCEPTION_LR)
+    net = ti.get_symbol(args)
+    state, step = inception_step_check(torch, mt, nc, net)
+    print("imagenet inception step seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    fits = inception_fits(torch, mt, nc, ti, net, state, card)
+    print("imagenet inception fits seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    serve = inception_predictor_check(torch, mt, nc, net, state, card)
+    torch.cuda.empty_cache()
+    print("imagenet inception predictor seconds=%r"
+          % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    vgg = vgg_phase(torch, mt, ti, card)
+    torch.cuda.empty_cache()
+    print("imagenet vgg16 seconds=%r" % (time.perf_counter() - t0))
+    return {"launches": step + serve + sum(r["nc_launches"]
+                                           for r in fits.values()),
+            "fits": fits, "vgg": vgg}
+
+
+# -------------------------------------------------------------------- custom
+CUSTOM_FEATURES = 784
+CUSTOM_HIDDEN = (128, 64)
+CUSTOM_CLASSES = 10
+CUSTOM_BATCH = 100
+CUSTOM_BATCHES = 6
+CUSTOM_LR = 0.1
+CUSTOM_BLOCK = (8, 16, 28, 28)
+STYLE_STEPS = 60
+
+
+def custom_register(mt, reads):
+    """The Custom ops of the phase: the softmax head of MXNet's
+    example/numpy-ops/custom_softmax.py (``chip_softmax``: numpy forward,
+    backward p - onehot, need_top_grad=False; ``reads`` counts its host
+    reads; its forward's result goes through a host NDArray, its
+    backward's through one on the op's context) and test_custom_op.py's
+    ``chip_sqr`` in mx.nd ops, which checks that it is handed contiguous
+    channel-first tensors of its inferred shape."""
+    op = mt.operator
+
+    def host(arr):
+        reads[0] += 1
+        return arr.asnumpy()
+
+    class Softmax(op.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = host(in_data[0])
+            y = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+            y /= y.sum(axis=1).reshape((x.shape[0], 1))
+            self.assign(out_data[0], req[0], mt.nd.array(y, ctx=mt.cpu()))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = host(in_data[1]).ravel().astype(np.int64)
+            y = host(out_data[0])
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mt.nd.array(y))
+
+    @op.register("chip_softmax")
+    class SoftmaxProp(op.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+    class Sqr(op.CustomOp):
+        def __init__(self, shape):
+            self.shape = shape
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            if x.shape != self.shape or not x.value.is_contiguous():
+                fail("custom sqr: handed %r (contiguous %r), inferred %r"
+                     % (x.shape, x.value.is_contiguous(), self.shape))
+            self.assign(out_data[0], req[0], x * x)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0] * out_grad[0])
+
+    @op.register("chip_sqr")
+    class SqrProp(op.CustomOpProp):
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return Sqr(tuple(in_shapes[0]))
+
+
+def custom_mlp(mt, head):
+    """custom_softmax.py's MLP with the Custom head or SoftmaxOutput."""
+    S = mt.sym
+    h = S.Variable("data")
+    for i, nh in enumerate(CUSTOM_HIDDEN + (CUSTOM_CLASSES,)):
+        h = S.FullyConnected(h, name="fc%d" % (i + 1), num_hidden=nh)
+        if i < len(CUSTOM_HIDDEN):
+            h = S.Activation(h, name="relu%d" % (i + 1), act_type="relu")
+    if head == "custom":
+        return S.Custom(h, S.Variable("softmax_label"), name="softmax",
+                        op_type="chip_softmax")
+    return S.SoftmaxOutput(h, name="softmax")
+
+
+def custom_fit(torch, mt, head, fused, params, x, y):
+    """Module.fit on gpu(0), one epoch of SGD-momentum: (parameters as
+    numpy, host ms a batch (median gap between batch ends), fused path
+    taken)."""
+    ends = []
+
+    def batch_end(param):
+        ends.append(time.perf_counter())
+    mod = mt.Module(custom_mlp(mt, head), context=mt.gpu(0))
+    module_env({"MXNET_FUSED_FIT": "1" if fused else "0"}, lambda: mod.fit(
+        mt.io.NDArrayIter(x, y, batch_size=CUSTOM_BATCH), num_epoch=1,
+        optimizer="sgd", optimizer_params={"learning_rate": CUSTOM_LR,
+                                           "momentum": 0.9},
+        arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                    for k, v in params.items()}, aux_params={},
+        batch_end_callback=batch_end))
+    args, _ = mod.get_params()
+    gaps = [(t1 - t0) * 1e3 for t0, t1 in zip(ends, ends[1:])]
+    return ({k: v.asnumpy() for k, v in args.items()}, obs_median(gaps),
+            mod._fused_ts_cache is not None)
+
+
+def custom_mlp_check(torch, mt, reads, card):
+    """The Custom softmax head against SoftmaxOutput through Module.fit,
+    fused and general: each parameter after CUSTOM_BATCHES batches within
+    RESNET_FLOOR_X times its float32 floor (the SoftmaxOutput fit's
+    distance to its fit from parameters nudged by RESNET_FLOOR_NUDGE);
+    host ms a batch of both heads and the head's host reads a batch."""
+    rng = np.random.default_rng(SEED + 40)
+    n = CUSTOM_BATCH * CUSTOM_BATCHES
+    x = rng.random((n, CUSTOM_FEATURES)).astype(np.float32)
+    y = rng.integers(0, CUSTOM_CLASSES, n).astype(np.float32)
+    dims = (CUSTOM_FEATURES,) + CUSTOM_HIDDEN + (CUSTOM_CLASSES,)
+    params = {}
+    for i, (fin, fout) in enumerate(zip(dims, dims[1:])):
+        bound = np.sqrt(3.0 / fin)
+        params["fc%d_weight" % (i + 1)] = rng.uniform(
+            -bound, bound, (fout, fin)).astype(np.float32)
+        params["fc%d_bias" % (i + 1)] = np.zeros(fout, np.float32)
+    for fused in (True, False):
+        path = "fused" if fused else "general"
+        reads[0] = 0
+        got, host_custom, took = custom_fit(torch, mt, "custom", fused,
+                                            params, x, y)
+        n_reads = reads[0]
+        want, host_plain, took2 = custom_fit(torch, mt, "softmax_output",
+                                             fused, params, x, y)
+        nudge, _, _ = custom_fit(
+            torch, mt, "softmax_output", fused,
+            {k: v.astype(np.float32) for k, v in
+             nudged_values(params, SEED + 41).items()}, x, y)
+        if took != fused or took2 != fused:
+            fail("custom %s: fused path taken %r/%r" % (path, took, took2))
+        worst = 0.0
+        for k in want:
+            d = module_worst({k: got[k]}, {k: want[k]})[0]
+            f = max(module_worst({k: nudge[k]}, {k: want[k]})[0],
+                    RESNET_FLOOR_MIN)
+            worst = max(worst, d / f)
+            if d > RESNET_FLOOR_X * f or not np.isfinite(got[k]).all():
+                fail("custom %s: %s is %.3g from SoftmaxOutput's fit, %.3g "
+                     "x its float32 floor %.3g" % (path, k, d, d / f, f))
+        weights = [k for k in params if k.endswith("_weight")]
+        moved = module_worst({k: got[k] for k in weights},
+                             {k: params[k] for k in weights})[0]
+        print("custom mlp path=%s batch=%d batches=%d worst_x_floor=%.3f "
+              "moved_max_rel=%.3g host_ms_per_batch custom=%r "
+              "softmax_output=%r host_reads custom=%d (%.1f a batch) "
+              "softmax_output=0 (%s)"
+              % (path, CUSTOM_BATCH, CUSTOM_BATCHES, worst, moved,
+                 host_custom, host_plain, n_reads,
+                 n_reads / CUSTOM_BATCHES, card))
+        if moved < 1e-3:
+            fail("custom %s: the parameters did not move" % path)
+
+
+def custom_block_check(torch, mt, card):
+    """``chip_sqr`` (mx.nd ops on the card) inside a ResNet-style block
+    under the NHWC pass: forward and every gradient, float32 on the card
+    (TF32 off), within OPS_TOL of float64 on the CPU; one TrainStep step
+    over the block with no host synchronisation."""
+    S = mt.sym
+    data = S.Variable("data")
+    h = S.Activation(S.BatchNorm(data, fix_gamma=False, name="bn1"),
+                     act_type="relu")
+    h = S.Convolution(h, num_filter=16, kernel=(3, 3), pad=(1, 1),
+                      no_bias=True, name="conv1")
+    h = S.Activation(S.BatchNorm(h, fix_gamma=False, name="bn2"),
+                     act_type="relu")
+    h = S.Custom(h, op_type="chip_sqr", name="sqr")
+    h = S.Convolution(h, num_filter=16, kernel=(3, 3), pad=(1, 1),
+                      no_bias=True, name="conv2")
+    body = h + data
+    loss = S.MakeLoss(S.sum(body * body) * 1e-3)
+    rng = np.random.default_rng(SEED + 42)
+    names = loss.list_arguments()
+    arg_shapes, _, _ = loss.infer_shape(data=CUSTOM_BLOCK)
+    vals = {n: (rng.standard_normal(s) * (0.1 if "conv" in n else 1.0)
+                + (1.0 if n.endswith("gamma") else 0.0))
+            for n, s in zip(names, arg_shapes)}
+    res = {}
+    for ctx, dt in ((mt.cpu(), np.float64), (mt.gpu(0), np.float32)):
+        ex = loss.simple_bind(ctx, grad_req="write",
+                              type_dict={n: dt for n in names},
+                              data=CUSTOM_BLOCK)
+        for n, v in vals.items():
+            ex.arg_dict[n][:] = v.astype(dt)
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward()
+        res[dt] = (out, {n: ex.grad_dict[n].asnumpy() for n in names})
+    worst = 0.0
+    for n in names + ["output"]:
+        got = res[np.float32][0] if n == "output" else res[np.float32][1][n]
+        want = res[np.float64][0] if n == "output" \
+            else res[np.float64][1][n]
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(),
+                                                   1e-30))
+        worst = max(worst, err)
+        if err > OPS_TOL or not np.isfinite(got).all():
+            fail("custom block: %s off by %.3g of its largest entry"
+                 % (n, err))
+    ts = mt.TrainStep(loss, mt.optimizer.SGD(learning_rate=0.01,
+                                             momentum=0.9), ctx=mt.gpu(0))
+    p, s, a = ts.init({"data": CUSTOM_BLOCK}, seed=SEED)
+    batch = ts.shard_batch({"data": vals["data"].astype(np.float32)})
+    ts(p, s, a, batch)
+    sync_free(torch, "custom sqr block step", lambda: ts(p, s, a, batch))
+    print("custom block (sqr in mx.nd ops, NHWC pass) %s: worst relative "
+          "error against float64 %r over the output and %d gradients (tol "
+          "%g; %s)" % (CUSTOM_BLOCK, worst, len(names), OPS_TOL, card))
+
+
+def custom_phase(torch, mt, card):
+    """The custom-op bridge on the card: the Custom softmax head against
+    SoftmaxOutput, a device-side Custom op in a conv block, and
+    bench/neural_style.py."""
+    from mxnet_tpu_torch.bench import neural_style as ns
+    reads = [0]
+    custom_register(mt, reads)
+    t0 = time.perf_counter()
+    custom_mlp_check(torch, mt, reads, card)
+    custom_block_check(torch, mt, card)
+    print("custom ops seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    _, hist = ns.transfer(steps=STYLE_STEPS, ctx=mt.gpu(0))
+    secs = time.perf_counter() - t0
+    print("custom neural_style steps=%d loss first=%r last=%r seconds=%r "
+          "(%s)" % (STYLE_STEPS, hist[0], hist[-1], secs, card))
+    if not np.isfinite(hist).all() or not hist[-1] < hist[0]:
+        fail("neural_style: the loss did not fall (%r -> %r)"
+             % (hist[0], hist[-1]))
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -5520,6 +6115,7 @@ def build_all(kernels):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -5590,6 +6186,31 @@ def main():
              ttot["library_ms"], ttot["bound_ms"],
              "operations" if ttot["ops_ms"] >= ttot["bytes_ms"]
              else "bytes"))
+    inception = mt.models.inception_v3.get_symbol(num_classes=CLASSES)
+    igeoms, istats = norm_conv_geometries(
+        inception, (RESNET_TRAIN_BATCH, 3, INCEPTION_IMAGE, INCEPTION_IMAGE))
+    print("inception_v3 norm_conv geometries=%d launches_per_forward=%d "
+          "with_statistics_in_training=%d"
+          % (len(igeoms), sum(igeoms.values()), sum(istats.values())))
+    if len(igeoms) != INCEPTION_GEOMS or \
+            sum(igeoms.values()) != INCEPTION_NC_PER_STEP or \
+            sum(istats.values()) != INCEPTION_NC_STATS_PER_STEP:
+        fail("expected %d Inception-v3 geometries, %d launches per forward "
+             "and %d with statistics" % (INCEPTION_GEOMS,
+                                         INCEPTION_NC_PER_STEP,
+                                         INCEPTION_NC_STATS_PER_STEP))
+    itot = kernel_train_phase(torch, nc, igeoms, istats,
+                              batches=(INCEPTION_CHECK_BATCH,
+                                       RESNET_TRAIN_BATCH),
+                              label="inception_geom_train")
+    print("kernel totals per batch-%d float32 Inception-v3 training step's "
+          "forward (%d launches, %d with statistics): kernel_ms=%r "
+          "plain_ms=%r library_ms=%r bound_ms=%r bound_by=%s"
+          % (RESNET_TRAIN_BATCH, INCEPTION_NC_PER_STEP,
+             INCEPTION_NC_STATS_PER_STEP, itot["ms"], itot["plain_ms"],
+             itot["library_ms"], itot["bound_ms"],
+             "operations" if itot["ops_ms"] >= itot["bytes_ms"]
+             else "bytes"))
     btot = kernel_train_phase(torch, nc, geoms, stats_geoms, torch.bfloat16,
                               (RESNET_TRAIN_BATCH,))
     print("kernel totals per batch-%d bfloat16 training step's forward (%d "
@@ -5632,6 +6253,12 @@ def main():
     rc = rcnn_phase(torch, mt, card)
     torch.cuda.empty_cache()
     phase_done("rcnn")
+    im = imagenet_phase(torch, mt, nc, card)
+    torch.cuda.empty_cache()
+    phase_done("imagenet")
+    custom_phase(torch, mt, card)
+    torch.cuda.empty_cache()
+    phase_done("custom")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -5670,19 +6297,27 @@ def main():
     parallel_phase(torch, mt, card)
     phase_done("parallel")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
+    print("chip_smoke seconds=%r (the whole script, builds included)"
+          % (time.perf_counter() - t_start))
 
     print(json.dumps({"kernels": [{
         "name": "norm_conv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
-        + mf["norm_conv"] + obs_launches,
+        + mf["norm_conv"] + obs_launches + im["launches"],
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"]
         else "bytes",
         "library_ms": tot["library_ms"],
+        "inception_v3_train": {
+            "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
+            "ms": itot["ms"], "plain_ms": itot["plain_ms"],
+            "bound_ms": itot["bound_ms"],
+            "bound_by": "operations" if itot["ops_ms"] >= itot["bytes_ms"]
+            else "bytes", "library_ms": itot["library_ms"]},
         "bf16_train": {
             "launches": amp_fused["bf16_launches"] + mf["norm_conv_bf16"],
             "max_abs_err": btot["max_abs_err"], "ms": btot["ms"],

@@ -24,7 +24,10 @@ the observability slice's first half: ``telemetry`` (spans, counters,
 gauges, histograms, scalars, the JSON-lines sink), ``profiler`` (the
 chrome trace, with a ``torch.profiler`` trace of the card beside it),
 ``engine`` (``MXNET_ENGINE_TYPE=NaiveEngine``), ``monitor.Monitor`` and
-``cost`` (MFU against the card's peaks).
+``cost`` (MFU against the card's peaks); the custom-op bridge
+(``operator.CustomOp``/``CustomOpProp``, the ``Custom`` op), the rest of
+the symbol frontend (``Symbol.attr``/``eval``/``debug_str``, backward shape
+rules, ``name.Prefix``) and the VGG and Inception-v3 symbols.
 """
 from .base import MXNetError
 from . import telemetry
@@ -50,6 +53,9 @@ from . import lr_scheduler
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import optimizer as opt
+from . import name
+from . import operator
 from . import rtc
 from . import amp
 from . import train
@@ -73,6 +79,7 @@ __all__ = ["MXNetError", "telemetry", "engine", "profiler", "cost",
            "ndarray", "sym", "symbol", "Variable", "Group", "executor",
            "Executor", "AttrScope", "kvstore", "kv", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",
-           "lr_scheduler", "initializer", "init", "optimizer", "rtc", "amp",
+           "lr_scheduler", "initializer", "init", "optimizer", "opt", "name",
+           "operator", "rtc", "amp",
            "train", "TrainStep", "EvalStep", "io", "metric", "callback",
            "model", "module", "mod", "Module", "rnn"]

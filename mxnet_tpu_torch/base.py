@@ -53,6 +53,10 @@ class Registry(object):
         except KeyError:
             raise MXNetError("unknown %s: %s" % (self.kind, name))
 
+    def find(self, name):
+        """The entry of ``name``, or None."""
+        return self._entries.get(name)
+
     def list_names(self):
         return sorted(self._entries)
 

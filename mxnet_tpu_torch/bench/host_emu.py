@@ -308,7 +308,9 @@ def nms_inputs(case, gen):
 # element by element, Cout 22 and 70 also w; ragged M and Cout throughout;
 # split-K chosen (S 2 and 4) and not chosen (few steps, or a grid of 10
 # tiles), tile 1 chosen and forced, and S forced to uneven slices and to
-# one step a slice
+# one step a slice; 3x3 with pad 0 (Inception-v3's conv_1, conv_4 and its
+# stride-2 reductions) at odd H, stride 1 and 2, Cin 32 and 96, float32 and
+# bfloat16, with split-K chosen and forced
 NC_CASES = [
     (2, 6, 64, 24, 3, 1, 1, torch.float32, True, True, True, -1, 0),
     (2, 9, 128, 24, 3, 2, 1, torch.bfloat16, True, True, True, -1, 0),
@@ -325,6 +327,10 @@ NC_CASES = [
     (2, 6, 36, 70, 3, 2, 1, torch.bfloat16, True, True, True, 1, 5),
     (2, 6, 20, 136, 3, 1, 1, torch.float32, True, True, True, 1, 1),
     (1, 4, 16, 8, 3, 1, 1, torch.float32, True, True, True, 0, 9),
+    (2, 9, 32, 32, 3, 1, 0, torch.float32, True, True, True, -1, 0),
+    (2, 11, 96, 40, 3, 2, 0, torch.float32, True, True, False, -1, 0),
+    (2, 9, 32, 24, 3, 2, 0, torch.bfloat16, True, True, True, -1, 0),
+    (2, 7, 32, 40, 3, 1, 0, torch.float32, True, True, True, 0, 3),
 ]
 
 

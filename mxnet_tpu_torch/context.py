@@ -15,13 +15,19 @@ from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context"]
 
-_DEVICE_TYPES = ("cpu", "gpu")
+# the device type ids of the JAX package (``cpu_pinned`` 3 and ``tpu`` 4 have
+# no context here)
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2}
+_ID2DEVTYPE = {v: k for k, v in _DEVTYPE2ID.items()}
+_DEVICE_TYPES = tuple(_DEVTYPE2ID)
 
 
 class Context(object):
     """A device context: ``Context('gpu', 0)`` or ``gpu(0)``."""
 
     _default_ctx = threading.local()
+    devtype2str = _ID2DEVTYPE
+    devstr2type = _DEVTYPE2ID
 
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
@@ -33,6 +39,16 @@ class Context(object):
         self.device_type = device_type
         self.device_id = int(device_id)
         self._old_ctx = None
+
+    @property
+    def device_typeid(self):
+        """The device type's id (cpu 1, gpu 2)."""
+        return _DEVTYPE2ID[self.device_type]
+
+    @property
+    def default_ctx(self):
+        """The active default context (parity: Context.default_ctx)."""
+        return current_context()
 
     def torch_device(self):
         """The ``torch.device`` of this context; raises for a gpu context

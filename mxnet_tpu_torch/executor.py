@@ -1066,3 +1066,7 @@ class Executor(object):
         peepholes off while a callback is installed, so that every node's
         output exists; ``None`` removes it."""
         self._monitor_cb = callback
+
+    def debug_str(self):
+        """The bound graph's ``Symbol.debug_str``."""
+        return self._symbol.debug_str()

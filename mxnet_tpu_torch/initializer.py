@@ -1,6 +1,7 @@
 """Weight initializers (counterpart: mxnet_tpu/initializer.py): InitDesc,
 the Initializer base with its name rules, Zero, One, Constant, Uniform,
-Normal, Xavier, and the RNN slice's FusedRNN and LSTMBias.
+Normal, Orthogonal, Xavier, MSRAPrelu, Bilinear, the RNN slice's FusedRNN
+and LSTMBias, and the routers Load and Mixed.
 
 Dispatch is by parameter-name suffix as in the JAX package: *_bias, *_gamma,
 *_beta and moving_* get fixed defaults, *_weight goes to the concrete
@@ -11,15 +12,18 @@ initializer's ``_init_weight``, and a variable's ``__init__`` attribute
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
+import torch
 
 from .base import MXNetError, string_types
 from . import ndarray as nd
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "FusedRNN", "LSTMBias"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "Load",
+           "Mixed", "FusedRNN", "LSTMBias"]
 
 
 class InitDesc(str):
@@ -114,6 +118,58 @@ class Initializer(object):
             % name)
 
 
+class Load(object):
+    """Initialise from a dict of arrays (or a ``.params`` file), names
+    with or without their ``arg:``/``aux:`` prefix; a name it lacks goes to
+    ``default_init`` (parity: Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .context import cpu
+            param = nd.load(param, ctx=cpu())
+        self.param = {}
+        for name, arr in param.items():
+            if name.startswith("arg:") or name.startswith("aux:"):
+                self.param[name[4:]] = arr
+            else:
+                self.param[name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if tuple(arr.shape) != tuple(self.param[name].shape):
+                raise MXNetError("Parameter %s cannot be initialized from "
+                                 "loading. Shape mismatch, target %s vs "
+                                 "loaded %s" % (name, str(arr.shape),
+                                                str(self.param[name].shape)))
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise MXNetError("Cannot Initialize parameter %s; not found "
+                                 "and no default initializer" % name)
+            self.default_init(name, arr)
+
+
+class Mixed(object):
+    """The first initializer whose pattern (a regular expression matched
+    at the start of the name) matches (parity: Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("Mixed: %d patterns for %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern" % name)
+
+
 class Zero(Initializer):
     def _init_weight(self, _, arr):
         arr[:] = 0.0
@@ -155,6 +211,29 @@ class Normal(Initializer):
         _fill(arr, _random.normal(0.0, self.sigma, arr.shape))
 
 
+class Orthogonal(Initializer):
+    """An orthogonal matrix times ``scale`` (parity: Orthogonal; Saxe et
+    al.): the SVD of a float64 draw (uniform in [-1, 1] or standard
+    normal) of (out, prod(rest)), its u or v as the shape asks."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _random.uniform(-1.0, 1.0, (nout, nin), torch.float64)
+        else:
+            tmp = _random.normal(0.0, 1.0, (nout, nin), torch.float64)
+        tmp = tmp.numpy()
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = self.scale * res.reshape(arr.shape)
+
+
 class Xavier(Initializer):
     """Xavier/Glorot init (parity: Xavier): scale sqrt(magnitude / factor)
     with factor the average, the fan-in or the fan-out."""
@@ -187,6 +266,23 @@ class Xavier(Initializer):
             _fill(arr, _random.normal(0.0, scale, shape))
         else:
             raise ValueError("Unknown random type")
+
+
+class MSRAPrelu(Xavier):
+    """Kaiming He's initialisation for a PReLU of ``slope`` (parity:
+    MSRAPrelu): Xavier, gaussian, magnitude 2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+class Bilinear(Initializer):
+    """A bilinear upsampling filter (parity: Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
 
 
 class FusedRNN(Initializer):
@@ -264,5 +360,5 @@ class LSTMBias(Initializer):
 
 
 _REGISTRY = {c.__name__.lower(): c
-             for c in (Zero, One, Constant, Uniform, Normal, Xavier,
-                       FusedRNN, LSTMBias)}
+             for c in (Zero, One, Constant, Uniform, Normal, Orthogonal,
+                       Xavier, MSRAPrelu, Bilinear, FusedRNN, LSTMBias)}

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 
 class NameManager(object):
@@ -31,6 +31,17 @@ class NameManager(object):
 
     def __exit__(self, ptype, value, trace):
         NameManager._current.value = self._old_manager
+
+
+class Prefix(NameManager):
+    """Prepends ``prefix`` to every name it gives (parity: name.Prefix)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 def current():

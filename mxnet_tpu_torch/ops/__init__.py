@@ -3,8 +3,8 @@
 Importing this package registers the ops of the ported paths (ResNet-50
 inference, the transformer LM's inference and training, the imperative
 ``mx.nd`` API, the sequences slice, the SSD slice, the operator surface's
-``nn``, ordering and ``misc`` ops, the spatial ops, Proposal and CTCLoss)
-before ``symbol.py``
+``nn``, ordering and ``misc`` ops, the spatial ops, Proposal and CTCLoss,
+and ``Custom``) before ``symbol.py``
 and ``ndarray.py`` generate their constructors and frontends.
 """
 from . import registry   # noqa: F401
@@ -26,3 +26,4 @@ from . import contrib    # noqa: F401  (MultiBox*: the NMS kernel on the card)
 from . import ordering   # noqa: F401  (topk, sort, argsort)
 from . import misc       # noqa: F401  (0-index ops, KL sparse reg, ...)
 from . import spatial    # noqa: F401  (Crop, samplers, ROIPooling, ...)
+from . import custom     # noqa: F401  (Custom: the user's CustomOp)

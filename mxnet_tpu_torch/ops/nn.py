@@ -59,9 +59,28 @@ def _fc_infer(attrs, in_shapes):
     return ins, [out], None
 
 
+def _fc_infer_backward(attrs, out_shapes, in_shapes):
+    """A 2-D data shape deduced from the output and the weight (the
+    backward half of shape inference: an RNN's begin state gets its batch
+    through a shared h2h weight)."""
+    out = out_shapes[0]
+    weight = in_shapes[1] if len(in_shapes) > 1 else None
+    ins = [None] * len(in_shapes)
+    if out is None:
+        return ins
+    data = in_shapes[0]
+    if weight is not None and (data is None or
+                               (len(data) == 2 and 0 in data)):
+        ins[0] = (out[0], weight[1])
+    elif data is not None and data[0] == 0 and out[0] != 0:
+        ins[0] = (out[0],) + tuple(data[1:])
+    return ins
+
+
 @register("FullyConnected", arg_names=_fc_args,
           attr_types={"num_hidden": parse_int, "no_bias": parse_bool},
-          defaults={"no_bias": False}, infer_shape=_fc_infer)
+          defaults={"no_bias": False}, infer_shape=_fc_infer,
+          infer_shape_backward=_fc_infer_backward)
 def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False):
     """y = x·Wᵀ + b, at the promoted dtype of the three"""
     return F.linear(*promoted(data.reshape(data.shape[0], -1), weight, bias))

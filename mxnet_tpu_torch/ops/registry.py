@@ -25,7 +25,7 @@ from .. import profiler as _prof
 __all__ = ["OpDef", "register", "get_op", "list_ops", "OPS", "parse_tuple",
            "parse_int", "parse_float", "parse_bool", "parse_str",
            "parse_dtype", "shape_unify", "eval_shape_infer",
-           "imperative_invoke"]
+           "imperative_invoke", "attr_key"]
 
 OPS = Registry("operator")
 
@@ -90,6 +90,9 @@ class OpDef(object):
         moving statistics)
     infer_shape : optional callable(attrs, in_shapes) -> (in, out, aux);
         the default runs ``fn`` on meta tensors (forward only)
+    infer_shape_backward : optional callable(attrs, out_shapes, in_shapes)
+        -> in_shapes: the inputs deduced from known outputs (the
+        FullyConnected rule resolves a data shape through its weight)
     layout_rule : how the executor's NHWC pass treats the op: None (rigid:
         inputs restored to NCHW), 'aware' (``fn`` takes layout='NHWC' for
         the inputs in ``layout_inputs``) or 'transparent' (shape-agnostic)
@@ -111,7 +114,8 @@ class OpDef(object):
 
     def __init__(self, name, fn, arg_names=("data",), aux_names=(),
                  num_outputs=1, attr_types=None, defaults=None,
-                 infer_shape=None, infer_type=None, train_aware=False,
+                 infer_shape=None, infer_type=None,
+                 infer_shape_backward=None, train_aware=False,
                  needs_rng=False, key_var_num_args=None, aliases=(),
                  hidden=False, doc=None, layout_rule=None, layout_inputs=(0,),
                  is_loss=False, env_attrs=None, input_init_attrs=None):
@@ -125,6 +129,7 @@ class OpDef(object):
         self.defaults = dict(defaults or {})
         self._infer_shape = infer_shape
         self._infer_type = infer_type
+        self.infer_shape_backward = infer_shape_backward
         self.train_aware = train_aware
         self.needs_rng = needs_rng
         self.key_var_num_args = key_var_num_args
@@ -269,6 +274,22 @@ def get_op(name):
 
 def list_ops():
     return OPS.list_names()
+
+
+def attr_key(attrs):
+    """A hashable canonical key of an attr dict."""
+    def freeze(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(freeze(x) for x in v)
+        if isinstance(v, dict):
+            return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+        if isinstance(v, _np.dtype):
+            return v.name
+        if isinstance(v, type):
+            return v.__name__
+        return v
+
+    return tuple(sorted((k, freeze(v)) for k, v in attrs.items()))
 
 
 def imperative_invoke(op_name, inputs, attrs=None, is_train=False, rng=None,

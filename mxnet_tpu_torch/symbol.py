@@ -159,6 +159,18 @@ class Symbol(object):
                 out.append("%s_output%d" % (node.name, idx))
         return out
 
+    def attr(self, key):
+        """The attribute ``key`` of a single-output symbol's node (None
+        for a group or an unset key; parity: Symbol.attr)."""
+        if len(self._outputs) != 1:
+            return None
+        return self._outputs[0][0].attr.get(key)
+
+    def _set_attr(self, **kwargs):
+        """Set attributes (strings) on every output's node."""
+        for node, _ in self._outputs:
+            node.attr.update(kwargs)
+
     def attr_dict(self):
         """{node name: {attribute: string}} over the graph (parity:
         Symbol.attr_dict): variables' attributes (``__init__``,
@@ -255,6 +267,16 @@ class Symbol(object):
         with atomic_write(fname, "w") as f:
             f.write(self.tojson())
 
+    def debug_str(self):
+        """One line a node in walk order: its op (or ``Variable``), its
+        name and its inputs' names (parity: Symbol.debug_str)."""
+        lines = []
+        for n in self._nodes():
+            kind = "Variable" if n.is_var else n.op.name
+            lines.append("%s %s(%s)" % (
+                kind, n.name, ", ".join(c.name for c, _ in n.inputs)))
+        return "\n".join(lines)
+
     def __repr__(self):
         name = self.name
         return "<Symbol %s>" % (name if name else "Grouped")
@@ -282,6 +304,17 @@ class Symbol(object):
         return Executor(self, ctx or current_context(), args, args_grad,
                         grad_req, aux_states, group2ctx=group2ctx,
                         shared_exec=shared_exec)
+
+    def grad(self, wrt):
+        """Refused, as in the JAX package: gradients come from ``bind``
+        and ``backward``."""
+        raise MXNetError("symbol.grad is deprecated; use bind + backward")
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind the arguments in ``kwargs`` (NDArrays) and run one
+        inference forward; returns the outputs (parity: Symbol.eval)."""
+        ex = self.bind(ctx or current_context(), args=kwargs)
+        return ex.forward()
 
 
 def _attr_str(v):
@@ -439,9 +472,10 @@ def load(fname):
 # ------------------------------------------------------------ shape inference
 def _run_shape_inference(symbol, known):
     """Fixpoint bidirectional shape propagation over the DAG (parity:
-    mxnet_tpu/symbol.py _run_shape_inference, without the backward rules no
-    op of the port has).  Returns (var name -> shape, (node id, index) ->
-    shape)."""
+    mxnet_tpu/symbol.py _run_shape_inference): each op's rule deduces its
+    outputs and the inputs it can, and an op with an
+    ``infer_shape_backward`` rule also deduces inputs from its known
+    outputs.  Returns (var name -> shape, (node id, index) -> shape)."""
     order = symbol._nodes()
     var_shapes = dict(known)
     for n in order:
@@ -460,6 +494,23 @@ def _run_shape_inference(symbol, known):
             raise MXNetError("shape inference conflict: %r vs %r"
                              % (cur, new))
         return m, m != cur
+
+    def write_input(child, ci, s):
+        """Merge ``s`` into an input's shape (and its variable's); returns
+        whether that improved either."""
+        if s is None:
+            return False
+        improved = False
+        if child.is_var:
+            m, imp = merge(var_shapes.get(child.name), s)
+            if imp:
+                var_shapes[child.name] = m
+                improved = True
+        m, imp = merge(out_shapes.get((id(child), ci)), s)
+        if imp:
+            out_shapes[(id(child), ci)] = m
+            improved = True
+        return improved
 
     for _ in range(10):
         changed = False
@@ -485,22 +536,24 @@ def _run_shape_inference(symbol, known):
             except Exception:
                 new_in, new_out = None, None
             for (child, ci), s in zip(node.inputs, new_in or ()):
-                if s is None:
-                    continue
-                if child.is_var:
-                    m, imp = merge(var_shapes.get(child.name), s)
-                    if imp:
-                        var_shapes[child.name] = m
-                        changed = True
-                m, imp = merge(out_shapes.get((id(child), ci)), s)
-                if imp:
-                    out_shapes[(id(child), ci)] = m
-                    changed = True
+                changed |= write_input(child, ci, s)
             for i, s in enumerate(new_out or []):
                 m, imp = merge(out_shapes.get((id(node), i)), s)
                 if imp:
                     out_shapes[(id(node), i)] = m
                     changed = True
+            # the backward half: inputs deduced from known outputs
+            bwd = node.op.infer_shape_backward
+            if bwd is not None:
+                cur_out = [out_shapes.get((id(node), i))
+                           for i in range(node.num_outputs())]
+                cur_in = [out_shapes.get((id(c), i)) for c, i in node.inputs]
+                try:
+                    back_in = bwd(node.params, cur_out, cur_in)
+                except Exception:
+                    back_in = None
+                for (child, ci), s in zip(node.inputs, back_in or ()):
+                    changed |= write_input(child, ci, s)
         if not changed:
             break
     return var_shapes, out_shapes

@@ -21,6 +21,10 @@ GEOMS = [
     (8, 1, 1, 0, 16, 32, False, False, True),
     (9, 1, 2, 0, 16, 24, True, True, True),
     (7, 3, 2, 1, 16, 16, True, True, True),
+    # 3x3 with pad 0, odd H, stride 1 and 2 (Inception-v3's conv_1, conv_4
+    # and its stride-2 reductions)
+    (9, 3, 1, 0, 32, 32, True, True, True),
+    (11, 3, 2, 0, 16, 24, True, True, True),
 ]
 
 

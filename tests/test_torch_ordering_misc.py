@@ -3,7 +3,7 @@ mxnet_tpu: topk, sort, argsort, choose_element_0index, fill_element_0index,
 ``_broadcast``, ``_onehot_encode``, IdentityAttachKLSparseReg,
 ``_slice_assign`` / ``_crop_assign``, ``_crop_assign_scalar`` and the
 ``Convolution_v1`` alias; and the registry, which holds every op of the JAX
-package but ``Custom``, which the custom-op bridge ports later.
+package (``Custom`` since the custom-op bridge).
 
 The parity cases feed the same float64 numpy inputs from a seed (JAX's x64
 on) to the JAX op (forward, ``jax.vjp``) and the port's (forward,
@@ -22,8 +22,9 @@ from mxnet_tpu_torch.ops.registry import OPS as POPS, get_op as pget_op
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 
-# the JAX package's ops that a later part of the operator surface ports
-LATER = ("Custom",)
+# the JAX package's ops that a later part of the operator surface ports:
+# none since the custom-op bridge brought ``Custom``
+LATER = ()
 
 
 @pytest.fixture
@@ -173,13 +174,14 @@ def test_infer_shape_matches_mxnet_tpu():
 
 
 def test_registry_holds_every_op_but_the_later_parts():
-    """The port registers every op name of the JAX package but the one
-    that the custom-op bridge ports later, and nothing the JAX package
-    lacks."""
+    """The port registers every op name of the JAX package (``LATER``,
+    the names a later part would port, is empty since the custom-op
+    bridge), and nothing the JAX package lacks: the two registries are
+    equal, 234 names each."""
     jnames, pnames = set(JOPS.list_names()), set(POPS.list_names())
     assert not pnames - jnames
     assert sorted(jnames - pnames) == sorted(LATER)
-    assert len(LATER) == 1
+    assert jnames == pnames and len(pnames) == 234
 
 
 def test_kl_sparse_reg_trains_its_moving_average_in_a_graph():
