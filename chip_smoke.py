@@ -230,6 +230,31 @@ fatal on failure:
    within OPS_TOL of float64 on the CPU, a TrainStep step over it with no
    host synchronisation.  bench/neural_style.py on the card: the loss after
    STYLE_STEPS steps below the first;
+4k. image (after custom): the image slice.  IMAGE_RECORDS synthetic
+   256x341 images (labels from IMAGE_LABELS of the 1000 classes) packed as
+   pass-through records with an .idx in a temporary directory.  (a)
+   ``ImageRecordIter`` alone with train_imagenet.py's settings (batch 32,
+   3x224x224, shuffle, rand_crop, rand_mirror, resize=-1, IMAGE_THREADS
+   decode threads): img/s in float32 (the example's means) and uint8.  (b)
+   ResNet-50 v2 (1000 classes) through the fused ``Module.fit`` from those
+   records with MXNET_NORM_CONV=1, then 0, and over a synthetic
+   ``NDArrayIter`` of as many batches: img/s and host ms a batch (epoch 0),
+   the fit loop's ``data_wait`` ms a batch (telemetry in memory,
+   MXNET_TELEMETRY_FUSED=1), the busy share of a torch.profiler window over
+   epoch 1, peak memory, 52 NormConv launches a step (32 with statistics;
+   0 with the knob off), the loss from records finite and falling; the
+   knob-on fits from records and synthetic in turns.  (c) At one decode
+   thread, MXNET_NORM_CONV=0 and cuDNN deterministic, the fit from records
+   equal bit for bit to an ``NDArrayIter`` fit of the batches the iterator
+   yielded.
+   (d) ``dtype="uint8"`` feeding ResNet-50 on a Cast-to-float32 + affine
+   prologue: every batch staged as uint8 on the card, finite losses, 52
+   launches a step.  (e) Where PIL imports, the same images as JPEG
+   records through the fit at the example's resize (256).  (f) The MLP of
+   ``custom`` as a two-stage ``SequentialModule`` and with a
+   ``PythonLossModule`` head, each within RESNET_FLOOR_X times its float32
+   floor of one ``Module``.  (g) ``test_utils.check_consistency`` over
+   [cpu(0), gpu(0)] on a Convolution -> BatchNorm -> Activation block;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -334,7 +359,8 @@ Updater and Rtc numbers, the parallel slice's checks, copies and rates, each pha
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
-geometries, batch 32, and its launches in the imagenet phase;
+geometries, batch 32, and its launches in the imagenet phase, and its
+launches in the image phase;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -6087,6 +6113,469 @@ def custom_phase(torch, mt, card):
              % (hist[0], hist[-1]))
 
 
+# --------------------------------------------------------------------- image
+IMAGE_RECORDS = 320
+IMAGE_RAW = (256, 341)        # the stored images: a short side of 256
+IMAGE_LABELS = 10             # labels drawn from 10 of the 1000 classes
+IMAGE_NOISE = 64              # each pixel: its class's colour +- this
+IMAGE_BATCH = 32
+IMAGE_THREADS = 8
+IMAGE_FEED_EPOCHS = 2
+IMAGE_LR = 0.1
+IMAGE_SCALARS_EVERY = "1000000"   # no metric read inside a timed fit
+CONSISTENCY_BLOCK = (8, 16, 28, 28)
+
+
+def image_pack(mt, path, jpeg):
+    """IMAGE_RECORDS synthetic IMAGE_RAW uint8 images from a seed (each its
+    class's colour plus uniform noise of +-IMAGE_NOISE, so that a few steps
+    can lower the loss), packed to ``path``.rec/.idx as pass-through
+    records (or JPEG at quality 90); returns the seconds it took."""
+    rio = mt.recordio
+    rng = np.random.default_rng(SEED + 50)
+    labels = rng.integers(0, IMAGE_LABELS, IMAGE_RECORDS)
+    colours = rng.integers(IMAGE_NOISE, 256 - IMAGE_NOISE, (IMAGE_LABELS, 3))
+    t0 = time.perf_counter()
+    rec = rio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    for i in range(IMAGE_RECORDS):
+        img = (colours[labels[i]] + rng.integers(
+            -IMAGE_NOISE, IMAGE_NOISE, IMAGE_RAW + (3,))).astype(np.uint8)
+        header = rio.IRHeader(0, float(labels[i]), i, 0)
+        rec.write_idx(i, rio.pack(header, mt.image.imencode(img, quality=90))
+                      if jpeg else rio.pack_raw_img(header, img))
+    rec.close()
+    return time.perf_counter() - t0
+
+
+def image_feed(it):
+    """img/s of ``it`` alone over IMAGE_FEED_EPOCHS epochs, after the
+    epoch its constructor started (the warm-up), and the batches' dtype."""
+    dtype = None
+    while True:
+        try:
+            dtype = it.next().data[0].dtype
+        except StopIteration:
+            break
+    n = 0
+    t0 = time.perf_counter()
+    for _ in range(IMAGE_FEED_EPOCHS):
+        it.reset()
+        while True:
+            try:
+                n += it.next().data[0].shape[0]
+            except StopIteration:
+                break
+    return n / (time.perf_counter() - t0), dtype
+
+
+def image_fit(torch, mt, ti, args, net, it, params, aux, env, epochs):
+    """``train_imagenet.fit`` on gpu(0) over ``it`` for ``epochs`` under
+    ``env``, telemetry recording in memory on the fused path:
+    {img_s and host_ms (epoch 0, the card's end of its first batch to its
+    end of the last; the median gap between batch ends), data_wait_ms
+    (the median of the fit loop's data_wait spans, first batch of each
+    epoch left out), busy, device_ms, wall_ms (a torch.profiler window
+    over epoch 1 after its first batch), peak_gb, losses, fused, batches,
+    module}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    b = args.batch_size
+    args.num_epochs = epochs
+    ends = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def batch_end(param):
+        e = ends.setdefault(param.epoch, [])
+        last = param.nbatch == IMAGE_RECORDS // b - 1
+        if param.nbatch == 0 or last:
+            torch.cuda.synchronize()
+        e.append(time.perf_counter())
+        if param.epoch == epochs - 1 and epochs > 1:
+            if param.nbatch == 0:
+                prof.start()
+                torch.cuda.synchronize()
+                window["t0"] = time.perf_counter()
+            elif last:
+                window["wall"] = time.perf_counter() - window["t0"]
+                prof.stop()
+
+    waits = []
+
+    def run():
+        mt.telemetry.start()
+        try:
+            return ti.fit(args, net, mt.gpu(0), it=it,
+                          arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                      for k, v in params.items()},
+                          aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                      for k, v in aux.items()},
+                          batch_end_callback=batch_end)
+        finally:
+            waits.extend((e["tags"]["nbatch"], e["dur"] / 1e3)
+                         for e in mt.telemetry.events()
+                         if e.get("type") == "span"
+                         and e["name"] == "data_wait")
+            mt.telemetry.stop()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod, loss = module_env(dict(env, MXNET_TELEMETRY_FUSED="1",
+                                MXNET_SCALARS_EVERY=IMAGE_SCALARS_EVERY),
+                           run)
+    e0 = ends[0]
+    gaps = [(t1 - t0) * 1e3 for t0, t1 in zip(e0, e0[1:])]
+    out = {"img_s": (len(e0) - 1) * b / (e0[-1] - e0[0]),
+           "host_ms": obs_median(gaps),
+           "data_wait_ms": obs_median([w for n, w in waits if n > 0]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": loss.values(), "module": mod,
+           "fused": mod._fused_ts_cache is not None,
+           "batches": sum(len(v) for v in ends.values())}
+    if "wall" in window:
+        kernels = [e for e in prof.key_averages() if is_kernel(e, DeviceType)]
+        dev = sum(e.self_device_time_total for e in kernels) * 1e-3
+        steps = len(ends[epochs - 1]) - 1
+        out.update(device_ms=dev, wall_ms=window["wall"] * 1e3,
+                   busy=dev / (window["wall"] * 1e3),
+                   busy_unprofiled=dev / steps / (1e3 * b / out["img_s"]))
+    if not np.isfinite(out["losses"]).all():
+        fail("image fit: non-finite losses %r" % out["losses"])
+    return out
+
+
+def image_line(tag, r, nc_counts, card):
+    print("image fit %s batch=%d batches=%d img_per_s=%r host_ms_per_batch=%r "
+          "data_wait_ms_per_batch=%r device_busy_share=%r (device_ms=%r "
+          "wall_ms=%r over epoch 1 under the profiler; its device ms a batch "
+          "over epoch 0's unprofiled ms a batch %r) peak_mem_gb=%r loss "
+          "first=%r last=%r fused=%s norm_conv_launches=%d "
+          "with_statistics=%d (%s)"
+          % (tag, IMAGE_BATCH, r["batches"], r["img_s"], r["host_ms"],
+             r["data_wait_ms"], r.get("busy"), r.get("device_ms"),
+             r.get("wall_ms"), r.get("busy_unprofiled"), r["peak_gb"],
+             r["losses"][0], r["losses"][-1], r["fused"], nc_counts[0],
+             nc_counts[1], card))
+
+
+class _Recorded(object):
+    """An iterator that hands on another's batches (and its reset) and
+    keeps a host copy of each batch's data and label."""
+
+    def __init__(self, it):
+        self.it = it
+        self.batch_size = it.batch_size
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+        self.data, self.label = [], []
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        iter(self.it)
+        return self
+
+    def __next__(self):
+        b = next(self.it)
+        self.data.append(b.data[0].asnumpy())
+        self.label.append(b.label[0].asnumpy())
+        return b
+
+
+def image_u8_net(mt):
+    """ResNet-50 v2 on a Cast-to-float32 + affine prologue, as
+    tools/bench_data.py composes it: uint8 pixels in, (x - 127.5) / 127.5
+    on the card."""
+    S = mt.sym
+    prep = (S.Cast(S.Variable("data"), dtype="float32") - 127.5) * \
+        (1.0 / 127.5)
+    return mt.models.resnet.get_symbol(num_classes=CLASSES, num_layers=50,
+                                       image_shape="3,%d,%d" % (IMAGE, IMAGE),
+                                       data=prep)
+
+
+def image_resnet(torch, mt, nc, ti, rec, card):
+    """(a)-(e) of the image phase on ResNet-50 v2 at batch IMAGE_BATCH;
+    returns the NormConv launches of the counted fits."""
+    nb = IMAGE_RECORDS // IMAGE_BATCH
+    args = imagenet_args(ti, "resnet50", IMAGE_BATCH, IMAGE_LR)
+    args.data_train, args.data_train_idx = rec + ".rec", rec + ".idx"
+    net, params, aux, x, y = obs_resnet(mt, IMAGE_BATCH, nb)
+    raw = dict(resize=-1)
+    u8 = dict(raw, dtype="uint8", mean_r=0.0, mean_g=0.0, mean_b=0.0)
+    # (a) the iterator alone
+    for tag, kw in (("float32", raw), ("uint8", u8)):
+        ips, dt = image_feed(ti.record_iter(args, **kw))
+        print("image feed dtype=%s batch=%d threads=%d img_per_s=%r "
+              "batch_dtype=%s (pass-through records, %dx%d, resize=-1, "
+              "rand_crop, rand_mirror; %s)"
+              % (tag, IMAGE_BATCH, IMAGE_THREADS, ips, dt, IMAGE_RAW[0],
+                 IMAGE_RAW[1], card))
+    # (b) the fits: from records and the synthetic yardstick in turns
+    # (records, synthetic, synthetic, records), knob on; records, knob off
+    launches = 0
+    fits = []
+    for tag, knob, epochs in (("records", "1", 2), ("synthetic", "1", 2),
+                              ("synthetic", "1", 1), ("records", "1", 1),
+                              ("records", "0", 2)):
+        it = ti.record_iter(args, **raw) if tag == "records" else \
+            mt.io.NDArrayIter(x, y, batch_size=IMAGE_BATCH)
+        nc.launches = nc.stats_launches = 0
+        r = image_fit(torch, mt, ti, args, net, it, params, aux,
+                      {"MXNET_NORM_CONV": knob}, epochs=epochs)
+        counts = (nc.launches, nc.stats_launches)
+        launches += counts[0]
+        want = (RESNET_NC_PER_STEP * r["batches"],
+                RESNET_NC_STATS_PER_STEP * r["batches"]) if knob == "1" \
+            else (0, 0)
+        image_line("%s MXNET_NORM_CONV=%s" % (tag, knob), r, counts, card)
+        if counts != want or not r["fused"]:
+            fail("image fit %s knob %s: NormConv launches %r (want %r), "
+                 "fused %r" % (tag, knob, counts, want, r["fused"]))
+        del r["module"]
+        losses = r["losses"]
+        if tag == "records" and epochs == 2 and \
+                not np.mean(losses[-nb:]) < losses[0]:
+            fail("image fit %s knob %s: the loss %r did not fall"
+                 % (tag, knob, losses))
+        fits.append(r)
+        torch.cuda.empty_cache()
+    for (rec1, syn1) in ((fits[0], fits[1]), (fits[3], fits[2])):
+        print("image fit records/synthetic img_per_s=%r host_ms %r/%r "
+              "data_wait_ms %r/%r (MXNET_NORM_CONV=1, in turns; %s)"
+              % (rec1["img_s"] / syn1["img_s"], rec1["host_ms"],
+                 syn1["host_ms"], rec1["data_wait_ms"], syn1["data_wait_ms"],
+                 card))
+    # (c) one thread: the fit from records against an NDArrayIter fit of
+    # the batches the iterator yielded
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        recd = _Recorded(ti.record_iter(args, preprocess_threads=1, **raw))
+        # knob off: NormConv's statistics epilogue sums with atomics, so
+        # two fits through it differ in the last bits and then diverge
+        env = {"MXNET_NORM_CONV": "0"}
+
+        def fit_host(it):
+            mod, _ = module_env(env, lambda: ti.fit(
+                args, net, mt.gpu(0), it=it,
+                batch_end_callback=lambda param: None,
+                arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in params.items()},
+                aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                            for k, v in aux.items()}))
+            return module_host(mod)
+        args.num_epochs = 1
+        got = fit_host(recd)
+        want = fit_host(mt.io.NDArrayIter(np.concatenate(recd.data),
+                                          np.concatenate(recd.label),
+                                          batch_size=IMAGE_BATCH))
+        worst = max(module_worst(got[k], want[k]) for k in (0, 1))
+        print("image one-thread fit from records vs NDArrayIter of its %d "
+              "batches (MXNET_NORM_CONV=0, cuDNN deterministic): worst "
+              "max_rel=%r (%s)" % (len(recd.data), worst[0], worst[1]))
+        if len(recd.data) != nb or worst[0] != 0.0:
+            fail("image (c): %d batches, not bitwise equal (%r at %s)"
+                 % (len(recd.data), worst[0], worst[1]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    # (d) uint8 batches into a Cast + affine prologue
+    ff = mt.module.module._FusedFit
+    real_stage = ff._stage
+    crossed = []
+
+    def stage(self, batch):
+        out = real_stage(self, batch)
+        t = out._staged.tensors["data"]
+        crossed.append((str(batch.data[0].value.dtype), str(t.dtype),
+                        t.device.type, t.numel() * t.element_size()))
+        return out
+    ff._stage = stage
+    try:
+        nc.launches = nc.stats_launches = 0
+        r = image_fit(torch, mt, ti, args, image_u8_net(mt),
+                      ti.record_iter(args, **u8), params, aux,
+                      {"MXNET_NORM_CONV": "1"}, epochs=1)
+    finally:
+        ff._stage = real_stage
+    launches += nc.launches
+    counts = (nc.launches, nc.stats_launches)
+    image_line("uint8 MXNET_NORM_CONV=1", r, counts, card)
+    print("image uint8 crossed (host dtype, staged dtype, device, bytes): "
+          "%s x %d" % (sorted(set(crossed)), len(crossed)))
+    if set(c[:3] for c in crossed) != {("torch.uint8", "torch.uint8",
+                                        "cuda")} \
+            or len(crossed) != nb or counts[0] != RESNET_NC_PER_STEP * nb:
+        fail("image (d): batches crossed as %s, %d launches"
+             % (sorted(set(crossed)), counts[0]))
+    del r
+    # (e) JPEG records at the example's resize, where PIL imports
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    print("image pil=%s" % ("present %s" % pil if pil else "absent"))
+    if pil:
+        jpeg = os.path.join(os.path.dirname(rec), "jpeg")
+        secs = image_pack(mt, jpeg, jpeg=True)
+        args.data_train, args.data_train_idx = jpeg + ".rec", jpeg + ".idx"
+        ips, _ = image_feed(ti.record_iter(args))
+        print("image feed jpeg dtype=float32 batch=%d threads=%d "
+              "img_per_s=%r (resize=%d; packed in %r s; %s)"
+              % (IMAGE_BATCH, IMAGE_THREADS, ips, IMAGE + 32, secs, card))
+        nc.launches = nc.stats_launches = 0
+        r = image_fit(torch, mt, ti, args, net, ti.record_iter(args),
+                      params, aux, {"MXNET_NORM_CONV": "1"}, epochs=1)
+        launches += nc.launches
+        image_line("jpeg MXNET_NORM_CONV=1", r,
+                   (nc.launches, nc.stats_launches), card)
+        if nc.launches != RESNET_NC_PER_STEP * nb:
+            fail("image (e): %d NormConv launches" % nc.launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def image_mlp_check(torch, mt, card):
+    """(f): custom_softmax.py's MLP (784-128-64-10, batch 100) three ways
+    on gpu(0), one epoch of SGD-momentum on the general path: split in two
+    through SequentialModule, with a PythonLossModule head (grad_func
+    softmax - onehot on the card), and as one Module; the first two held
+    to the third, each parameter within RESNET_FLOOR_X times its float32
+    floor (the one-Module fit's distance from its fit from nudged
+    parameters)."""
+    rng = np.random.default_rng(SEED + 60)
+    n = CUSTOM_BATCH * CUSTOM_BATCHES
+    x = rng.random((n, CUSTOM_FEATURES)).astype(np.float32)
+    y = rng.integers(0, CUSTOM_CLASSES, n).astype(np.float32)
+    dims = (CUSTOM_FEATURES,) + CUSTOM_HIDDEN + (CUSTOM_CLASSES,)
+    params = {}
+    for i, (fin, fout) in enumerate(zip(dims, dims[1:])):
+        bound = np.sqrt(3.0 / fin)
+        params["fc%d_weight" % (i + 1)] = rng.uniform(
+            -bound, bound, (fout, fin)).astype(np.float32)
+        params["fc%d_bias" % (i + 1)] = np.zeros(fout, np.float32)
+    S = mt.sym
+
+    def layers(h, first, last):
+        for i in range(first, last):
+            h = S.FullyConnected(h, name="fc%d" % (i + 1),
+                                 num_hidden=dims[i + 1])
+            if i < len(CUSTOM_HIDDEN):
+                h = S.Activation(h, name="relu%d" % (i + 1),
+                                 act_type="relu")
+        return h
+    grads_on = []
+
+    def softmax_grad(scores, labels):
+        s, lab = scores.value, labels.value
+        grads_on.append((s.device.type, lab.device.type))
+        p = torch.softmax(s, dim=1)
+        p[torch.arange(p.shape[0], device=p.device), lab.long()] -= 1.0
+        return mt.nd.NDArray(p)
+
+    def module(first, last, head=False):
+        h = layers(S.Variable("data"), first, last)
+        if head:
+            return mt.Module(S.SoftmaxOutput(h, name="softmax"),
+                             context=mt.gpu(0))
+        return mt.Module(h, label_names=None, context=mt.gpu(0))
+
+    def build(kind):
+        if kind == "module":
+            return module(0, 3, head=True)
+        seq = mt.mod.SequentialModule()
+        if kind == "sequential":
+            seq.add(module(0, 2))
+            seq.add(module(2, 3, head=True), take_labels=True,
+                    auto_wiring=True)
+        else:
+            seq.add(module(0, 3))
+            seq.add(mt.mod.PythonLossModule(grad_func=softmax_grad),
+                    take_labels=True, auto_wiring=True)
+        return seq
+
+    def fit(kind, start):
+        mod = build(kind)
+        t0 = time.perf_counter()
+        module_env({"MXNET_FUSED_FIT": "0"}, lambda: mod.fit(
+            mt.io.NDArrayIter(x, y, batch_size=CUSTOM_BATCH), num_epoch=1,
+            optimizer="sgd", optimizer_params={"learning_rate": CUSTOM_LR,
+                                               "momentum": 0.9},
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in start.items()}, aux_params={}))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        args, _ = mod.get_params()
+        return {k: v.asnumpy() for k, v in args.items()}, secs
+    want, secs_m = fit("module", params)
+    nudge, _ = fit("module", {k: v.astype(np.float32) for k, v in
+                              nudged_values(params, SEED + 61).items()})
+    for kind in ("sequential", "python_loss"):
+        got, secs = fit(kind, params)
+        worst = 0.0
+        for k in want:
+            d = module_worst({k: got[k]}, {k: want[k]})[0]
+            f = max(module_worst({k: nudge[k]}, {k: want[k]})[0],
+                    RESNET_FLOOR_MIN)
+            worst = max(worst, d / f)
+            if d > RESNET_FLOOR_X * f or not np.isfinite(got[k]).all():
+                fail("image %s: %s is %.3g from the one-Module fit, %.3g x "
+                     "its float32 floor %.3g" % (kind, k, d, d / f, f))
+        print("image mlp %s batch=%d batches=%d worst_x_floor=%r "
+              "fit_seconds=%r one_module_seconds=%r (%s)"
+              % (kind, CUSTOM_BATCH, CUSTOM_BATCHES, worst, secs, secs_m,
+                 card))
+    if set(grads_on) != {("cuda", "cuda")} or len(grads_on) != \
+            CUSTOM_BATCHES:
+        fail("image python_loss: grad_func saw %s" % sorted(set(grads_on)))
+
+
+def image_consistency_check(torch, mt, card):
+    """(g): test_utils.check_consistency over [cpu(0), gpu(0)] on a
+    Convolution -> BatchNorm -> Activation block, float32 both."""
+    S = mt.sym
+    block = S.Activation(S.BatchNorm(S.Convolution(
+        S.Variable("data"), num_filter=CONSISTENCY_BLOCK[1], kernel=(3, 3),
+        pad=(1, 1), name="conv"), fix_gamma=False, name="bn"),
+        act_type="relu")
+    gt = mt.test_utils.check_consistency(
+        block, [{"ctx": mt.cpu(0), "data": CONSISTENCY_BLOCK},
+                {"ctx": mt.gpu(0), "data": CONSISTENCY_BLOCK}])
+    print("image test_utils.check_consistency [cpu(0), gpu(0)] conv-bn-relu "
+          "%s: outputs and %d gradients within 1e-3 (%s)"
+          % (CONSISTENCY_BLOCK, len(gt) - 1, card))
+
+
+def image_phase(torch, mt, nc, card):
+    """The image slice on the card: (a)-(e) ResNet-50 v2 from RecordIO,
+    (f) SequentialModule and PythonLossModule, (g) check_consistency.
+    The records go to a temporary directory, removed at the end.  Returns
+    the NormConv launches of the phase's counted fits."""
+    import tempfile
+    from mxnet_tpu_torch.bench import train_imagenet as ti
+    work = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    try:
+        t0 = time.perf_counter()
+        rec = os.path.join(work, "raw")
+        secs = image_pack(mt, rec, jpeg=False)
+        print("image pack %d pass-through records of %dx%d in %r s, %d "
+              "bytes" % (IMAGE_RECORDS, IMAGE_RAW[0], IMAGE_RAW[1], secs,
+                         os.path.getsize(rec + ".rec")))
+        launches = image_resnet(torch, mt, nc, ti, rec, card)
+        print("image resnet50 seconds=%r" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        image_mlp_check(torch, mt, card)
+        image_consistency_check(torch, mt, card)
+        print("image modules seconds=%r" % (time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -6259,6 +6748,9 @@ def main():
     custom_phase(torch, mt, card)
     torch.cuda.empty_cache()
     phase_done("custom")
+    img_launches = image_phase(torch, mt, nc, card)
+    torch.cuda.empty_cache()
+    phase_done("image")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -6305,13 +6797,14 @@ def main():
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
-        + mf["norm_conv"] + obs_launches + im["launches"],
+        + mf["norm_conv"] + obs_launches + im["launches"] + img_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"]
         else "bytes",
         "library_ms": tot["library_ms"],
+        "image_phase_launches": img_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],

@@ -27,7 +27,10 @@ chrome trace, with a ``torch.profiler`` trace of the card beside it),
 ``cost`` (MFU against the card's peaks); the custom-op bridge
 (``operator.CustomOp``/``CustomOpProp``, the ``Custom`` op), the rest of
 the symbol frontend (``Symbol.attr``/``eval``/``debug_str``, backward shape
-rules, ``name.Prefix``) and the VGG and Inception-v3 symbols.
+rules, ``name.Prefix``) and the VGG and Inception-v3 symbols; the image
+slice: ``recordio``, ``image`` (decode, augmenters, ``ImageIter`` and the
+threaded ``ImageRecordIter``), ``module.SequentialModule`` and the Python
+modules, ``visualization`` and ``test_utils``.
 """
 from .base import MXNetError
 from . import telemetry
@@ -73,6 +76,11 @@ from . import rnn
 from . import cost
 from . import monitor
 from .monitor import Monitor
+from . import recordio
+from . import image
+from . import visualization
+from . import visualization as viz
+from . import test_utils
 
 __all__ = ["MXNetError", "telemetry", "engine", "profiler", "cost",
            "monitor", "Monitor", "Context", "cpu", "gpu", "current_context", "nd",
@@ -82,4 +90,5 @@ __all__ = ["MXNetError", "telemetry", "engine", "profiler", "cost",
            "lr_scheduler", "initializer", "init", "optimizer", "opt", "name",
            "operator", "rtc", "amp",
            "train", "TrainStep", "EvalStep", "io", "metric", "callback",
-           "model", "module", "mod", "Module", "rnn"]
+           "model", "module", "mod", "Module", "rnn", "recordio", "image",
+           "visualization", "viz", "test_utils"]

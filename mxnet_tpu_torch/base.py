@@ -12,8 +12,9 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "string_types", "get_env", "Registry",
-           "atomic_write", "torch_dtype", "numpy_dtype", "np_bfloat16"]
+__all__ = ["MXNetError", "string_types", "get_env", "smart_open",
+           "Registry", "atomic_write", "torch_dtype", "numpy_dtype",
+           "np_bfloat16"]
 
 string_types = (str,)
 
@@ -30,6 +31,19 @@ def get_env(name, default=None, typ=None):
     if typ is not None:
         return typ(val)
     return val
+
+
+def smart_open(uri, mode="rb"):
+    """Open a local path, or a remote URI through fsspec (parity:
+    mxnet_tpu.base.smart_open: RecordIO files may live on s3:// or
+    hdfs://)."""
+    if "://" in str(uri):
+        try:
+            import fsspec
+        except ImportError:
+            raise MXNetError("remote URI %r needs fsspec" % (uri,))
+        return fsspec.open(uri, mode).open()
+    return open(uri, mode)
 
 
 class Registry(object):

@@ -6,6 +6,8 @@
     python -m mxnet_tpu_torch.bench.train_imagenet --network vgg --benchmark 1
     python -m mxnet_tpu_torch.bench.train_imagenet --network inception-v3 \\
         --image-shape 3,299,299 --num-examples 256       # Module.fit
+    python -m mxnet_tpu_torch.bench.train_imagenet --data-train train.rec \\
+        --data-train-idx train.idx                        # from records
     python -m mxnet_tpu_torch.bench.train_imagenet --cpu --network vgg11 \\
         --num-classes 10 --image-shape 3,32,32 --batch-size 4 \\
         --benchmark 1 --benchmark-iters 2                 # a toy run
@@ -16,17 +18,24 @@ synthetic batch from ``RandomState(0)`` through ``TrainStep`` (SGD with
 momentum 0.9, ``rescale_grad`` 1/batch): one warm step, then
 ``--benchmark-iters`` timed steps ending in the fetch of one scalar; it
 prints img/s and ms a step.  Without it the network trains through
-``Module.fit`` on ``--num-examples`` synthetic images (the real-data
-reader, ``ImageRecordIter``, comes with the image slice: ``--data-train``
-is refused), the per-batch cross-entropy kept on the card
-(``BatchLoss``).  ``MXNET_NORM_CONV=1`` runs the NormConv kernel where
-the graph has a BatchNorm(+ReLU) before a bias-free 1x1/3x3 convolution
-(Inception-v3: 15 of its 94 convolutions).  TF32 is off.  Runs on
+``Module.fit``, the per-batch cross-entropy kept on the card
+(``BatchLoss``): with ``--data-train`` (and ``--data-train-idx``) from a
+RecordIO pack (``bench/im2rec.py``) through ``ImageRecordIter`` with the
+example's settings (shuffled, random crops and mirrors, the shorter side
+resized to the largest image side + 32, the ImageNet means subtracted, 8
+decode threads), else on ``--num-examples`` synthetic images.  A fit from
+records records telemetry in memory (``MXNET_TELEMETRY_FUSED=1`` keeps
+the fused path) and adds the fit loop's wait for each batch
+(``data_wait``, ms, the mean over the batches after the first) and the
+batch count to the JSON line.  ``MXNET_NORM_CONV=1`` runs the NormConv
+kernel where the graph has a BatchNorm(+ReLU) before a bias-free 1x1/3x3
+convolution (Inception-v3: 15 of its 94 convolutions).  TF32 is off.  Runs on
 ``gpu(0)`` (``--cpu`` for a toy run).  Prints one JSON line.
 """
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 
@@ -100,8 +109,9 @@ def benchmark(args, net, ctx):
 class BatchLoss(mt.metric.EvalMetric):
     """The cross-entropy of each batch's predictions, kept as device
     scalars, so that a fit's batch loop never waits for the card: ``get()``
-    reports the mean since the last ``reset()`` (an epoch), ``values()``
-    every batch's since the metric was made."""
+    reports the mean since the last ``reset()`` (an epoch; the sum is a
+    device scalar), ``values()`` every batch's since the metric was
+    made."""
 
     def __init__(self, eps=1e-8):
         self.history = []
@@ -112,27 +122,37 @@ class BatchLoss(mt.metric.EvalMetric):
         for label, pred in zip(labels, preds):
             p = pred.value
             idx = label.value.to(p.device).long().view(-1, 1)
-            self.history.append(
-                -torch.log(p.gather(1, idx) + self.eps).mean().detach())
+            loss = -torch.log(p.gather(1, idx) + self.eps).mean().detach()
+            self.history.append(loss)
+            self.sum_metric = self.sum_metric + loss
             self.num_inst += 1
-
-    def get(self):
-        if not self.num_inst:
-            return self.name, float("nan")
-        return self.name, float(torch.stack(
-            self.history[-self.num_inst:]).mean())
 
     def values(self):
         return [float(v) for v in self.history]
 
 
+def record_iter(args, **kw):
+    """``ImageRecordIter`` over ``args.data_train`` with the example's
+    settings; ``kw`` overrides them."""
+    shape = _shape(args)
+    settings = dict(
+        path_imgrec=args.data_train, path_imgidx=args.data_train_idx,
+        data_shape=shape, batch_size=args.batch_size, shuffle=True,
+        rand_crop=True, rand_mirror=True, resize=max(shape[1:]) + 32,
+        mean_r=123.68, mean_g=116.78, mean_b=103.94, preprocess_threads=8)
+    settings.update(kw)
+    return mt.io.ImageRecordIter(**settings)
+
+
 def fit(args, net, ctx, data=None, label=None, arg_params=None,
-        aux_params=None, batch_end_callback=None):
-    """``Module.fit`` over synthetic images (or the given ``data`` and
-    ``label``) for ``args.num_epochs``: (the Module, its BatchLoss)."""
-    if data is None:
-        data, label = synthetic(args, args.num_examples)
-    it = mt.io.NDArrayIter(data, label, batch_size=args.batch_size)
+        aux_params=None, batch_end_callback=None, it=None):
+    """``Module.fit`` for ``args.num_epochs`` over the iterator ``it``, or
+    over synthetic images (or the given ``data`` and ``label``): (the
+    Module, its BatchLoss)."""
+    if it is None:
+        if data is None:
+            data, label = synthetic(args, args.num_examples)
+        it = mt.io.NDArrayIter(data, label, batch_size=args.batch_size)
     mod = mt.Module(net, context=ctx)
     loss = BatchLoss()
     mod.fit(it, num_epoch=args.num_epochs, optimizer=args.optimizer,
@@ -142,6 +162,27 @@ def fit(args, net, ctx, data=None, label=None, arg_params=None,
             batch_end_callback=batch_end_callback or
             [mt.callback.Speedometer(args.batch_size, 20)])
     return mod, loss
+
+
+def fit_records(args, net, ctx):
+    """``fit`` from ``args.data_train`` with telemetry recording in memory
+    on the fused path: (the BatchLoss, data_wait ms a batch over the
+    batches after the first, the batch count)."""
+    old = os.environ.get("MXNET_TELEMETRY_FUSED")
+    os.environ["MXNET_TELEMETRY_FUSED"] = "1"
+    mt.telemetry.start()
+    try:
+        _, loss = fit(args, net, ctx, it=record_iter(args))
+        waits = [e["dur"] / 1e3 for e in mt.telemetry.events()
+                 if e.get("type") == "span" and e["name"] == "data_wait"]
+    finally:
+        mt.telemetry.stop()
+        if old is None:
+            os.environ.pop("MXNET_TELEMETRY_FUSED", None)
+        else:
+            os.environ["MXNET_TELEMETRY_FUSED"] = old
+    steady = waits[1:] or waits
+    return loss, sum(steady) / max(len(steady), 1), len(waits)
 
 
 def parser():
@@ -160,7 +201,7 @@ def parser():
     ap.add_argument("--num-examples", type=int, default=128,
                     help="synthetic images of the Module.fit path")
     ap.add_argument("--data-train", default=None,
-                    help="a RecordIO file (refused: the image slice)")
+                    help="a RecordIO file from bench/im2rec.py")
     ap.add_argument("--data-train-idx", default=None)
     ap.add_argument("--kv-store", default="local")
     ap.add_argument("--cpu", action="store_true",
@@ -171,10 +212,6 @@ def parser():
 def main(argv=()):
     args = parser().parse_args(list(argv))
     logging.basicConfig(level=logging.INFO)
-    if args.data_train:
-        raise mt.MXNetError("--data-train needs ImageRecordIter, which comes "
-                            "with the image slice; train on synthetic data "
-                            "(--num-examples) or --benchmark 1")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ctx = mt.cpu() if args.cpu else mt.gpu(0)
@@ -185,6 +222,12 @@ def main(argv=()):
            "norm_conv": mt.base.get_env("MXNET_NORM_CONV", "0") == "1"}
     if args.benchmark:
         rec["img_per_s"], rec["ms_per_step"] = benchmark(args, net, ctx)
+    elif args.data_train:
+        t0 = time.perf_counter()
+        loss, rec["data_wait_ms"], rec["batches"] = fit_records(args, net,
+                                                                ctx)
+        rec["fit_seconds"] = time.perf_counter() - t0
+        rec["batch_loss"] = loss.values()
     else:
         t0 = time.perf_counter()
         _, loss = fit(args, net, ctx)

@@ -16,13 +16,14 @@ the copies, and the consumer makes its compute stream wait on that event
 and marks the staged tensors as used by that stream (``record_stream``)
 before the step reads them.
 
-While telemetry records, ``DataIter.next`` counts ``io_batches`` (tagged
-with the iterator's class), ``PrefetchingIter`` times its wait on the
-producers as the span ``io.queue_wait`` and counts
+While telemetry records, ``DataIter.next`` and the image iterators count
+``io_batches`` (tagged with the iterator's class), ``PrefetchingIter``
+times its wait on the producers as the span ``io.queue_wait`` and counts
 ``io_prefetch_batches``, and ``DevicePrefetchIter`` counts
 ``io_device_prefetch_batches``, as in the JAX package.
 
-Not ported: ``ImageRecordIter`` / ``ImageIter`` (the image slice).
+``ImageRecordIter`` and ``ImageIter`` live in ``image.py``; this module
+resolves them lazily (``image`` imports this module).
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ from .ndarray import NDArray
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
            "CSVIter", "ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
            "StagedInputs", "device_prefetch_depth"]
+
+
+def _count_batch(it):
+    """Count one batch of ``it`` as ``io_batches`` while telemetry records
+    (the iterators that build their batches without ``DataIter.next``
+    call it before returning one)."""
+    if _tel._enabled:
+        _tel.counter("io_batches", iter=type(it).__name__)
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -95,8 +104,7 @@ class DataIter(object):
                               pad=self.getpad(), index=self.getindex())
             # counted once the batch exists: a getdata() that raises
             # reports no batch
-            if _tel._enabled:
-                _tel.counter("io_batches", iter=type(self).__name__)
+            _count_batch(self)
             return batch
         raise StopIteration
 
@@ -611,7 +619,11 @@ class DevicePrefetchIter(object):
     fit loop calls it on the way out) stops the producer."""
 
     def __init__(self, source, stage=None, depth=2):
-        self._source = iter(source)
+        # an iterator is used as it is: iter() on it again would restart
+        # one whose __iter__ resets (ImageRecordIter starts a second
+        # producer, whose crops race the first's for one generator)
+        self._source = source if hasattr(source, "__next__") \
+            else iter(source)
         self._stage = stage if stage is not None else (lambda b: b)
         self._queue = queue.Queue(maxsize=max(1, int(depth)))
         self._alive = True
@@ -666,7 +678,9 @@ class DevicePrefetchIter(object):
 
 
 def __getattr__(name):
+    """``ImageRecordIter`` and ``ImageIter`` from ``image`` (parity:
+    mxnet_tpu.io's lazy aliases)."""
     if name in ("ImageRecordIter", "ImageIter"):
-        raise MXNetError("io.%s is not ported yet: it arrives with the image "
-                         "slice" % name)
+        from . import image
+        return getattr(image, name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

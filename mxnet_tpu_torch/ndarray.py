@@ -34,7 +34,8 @@ from . import ops as _ops  # noqa: F401  (every op, before the frontends)
 from .ops import registry as _reg
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "load", "save", "onehot_encode", "waitall",
+           "concatenate", "load", "save", "imdecode", "onehot_encode",
+           "waitall",
            "maximum", "minimum", "serialize_arrays", "deserialize_arrays",
            "torch_dtype"]
 
@@ -465,6 +466,31 @@ def concatenate(arrays, axis=0, always_copy=True):
 def onehot_encode(indices, out):
     """(parity: mx.nd.onehot_encode)"""
     return _invoke("one_hot", [indices], {"depth": out.shape[1]}, out=out)
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None, ctx=None):
+    """Decode an image bytes string with OpenCV to a (1, C, H, W) float32
+    NDArray, RGB, optionally clipped to ``clip_rect`` (x0, y0, x1, y1) and
+    less ``mean`` (parity: mx.nd.imdecode)."""
+    import cv2
+    flag = cv2.IMREAD_COLOR if channels == 3 else cv2.IMREAD_GRAYSCALE
+    img = cv2.imdecode(np.frombuffer(str_img, dtype=np.uint8), flag)
+    if channels == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    else:
+        img = img[:, :, None]
+    if any(clip_rect):
+        x0, y0, x1, y1 = clip_rect
+        img = img[y0:y1, x0:x1]
+    arr = np.transpose(img, (2, 0, 1))[None].astype(np.float32)
+    if mean is not None:
+        arr = arr - mean.asnumpy()
+    res = array(arr, ctx=ctx)
+    if out is not None:
+        out._set_value(res.value)
+        return out
+    return res
 
 
 def waitall():

@@ -53,3 +53,27 @@ def test_package_import_loads_neither():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+IMAGE_SLICE = ("recordio", "image", "visualization", "test_utils",
+               "module.sequential_module", "module.python_module",
+               "bench.im2rec")
+
+
+@pytest.mark.parametrize("name", IMAGE_SLICE)
+def test_image_slice_modules_stand_alone(name):
+    """The image slice's modules import without jax, mxnet_tpu, PIL, cv2
+    or graphviz (each is imported at the call that needs it), and the
+    package exports them as the JAX package does."""
+    code = ("import sys, importlib, mxnet_tpu_torch as mt\n"
+            "importlib.import_module('mxnet_tpu_torch.%s')\n"
+            "assert mt.viz is mt.visualization and mt.io.ImageRecordIter\n"
+            "assert mt.mod.SequentialModule and mt.mod.PythonLossModule\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             %r + ('triton', 'PIL', 'cv2', 'graphviz'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n" % (name, FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

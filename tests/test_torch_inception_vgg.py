@@ -344,9 +344,26 @@ def test_train_imagenet_networks(mx):
         ti.get_symbol(ti.parser().parse_args(["--network", "lenet"]))
 
 
-def test_train_imagenet_refuses_data_train():
-    with pytest.raises(mt.MXNetError, match="image slice"):
-        ti.main(["--cpu", "--data-train", "train.rec"])
+def test_train_imagenet_refuses_data_train(tmp_path, capsys):
+    """--data-train, once refused, trains from a RecordIO pack: VGG-11 at
+    3x32x32 on the host over 8 pass-through records, one finite loss a
+    batch and the fit loop's data_wait in the JSON line."""
+    rio = mt.recordio
+    prefix = str(tmp_path / "train")
+    w = rio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    rs = np.random.RandomState(0)
+    for i in range(8):
+        w.write_idx(i, rio.pack_raw_img(
+            rio.IRHeader(0, float(i % 10), i, 0),
+            rs.randint(0, 256, (64, 70, 3)).astype(np.uint8)))
+    w.close()
+    assert ti.main(["--cpu", "--network", "vgg11", "--num-classes", "10",
+                    "--image-shape", "3,32,32", "--batch-size", "4",
+                    "--data-train", prefix + ".rec",
+                    "--data-train-idx", prefix + ".idx"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["batches"] == 2 and np.isfinite(rec["batch_loss"]).all()
+    assert rec["data_wait_ms"] >= 0.0
 
 
 @pytest.mark.parametrize("path", ["benchmark", "fit"])
