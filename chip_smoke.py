@@ -8,7 +8,11 @@ fatal on failure:
 
 1. build: compile the four kernel sources (csrc/norm_conv.cu,
    csrc/flash_attention.cu, csrc/flash_attention_bwd.cu,
-   csrc/multibox_nms.cu) for sm_90a, one nvcc each, started together;
+   csrc/multibox_nms.cu) for sm_90a, one nvcc each, started together
+   with g++ on the C API library (csrc/c_api.cc against this
+   interpreter's Python.h and libpython), op.h (cpp-package's generator
+   built and run against it) and the cpp-package examples mlp_predict
+   and lenet_train;
 2. kernels: at every distinct NormConv geometry of ResNet-50 at batch 8,
    224x224 (22 of them, read off the graph), hold the kernel against its
    plain PyTorch version in float32 and bfloat16, with TF32 off; check the
@@ -255,6 +259,31 @@ fatal on failure:
    ``PythonLossModule`` head, each within RESNET_FLOOR_X times its float32
    floor of one ``Module``.  (g) ``test_utils.check_consistency`` over
    [cpu(0), gpu(0)] on a Convolution -> BatchNorm -> Activation block;
+4l. capi (after image): the inference extras.  (a) ResNet-50 v2 (1000
+   classes, 3x224x224, batch 8, seed-0 weights as ``.params`` bytes)
+   through the C predict API (``MXPredCreate``/``SetInput``/``Forward``/
+   ``GetOutput``/``Free`` by ctypes on dev_type 2) with MXNET_NORM_CONV=1:
+   52 launches a forward, the rows within SERVE_TOL x max_prob of the
+   unfused ``Predictor``, every argmax agreeing; the forward through C
+   and through ``Predictor`` timed in turns; ``MXPredCreatePartialOut``
+   to CAPI_PARTIAL_OUTPUT with the ``MXPredPartialForward`` loop, equal
+   bit for bit to ``Predictor(output_names=...)`` (cuDNN deterministic);
+   an output copied to ``cpu_pinned()`` is page-locked and equal.  (b)
+   Three SGD-momentum steps at batch 32 through the C executor
+   (``MXExecutorBindEX``, ``Forward(1)``, ``Backward``,
+   ``MXImperativeInvoke("sgd_mom_update")`` a parameter, as the
+   cpp-package's ``SGDOptimizer``): 52 launches a step, 32 with
+   statistics, every parameter and moving statistic within
+   RESNET_FLOOR_X times its float32 floor of the same steps driven from
+   Python (the floor: those steps from CAPI_FLOOR_SAMPLES nudges).  (c)
+   ResNet-50 behind the HTTP front end (``default_server()``,
+   ``start_server(port=0)``): 4 clients post 2 JSON requests each to
+   ``/predict/resnet50``, the rows within SERVE_TOL x max_prob of the
+   in-process ``ServedModel``'s, ``/healthz`` and ``/models`` 200, qps
+   and p50/p99 beside the serving phase's, the JSON cost of one image.
+   (d) The cpp-package's mlp_predict and lenet_train run on the box's
+   CPU against the library: FEATURES OK with the ``Predictor``'s argmax
+   rows, and PASS;
 5. flash: the flash-attention forward kernel against its plain version
    (both outputs, TF32 off) at the LM's shape (4, 12, 1024, 64) made as the
    LM makes it (strided slices of one QKV projection), causal, and at the
@@ -355,12 +384,14 @@ profiles (float32 and AMP), the Module layer's checks and timings, the
 sequences slice's and the SSD slice's checks, times and rates, the
 operators phase's checks and rates, the rcnn phase's checks and times,
 the observability phase's host split, MFU, profile ranges and checks,
-Updater and Rtc numbers, the parallel slice's checks, copies and rates, each phase's seconds, a JSON
+Updater and Rtc numbers, the parallel slice's checks, copies and rates,
+the capi phase's build, checks, C and HTTP times, each phase's seconds, a
+JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
 geometries, batch 32, and its launches in the imagenet phase, and its
-launches in the image phase;
+launches in the image and capi phases;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -1123,12 +1154,15 @@ def serving_phase(torch, mt, nc, launches_per_forward):
     if err > SERVE_TOL * scale or agree != n_req:
         fail("served rows differ from the unfused reference")
     lat_ms = np.array(lat) * 1e3
+    numbers = {"launches": launches, "qps": n_req / wall,
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99))}
     print("serving qps=%r p50_ms=%r p99_ms=%r (%d requests, %d clients, "
           "closed loop, after warm)"
-          % (n_req / wall, float(np.percentile(lat_ms, 50)),
-             float(np.percentile(lat_ms, 99)), n_req, CLIENTS))
+          % (numbers["qps"], numbers["p50_ms"], numbers["p99_ms"], n_req,
+             CLIENTS))
     forward_breakdown(torch, mt, net, blob, images[:BATCH])
-    return launches
+    return numbers
 
 
 def resnet50_state(mt, net, batch, image=IMAGE):
@@ -6576,6 +6610,563 @@ def image_phase(torch, mt, nc, card):
     return launches
 
 
+CAPI_DEV_TYPE = 2          # MXNet's device type code of the card
+CAPI_TURNS = 3
+CAPI_TRAIN_BATCH = 32
+CAPI_TRAIN_STEPS = 3
+CAPI_FLOOR_SAMPLES = 2
+CAPI_PARTIAL_OUTPUT = "stage3_unit1_relu1"
+CAPI_HTTP_CLIENTS = 4
+CAPI_HTTP_REQUESTS = 2
+CAPI_MLP = (3, 32)         # mlp_predict's batch and input width
+CAPI_EXAMPLES = ("mlp_predict", "lenet_train")
+
+
+def capi_build(host):
+    """The C API library, op.h and the cpp-package examples the capi phase
+    runs, built from the checkout (g++; the generator embeds this
+    interpreter); returns the library's compiler output."""
+    import sysconfig
+    inc = sysconfig.get_paths()["include"]
+    print("capi python include=%s Python.h=%s LDLIBRARY=%s "
+          "Py_ENABLE_SHARED=%s LIBDIR=%s"
+          % (inc, os.path.exists(os.path.join(inc, "Python.h")),
+             sysconfig.get_config_var("LDLIBRARY"),
+             sysconfig.get_config_var("Py_ENABLE_SHARED"),
+             sysconfig.get_config_var("LIBDIR")))
+    t0 = time.perf_counter()
+    log = host.build()
+    print("capi library %s seconds=%r" % (os.path.basename(host.so_path()),
+                                          time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    host.op_h()
+    print("capi op.h generated seconds=%r" % (time.perf_counter() - t0))
+    for name in CAPI_EXAMPLES:
+        t0 = time.perf_counter()
+        host.example(name)
+        print("capi example %s built seconds=%r"
+              % (name, time.perf_counter() - t0))
+    return log
+
+
+def capi_check(lib, rc, what):
+    if rc != 0:
+        fail("capi %s: %s" % (what, lib.MXGetLastError().decode()))
+
+
+def capi_pred(lib, sym_json, blob, shape, outputs=None):
+    import ctypes
+    keys = (ctypes.c_char_p * 1)(b"data")
+    indptr = (ctypes.c_uint * 2)(0, len(shape))
+    dims = (ctypes.c_uint * len(shape))(*shape)
+    pred = ctypes.c_void_p()
+    if outputs is None:
+        rc = lib.MXPredCreate(sym_json, blob, len(blob), CAPI_DEV_TYPE, 0, 1,
+                              keys, indptr, dims, ctypes.byref(pred))
+    else:
+        outs = (ctypes.c_char_p * len(outputs))(*[o.encode()
+                                                  for o in outputs])
+        rc = lib.MXPredCreatePartialOut(
+            sym_json, blob, len(blob), CAPI_DEV_TYPE, 0, 1, keys, indptr,
+            dims, len(outputs), outs, ctypes.byref(pred))
+    capi_check(lib, rc, "MXPredCreate")
+    return pred
+
+
+def capi_pred_run(lib, pred, x, partial=False):
+    """SetInput, Forward (or the PartialForward loop), GetOutput 0; returns
+    (output, partial steps)."""
+    import ctypes
+    x = np.ascontiguousarray(x, np.float32)
+    capi_check(lib, lib.MXPredSetInput(
+        pred, b"data", x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_uint(x.size)), "MXPredSetInput")
+    steps = 0
+    if partial:
+        left = ctypes.c_int(1)
+        while left.value > 0:
+            steps += 1
+            capi_check(lib, lib.MXPredPartialForward(
+                pred, steps, ctypes.byref(left)), "MXPredPartialForward")
+    else:
+        capi_check(lib, lib.MXPredForward(pred), "MXPredForward")
+    sd = ctypes.POINTER(ctypes.c_uint)()
+    ndim = ctypes.c_uint()
+    capi_check(lib, lib.MXPredGetOutputShape(pred, 0, ctypes.byref(sd),
+                                             ctypes.byref(ndim)),
+               "MXPredGetOutputShape")
+    shape = tuple(sd[i] for i in range(ndim.value))
+    out = np.empty(shape, np.float32)
+    capi_check(lib, lib.MXPredGetOutput(
+        pred, 0, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_uint(out.size)), "MXPredGetOutput")
+    return out, steps
+
+
+def capi_predict(torch, mt, nc, lib, net, blob):
+    """ResNet-50 through the C predict API on the card under the knob:
+    52 launches a forward, the rows against the unfused Predictor, C and
+    Python forwards timed in turns, the partial-out loop against
+    ``Predictor(output_names=...)``.  Returns the NormConv launches."""
+    shape = (BATCH, 3, IMAGE, IMAGE)
+    images = np.random.default_rng(SEED + 60).uniform(
+        -1, 1, shape).astype(np.float32)
+    sym_json = net.tojson().encode()
+    raw = mt.nd.serialize_arrays(blob)
+    os.environ["MXNET_NORM_CONV"] = "1"
+    pred = capi_pred(lib, sym_json, raw, shape)
+    capi_pred_run(lib, pred, images)            # warm
+    nc.launches = 0
+    got, _ = capi_pred_run(lib, pred, images)
+    launches = nc.launches
+    print("capi MXPredForward batch=%d norm_conv_launches=%d"
+          % (BATCH, launches))
+    if launches != RESNET_NC_PER_STEP:
+        fail("capi: %d NormConv launches in a C forward, want %d"
+             % (launches, RESNET_NC_PER_STEP))
+    os.environ["MXNET_NORM_CONV"] = "0"
+    ref = mt.Predictor(net, blob, {"data": shape})
+    ref.forward(data=images)
+    want = ref.get_output(0)
+    del ref
+    if got.shape != (BATCH, CLASSES) or not np.isfinite(got).all():
+        fail("capi rows: shape %s or non-finite" % (got.shape,))
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    print("capi MXPredForward check max_abs_diff=%r max_prob=%r "
+          "tol=%g*max_prob argmax_agree=%d/%d"
+          % (err, scale, SERVE_TOL, agree, BATCH))
+    if err > SERVE_TOL * scale or agree != BATCH:
+        fail("capi: C forward rows differ from the unfused Predictor")
+
+    # the same forward through C and through Predictor, in turns
+    os.environ["MXNET_NORM_CONV"] = "1"
+    py = mt.Predictor(net, blob, {"data": shape})
+    py.forward(data=images)
+    py.get_output(0)
+    times = {"c": [], "python": []}
+
+    def once(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "c":
+            capi_pred_run(lib, pred, images)
+        else:
+            py.forward(data=images)
+            py.get_output(0)
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    nc.launches = 0
+    for _ in range(CAPI_TURNS):
+        for kind in ("c", "python", "python", "c"):
+            once(kind)
+    launches += nc.launches
+    print("capi forward_ms batch=%d c=%r python=%r (median of %d each, in "
+          "turns; SetInput/set_input, forward and the output's host copy)"
+          % (BATCH, float(np.median(times["c"])),
+             float(np.median(times["python"])), 2 * CAPI_TURNS))
+    capi_check(lib, lib.MXPredFree(pred), "MXPredFree")
+
+    # partial out: one internal output, the PartialForward loop
+    torch.backends.cudnn.deterministic = True
+    try:
+        part = capi_pred(lib, sym_json, raw, shape, [CAPI_PARTIAL_OUTPUT])
+        nc.launches = 0
+        feat, steps = capi_pred_run(lib, part, images, partial=True)
+        part_launches = nc.launches
+        pyp = mt.Predictor(net, blob, {"data": shape},
+                           output_names=[CAPI_PARTIAL_OUTPUT])
+        pyp.set_input("data", images)
+        left = pyp.partial_forward(1)
+        pyp.partial_forward(left + 1)
+        fwant = pyp.get_output(0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    capi_check(lib, lib.MXPredFree(part), "MXPredFree")
+    launches += part_launches
+    print("capi MXPredPartialForward output=%s shape=%s steps=%d "
+          "norm_conv_launches=%d bitwise_equal=%s max_abs_diff=%r"
+          % (CAPI_PARTIAL_OUTPUT, feat.shape, steps, part_launches,
+             np.array_equal(feat, fwant), float(np.abs(feat - fwant).max())))
+    if steps != left + 1 or steps < 2:
+        fail("capi: the partial loop took %d steps, Predictor counts %d"
+             % (steps, left + 1))
+    if not np.array_equal(feat, fwant):
+        fail("capi: partial output differs from Predictor(output_names=)")
+
+    # cpu_pinned: an output copied to page-locked host memory
+    out = py._outputs[0]
+    pinned = out.copyto(mt.cpu_pinned())
+    pageable = out.copyto(mt.cpu())
+    print("capi cpu_pinned is_pinned=%s context=%s equal=%s"
+          % (pinned.value.is_pinned(), pinned.context,
+             np.array_equal(pinned.asnumpy(), pageable.asnumpy())))
+    if not pinned.value.is_pinned() or \
+            not np.array_equal(pinned.asnumpy(), pageable.asnumpy()):
+        fail("capi: the cpu_pinned copy is not pinned or differs")
+    del py, pyp
+    return launches
+
+
+def capi_c_steps(lib, net, state, batch):
+    """CAPI_TRAIN_STEPS SGD-momentum steps through the C API on the card:
+    MXExecutorBindEX, Forward(1), Backward, MXImperativeInvoke
+    ("sgd_mom_update") a parameter, as the cpp-package's SGDOptimizer.
+    Returns ({parameter or aux name: float64 torch tensor}, launches)."""
+    import ctypes
+    import torch
+    from mxnet_tpu_torch.ops import norm_conv as nc
+    H = ctypes.c_void_p
+    params, _, aux, data = state
+    arg_names = net.list_arguments()
+    aux_names = net.list_auxiliary_states()
+    arg_shapes, _, aux_shapes = net.infer_shape(
+        data=(batch, 3, IMAGE, IMAGE), softmax_label=(batch,))
+    sym = H()
+    capi_check(lib, lib.MXSymbolCreateFromJSON(net.tojson().encode(),
+                                               ctypes.byref(sym)),
+               "MXSymbolCreateFromJSON")
+
+    def create(shape, value=None):
+        h = H()
+        dims = (ctypes.c_uint * len(shape))(*shape)
+        capi_check(lib, lib.MXNDArrayCreate(dims, len(shape), CAPI_DEV_TYPE,
+                                            0, 0, ctypes.byref(h)),
+                   "MXNDArrayCreate")
+        v = np.zeros(shape, np.float32) if value is None else \
+            np.ascontiguousarray(value, np.float32)
+        capi_check(lib, lib.MXNDArraySyncCopyFromCPU(
+            h, v.ctypes.data_as(ctypes.c_void_p), v.size),
+            "MXNDArraySyncCopyFromCPU")
+        return h
+
+    def read(h, shape):
+        out = np.empty(shape, np.float32)
+        capi_check(lib, lib.MXNDArraySyncCopyToCPU(
+            h, out.ctypes.data_as(ctypes.c_void_p), out.size),
+            "MXNDArraySyncCopyToCPU")
+        return out
+
+    learn = [n for n in arg_names if n in params]
+    vals = dict(params, **data)
+    args = {n: create(s, vals[n]) for n, s in zip(arg_names, arg_shapes)}
+    grads = {n: create(s) for n, s in zip(arg_names, arg_shapes)
+             if n in params}
+    auxs = {n: create(s, aux[n]) for n, s in zip(aux_names, aux_shapes)}
+    moms = {n: create(dict(zip(arg_names, arg_shapes))[n]) for n in learn}
+    ex = H()
+    n_arg = len(arg_names)
+    capi_check(lib, lib.MXExecutorBindEX(
+        sym, CAPI_DEV_TYPE, 0, 0, None, None, None, n_arg,
+        (H * n_arg)(*[args[n] for n in arg_names]),
+        (H * n_arg)(*[grads.get(n) for n in arg_names]),
+        (ctypes.c_uint * n_arg)(*[1 if n in grads else 0
+                                  for n in arg_names]),
+        len(aux_names), (H * len(aux_names))(*[auxs[n] for n in aux_names]),
+        None, ctypes.byref(ex)), "MXExecutorBindEX")
+    creators = ctypes.POINTER(H)()
+    count = ctypes.c_uint()
+    capi_check(lib, lib.MXSymbolListAtomicSymbolCreators(
+        ctypes.byref(count), ctypes.byref(creators)), "ListCreators")
+    name = ctypes.c_char_p()
+    sgd = None
+    for i in range(count.value):
+        capi_check(lib, lib.MXSymbolGetAtomicSymbolName(
+            H(creators[i]), ctypes.byref(name)), "GetAtomicSymbolName")
+        if name.value == b"sgd_mom_update":
+            sgd = H(creators[i])
+    if sgd is None:
+        fail("capi: no sgd_mom_update creator")
+    keys = (ctypes.c_char_p * 4)(b"lr", b"wd", b"momentum", b"rescale_grad")
+    cvals = (ctypes.c_char_p * 4)(*[repr(v).encode() for v in (
+        RESNET_LR, 0.0, 0.9, 1.0 / batch)])
+    nc.launches = nc.stats_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAPI_TRAIN_STEPS):
+        capi_check(lib, lib.MXExecutorForward(ex, 1), "MXExecutorForward")
+        capi_check(lib, lib.MXExecutorBackward(ex, 0, None),
+                   "MXExecutorBackward")
+        for n in learn:
+            ins = (H * 3)(args[n], grads[n], moms[n])
+            io = (H * 2)(args[n], moms[n])
+            outs = ctypes.cast(io, ctypes.POINTER(H))
+            n_out = ctypes.c_int(2)
+            capi_check(lib, lib.MXImperativeInvoke(
+                sgd, 3, ins, ctypes.byref(n_out), ctypes.byref(outs), 4,
+                keys, cvals), "MXImperativeInvoke(sgd_mom_update)")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = (nc.launches, nc.stats_launches)
+    shapes = dict(zip(arg_names, arg_shapes), **dict(zip(aux_names,
+                                                         aux_shapes)))
+    got = {n: torch.from_numpy(read(args[n], shapes[n]).astype(np.float64))
+           for n in learn}
+    got.update({n: torch.from_numpy(read(auxs[n], shapes[n])
+                                    .astype(np.float64)) for n in aux_names})
+    capi_check(lib, lib.MXExecutorFree(ex), "MXExecutorFree")
+    for h in list(args.values()) + list(grads.values()) + \
+            list(auxs.values()) + list(moms.values()):
+        capi_check(lib, lib.MXNDArrayFree(h), "MXNDArrayFree")
+    capi_check(lib, lib.MXSymbolFree(sym), "MXSymbolFree")
+    return got, counts, secs
+
+
+def capi_py_steps(mt, net, state, batch):
+    """The same steps driven from Python on the card: ``bind``,
+    ``forward(is_train=True)``, ``backward()``, ``nd.sgd_mom_update`` a
+    parameter; returns {parameter or aux name: float64 torch tensor}."""
+    import torch
+    params, _, aux, data = state
+    ctx = mt.gpu(0)
+    vals = dict(params, **data)
+    arg_names = net.list_arguments()
+    args = {n: mt.nd.array(vals[n].astype(np.float32), ctx=ctx)
+            for n in arg_names}
+    grads = {n: mt.nd.zeros(args[n].shape, ctx=ctx) for n in params}
+    moms = {n: mt.nd.zeros(args[n].shape, ctx=ctx) for n in params}
+    auxs = {n: mt.nd.array(v.astype(np.float32), ctx=ctx)
+            for n, v in aux.items()}
+    ex = net.bind(ctx, args, args_grad=grads,
+                  grad_req={n: "write" if n in params else "null"
+                            for n in arg_names}, aux_states=auxs)
+    learn = [n for n in arg_names if n in params]
+    for _ in range(CAPI_TRAIN_STEPS):
+        ex.forward(is_train=True)
+        ex.backward()
+        for n in learn:
+            mt.nd.sgd_mom_update(args[n], grads[n], moms[n],
+                                 out=[args[n], moms[n]], lr=RESNET_LR,
+                                 wd=0.0, momentum=0.9,
+                                 rescale_grad=1.0 / batch)
+    out = {n: torch.from_numpy(args[n].asnumpy().astype(np.float64))
+           for n in learn}
+    out.update({n: torch.from_numpy(v.asnumpy().astype(np.float64))
+                for n, v in auxs.items()})
+    return out
+
+
+def capi_train(torch, mt, lib, net):
+    """Three training steps at CAPI_TRAIN_BATCH through the C executor on
+    the card with the knob on, held to the same steps driven from Python
+    by the float32 floor rule; 52 launches a step, 32 with statistics.
+    Returns the NormConv launches."""
+    batch = CAPI_TRAIN_BATCH
+    state = resnet50_state(mt, net, batch, IMAGE)
+    os.environ["MXNET_NORM_CONV"] = "1"
+    got, (launches, stats), secs = capi_c_steps(lib, net, state, batch)
+    print("capi executor steps=%d batch=%d norm_conv_launches=%d "
+          "with_statistics=%d host_s=%r"
+          % (CAPI_TRAIN_STEPS, batch, launches, stats, secs))
+    if launches != RESNET_NC_PER_STEP * CAPI_TRAIN_STEPS or \
+            stats != RESNET_NC_STATS_PER_STEP * CAPI_TRAIN_STEPS:
+        fail("capi: %d launches (%d with statistics) in %d C steps, want "
+             "%d (%d) a step" % (launches, stats, CAPI_TRAIN_STEPS,
+                                 RESNET_NC_PER_STEP,
+                                 RESNET_NC_STATS_PER_STEP))
+    torch.cuda.empty_cache()
+    want = capi_py_steps(mt, net, state, batch)
+    floors = [capi_py_steps(mt, net, nudged(state, SEED + 300 + i), batch)
+              for i in range(CAPI_FLOOR_SAMPLES)]
+    floor_summary(torch, "capi_executor", got, want, floors)
+    moved = max(float((want[n] - torch.from_numpy(
+        state[0][n])).abs().max()) for n in state[0])
+    print("capi executor largest parameter move=%r" % moved)
+    if not moved > 0:
+        fail("capi: the steps moved no parameter")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def capi_cpp_package(mt, host):
+    """mlp_predict and lenet_train (built in the build phase) run against
+    the port's library on the box's CPU: mlp_predict's argmax rows are the
+    Predictor's and its feature path runs; lenet_train prints PASS."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_capi_")
+    try:
+        batch, dim = CAPI_MLP
+        net = mt.models.get_mlp(num_classes=4)
+        arg_shapes, _, _ = net.infer_shape(data=(batch, dim))
+        # a seed whose three rows take two different argmaxes, so that
+        # the check tells rows apart
+        rng = np.random.default_rng(SEED + 72)
+        params = {"arg:" + n: (rng.uniform(-1, 1, s) * np.sqrt(
+            3.0 / (s[1] if len(s) > 1 else 1))).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+        prefix = os.path.join(work, "mlp")
+        with open(prefix + "-symbol.json", "w") as f:
+            f.write(net.tojson())
+        mt.nd.save(prefix + "-0004.params", params)
+        x = (np.arange(batch * dim) % 7 * 0.25 - 0.75).astype(np.float32)
+        ref = mt.Predictor.from_checkpoint(prefix, 4, {"data": (batch, dim)},
+                                           dev_type="cpu")
+        ref.forward(data=x.reshape(batch, dim))
+        want = [int(v) for v in ref.get_output(0).argmax(1)]
+        n, h = 256, 12
+        rs = np.random.RandomState(0)
+        y = rs.randint(0, 2, n)
+        img = rs.randn(n, 1, h, h).astype(np.float32) * 0.4
+        img[y == 1, 0, 3:9, 3:9] += 1.5
+        dcsv, lcsv = os.path.join(work, "d.csv"), os.path.join(work, "l.csv")
+        np.savetxt(dcsv, img.reshape(n, -1), delimiter=",", fmt="%.5f")
+        np.savetxt(lcsv, y.astype(np.float32), delimiter=",", fmt="%g")
+        runs = {"mlp_predict": [prefix, "4", str(batch), str(dim)],
+                "lenet_train": [dcsv, lcsv, "32", "8"]}
+        for name in CAPI_EXAMPLES:
+            t0 = time.perf_counter()
+            res = subprocess.run([host.example(name)] + runs[name],
+                                 capture_output=True, text=True,
+                                 env=host.run_env(), timeout=300)
+            secs = time.perf_counter() - t0
+            lines = res.stdout.strip().splitlines()
+            print("capi cpp-package %s rc=%d seconds=%r last=%r"
+                  % (name, res.returncode, secs, lines[-1] if lines else ""))
+            if res.returncode != 0:
+                fail("capi: %s failed: %s%s" % (name, res.stdout[-2000:],
+                                                res.stderr[-2000:]))
+            if name == "mlp_predict":
+                import re
+                rows = [int(m) for m in re.findall(r"row \d+ argmax (\d+)",
+                                                   res.stdout)]
+                print("capi cpp-package mlp_predict argmax=%s predictor=%s "
+                      "features_ok=%s" % (rows, want,
+                                          "FEATURES OK" in res.stdout))
+                if rows != want or len(set(rows)) < 2 or \
+                        "FEATURES OK" not in res.stdout:
+                    fail("capi: mlp_predict rows or features wrong")
+            elif "PASS" not in res.stdout:
+                fail("capi: lenet_train did not print PASS")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def capi_http(torch, mt, nc, net, blob, serving_numbers):
+    """ResNet-50 behind the HTTP front end: a ServedModel on
+    ``default_server()``, ``start_server(port=0)``, CAPI_HTTP_CLIENTS
+    clients posting CAPI_HTTP_REQUESTS JSON requests each; the rows
+    against the in-process ServedModel's; /healthz and /models answer 200.
+    Returns the NormConv launches."""
+    import urllib.request
+    shape = (3, IMAGE, IMAGE)
+    n_req = CAPI_HTTP_CLIENTS * CAPI_HTTP_REQUESTS
+    images = np.random.default_rng(SEED + 80).uniform(
+        -1, 1, (n_req,) + shape).astype(np.float32)
+    os.environ["MXNET_NORM_CONV"] = "1"
+    nc.launches = 0
+    model = mt.serving.ServedModel(net, blob, {"data": shape},
+                                   name="resnet50", max_batch=BATCH)
+    server = mt.serving.default_server()
+    server.register("resnet50", model)
+    port = mt.serving.start_server(port=0)
+    base = "http://127.0.0.1:%d" % port
+    rows = [None] * n_req
+    lat = [None] * n_req
+    errors = []
+    try:
+        model.warm(timeout=600)
+        body = json.dumps({"inputs": {"data": images[0].tolist()}}).encode()
+        t0 = time.perf_counter()
+        json.dumps({"inputs": {"data": images[0].tolist()}})
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        np.asarray(json.loads(body)["inputs"]["data"], np.float32)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        print("capi http request body bytes=%d json_encode_ms=%r "
+              "json_decode_ms=%r (one image, host)" % (len(body), enc_ms,
+                                                       dec_ms))
+
+        def client(c):
+            try:
+                for j in range(CAPI_HTTP_REQUESTS):
+                    i = c * CAPI_HTTP_REQUESTS + j
+                    data = json.dumps(
+                        {"inputs": {"data": images[i].tolist()}}).encode()
+                    t1 = time.perf_counter()
+                    req = urllib.request.Request(
+                        base + "/predict/resnet50", data=data,
+                        headers={"Content-Type": "application/json"})
+                    doc = json.loads(urllib.request.urlopen(
+                        req, timeout=600).read())
+                    lat[i] = time.perf_counter() - t1
+                    rows[i] = np.asarray(doc["outputs"][0], np.float32)
+            except Exception as exc:   # reported below; the phase fails
+                errors.append(repr(exc))
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CAPI_HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        codes = {}
+        for route in ("/healthz", "/models"):
+            with urllib.request.urlopen(base + route, timeout=60) as r:
+                codes[route] = r.status
+        stats = model.stats()
+        launches = nc.launches
+        if errors or any(r is None for r in rows):
+            fail("capi http: not every request was answered: %s" % errors)
+        want = np.stack([model.predict({"data": images[i]}, timeout=600)[0]
+                         for i in range(n_req)])
+    finally:
+        mt.serving.stop_server()
+        server.unregister("resnet50")
+    got = np.stack(rows)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    forwards = len(model.buckets) + stats["batches"]
+    print("capi http requests=%d batches=%d by_bucket=%s codes=%s "
+          "norm_conv_launches=%d forwards=%d"
+          % (stats["requests"], stats["batches"], stats["batches_by_bucket"],
+             codes, launches, forwards))
+    print("capi http check max_abs_diff=%r max_prob=%r tol=%g*max_prob "
+          "argmax_agree=%d/%d" % (err, scale, SERVE_TOL, agree, n_req))
+    if any(c != 200 for c in codes.values()):
+        fail("capi http: %s" % codes)
+    if launches != RESNET_NC_PER_STEP * forwards:
+        fail("capi http: %d launches != %d x %d forwards"
+             % (launches, RESNET_NC_PER_STEP, forwards))
+    if not np.isfinite(got).all() or err > SERVE_TOL * scale or \
+            agree != n_req:
+        fail("capi http: rows differ from the in-process ServedModel")
+    lat_ms = np.array(lat) * 1e3
+    print("capi http qps=%r p50_ms=%r p99_ms=%r (%d requests, %d clients, "
+          "JSON over HTTP) beside in-process serving qps=%r p50_ms=%r "
+          "p99_ms=%r" % (n_req / wall, float(np.percentile(lat_ms, 50)),
+                         float(np.percentile(lat_ms, 99)), n_req,
+                         CAPI_HTTP_CLIENTS, serving_numbers["qps"],
+                         serving_numbers["p50_ms"],
+                         serving_numbers["p99_ms"]))
+    return launches
+
+
+def capi_phase(torch, mt, nc, host, serving_numbers):
+    """The inference extras: ResNet-50 through the C predict API and the C
+    executor, the cpp-package on the box, the HTTP front end, cpu_pinned.
+    Returns the NormConv launches of the phase."""
+    net = mt.models.resnet.get_symbol(CLASSES, 50, "3,%d,%d" % (IMAGE, IMAGE))
+    blob = resnet50_params(mt, net)
+    lib = host.get()      # loaded into this process, which it embeds
+    t0 = time.perf_counter()
+    launches = capi_predict(torch, mt, nc, lib, net, blob)
+    print("capi predict seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches += capi_train(torch, mt, lib, net)
+    print("capi train seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    launches += capi_http(torch, mt, nc, net, blob, serving_numbers)
+    print("capi http seconds=%r" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    capi_cpp_package(mt, host)
+    print("capi cpp-package seconds=%r" % (time.perf_counter() - t0))
+    os.environ["MXNET_NORM_CONV"] = "0"
+    return launches
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -6597,7 +7188,8 @@ def build_all(kernels):
         if not isinstance(res, tuple):
             fail("build %s: %s" % (name, res))
         log, secs = res
-        print("build %s.cu seconds=%r" % (name, secs))
+        print("build %s seconds=%r"
+              % (name if "." in name else name + ".cu", secs))
         for line in (log or "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas %s %s" % (name, line.strip()))
@@ -6614,6 +7206,7 @@ def main():
         from mxnet_tpu_torch.ops import contrib
         from mxnet_tpu_torch.ops import flash_attention as fa
         from mxnet_tpu_torch.ops import norm_conv as nc
+        from mxnet_tpu_torch.ops.kernel_build import HostLibrary
     except ImportError as exc:
         fail("cannot import mxnet_tpu_torch: %s" % exc)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6646,9 +7239,11 @@ def main():
         t_phase[0] = now
 
     t0 = time.perf_counter()
+    host = HostLibrary()
     build_all([("norm_conv", nc.build), ("flash_attention", fa.build),
                ("flash_attention_bwd", fa.build_bwd),
-               ("multibox_nms", contrib.build)])
+               ("multibox_nms", contrib.build),
+               ("c_api.cc+cpp-package", lambda: capi_build(host))])
     print("build all seconds=%r" % (time.perf_counter() - t0))
     phase_done("build")
 
@@ -6712,7 +7307,8 @@ def main():
              else "bytes"))
     phase_done("kernels")
 
-    launches = serving_phase(torch, mt, nc, per_forward)
+    serving_numbers = serving_phase(torch, mt, nc, per_forward)
+    launches = serving_numbers["launches"]
     phase_done("serving")
     unfused = resnet50_train_phase(torch, mt, nc, "0")
     torch.cuda.empty_cache()
@@ -6751,6 +7347,9 @@ def main():
     img_launches = image_phase(torch, mt, nc, card)
     torch.cuda.empty_cache()
     phase_done("image")
+    capi_launches = capi_phase(torch, mt, nc, host, serving_numbers)
+    torch.cuda.empty_cache()
+    phase_done("capi")
     print(card)
     print("norm_conv launches serving=%d training=%d (%d with statistics, "
           "%d fused training steps) amp_training=%d (%d with statistics, "
@@ -6797,7 +7396,8 @@ def main():
         "source": "mxnet_tpu_torch/csrc/norm_conv.cu",
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
-        + mf["norm_conv"] + obs_launches + im["launches"] + img_launches,
+        + mf["norm_conv"] + obs_launches + im["launches"] + img_launches
+        + capi_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -6805,6 +7405,7 @@ def main():
         else "bytes",
         "library_ms": tot["library_ms"],
         "image_phase_launches": img_launches,
+        "capi_phase_launches": capi_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],

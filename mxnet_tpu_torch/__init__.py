@@ -36,7 +36,7 @@ from .base import MXNetError
 from . import telemetry
 from . import engine
 from . import profiler
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, cpu_pinned, current_context
 from . import ndarray
 from . import ndarray as nd
 from . import ops

@@ -1,9 +1,13 @@
 """Device context (counterpart: mxnet_tpu/context.py).
 
-A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i`` and ``cpu()`` is
-the host.  The default context is ``gpu(0)``: the port runs on the card unless
-the caller asks for the CPU.  Resolving a gpu context on a machine without a
-CUDA device raises :class:`MXNetError`; nothing ever falls back to the CPU.
+A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i``, ``cpu()`` is
+the host, and ``cpu_pinned()`` is the host with page-locked memory (an
+NDArray there holds a pinned tensor, which the card copies to and from
+without a staging buffer).  The default context is ``gpu(0)``: the port runs
+on the card unless the caller asks for the CPU.  Resolving a gpu or
+cpu_pinned context on a machine without a CUDA device raises
+:class:`MXNetError` (pinning needs the CUDA driver); nothing ever falls back
+to the CPU or to pageable memory.
 """
 from __future__ import annotations
 
@@ -13,11 +17,10 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context"]
 
-# the device type ids of the JAX package (``cpu_pinned`` 3 and ``tpu`` 4 have
-# no context here)
-_DEVTYPE2ID = {"cpu": 1, "gpu": 2}
+# the device type ids of the JAX package (``tpu`` 4 has no context here)
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 _ID2DEVTYPE = {v: k for k, v in _DEVTYPE2ID.items()}
 _DEVICE_TYPES = tuple(_DEVTYPE2ID)
 
@@ -34,15 +37,15 @@ class Context(object):
             device_type, device_id = device_type.device_type, \
                 device_type.device_id
         if device_type not in _DEVICE_TYPES:
-            raise MXNetError("unknown device type %s (the port has cpu and "
-                             "gpu)" % device_type)
+            raise MXNetError("unknown device type %s (the port has cpu, "
+                             "gpu and cpu_pinned)" % device_type)
         self.device_type = device_type
         self.device_id = int(device_id)
         self._old_ctx = None
 
     @property
     def device_typeid(self):
-        """The device type's id (cpu 1, gpu 2)."""
+        """The device type's id (cpu 1, gpu 2, cpu_pinned 3)."""
         return _DEVTYPE2ID[self.device_type]
 
     @property
@@ -51,17 +54,31 @@ class Context(object):
         return current_context()
 
     def torch_device(self):
-        """The ``torch.device`` of this context; raises for a gpu context
-        when no such CUDA device exists."""
+        """The ``torch.device`` of this context (the host for cpu_pinned);
+        raises for a gpu context when no such CUDA device exists, and for
+        cpu_pinned when there is no CUDA device at all."""
         if self.device_type == "cpu":
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError("%r needs a CUDA device and this machine has "
                              "none; pass cpu() to run on the host" % self)
+        if self.device_type == "cpu_pinned":
+            return torch.device("cpu")
         if self.device_id >= torch.cuda.device_count():
             raise MXNetError("%r: only %d CUDA device(s)"
                              % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
+
+    def place(self, t, copy=False):
+        """``t`` on this context: moved to its device (a copy of its own
+        with ``copy``), and page-locked for cpu_pinned."""
+        dev = self.torch_device()
+        if self.device_type != "cpu_pinned":
+            return t.to(dev, copy=copy)
+        if t.device.type == "cpu" and t.is_pinned() and not copy:
+            return t
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t)
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -93,6 +110,11 @@ def cpu(device_id=0):
 def gpu(device_id=0):
     """CUDA device ``device_id``."""
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Page-locked host memory (needs a CUDA device)."""
+    return Context("cpu_pinned", device_id)
 
 
 def current_context():

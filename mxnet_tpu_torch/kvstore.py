@@ -18,6 +18,8 @@ distributed slice and raise ``MXNetError``.
 """
 from __future__ import annotations
 
+import pickle
+
 from .base import MXNetError, atomic_write, string_types
 from . import ndarray as nd
 from . import optimizer as opt
@@ -163,6 +165,22 @@ class KVStore(object):
     def barrier(self):
         """Wait for every card's pending work (one process: no peer)."""
         nd.waitall()
+
+    def set_barrier_before_exit(self, barrier_before_exit=True):
+        """Kept for the API (one process: no peer to wait for at exit)."""
+        self._barrier_before_exit = bool(barrier_before_exit)
+
+    def num_dead_node(self, node_id=0, timeout=30):
+        """Unreachable peers: none in one process."""
+        return 0
+
+    def _send_command_to_servers(self, head, body):
+        """The command channel's one command, 0 (set the optimizer, its
+        pickle in ``body``), run in this process, which is the server;
+        the pickle comes from this program's own caller, as in MXNet."""
+        if int(head) != 0:
+            raise MXNetError("unknown kvstore server command %d" % head)
+        self.set_optimizer(pickle.loads(body))
 
     def save_optimizer_states(self, fname):
         """The updater's states, pickled, through ``atomic_write``."""

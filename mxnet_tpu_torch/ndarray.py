@@ -37,6 +37,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "load", "save", "imdecode", "onehot_encode",
            "waitall",
            "maximum", "minimum", "serialize_arrays", "deserialize_arrays",
+           "save_raw_bytes", "load_from_raw_bytes",
            "torch_dtype"]
 
 # the builtins the op frontends below shadow (slice, sum, max, ...)
@@ -94,6 +95,8 @@ class NDArray(object):
                                               tuple(cur.shape)))
         if t.device != cur.device:
             t = t.to(cur.device)
+        if cur.device.type == "cpu" and cur.is_pinned():
+            t = Context("cpu_pinned").place(t)
         self._data = t
 
     @property
@@ -161,8 +164,7 @@ class NDArray(object):
                 other._set_value(self._data.to(other._data.dtype).clone())
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.to(other.torch_device(), copy=True),
-                           ctx=other)
+            return NDArray(other.place(self._data, copy=True), ctx=other)
         raise MXNetError("copyto does not support type %s" % type(other))
 
     def as_in_context(self, context):
@@ -358,6 +360,8 @@ def _invoke(op_name, nds, attrs, ctx=None, out=None):
         op_name, arrays, attrs, device=None if nds else ctx.torch_device())
     n_vis = op.num_outputs_for(op.normalize_attrs(attrs or {}))
     vis = [_own(v, arrays) for v in outs[:n_vis]]
+    if ctx.device_type == "cpu_pinned":
+        vis = [ctx.place(v) for v in vis]
     if op.num_aux:
         for aux_nd, new_val in zip(nds[-op.num_aux:],
                                    outs[n_vis:n_vis + op.num_aux]):
@@ -445,12 +449,12 @@ def array(source_array, ctx=None, dtype=None):
         t = source_array.detach()
         if dtype is not None:
             t = t.to(torch_dtype(dtype))
-        return NDArray(t.to(ctx.torch_device(), copy=True), ctx=ctx)
+        return NDArray(ctx.place(t, copy=True), ctx=ctx)
     arr = np.asarray(source_array)
     if dtype is None:
         dtype = {np.dtype(np.float64): np.float32,
                  np.dtype(np.int64): np.int32}.get(arr.dtype, arr.dtype)
-    return NDArray(_host_tensor(arr, dtype).to(ctx.torch_device()), ctx=ctx)
+    return NDArray(ctx.place(_host_tensor(arr, dtype)), ctx=ctx)
 
 
 def concatenate(arrays, axis=0, always_copy=True):
@@ -573,12 +577,21 @@ def _read_entries(f, where):
         buf = f.read(nbytes)
         if len(buf) < nbytes:
             raise MXNetError("truncated NDArray file: %s" % (where,))
-        if dt == torch.bfloat16:
-            t = torch.from_numpy(np.frombuffer(buf, np.int16).copy()) \
-                .view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.frombuffer(buf, _TORCH2NP[dt]).copy())
-        yield name, t.reshape(shape)
+        yield name, _tensor_from_bytes(buf, dt, shape)
+
+
+def _tensor_from_bytes(buf, dt, shape, offset=0):
+    """A CPU tensor of torch dtype ``dt`` and ``shape`` read from ``buf``
+    at ``offset`` (copied: the tensor owns its memory)."""
+    count = int(np.prod(shape)) if shape else 1
+    if dt == torch.bfloat16:
+        t = torch.from_numpy(np.frombuffer(buf, np.int16, count,
+                                           offset).copy()) \
+            .view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.frombuffer(buf, _TORCH2NP[dt], count,
+                                           offset).copy())
+    return t.reshape(shape)
 
 
 def _serialize(items):
@@ -598,6 +611,35 @@ def serialize_arrays(data):
 def deserialize_arrays(blob):
     """``.params`` bytes to ``{name: CPU tensor}``."""
     return dict(_read_entries(_io.BytesIO(blob), "<bytes>"))
+
+
+def save_raw_bytes(arr):
+    """One NDArray as self-contained bytes (parity:
+    mxnet_tpu/ndarray.py ``save_raw_bytes``, MXNDArraySaveRawBytes): the
+    magic, the dtype code, ndim, the shape and the raw C-order data, the
+    JAX package's layout byte for byte."""
+    code, shape, raw = _entry_bytes(arr)
+    return (struct.pack("<QII", _MAGIC, code, len(shape))
+            + struct.pack("<%dq" % len(shape), *shape) + raw)
+
+
+def load_from_raw_bytes(buf, ctx=None):
+    """Inverse of :func:`save_raw_bytes`, onto ``ctx`` (default: the
+    current context)."""
+    buf = bytes(buf)
+    if len(buf) < 16:
+        raise MXNetError("invalid NDArray raw bytes: %d bytes" % len(buf))
+    magic, code, ndim = struct.unpack_from("<QII", buf, 0)
+    if magic != _MAGIC or code not in _CODE_DTYPE:
+        raise MXNetError("invalid NDArray raw bytes")
+    shape = struct.unpack_from("<%dq" % ndim, buf, 16)
+    dt = _CODE_DTYPE[code]
+    count = int(np.prod(shape)) if shape else 1
+    if len(buf) < 16 + 8 * ndim + count * dt.itemsize:
+        raise MXNetError("truncated NDArray raw bytes")
+    ctx = ctx or current_context()
+    return NDArray(ctx.place(_tensor_from_bytes(buf, dt, shape,
+                                                16 + 8 * ndim)), ctx=ctx)
 
 
 def save(fname, data):
@@ -620,7 +662,7 @@ def load(fname, ctx=None):
     ctx = ctx or current_context()
     with open(fname, "rb") as f:
         entries = list(_read_entries(f, fname))
-    arrays = [NDArray(t.to(ctx.torch_device()), ctx=ctx) for _, t in entries]
+    arrays = [NDArray(ctx.place(t), ctx=ctx) for _, t in entries]
     names = [n for n, _ in entries]
     if any(names):
         return dict(zip(names, arrays))

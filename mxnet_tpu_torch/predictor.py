@@ -170,6 +170,21 @@ class Predictor(object):
             _tel.counter("predict_samples", int(
                 self._executor.arg_dict[self._input_names[0]].shape[0]))
 
+    def partial_forward(self, step):
+        """The stepwise-forward protocol (parity: the JAX package's
+        ``partial_forward``, MXPredPartialForward): the first call runs the
+        whole forward, and each call returns ``step_left``, the number of
+        non-variable nodes on the outputs' path less ``step`` (at least
+        0), so a ``while (step_left > 0) partial_forward(++step)`` loop
+        ends with the outputs ready."""
+        n_steps = max(1, sum(
+            1 for n in sym_mod._topo([node for node, _ in
+                                      self.symbol._outputs])
+            if not n.is_var))
+        if self._outputs is None:
+            self.forward()
+        return max(0, n_steps - int(step))
+
     def get_output_shape(self, index=0):
         outs = self._outputs or self._executor.outputs
         return tuple(outs[index].shape)

@@ -1,6 +1,5 @@
-"""Serving — concurrent predictor with dynamic bucketed batching
-(counterpart: mxnet_tpu/serving.py, without its HTTP front end, which
-arrives in a later slice).
+"""Serving — concurrent predictor with dynamic bucketed batching and its
+HTTP front end (counterpart: mxnet_tpu/serving.py).
 
 Concurrent callers ``submit()`` single-sample requests into a queue; a
 batcher thread coalesces whatever is in flight into one forward per tick,
@@ -16,14 +15,28 @@ While telemetry records, each tick records every request's
 ``serve_queue_depth`` gauges and the ``serve.batch`` span, and counts
 ``serve_requests`` and ``serve_padded_slots``, tagged with the model's
 name, as in the JAX package.
+
+The HTTP front end (``start_server`` / ``stop_server``, or
+``MXNET_SERVE_PORT=<port>`` or ``<host>:<port>`` read at import) exposes a
+:class:`Server`, :func:`default_server` unless another is given:
+``GET /`` and ``/models`` (each model's stats), ``GET /healthz``, and
+``POST /predict/<model>`` with ``{"inputs": {name: nested list}}`` (or the
+inputs at the top level) and an optional ``timeout_s``.  A request fault
+answers 400, a fault of the model's forward 500, a timeout 504, an unknown
+route or model 404; every answer is JSON, non-finite floats as strings.
 """
 from __future__ import annotations
 
 import contextlib as _contextlib
+import json
+import math as _math
 import queue as _queue_mod
 import threading
 import time
+import warnings
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as _FutureTimeout
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as _np
 
@@ -32,7 +45,8 @@ from .context import Context
 from .predictor import Predictor, _load_params, _on_ctx, read_checkpoint
 from . import telemetry as _tel
 
-__all__ = ["bucket_ladder", "ServedModel", "Server"]
+__all__ = ["bucket_ladder", "ServedModel", "Server", "default_server",
+           "start_server", "stop_server", "server_port"]
 
 
 def bucket_ladder(max_batch):
@@ -444,3 +458,195 @@ class Server(object):
             models, self._models = list(self._models.values()), {}
         for model in models:
             model.close()
+
+
+# ------------------------------------------------------------- HTTP frontend
+_lock = threading.Lock()
+_http = None
+_http_thread = None
+_default_server = None
+_default_lock = threading.Lock()
+
+
+def default_server():
+    """The process-wide :class:`Server` the HTTP front end exposes
+    (created on first use; creating it starts nothing)."""
+    global _default_server
+    with _default_lock:
+        if _default_server is None:
+            _default_server = Server()
+        return _default_server
+
+
+def _parse_endpoint(value):
+    """``<port>`` or ``<host>:<port>`` -> (host, port), the host
+    ``127.0.0.1`` by default; ValueError on a malformed value (the JAX
+    package's ``metrics_server.parse_endpoint``)."""
+    value = str(value).strip()
+    host, sep, port = value.rpartition(":")
+    return (host if sep else "") or "127.0.0.1", int(port)
+
+
+def _json_safe(obj):
+    """Non-finite floats as their string forms, so that every answer stays
+    RFC 8259 JSON (a model that starts emitting NaN must stay readable)."""
+    if isinstance(obj, float) and not _math.isfinite(obj):
+        return str(obj)
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    return obj
+
+
+class _Handler(BaseHTTPRequestHandler):
+    def _send(self, code, doc):
+        body = json.dumps(_json_safe(doc)).encode()
+        try:
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        except (BrokenPipeError, ConnectionResetError):
+            pass   # the client went away mid-answer
+
+    def do_GET(self):   # noqa: N802 (http.server's name)
+        path = self.path.split("?", 1)[0]
+        registry = self.server.mx_registry
+        if path in ("/models", "/"):
+            self._send(200, {"models": registry.models()})
+        elif path == "/healthz":
+            self._send(200, {"ok": True, "models": registry.names()})
+        else:
+            self._send(404, {"error": "no route %s (have /models, /healthz, "
+                                      "POST /predict/<model>)" % path})
+
+    def do_POST(self):  # noqa: N802 (http.server's name)
+        path = self.path.split("?", 1)[0]
+        registry = self.server.mx_registry
+        if not path.startswith("/predict/"):
+            self._send(404, {"error": "POST route is /predict/<model>"})
+            return
+        name = path[len("/predict/"):]
+        try:
+            model = registry.model(name)
+        except MXNetError as e:
+            self._send(404, {"error": str(e)})
+            return
+        # a request fault (bad JSON, a bad input name or shape, raised by
+        # the parsing or by submit itself) answers 400 ...
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            doc = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(doc, dict):
+                raise ValueError("body must be a JSON object")
+            if "inputs" in doc:
+                inputs = doc["inputs"]
+            else:
+                # the top-level object holds the inputs, less the
+                # envelope's own key
+                inputs = {k: v for k, v in doc.items() if k != "timeout_s"}
+            if not isinstance(inputs, dict):
+                raise ValueError('"inputs" must be an object of '
+                                 "{input_name: nested list}")
+            timeout = float(doc.get("timeout_s", 30.0))
+            fut = model.submit(inputs)
+        except (ValueError, TypeError, MXNetError) as e:
+            # TypeError too: float(None) for a null timeout_s, or a
+            # non-numeric nested input
+            self._send(400, {"error": str(e)})
+            return
+        # ... and whatever the future carries is a fault of the server
+        # (a failed bind or forward, MXNetError included): 500
+        try:
+            outs = fut.result(timeout)
+        except (TimeoutError, _FutureTimeout):
+            self._send(504, {"error": "predict timed out"})
+            return
+        except Exception as e:   # the model's fault, answered as JSON
+            self._send(500, {"error": "%s: %s" % (type(e).__name__, e)})
+            return
+        self._send(200, {"model": name,
+                         "outputs": [o.tolist() for o in outs]})
+
+    def log_message(self, *args):
+        """No stderr line a request."""
+
+
+def start_server(port=None, host=None, registry=None):
+    """Start the HTTP endpoint and return its bound port; a running
+    endpoint's port is returned as it is.  ``port=None`` reads
+    ``MXNET_SERVE_PORT`` (``<port>`` or ``<host>:<port>``) and returns
+    None when it is unset or 0, starting nothing; ``port=0`` binds an
+    ephemeral port.  ``registry`` defaults to :func:`default_server`."""
+    global _http, _http_thread
+    with _lock:
+        if _http is not None:
+            return _http.server_address[1]
+        if port is None:
+            raw = get_env("MXNET_SERVE_PORT")
+            if not raw:
+                return None
+            env_host, port = _parse_endpoint(raw)
+            if port <= 0:
+                return None
+            if host is None:
+                host = env_host
+        srv = ThreadingHTTPServer((host or "127.0.0.1", port), _Handler)
+        srv.daemon_threads = True
+        srv.mx_registry = registry if registry is not None \
+            else default_server()
+        _http = srv
+        _http_thread = threading.Thread(target=srv.serve_forever,
+                                        name="mxtorch-serve-http",
+                                        daemon=True)
+        _http_thread.start()
+        return srv.server_address[1]
+
+
+def stop_server():
+    """Shut the HTTP endpoint down and close its socket (the registered
+    models keep running: close them through their Server).  Idempotent."""
+    global _http, _http_thread
+    with _lock:
+        srv, _http = _http, None
+        t, _http_thread = _http_thread, None
+    if srv is not None:
+        srv.shutdown()
+        srv.server_close()
+    if t is not None and t.is_alive():
+        t.join(timeout=5.0)
+
+
+def server_port():
+    """The bound port while the HTTP endpoint runs, else None."""
+    with _lock:
+        return _http.server_address[1] if _http is not None else None
+
+
+def _autostart():
+    """``MXNET_SERVE_PORT=<port>`` (or ``<host>:<port>``) starts the HTTP
+    front end at import (user code registers models on
+    :func:`default_server`).  A malformed value or a port that cannot be
+    bound warns and leaves the endpoint off; unset, nothing happens."""
+    raw = get_env("MXNET_SERVE_PORT")
+    if not raw:
+        return False
+    try:
+        _, port = _parse_endpoint(raw)
+    except ValueError:
+        warnings.warn("MXNET_SERVE_PORT=%r is not <port> or <host>:<port>; "
+                      "serving endpoint disabled" % raw)
+        return False
+    if port <= 0:
+        return False
+    try:
+        return start_server() is not None
+    except OSError as e:
+        warnings.warn("MXNET_SERVE_PORT=%s: cannot bind (%s); serving "
+                      "endpoint disabled" % (raw, e))
+        return False
+
+
+_autostart()

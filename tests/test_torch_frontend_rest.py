@@ -6,6 +6,7 @@ weight), ``name.Prefix``, ``Context.devtype2str`` / ``devstr2type`` /
 ``device_typeid`` / ``default_ctx`` and the top-level ``opt`` alias."""
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu_torch as mt
 
@@ -135,21 +136,26 @@ def test_name_prefix_matches_mxnet_tpu(mx):
 
 
 def test_context_names_match_mxnet_tpu(mx):
-    """The device type ids of the two contexts the port has, and
-    ``default_ctx`` (the current context); cpu_pinned and tpu are not
-    contexts of the port."""
-    for dt in ("cpu", "gpu"):
+    """The device type ids of the three contexts the port has (cpu_pinned,
+    id 3, raises when resolved without a card), and ``default_ctx`` (the
+    current context); tpu is not a context of the port."""
+    for dt in ("cpu", "gpu", "cpu_pinned"):
         pc, jc = mt.Context(dt, 1), mx.Context(dt, 1)
         assert pc.device_typeid == jc.device_typeid
         assert mt.Context.devstr2type[dt] == mx.Context.devstr2type[dt]
         assert mt.Context.devtype2str[pc.device_typeid] == dt == \
             mx.Context.devtype2str[jc.device_typeid]
-    assert set(mt.Context.devstr2type) == {"cpu", "gpu"}
+    assert set(mt.Context.devstr2type) == {"cpu", "gpu", "cpu_pinned"}
+    assert mt.cpu_pinned(0) == mt.Context("cpu_pinned", 0)
+    assert mt.cpu_pinned().device_typeid == 3
     with mt.cpu(0):
         assert mt.gpu(1).default_ctx == mt.cpu(0)
     assert mt.cpu().default_ctx == mt.gpu(0)
+    if not torch.cuda.is_available():
+        with pytest.raises(mt.MXNetError, match="needs a CUDA device"):
+            mt.cpu_pinned().torch_device()
     with pytest.raises(mt.MXNetError):
-        mt.Context("cpu_pinned", 0)
+        mt.Context("tpu", 0)
 
 
 def test_top_level_aliases(mx):

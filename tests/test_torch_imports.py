@@ -77,3 +77,18 @@ def test_image_slice_modules_stand_alone(name):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_c_api_bridge_embeds_only_the_port():
+    """csrc/c_api.cc (the port's C API library) imports one Python module,
+    mxnet_tpu_torch.capi, and names no module of the JAX package."""
+    import re
+    with open(os.path.join(PKG, "csrc", "c_api.cc")) as f:
+        text = f.read()
+    imported = re.findall(r'PyImport_\w+\(\s*"([^"]+)"', text)
+    assert imported == ["mxnet_tpu_torch.capi"]
+    code = "\n".join(line for line in text.splitlines()
+                     if not line.startswith("#include"))
+    named = set(re.findall(r'"(mxnet_tpu[\w.]*|jax[\w.]*)', code))
+    assert named == {"mxnet_tpu_torch.capi"}, named
+    assert "PyImport_Import(" not in text and "PyRun_" not in text
