@@ -152,8 +152,10 @@ fatal on failure:
    same with the lever off), ``mfu`` in (0, 1) against ``cost``'s H100
    row, 52 NormConv launches a step.  (c) ``profiler.set_state("run")``
    around OBS_PROFILED fused steps: ``train_step[n]`` in the chrome trace,
-   every ``nc_kernel`` of the torch trace inside a ``train_step`` range,
-   the device ms under each.  (d) ``Monitor(2)``: on the fused path the
+   every ``nc_kernel`` of the torch trace launched inside a
+   ``train_step`` range (by its launch's correlation id: the kernels'
+   card-clock timestamps are not compared with host ranges), the device
+   ms under each, the clock skew bound.  (d) ``Monitor(2)``: on the fused path the
    parameter rows within OBS_MONITOR_TOL of |w|/sqrt(size) of the
    parameters before the armed step; on the general path a row for every
    node output, by name, then every argument.  (e) Every knob unset: a
@@ -374,6 +376,36 @@ fatal on failure:
    slices of 4) within the floor rule of the float64 two-context step
    over [cpu(0), cpu(1)] (gradients summed over the devices, updates,
    each device's moving statistics).
+12. dist: the distributed slice's first part.  (a) Two ranks on the one
+   card through the port's launcher (``python -m mxnet_tpu_torch.launch
+   -n 2``), ``bench/dist_sync_kvstore.py`` on CUDA tensors: the dist_sync
+   arithmetic exact (a 2x2 and a 1200x1200 key, the replace semantics),
+   ``allreduce_arrays`` over three dtypes, the store's calls; the route
+   (``gloo-cuda``: the ranks share the card) printed.  (b) ResNet-50 v2
+   at full width from the seed-0 state through ``Module.fit(kvstore=
+   "dist_sync")`` on two ranks (``bench/dist_mlp.py``), DIST_BATCH images
+   a rank a batch, DIST_BATCHES batches, MXNET_NORM_CONV=1, TF32 off: 52
+   NormConv launches a step on each rank, 32 with statistics; the ranks'
+   parameters bitwise equal; every parameter and rank 0's moving
+   statistics within RESNET_FLOOR_X times their float32 floor of the
+   same fit in this process over [gpu(0), gpu(0)] with the ``device``
+   store (context k takes rank k's rows; the floor: that fit from the
+   state nudged by RESNET_FLOOR_NUDGE); img/s over both ranks, host ms a
+   batch and the collectives' ms a batch (in the fit, and one batch's 161
+   pushes alone) beside the one-process fit's.  (c) ``dist.
+   bucket_allreduce`` at world 1 over NCCL on the card (a float32 bucket
+   of ResNet-50's size and a float64 one): output equal to input, timed.
+   (d) ResNet-50 fused through ``parallel.elastic.fit_elastic`` at batch
+   ELASTIC_BATCH, MXNET_NORM_CONV=1, MXNET_CKPT_EVERY_N_STEPS=
+   ELASTIC_EVERY: ELASTIC_BATCHES steps uninterrupted, the same without
+   checkpoints, and a run whose data stop after ELASTIC_EVERY steps,
+   resumed by a fresh Module from the step checkpoint: the restored state
+   (parameters, momenta, moving statistics, update count) bitwise the
+   saved one, the resumed run's end within RESNET_FLOOR_X times the float32
+   floor of the uninterrupted run's (the floor: the same fit from the
+   nudged state); under MXNET_AMP=1 the loss-scale state restored
+   bitwise; the checkpoint's bytes, the ms the fit blocks in ``save``, the
+   writer thread's ms, a step's ms with and without checkpoints.
 
 Prints the card's name and power limit, whether ml_dtypes imports,
 per-geometry numbers, serving qps and latency, the ResNet-50 training
@@ -385,13 +417,14 @@ sequences slice's and the SSD slice's checks, times and rates, the
 operators phase's checks and rates, the rcnn phase's checks and times,
 the observability phase's host split, MFU, profile ranges and checks,
 Updater and Rtc numbers, the parallel slice's checks, copies and rates,
-the capi phase's build, checks, C and HTTP times, each phase's seconds, a
+the capi phase's build, checks, C and HTTP times, the dist phase's route,
+checks, rates and checkpoint times, each phase's seconds, a
 JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
 geometries, batch 32, and its launches in the imagenet phase, and its
-launches in the image and capi phases;
+launches in the image, capi and dist phases;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -407,6 +440,8 @@ import threading
 import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
 BATCH = 8
@@ -5247,11 +5282,19 @@ def obs_fit(mt, net, args, aux, x, y, b, env, monitor=None, callback=None):
 
 def obs_torch_trace(torch_json, ranges_prefix="train_step["):
     """From a torch.profiler chrome trace: {range name: (device ms of the
-    kernels that ran inside it, NormConv kernels inside)} over the host
-    ranges named ``ranges_prefix``..., and the NormConv kernels outside
-    every such range.  Each step waits for the card at its end while the
-    profiler runs, so a step's kernels run inside its host range on the
-    trace's one clock."""
+    kernels launched inside it, NormConv kernels among them)} over the host
+    ranges named ``ranges_prefix``..., the NormConv kernels launched
+    outside every such range, the kernels, the card-side range rows, and
+    the clock skew bound.
+
+    A kernel belongs to the range its launch (the runtime or driver call of
+    the kernel's correlation id) lies in: the launch and the ranges are on
+    the host's clock, while a kernel's own timestamps come from the card's
+    clock, mapped onto the host's; compared with a host range, they put a
+    kernel outside by however far the two clocks disagree.  A kernel with
+    no launch event counts as outside.  The skew bound is the least
+    (kernel start - its launch's start) over the trace, in us: negative
+    only where the mapped card clock runs behind the host's."""
     with open(torch_json) as f:
         evs = json.load(f)["traceEvents"]
     ranges = [e for e in evs if e.get("ph") == "X"
@@ -5259,13 +5302,22 @@ def obs_torch_trace(torch_json, ranges_prefix="train_step["):
               and str(e.get("name", "")).startswith(ranges_prefix)]
     kernels = [e for e in evs if e.get("ph") == "X"
                and e.get("cat") == "kernel"]
+    launch = {e["args"]["correlation"]: e for e in evs
+              if e.get("ph") == "X"
+              and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
     out = {}
     outside = 0
+    skew = None
     for k in kernels:
-        end = k["ts"] + k["dur"]
-        host = [r for r in ranges if r["ts"] <= k["ts"]
-                and end <= r["ts"] + r["dur"]]
+        la = launch.get(k.get("args", {}).get("correlation"))
         is_nc = "nc_kernel" in k["name"]
+        if la is not None:
+            d = k["ts"] - la["ts"]
+            skew = d if skew is None else min(skew, d)
+        host = [] if la is None else [
+            r for r in ranges
+            if r["ts"] <= la["ts"] <= r["ts"] + r["dur"]]
         if not host:
             outside += int(is_nc)
             continue
@@ -5273,7 +5325,7 @@ def obs_torch_trace(torch_json, ranges_prefix="train_step["):
         out[host[0]["name"]] = (ms + k["dur"] / 1e3, nc + int(is_nc))
     gpu_ranges = sum(1 for e in evs if e.get("cat") == "gpu_user_annotation"
                      and str(e.get("name", "")).startswith(ranges_prefix))
-    return out, outside, len(kernels), gpu_ranges
+    return out, outside, len(kernels), gpu_ranges, skew
 
 
 def observability_phase(torch, mt, nc, card, fit_img_s):
@@ -5454,15 +5506,16 @@ def observability_phase(torch, mt, nc, card, fit_img_s):
             chrome = json.load(f)["traceEvents"]
         ts_names = [e["name"] for e in chrome
                     if e.get("name", "").startswith("train_step[")]
-        by_range, outside, n_kernels, gpu_ranges = obs_torch_trace(
+        by_range, outside, n_kernels, gpu_ranges, skew = obs_torch_trace(
             path_c + ".torch.json")
         for name in sorted(by_range):
             print("observability profile range %s device_ms=%r "
                   "nc_kernel=%d" % ((name,) + by_range[name]))
         print("observability profile chrome train_step events=%s; torch "
-              "trace kernels=%d, nc_kernel outside the ranges=%d, "
-              "gpu_user_annotation train_step rows=%d"
-              % (ts_names, n_kernels, outside, gpu_ranges))
+              "trace kernels=%d, nc_kernel launched outside the ranges=%d, "
+              "gpu_user_annotation train_step rows=%d, clock skew bound "
+              "(least kernel start - launch) us=%r"
+              % (ts_names, n_kernels, outside, gpu_ranges, skew))
         nc_in = sum(v[1] for v in by_range.values())
         if len(ts_names) != OBS_PROFILED or \
                 nc_in != OBS_PROFILED * RESNET_NC_PER_STEP or outside:
@@ -7166,6 +7219,428 @@ def capi_phase(torch, mt, nc, host, serving_numbers):
     os.environ["MXNET_NORM_CONV"] = "0"
     return launches
 
+DIST_RANKS = 2
+DIST_BATCH = 16            # a rank's batch: 32 a step over both ranks
+DIST_BATCHES = 3
+DIST_LR = 0.1
+DIST_LAUNCH_S = 420        # the limit of one launch of the ranks
+DIST_ROUTE = "gloo-cuda"   # two ranks on one card
+DIST_NCCL_SIZES = ((25557032, "float32"), (4097, "float32"),
+                   (1000, "float64"))
+ELASTIC_BATCH = 32
+ELASTIC_BATCHES = 4
+ELASTIC_EVERY = 2
+
+
+def dist_launch(label, args, timeout, env=None):
+    """Run ``args`` in a session of its own (the launcher and its ranks),
+    killing the whole group at ``timeout``; (rc, stdout, stderr)."""
+    full = dict(os.environ)
+    full.update(env or {})
+    full["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in full.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=ROOT, env=full, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        fail("dist: %s timed out after %d s\n%s\n%s"
+             % (label, timeout, out[-3000:], err[-3000:]))
+    print("dist launch %s seconds=%r rc=%d"
+          % (label, time.perf_counter() - t0, proc.returncode))
+    return proc.returncode, out, err
+
+
+def dist_ranks(work, module, *args, env=None):
+    """The port's launcher with DIST_RANKS ranks of ``python -m module``;
+    each rank's JSON report."""
+    rc, out, err = dist_launch(
+        module.rsplit(".", 1)[1],
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+         str(DIST_RANKS), sys.executable, "-m", module, "--out", work]
+        + list(args), DIST_LAUNCH_S, env)
+    if rc != 0:
+        fail("dist: %s exited %d\n%s\n%s" % (module, rc, out[-4000:],
+                                             err[-4000:]))
+    rows = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work, "rank%d.json" % r)) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def dist_leaves(mt, path):
+    """{name: numpy} of a rank's saved parameters and aux states."""
+    raw = mt.nd.load(path, ctx=mt.cpu())
+    return {k: v.asnumpy() for k, v in raw.items()}
+
+
+def dist_worst(got, want, floors):
+    """(largest max |got - want| over RESNET_FLOOR_X x the leaf's floor,
+    its leaf)."""
+    worst = (0.0, None)
+    for n, w in want.items():
+        r = float(np.abs(got[n] - w).max()) / (RESNET_FLOOR_X * floors[n])
+        if r > worst[0]:
+            worst = (r, n)
+    return worst
+
+
+def dist_two_contexts(mt, net, args, aux, x, y, ctx, env, nudge=None):
+    """The one-process fit the ranks are held to: ``Module`` over [ctx,
+    ctx] with the device store, batches of DIST_RANKS x DIST_BATCH whose
+    slice k is rank k's batch; returns ({"arg:n"/"aux:n": numpy} with
+    context 0's moving statistics, host ms a batch)."""
+    n = x.shape[0] // DIST_RANKS
+    order = np.concatenate([
+        np.arange(r * n + i * DIST_BATCH, r * n + (i + 1) * DIST_BATCH)
+        for i in range(DIST_BATCHES) for r in range(DIST_RANKS)])
+    if nudge is not None:
+        rng = np.random.default_rng(SEED + 21)
+        args = {k: (v * (1 + nudge * rng.uniform(-1, 1, v.shape))).astype(
+            np.float32) for k, v in args.items()}
+    mod = mt.Module(net, context=[ctx] * DIST_RANKS)
+    marks = []
+    module_env(env, lambda: mod.fit(
+        mt.io.NDArrayIter(x[order], y[order],
+                          batch_size=DIST_RANKS * DIST_BATCH),
+        num_epoch=1, kvstore="device", optimizer="sgd",
+        optimizer_params={"learning_rate": DIST_LR, "momentum": 0.9},
+        arg_params={k: mt.nd.array(v, ctx=mt.cpu()) for k, v in
+                    args.items()},
+        aux_params={k: mt.nd.array(v, ctx=mt.cpu()) for k, v in aux.items()},
+        batch_end_callback=lambda p: marks.append(time.perf_counter())))
+    out = {"arg:" + k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    out.update({"aux:" + k: v.asnumpy() for k, v in
+                mod._exec_group.execs[0].aux_dict.items()})
+    return out, float(np.median(np.diff(marks))) * 1e3
+
+
+NCCL_WORLD1 = r"""
+import json, socket, sys, time, torch
+from mxnet_tpu_torch.parallel import dist
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+dist._connect("localhost:%d" % port, 1, 0)
+sizes = json.loads(sys.argv[1])
+g = torch.Generator(device="cuda").manual_seed(0)
+ts = [torch.randn(n, generator=g, device="cuda").to(getattr(torch, dt))
+      for n, dt in sizes]
+outs = dist.bucket_allreduce(ts)
+torch.cuda.synchronize()
+equal = all(torch.equal(a, b) for a, b in zip(ts, outs))
+calls = dist.allreduce_calls        # one a dtype: 2
+ms = []
+for _ in range(5):
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    dist.bucket_allreduce(ts); torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"route": dist.route(), "equal": equal,
+                  "calls": calls, "ms": sorted(ms)[2],
+                  "bytes": sum(t.numel() * t.element_size() for t in ts)}))
+dist.shutdown_process_group()
+"""
+
+
+def elastic_fit(torch, mt, net, args, aux, x, y, prefix, ctx, env,
+                stop_after=None):
+    """``fit_elastic`` of a fresh Module on ``ctx`` over (x, y) in batches
+    of ELASTIC_BATCH from (args, aux); the data stop (an exception from
+    the iterator) after ``stop_after`` batches.  Returns (the module's
+    {"arg:"/"aux:" name: numpy} or None when stopped, step ms,
+    the Checkpointers' save and write seconds).  The step ms is the mean
+    gap between batch ends, so the saves' blocking time is spread over
+    the steps."""
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.parallel import elastic
+
+    class Stop(RuntimeError):
+        pass
+
+    class Feed(mt.io.NDArrayIter):
+        def next(self):
+            self._served = getattr(self, "_served", 0) + 1
+            if stop_after is not None and self._served > stop_after:
+                raise Stop("the data stop after %d batches" % stop_after)
+            return super().next()
+    saves, writes = [], []
+    real_save, real_write = ck.Checkpointer.save, ck.Checkpointer._write
+
+    def save(self, *a, **kw):
+        out = real_save(self, *a, **kw)
+        saves.append(self.last_save_seconds)
+        return out
+
+    def write(self, job):
+        real_write(self, job)
+        writes.append(self.last_write_seconds)
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    mod = mt.Module(net, context=ctx)
+    marks = []
+    ck.Checkpointer.save, ck.Checkpointer._write = save, write
+    try:
+        module_env(env, lambda: elastic.fit_elastic(
+            mod, Feed(x, y, batch_size=ELASTIC_BATCH), prefix, num_epoch=1,
+            optimizer="sgd",
+            optimizer_params={"learning_rate": RESNET_LR, "momentum": 0.9,
+                              "wd": 1e-4},
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in args.items()},
+            aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in aux.items()},
+            batch_end_callback=lambda p: marks.append(time.perf_counter())))
+        out = {"arg:" + k: v.asnumpy()
+               for k, v in mod.get_params()[0].items()}
+        out.update({"aux:" + k: v.asnumpy()
+                    for k, v in mod.get_params()[1].items()})
+    except Stop:
+        out = None
+    finally:
+        ck.Checkpointer.save, ck.Checkpointer._write = real_save, real_write
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    # the mean gap between batch ends: a save lands in one gap of two
+    step_ms = float(np.mean(np.diff(marks))) * 1e3 if len(marks) > 1 \
+        else None
+    return out, step_ms, saves, writes
+
+
+def dist_phase(torch, mt, nc, card):
+    """(a)-(d) of the dist phase (see the docstring); ``card`` False runs
+    it on the host (a rehearsal at toy sizes).  Returns the NormConv
+    launches counted in the phase (the ranks' reports and this process's
+    fits)."""
+    import tempfile
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.bench import dist_mlp
+    from mxnet_tpu_torch.parallel import dist
+    ctx = mt.gpu(0) if card else mt.cpu()
+    kind = "gpu" if card else "cpu"
+    launches = 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # (a) the dist_sync arithmetic on the card's tensors
+        wa = os.path.join(work, "a")
+        os.makedirs(wa)
+        rows = dist_ranks(wa, "mxnet_tpu_torch.bench.dist_sync_kvstore",
+                          "--ctx", kind)
+        for r in rows:
+            print("dist kvstore rank=%d world=%d route=%s device=%s "
+                  "push_ms=%r allreduce_calls=%d checks=%s"
+                  % (r["rank"], r["world"], r["route"], r["device"],
+                     r["push_ms"], r["allreduce_calls"],
+                     json.dumps(r["checks"], sort_keys=True)))
+            if not r["ok"] or r["world"] != DIST_RANKS:
+                fail("dist (a): rank %d failed %s" % (r["rank"], r))
+            if card and (r["route"] != DIST_ROUTE
+                         or not r["device"].startswith("cuda")):
+                fail("dist (a): route %s on %s, expected %s on the card"
+                     % (r["route"], r["device"], DIST_ROUTE))
+
+        # (b) ResNet-50 through Module.fit(kvstore="dist_sync")
+        net = mt.models.resnet.get_symbol(CLASSES, 50,
+                                          "3,%d,%d" % (IMAGE, IMAGE))
+        ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+        p0, _, a0 = ts0.init({"data": (DIST_BATCH, 3, IMAGE, IMAGE)},
+                             {"softmax_label": (DIST_BATCH,)}, seed=SEED)
+        args = {k: v.numpy() for k, v in p0.items()}
+        aux = {k: v.numpy() for k, v in a0.items()}
+        nkeys = len(args)              # one push a parameter a step
+        del ts0, p0, a0
+        init = os.path.join(work, "init.params")
+        mt.nd.save(init, dict(
+            [("arg:" + k, mt.nd.array(v, ctx=mt.cpu()))
+             for k, v in args.items()]
+            + [("aux:" + k, mt.nd.array(v, ctx=mt.cpu()))
+               for k, v in aux.items()]))
+        wb = os.path.join(work, "b")
+        os.makedirs(wb)
+        if card:
+            torch.cuda.empty_cache()
+        rows = dist_ranks(wb, "mxnet_tpu_torch.bench.dist_mlp", "--network",
+                          "resnet50", "--ctx", kind, "--batch",
+                          str(DIST_BATCH), "--batches", str(DIST_BATCHES),
+                          "--epochs", "1", "--lr", str(DIST_LR), "--image",
+                          str(IMAGE), "--classes", str(CLASSES), "--params",
+                          init, env={"MXNET_NORM_CONV": "1"})
+        for r in rows:
+            print("dist resnet50 rank=%d route=%s steps=%d img_per_s=%r "
+                  "host_ms_per_batch=%r update_ms_per_batch=%r "
+                  "collective_ms_per_batch=%r "
+                  "collective_calls=%d push_alone_ms=%r keys=%d "
+                  "norm_conv=%d stats=%d"
+                  % (r["rank"], r["route"], r["steps"], r.get("img_per_s"),
+                     r.get("host_ms_per_batch"), r["update_ms_per_batch"],
+                     r["collective_ms_per_batch"], r["collective_calls"],
+                     r["push_alone_ms"], r["keys"], r["nc_launches"],
+                     r["nc_stats_launches"]))
+            launches += r["nc_launches"]
+            if r["steps"] != DIST_BATCHES or not r["ok"]:
+                fail("dist (b): rank %d ran %d steps, checks %s"
+                     % (r["rank"], r["steps"], r["checks"]))
+            if card and (r["nc_launches"] != RESNET_NC_PER_STEP * r["steps"]
+                         or r["nc_stats_launches"]
+                         != RESNET_NC_STATS_PER_STEP * r["steps"]):
+                fail("dist (b): rank %d launched NormConv %d times (%d with "
+                     "statistics) in %d steps" % (
+                         r["rank"], r["nc_launches"],
+                         r["nc_stats_launches"], r["steps"]))
+            if r["keys"] != nkeys or \
+                    r["collective_calls"] != nkeys * r["steps"]:
+                fail("dist (b): rank %d: %d keys, %d collectives, expected "
+                     "one a key (%d) a step" % (r["rank"], r["keys"],
+                                                r["collective_calls"], nkeys))
+        got = [dist_leaves(mt, os.path.join(wb, "rank%d.params" % r))
+               for r in range(DIST_RANKS)]
+        same = all(np.array_equal(got[0][k], got[1][k])
+                   for k in got[0] if k.startswith("arg:"))
+        print("dist resnet50 replicas bitwise equal=%s" % same)
+        if not same:
+            fail("dist (b): the ranks' parameters differ")
+        x, y = dist_mlp.images(DIST_BATCH, DIST_BATCHES, DIST_RANKS, IMAGE,
+                               CLASSES)
+        env = {"MXNET_NORM_CONV": "1"}
+        nc.launches = nc.stats_launches = 0
+        want, one_ms = dist_two_contexts(mt, net, args, aux, x, y, ctx, env)
+        nudged_, _ = dist_two_contexts(mt, net, args, aux, x, y, ctx, env,
+                                       nudge=RESNET_FLOOR_NUDGE)
+        launches += nc.launches
+        floors = {k: max(float(np.abs(nudged_[k] - w).max()),
+                         RESNET_FLOOR_MIN) for k, w in want.items()}
+        worst = dist_worst(got[0], want, floors)
+        one_img_s = DIST_RANKS * DIST_BATCH * 1e3 / one_ms
+        print("dist resnet50 against the two-context device-store fit: "
+              "worst %r of RESNET_FLOOR_X x floor (%s), leaves=%d; one "
+              "process img_per_s=%r host_ms_per_batch=%r; two ranks "
+              "img_per_s=%r (%rx)"
+              % (worst[0], worst[1], len(want), one_img_s, one_ms,
+                 rows[0].get("img_per_s"),
+                 (rows[0].get("img_per_s") or 0) / one_img_s))
+        if worst[0] > 1.0:
+            fail("dist (b): %s beyond RESNET_FLOOR_X x its floor (%r)"
+                 % (worst[1], worst[0]))
+
+        # (c) the bucketed collective at world 1 over NCCL
+        if card:
+            rc, out, err = dist_launch(
+                "nccl_world1", [sys.executable, "-c", NCCL_WORLD1,
+                 json.dumps(DIST_NCCL_SIZES)], 300)
+            res = json.loads(out.strip().splitlines()[-1]) if rc == 0 \
+                else None
+            print("dist nccl world=1 %s" % json.dumps(res, sort_keys=True))
+            if res is None or res["route"] != "nccl" or not res["equal"] \
+                    or res["calls"] != 2:
+                fail("dist (c): %s\n%s" % (out[-2000:], err[-2000:]))
+
+        # (d) fit_elastic: step checkpoints and the resume, fused
+        if card:
+            torch.cuda.empty_cache()
+        rng = np.random.default_rng(SEED + 31)
+        n = ELASTIC_BATCH * ELASTIC_BATCHES
+        ex = rng.uniform(-1, 1, (n, 3, IMAGE, IMAGE)).astype(np.float32)
+        ey = rng.integers(0, CLASSES, n).astype(np.float32)
+        every = {"MXNET_NORM_CONV": "1",
+                 "MXNET_CKPT_EVERY_N_STEPS": str(ELASTIC_EVERY)}
+        off = {"MXNET_NORM_CONV": "1", "MXNET_CKPT_EVERY_N_STEPS": None}
+        nc.launches = 0
+        full, ms_on, saves, writes = elastic_fit(
+            torch, mt, net, args, aux, ex, ey, os.path.join(work, "e1/m"),
+            ctx, every)
+        _, ms_off, _, _ = elastic_fit(torch, mt, net, args, aux, ex, ey,
+                                      os.path.join(work, "e2/m"), ctx, off)
+        nudge_rng = np.random.default_rng(SEED + 41)
+        nargs = {k: (v * (1 + RESNET_FLOOR_NUDGE * nudge_rng.uniform(
+            -1, 1, v.shape))).astype(np.float32) for k, v in args.items()}
+        nudged_e, _, _, _ = elastic_fit(torch, mt, net, nargs, aux, ex, ey,
+                                        os.path.join(work, "e3/m"), ctx,
+                                        off)
+        path = ck.latest_sharded(os.path.join(work, "e1/m"))
+        man = ck.verify_checkpoint(path)
+        nbytes = sum(m["bytes"] for m in man["shards"].values())
+        print("dist elastic checkpoint %s bytes=%d save_ms=%s writer_ms=%s "
+              "step_ms with_checkpoints=%r without=%r (%d steps, one every "
+              "%d)" % (os.path.basename(path), nbytes,
+                       [round(v * 1e3, 3) for v in saves],
+                       [round(v * 1e3, 3) for v in writes], ms_on, ms_off,
+                       ELASTIC_BATCHES, ELASTIC_EVERY))
+        if len(saves) != ELASTIC_BATCHES // ELASTIC_EVERY or \
+                man["step"] != ELASTIC_BATCHES:
+            fail("dist (d): %d saves, last step %d" % (len(saves),
+                                                       man["step"]))
+        for label, pol_env in (("float32", {}), ("bf16", {"MXNET_AMP": "1"})):
+            prefix = os.path.join(work, "r_%s/m" % label)
+            saved, restored = {}, {}
+            real_save = mt.module.module._FusedFit.save_checkpoint
+            real_resume = mt.module.module._FusedFit._resume
+
+            def snap(ff):
+                return {"step": ff._ts.num_update,
+                        "scale": ff._ts.scale_state_host(),
+                        "params": {k: v.clone() for k, v in
+                                   ff._params.items()},
+                        "state": {k: tuple(t.clone() for t in st)
+                                  for k, st in ff._state.items()},
+                        "aux": {k: v.clone() for k, v in ff._aux.items()}}
+
+            def spy_save(self, *a, **kw):
+                if not saved:          # the stopped run's save
+                    saved.update(snap(self))
+                return real_save(self, *a, **kw)
+
+            def spy_resume(self, resume):
+                real_resume(self, resume)
+                restored.update(snap(self))
+            mt.module.module._FusedFit.save_checkpoint = spy_save
+            mt.module.module._FusedFit._resume = spy_resume
+            try:
+                env_r = dict(every, **pol_env)
+                stopped, _, _, _ = elastic_fit(
+                    torch, mt, net, args, aux, ex, ey, prefix, ctx, env_r,
+                    stop_after=ELASTIC_EVERY)
+                if stopped is not None or saved.get("step") != \
+                        ELASTIC_EVERY:
+                    fail("dist (d) %s: the stopped run saved step %s"
+                         % (label, saved.get("step")))
+                resumed, _, _, _ = elastic_fit(
+                    torch, mt, net, args, aux, ex, ey, prefix, ctx, env_r)
+            finally:
+                mt.module.module._FusedFit.save_checkpoint = real_save
+                mt.module.module._FusedFit._resume = real_resume
+            bitwise = restored.get("step") == saved["step"] and \
+                restored["scale"] == saved["scale"] and all(
+                    torch.equal(restored[g][k], saved[g][k])
+                    for g in ("params", "aux") for k in saved[g]) and all(
+                    torch.equal(a_, b_) for k in saved["state"]
+                    for a_, b_ in zip(restored["state"][k],
+                                      saved["state"][k]))
+            print("dist elastic %s resume: restored step %s scale %s, "
+                  "bitwise the saved state=%s"
+                  % (label, restored.get("step"), restored.get("scale"),
+                     bitwise))
+            if not bitwise:
+                fail("dist (d) %s: the restored state is not the saved one"
+                     % label)
+            if label == "float32":
+                floors = {k: max(float(np.abs(nudged_e[k] - w).max()),
+                                 RESNET_FLOOR_MIN) for k, w in full.items()}
+                worst = dist_worst(resumed, full, floors)
+                print("dist elastic resumed against uninterrupted: worst %r "
+                      "of RESNET_FLOOR_X x floor (%s)" % worst)
+                if worst[0] > 1.0:
+                    fail("dist (d): the resumed run's %s beyond "
+                         "RESNET_FLOOR_X x its floor (%r)"
+                         % (worst[1], worst[0]))
+        launches += nc.launches
+        print("dist norm_conv launches=%d" % launches)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
@@ -7387,6 +7862,10 @@ def main():
     torch.cuda.empty_cache()
     parallel_phase(torch, mt, card)
     phase_done("parallel")
+    torch.cuda.empty_cache()
+    dist_launches = dist_phase(torch, mt, nc, True)
+    torch.cuda.empty_cache()
+    phase_done("dist")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
     print("chip_smoke seconds=%r (the whole script, builds included)"
           % (time.perf_counter() - t_start))
@@ -7397,7 +7876,7 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
         + mf["norm_conv"] + obs_launches + im["launches"] + img_launches
-        + capi_launches,
+        + capi_launches + dist_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -7406,6 +7885,7 @@ def main():
         "library_ms": tot["library_ms"],
         "image_phase_launches": img_launches,
         "capi_phase_launches": capi_launches,
+        "dist_phase_launches": dist_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],

@@ -30,7 +30,11 @@ the symbol frontend (``Symbol.attr``/``eval``/``debug_str``, backward shape
 rules, ``name.Prefix``) and the VGG and Inception-v3 symbols; the image
 slice: ``recordio``, ``image`` (decode, augmenters, ``ImageIter`` and the
 threaded ``ImageRecordIter``), ``module.SequentialModule`` and the Python
-modules, ``visualization`` and ``test_utils``.
+modules, ``visualization`` and ``test_utils``; the distributed slice's
+first part: ``parallel.dist`` (the multi-process runtime on
+``torch.distributed``), ``launch`` (``python -m mxnet_tpu_torch.launch -n
+N``), the ``dist*`` kvstores, ``checkpoint`` (sharded checkpoints in the
+JAX package's format) and ``parallel.elastic`` (``fit_elastic``).
 """
 from .base import MXNetError
 from . import telemetry
@@ -69,6 +73,8 @@ from . import callback
 from . import kvstore
 from . import kvstore as kv
 from . import model
+from . import checkpoint
+from . import parallel
 from . import module
 from . import module as mod
 from .module import Module

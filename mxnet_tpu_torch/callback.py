@@ -5,15 +5,14 @@ Batch-end callbacks receive a ``model.BatchEndParam`` (``epoch``,
 ``(epoch, symbol, arg_params, aux_params)``.  ``Speedometer`` reads the
 fit loop's ``fit_samples`` telemetry counter while telemetry records, and
 ``nbatch * batch_size`` otherwise, as in the JAX package;
-``do_step_checkpoint`` (sharded step checkpoints) arrives with the
-checkpoint slice.
+``do_step_checkpoint`` writes sharded checkpoints of the fused fit's live
+state every N updates.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-from .base import MXNetError
 from . import telemetry as _tel
 
 __all__ = ["do_checkpoint", "module_checkpoint", "do_step_checkpoint",
@@ -55,10 +54,37 @@ def do_checkpoint(prefix, period=1):
 
 def do_step_checkpoint(module, checkpointer, every_n_steps, resume_epoch=0,
                        nbatch_offset=0):
-    """Sharded step-interval checkpoints of the live fused training state:
-    not ported yet."""
-    raise MXNetError("callback.do_step_checkpoint is not ported yet: it "
-                     "arrives with the checkpoint slice")
+    """Batch-end callback: every ``every_n_steps`` updates, a sharded
+    checkpoint of the fused fit's live state through ``checkpointer`` (a
+    ``checkpoint.Checkpointer``), the cadence of
+    ``MXNET_CKPT_EVERY_N_STEPS`` (parity: callback.do_step_checkpoint).
+
+    ``nbatch_offset`` adds the batches a mid-epoch resume skipped to the
+    recorded batch index of ``resume_epoch``, so the manifest holds the
+    true data position.  On the general path (no fused fit) it warns once
+    and saves nothing; the per-epoch checkpoints remain."""
+    every = max(1, int(every_n_steps))
+    state = {"warned": False, "last": -1}
+
+    def save_step(param):
+        ff = getattr(module, "_active_fused", None)
+        if ff is None:
+            if not state["warned"]:
+                state["warned"] = True
+                _LOG.warning(
+                    "step checkpointing: the fused fit path is not active; "
+                    "mid-epoch sharded checkpoints are skipped (per-epoch "
+                    "checkpoints still run)")
+            return
+        step = ff.num_update()
+        if step % every or step == state["last"]:
+            return
+        state["last"] = step
+        nbatch = param.nbatch + (nbatch_offset
+                                 if param.epoch == resume_epoch else 0)
+        ff.save_checkpoint(checkpointer, epoch=param.epoch, nbatch=nbatch)
+
+    return save_step
 
 
 def log_train_metric(period, auto_reset=False):

@@ -570,8 +570,9 @@ def executor_print(ex):
 
 # ----------------------------------------------------------------- KVStore
 def kvstore_create(kv_type):
-    """The port's single-process store (``local``, ``device``); the
-    ``dist*`` types raise, naming the distributed slice."""
+    """A store of the port (``local``, ``device``, or a ``dist*`` type
+    spanning the world of the MXTPU_* contract: rank 0 of 1 without
+    it)."""
     from . import kvstore as kv_mod
     return kv_mod.create(str(kv_type))
 

@@ -1,5 +1,4 @@
-"""KVStore: the single-process key-value store (counterpart:
-mxnet_tpu/kvstore.py, its ``local`` and ``device`` types).
+"""KVStore: the key-value store (counterpart: mxnet_tpu/kvstore.py).
 
 ``init`` keeps a copy of each key's value on that value's context.  ``push``
 sums the values given for a key, one per device, at the first value's
@@ -12,9 +11,21 @@ array.  While telemetry records, ``push`` counts ``kvstore_push`` (keys)
 and ``kvstore_push_bytes`` (the summed values' bytes), ``pull`` counts
 ``kvstore_pull`` (output arrays) and ``kvstore_pull_bytes``, as in the JAX
 package.  ``local`` and ``device`` share these semantics, as in the JAX
-package; the reference's CommCPU / CommDevice split is not kept.  ``rank``
-is 0 and ``num_workers`` 1.  The ``dist*`` types arrive with the
-distributed slice and raise ``MXNetError``.
+package; the reference's CommCPU / CommDevice split is not kept.
+
+The ``dist*`` types (``dist_sync``, ``dist_async``, ``dist_sync_device``,
+``dist_async_device``, ``dist``, ``dist_tpu``) span the processes of the
+world (``parallel.dist``): ``rank`` and ``num_workers`` come from the
+runtime, and a push sums each key over this process's devices first, then
+all the keys of the push across the ranks in one ``dist.allreduce_tree``
+(one collective a dtype).  Every rank keeps a replica of the store and runs
+the updater on the summed value, so the replicas stay equal.  The async
+modes are the same synchronous sum, as in the JAX package.
+``set_optimizer`` on a ``dist*`` store goes through the command channel
+(``_send_command_to_servers``: the optimizer pickled, then installed in
+this process); ``barrier`` is a process barrier of the world and
+``num_dead_node`` probes it (``parallel.elastic``).  In a process without
+the MXTPU_* contract a ``dist*`` store is rank 0 of 1.
 """
 from __future__ import annotations
 
@@ -49,11 +60,6 @@ def _value_list(vals, single):
     return [v if isinstance(v, list) else [v] for v in vals]
 
 
-def _refuse_dist(kv_type):
-    raise MXNetError("kvstore type %r is not ported yet: it arrives with "
-                     "the distributed slice" % kv_type)
-
-
 def _reduce(vlist):
     """The sum of per-device values at the first value's context (parity:
     the JAX package's ``_reduce``), summed left to right."""
@@ -68,16 +74,21 @@ def _reduce(vlist):
 
 class KVStore(object):
     """A key-value store for parameter synchronisation (parity:
-    mx.kvstore.KVStore, single process)."""
+    mx.kvstore.KVStore)."""
 
     def __init__(self, kv_type="local"):
-        if kv_type in DIST_TYPES:
-            _refuse_dist(kv_type)
-        if kv_type not in LOCAL_TYPES:
+        if kv_type not in LOCAL_TYPES + DIST_TYPES:
             raise MXNetError("unknown kvstore type %s" % kv_type)
         self.type = kv_type
         self._store = {}
         self._updater = None
+        self._rank = 0
+        self._num_workers = 1
+        self._dist = kv_type in DIST_TYPES
+        if self._dist:
+            from .parallel import dist as _dist
+            self._rank = _dist.rank()
+            self._num_workers = _dist.num_workers()
 
     def init(self, key, value):
         """Keep a copy of each key's (first) value; a key is initialised
@@ -101,6 +112,12 @@ class KVStore(object):
             else:
                 merged_by_key[k] = m
                 uniq.append(k)
+        if self._dist:
+            # every key of the push crosses the ranks in one collective a
+            # dtype (dist.allreduce's span times it while telemetry
+            # records)
+            from .parallel import dist as _dist
+            merged_by_key = _dist.allreduce_tree(merged_by_key)
         for k in uniq:
             merged = merged_by_key[k]
             if self._updater is not None:
@@ -143,8 +160,12 @@ class KVStore(object):
 
     def set_optimizer(self, optimizer):
         """Run ``optimizer`` on the stored values at each push (the
-        reference's update on the store)."""
-        self._set_updater(opt.get_updater(optimizer))
+        reference's update on the store); a ``dist*`` store receives it
+        through the command channel, pickled, as MXNet's servers do."""
+        if self._dist:
+            self._send_command_to_servers(0, pickle.dumps(optimizer))
+        else:
+            self._set_updater(opt.get_updater(optimizer))
 
     def _set_updater(self, updater):
         self._updater = updater
@@ -156,14 +177,19 @@ class KVStore(object):
 
     @property
     def rank(self):
-        return 0
+        return self._rank
 
     @property
     def num_workers(self):
-        return 1
+        return self._num_workers
 
     def barrier(self):
-        """Wait for every card's pending work (one process: no peer)."""
+        """A process barrier of the world for a ``dist*`` store (a
+        sequenced id a call, so every rank calls it equally often), then
+        wait for every card's pending work."""
+        if self._dist:
+            from .parallel import dist as _dist
+            _dist.barrier()
         nd.waitall()
 
     def set_barrier_before_exit(self, barrier_before_exit=True):
@@ -171,8 +197,13 @@ class KVStore(object):
         self._barrier_before_exit = bool(barrier_before_exit)
 
     def num_dead_node(self, node_id=0, timeout=30):
-        """Unreachable peers: none in one process."""
-        return 0
+        """Unreachable peers: 0 when every rank reaches a bounded barrier
+        within ``timeout`` seconds, else the other ranks' count
+        (``parallel.elastic.num_dead_node``); 0 for a local store."""
+        if not self._dist:
+            return 0
+        from .parallel import elastic as _elastic
+        return _elastic.num_dead_node(node_id, timeout)
 
     def _send_command_to_servers(self, head, body):
         """The command channel's one command, 0 (set the optimizer, its
@@ -180,7 +211,7 @@ class KVStore(object):
         the pickle comes from this program's own caller, as in MXNet."""
         if int(head) != 0:
             raise MXNetError("unknown kvstore server command %d" % head)
-        self.set_optimizer(pickle.loads(body))
+        self._set_updater(opt.get_updater(pickle.loads(body)))
 
     def save_optimizer_states(self, fname):
         """The updater's states, pickled, through ``atomic_write``."""
@@ -200,8 +231,8 @@ class KVStore(object):
 
 def create(name="local"):
     """A KVStore of type ``name``: ``local``, ``device``,
-    ``local_allreduce_cpu`` or ``local_allreduce_device``; the ``dist*``
-    types raise ``MXNetError`` (the distributed slice)."""
+    ``local_allreduce_cpu``, ``local_allreduce_device`` or one of the
+    ``dist*`` types."""
     if not isinstance(name, string_types):
         raise TypeError("name must be a string")
     return KVStore(name)

@@ -5,8 +5,9 @@ checkpoint format and the legacy ``FeedForward``.
 With several devices or a ``KVStore``, gradients are summed across the
 devices by the store (``local`` or ``device``) or in process, and each
 device's parameters are updated, on the store or by the ``Updater`` with a
-state per device.  The ``dist*`` kvstores arrive with the distributed
-slice.  Checkpoints are ``prefix-symbol.json`` and ``prefix-%04d.params``
+state per device.  A ``dist*`` store also sums them across the processes
+of the world (``parallel.dist``), and the update then always runs on the
+store.  Checkpoints are ``prefix-symbol.json`` and ``prefix-%04d.params``
 in the JAX package's byte format, so a checkpoint saved by either package
 loads in the other.
 """
@@ -41,17 +42,14 @@ def _create_kvstore(kvstore, num_device, arg_params):
     device and a store name that is not ``dist*`` need no store; a
     ``local`` store leaves the update to the devices when one parameter has
     more than ``UPDATE_ON_KVSTORE_MAX`` elements (read from the shapes);
-    without a store there is no update on it.  ``dist*`` raises
-    ``MXNetError`` (the distributed slice)."""
+    without a store there is no update on it."""
     update_on_kvstore = True
     if kvstore is None:
         kv = None
     elif isinstance(kvstore, kvs.KVStore):
         kv = kvstore
     elif isinstance(kvstore, string_types):
-        if "dist" in kvstore:
-            kvs.create(kvstore)                # raises, naming the slice
-        if num_device == 1:
+        if num_device == 1 and "dist" not in kvstore:
             kv = None
         else:
             kv = kvs.create(kvstore)

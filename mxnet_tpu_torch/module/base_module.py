@@ -42,9 +42,11 @@ __all__ = ["BaseModule"]
 # them off.
 NUMERICS_KNOBS = ("MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
                   "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR", "MXNET_MONITOR")
-# the fused fit's pipeline and ZeRO levers (the distributed slice), with
-# the values that leave them off: one pipeline stage, ZeRO level 0
-PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1")), ("MXNET_ZERO", ("", "0")))
+# the fused fit's pipeline and ZeRO levers (the pipeline and ZeRO parts of
+# the distributed slice), with the values that leave them off: one
+# pipeline stage, ZeRO level 0
+PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1"), "pipeline"),
+                  ("MXNET_ZERO", ("", "0"), "ZeRO"))
 
 
 def _as_list(obj):
@@ -96,11 +98,11 @@ def _refuse_unported():
             raise MXNetError("%s=%r is not ported yet: it arrives with the "
                              "numerics slice; unset it"
                              % (knob, get_env(knob)))
-    for knob, off in PARALLEL_KNOBS:
+    for knob, off, part in PARALLEL_KNOBS:
         if get_env(knob, "") not in off:
             raise MXNetError("%s=%r is not ported yet: it arrives with the "
-                             "distributed slice; unset it"
-                             % (knob, get_env(knob)))
+                             "%s part of the distributed slice; unset it"
+                             % (knob, get_env(knob), part))
 
 
 class BaseModule(object):

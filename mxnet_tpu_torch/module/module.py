@@ -20,9 +20,14 @@ a batch); a ``Monitor`` with the default statistic rides the fused path
 ``_FusedFit.monitor_tic`` / ``monitor_feed``), a custom ``stat_func``
 takes the general path; ``install_monitor`` hooks every executor.
 
-Not ported here, each refused with ``MXNetError`` naming its slice: the
-``dist*`` kvstores and the fused fit's pipeline, ZeRO, elastic-resume,
-sharded-checkpoint and live-resize branches (the distributed slice).
+A ``dist*`` store trains on the general path (the reference's gate), one
+collective a key a batch; ``init_optimizer`` scales the batch size by the
+world's size for the ``_sync`` types.  The fused fit writes sharded step
+checkpoints of its live state (``_FusedFit.save_checkpoint``) and resumes
+from one (``module._ckpt_resume``, set by ``parallel.elastic.fit_elastic``).
+Not ported here, refused with ``MXNetError`` naming its part of the
+distributed slice: the fused fit's pipeline and ZeRO branches and the
+live resize.
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -293,7 +298,8 @@ class Module(BaseModule):
         """The store (``model._create_kvstore``), the optimizer and its
         ``Updater``, or the optimizer installed on the store when the
         update runs there; a named optimizer gets ``rescale_grad = 1 /
-        batch_size`` (the whole batch over every context) unless given one
+        batch_size`` (the whole batch over every context, times the
+        world's size for the ``dist*_sync*`` stores) unless given one
         (parity: Module.init_optimizer).  The fused step and the
         ``Updater`` read the same optimizer object."""
         assert self.binded and self.params_initialized
@@ -311,10 +317,13 @@ class Module(BaseModule):
                 # the Updater's index of device k's copy: i * n_dev + k
                 idx2name = {i * n_dev + k: n for k in range(n_dev)
                             for i, n in enumerate(names)}
+            batch_size = self._exec_group.batch_size
+            if kvstore and "dist" in kvstore.type and \
+                    "_sync" in kvstore.type:
+                batch_size *= kvstore.num_workers
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
-                optimizer_params["rescale_grad"] = \
-                    1.0 / self._exec_group.batch_size
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
             optimizer = opt.create(optimizer, sym=self.symbol,
                                    param_idx2name=idx2name,
                                    **optimizer_params)
@@ -443,8 +452,8 @@ class Module(BaseModule):
         binding"); no state inputs, fixed parameters or input gradients; no
         explicitly loaded optimizer states; grad_req "write"; a rule
         ``TrainStep`` has (SGD, ccSGD, NAG, Adam, RMSProp, AdaGrad,
-        AdaDelta).  The ``dist*`` kvstores, the reference's other gate,
-        raise earlier (the distributed slice).  ``policy`` (or
+        AdaDelta); no ``dist*`` store (it sums across processes, which the
+        one-process step would bypass).  ``policy`` (or
         ``MXNET_AMP``, read here) trains in mixed precision; the general
         path trains float32.
 
@@ -495,8 +504,8 @@ class Module(BaseModule):
             return fallback("explicitly loaded optimizer states")
         if self._exec_group._default_grad_req != "write":
             return fallback("grad_req != 'write'")
-        if getattr(self, "_ckpt_resume", None) is not None:
-            _refuse("an elastic resume of the fused state", "distributed")
+        if self._kvstore is not None and "dist" in self._kvstore.type:
+            return fallback("dist kvstore")
         try:
             return _FusedFit(self, policy)
         except MXNetError as e:
@@ -588,6 +597,34 @@ class _FusedFit(object):
         self._state = self._ts.fopt.init_state(self._params)
         self._merge_updater_state()
         self._input_names = module._data_names + module._label_names
+        resume = getattr(module, "_ckpt_resume", None)
+        if resume is not None:
+            self._resume(resume)
+
+    def _resume(self, resume):
+        """The elastic resume hook (``parallel.elastic.fit_elastic`` sets
+        ``module._ckpt_resume``): parameters, optimizer state, aux states,
+        the loss-scale state and the update count restored from a sharded
+        checkpoint over the placement above, from the path or from the
+        one ``load_sharded`` fit_elastic already did (the dict form).
+        The optimizer's counters are set to the restored step, so lr
+        schedules and Adam's bias correction continue exactly."""
+        from .. import checkpoint as _ckpt
+        mod = self._mod
+        mod._ckpt_resume = None
+        if isinstance(resume, dict):
+            self._params, self._state, self._aux, _man = \
+                _ckpt.restore_loaded(self._ts, resume["man"],
+                                     resume["params"], resume["opt_state"],
+                                     resume["aux"], device=self._dev,
+                                     where=resume["path"])
+        else:
+            self._params, self._state, self._aux, _man = \
+                _ckpt.restore_into(self._ts, resume, device=self._dev)
+        opt_ = mod._optimizer
+        for idx in range(len(self._ts.param_names)):
+            opt_._index_update_count[idx] = self._ts.num_update
+        opt_.num_update = max(opt_.num_update, self._ts.num_update)
 
     def _updater(self):
         """The module's ``Updater``, or the store's when the update runs
@@ -683,16 +720,29 @@ class _FusedFit(object):
             return None
         return entry
 
-    # the JAX package's hooks for its sharded step checkpoints and live
-    # resize: not ported yet
-    def save_checkpoint(self, checkpointer, epoch=0, nbatch=0, extra=None):
-        _refuse("sharded checkpoints of the live fused state", "distributed")
+    # ---------------------------------------------------- checkpoint hooks
+    def num_update(self):
+        """The live update count (the step axis of the step-interval
+        checkpoints)."""
+        return self._ts.num_update
 
+    def save_checkpoint(self, checkpointer, epoch=0, nbatch=0, extra=None):
+        """Snapshot the live fused state (parameters, optimizer state, aux
+        states, loss scale, update count) through ``checkpointer`` (a
+        ``checkpoint.Checkpointer``): the host copy here, the shard files
+        on its writer thread.  Returns the checkpoint's directory."""
+        return checkpointer.save(self._ts, self._params, self._state,
+                                 self._aux, epoch=epoch, nbatch=nbatch,
+                                 extra=extra)
+
+    # the JAX package's live-resize hooks: not ported yet
     def export_state(self, epoch=0, nbatch=0):
-        _refuse("exporting the fused state for a live resize", "distributed")
+        _refuse("exporting the fused state for a live resize",
+                "live-resize part of the distributed")
 
     def apply_resize(self, man, params, opt_state, aux):
-        _refuse("a live resize of the fused state", "distributed")
+        _refuse("a live resize of the fused state",
+                "live-resize part of the distributed")
 
     def step(self, data_batch):
         """One fused step: (outputs, labels on the device) as NDArrays, for

@@ -37,8 +37,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "load", "save", "imdecode", "onehot_encode",
            "waitall",
            "maximum", "minimum", "serialize_arrays", "deserialize_arrays",
-           "save_raw_bytes", "load_from_raw_bytes",
-           "torch_dtype"]
+           "save_raw_bytes", "load_from_raw_bytes", "load_arrays",
+           "validate_file", "torch_dtype"]
 
 # the builtins the op frontends below shadow (slice, sum, max, ...)
 _pyslice = slice
@@ -611,6 +611,54 @@ def serialize_arrays(data):
 def deserialize_arrays(blob):
     """``.params`` bytes to ``{name: CPU tensor}``."""
     return dict(_read_entries(_io.BytesIO(blob), "<bytes>"))
+
+
+def load_arrays(fname):
+    """A ``.params`` file as ``{name: CPU tensor}``, nothing placed on a
+    device (parity: mxnet_tpu/ndarray.py ``load_arrays``, the host loader
+    of the checkpoint restore)."""
+    with open(fname, "rb") as f:
+        return dict(_read_entries(f, fname))
+
+
+def validate_file(fname):
+    """True when ``fname`` is a structurally complete ``.params`` file: the
+    magic, and every entry's framing and payload inside the file, walked
+    with seeks (no array data is read).  A truncated or foreign file gives
+    False (parity: mxnet_tpu/ndarray.py ``validate_file``;
+    ``parallel.elastic.latest_checkpoint`` skips such candidates)."""
+    try:
+        with open(fname, "rb") as f:
+            f.seek(0, 2)
+            total = f.tell()
+            f.seek(0)
+            head = f.read(24)
+            if len(head) < 24:
+                return False
+            magic, _, n = struct.unpack("<QQQ", head)
+            if magic != _MAGIC:
+                return False
+            for _ in range(n):
+                b = f.read(4)
+                if len(b) < 4:
+                    return False
+                ln = struct.unpack("<I", b)[0]
+                b = f.read(ln + 8)
+                if len(b) < ln + 8:
+                    return False
+                code, ndim = struct.unpack("<II", b[ln:])
+                b = f.read(8 * ndim)
+                if len(b) < 8 * ndim or code not in _CODE_DTYPE:
+                    return False
+                shape = struct.unpack("<%dq" % ndim, b) if ndim else ()
+                count = int(np.prod(shape)) if shape else 1
+                end = f.tell() + count * _CODE_DTYPE[code].itemsize
+                if end > total:
+                    return False
+                f.seek(end)
+            return f.tell() <= total
+    except OSError:
+        return False
 
 
 def save_raw_bytes(arr):

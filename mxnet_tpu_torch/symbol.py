@@ -241,6 +241,12 @@ class Symbol(object):
                 [var_types.get(n) for n in self.list_auxiliary_states()])
 
     # ----------------------------------------------------------------- serde
+    def __reduce__(self):
+        # pickled through the JSON serde: nodes hold registered op objects,
+        # which the load resolves from the registry again (a dist store's
+        # set_optimizer pickles an optimizer that holds its symbol)
+        return (load_json, (self.tojson(),))
+
     def tojson(self):
         nodes = self._nodes()
         nid = {id(n): i for i, n in enumerate(nodes)}

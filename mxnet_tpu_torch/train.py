@@ -36,10 +36,15 @@ the AMP ``loss_scale`` gauge and ``amp_overflow_steps`` counter;
 (``cost.graph_flops``); the Monitor bridge (``_mon_force``) samples the
 parameters' squared norms on the card before a step.
 
-Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the
-distributed slice); the ``MXNET_MONITOR`` statistics, their cadence,
-history ring and provenance replay (the numerics slice); the sanitizer's
-hooks; SGLD, DCASGD and Test run through the imperative
+Checkpoints: ``checkpoint_topology`` (one stage, no data parallelism, ZeRO
+level 0), ``place_checkpoint``, ``export_host`` and the loss-scale hooks
+serve ``checkpoint.py``'s sharded format, whose optimizer-state tuples are
+the JAX ``_FunctionalOptimizer.init_state``'s, in its order.
+
+Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the mesh and
+ZeRO part of the distributed slice); the ``MXNET_MONITOR`` statistics,
+their cadence, history ring and provenance replay (the numerics slice);
+the sanitizer's hooks; SGLD, DCASGD and Test run through the imperative
 ``optimizer.Updater``, not here.
 """
 from __future__ import annotations
@@ -67,9 +72,10 @@ __all__ = ["TrainStep", "EvalStep"]
 
 # TrainStep/EvalStep arguments not ported yet -> the slice of the port that
 # brings them
-_NOT_PORTED = (("mesh", "the distributed slice"),
-               ("param_shardings", "the distributed slice"),
-               ("zero", "the distributed slice"))
+_NOT_PORTED = (("mesh", "the distributed slice, in its mesh part"),
+               ("param_shardings",
+                "the distributed slice, in its mesh part"),
+               ("zero", "the distributed slice, in its ZeRO part"))
 
 # remat="dots": the matrix products without batch dimensions whose outputs
 # the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither
@@ -377,6 +383,42 @@ class TrainStep(object):
             k: torch.tensor(host[k], dtype=v.dtype, device=dev)
             if k in host else v for k, v in base.items()}
         self._overflow_seen = int(host.get("overflow", 0))
+
+    # ----------------------------------------------------------- checkpoint
+    def checkpoint_topology(self):
+        """The shard ownership of this step for ``checkpoint.snapshot``:
+        one stage owns every parameter and aux state, no data parallelism,
+        ZeRO level 0 (parity: TrainStep.checkpoint_topology without a
+        mesh)."""
+        return {"pp": 1, "dp": 1, "zero": 0, "microbatches": None,
+                "stage_of": {n: 0 for n in self.param_names
+                             + self.aux_names}}
+
+    def place_checkpoint(self, host_params, host_state, host_aux,
+                         device=None):
+        """Restored host tensors (or numpy arrays) in their logical shapes,
+        placed on ``device`` (default: the step's): new (params,
+        opt_state, aux) dicts in this step's name order."""
+        dev = torch.device(device) if device is not None \
+            else self.ctx.torch_device()
+
+        def put(v):
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                _np.asarray(v))
+            return t.detach().to(dev, copy=True)
+        params = {n: put(host_params[n]) for n in self.param_names}
+        state = {n: tuple(put(s) for s in host_state[n])
+                 for n in self.param_names}
+        aux = {n: put(host_aux[n]) for n in self.aux_names}
+        return params, state, aux
+
+    def export_host(self, params, opt_state, aux):
+        """The live state as a checkpoint save and load of it would give,
+        without the disk: ``(manifest, params, opt_state, aux)`` in logical
+        host tensors."""
+        from . import checkpoint as _ckpt
+        return _ckpt.reassemble(_ckpt.snapshot(self, params, opt_state,
+                                               aux))
 
     def amp_stats(self):
         """``(scale, overflow_delta)``: the current scale and the overflow

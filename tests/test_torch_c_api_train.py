@@ -10,7 +10,7 @@ package's executor (every parameter within FLOOR_X times the JAX
 package's own float32 floor: its distance to the same steps from
 parameters nudged by NUDGE), raw bytes byte for byte against the JAX
 package's, float64 in the typed save/load (the JAX package runs without
-x64), and the ``dist*`` stores refused, naming the distributed slice.
+x64), and the ``dist*`` stores at rank 0 of 1.
 """
 import ctypes
 
@@ -394,9 +394,16 @@ def test_kvstore_type_rank(libmx):
     _check(lib, lib.MXKVStoreBarrier(kv))
     assert lib.MXKVStoreRunServer(kv) == 0
     _check(lib, lib.MXKVStoreFree(kv))
+    # the dist types: rank 0 of a world of 1 without the MXTPU_* contract
     for kv_type in (b"dist_sync", b"dist_async", b"dist_tpu"):
-        assert lib.MXKVStoreCreate(kv_type, ctypes.byref(kv)) == -1
-        assert b"the distributed slice" in lib.MXGetLastError()
+        _check(lib, lib.MXKVStoreCreate(kv_type, ctypes.byref(kv)))
+        _check(lib, lib.MXKVStoreGetType(kv, ctypes.byref(t)))
+        assert t.value == kv_type
+        _check(lib, lib.MXKVStoreGetRank(kv, ctypes.byref(r)))
+        _check(lib, lib.MXKVStoreGetGroupSize(kv, ctypes.byref(sz)))
+        assert (r.value, sz.value) == (0, 1)
+        _check(lib, lib.MXKVStoreBarrier(kv))
+        _check(lib, lib.MXKVStoreFree(kv))
 
 
 # ---------------------------------------------------------------- error paths

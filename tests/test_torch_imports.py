@@ -92,3 +92,29 @@ def test_c_api_bridge_embeds_only_the_port():
     named = set(re.findall(r'"(mxnet_tpu[\w.]*|jax[\w.]*)', code))
     assert named == {"mxnet_tpu_torch.capi"}, named
     assert "PyImport_Import(" not in text and "PyRun_" not in text
+
+
+DIST_SLICE = ("parallel.dist", "parallel.elastic", "checkpoint", "launch",
+              "bench.dist_sync_kvstore", "bench.dist_mlp")
+
+
+@pytest.mark.parametrize("name", DIST_SLICE)
+def test_dist_slice_modules_stand_alone(name):
+    """The distributed slice's modules import without jax or mxnet_tpu,
+    and importing one brings up no process group and starts no thread
+    (the world comes up at the first call that needs it)."""
+    code = ("import sys, threading, importlib, mxnet_tpu_torch as mt\n"
+            "n = threading.active_count()\n"
+            "importlib.import_module('mxnet_tpu_torch.%s')\n"
+            "import torch.distributed as d\n"
+            "assert mt.checkpoint.FORMAT and mt.parallel.dist.TIMEOUT_S\n"
+            "assert not (d.is_available() and d.is_initialized())\n"
+            "assert threading.active_count() == n\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in %r + ('triton',))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n" % (name, FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

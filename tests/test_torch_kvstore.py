@@ -169,17 +169,15 @@ def test_test_optimizer_store_side(mx):
 
 
 def test_unknown_type_raises(mx):
-    """Unknown types raise in both packages; ``dist*`` is accepted by the
-    JAX package (rank 0 of 1 in one process) and refused by the port,
-    naming the distributed slice, by ``create`` and by ``KVStore``."""
+    """Unknown types raise in both packages; the ``dist*`` types are
+    accepted by both, by ``create`` and by ``KVStore``: rank 0 of 1 in a
+    process without the MXTPU_* contract."""
     for pkg in (mt, mx):
         with pytest.raises(Exception):
             pkg.kv.create("nope")
         with pytest.raises(TypeError):
             pkg.kv.create(3)
     for kv_type in DIST:
-        assert mx.kv.create(kv_type).num_workers == 1
-        with pytest.raises(mt.MXNetError, match="distributed slice"):
-            mt.kv.create(kv_type)
-        with pytest.raises(mt.MXNetError, match="distributed slice"):
-            mt.kvstore.KVStore(kv_type)
+        for pkg in (mt, mx):
+            for kv in (pkg.kv.create(kv_type), pkg.kvstore.KVStore(kv_type)):
+                assert (kv.type, kv.rank, kv.num_workers) == (kv_type, 0, 1)

@@ -19,9 +19,10 @@
   Executor, input gradients; each also against the JAX package's values.
 - Checkpoints: a port checkpoint loads in ``mxnet_tpu.Module.load`` and
   predicts the same, and the reverse.
-- The refusals, each naming its slice (the numerics and distributed
-  slices), the telemetry knobs and the Monitor at work (the observability
-  slice), and ``Module()`` on ``gpu(0)``.
+- The refusals, each naming its slice (the numerics slice, the pipeline,
+  ZeRO and live-resize parts of the distributed slice); the dist store,
+  the sharded step checkpoint, the telemetry knobs and the Monitor at
+  work; and ``Module()`` on ``gpu(0)``.
 - On the card (``cuda`` marker): LeNet fit on ``gpu(0)`` with the device
   prefetch on and off, bitwise equal, every staged batch consumed in
   order.
@@ -469,7 +470,8 @@ def test_fit_telemetry_knobs_work(monkeypatch, tmp_path, knob, fused):
     assert ("forward" in names and "backward" in names) == (not fused)
 
 
-def test_refusals_name_their_slice():
+def test_refusals_name_their_slice(tmp_path, caplog):
+    import logging
     it, mod = _small()
     rows = []
 
@@ -486,22 +488,33 @@ def test_refusals_name_their_slice():
     # several contexts and KVStore objects train (the parallel slice); a
     # kvstore that is neither a KVStore, a string nor None is a TypeError,
     # as in the JAX package
+    # the dist stores train (the distributed slice's first part): rank 0
+    # of 1 here, on the general path with the update on the store
     _, mod = _small()
-    with pytest.raises(mt.MXNetError, match="distributed slice"):
+    with caplog.at_level(logging.INFO):
         mod.fit(it, num_epoch=1, kvstore="dist_sync")
+    assert "general (executor) path — dist kvstore" in caplog.text
+    assert mod._kvstore.type == "dist_sync" and mod._update_on_kvstore
+    assert mod._fused_ts_cache is None
+    _, mod = _small()
     with pytest.raises(TypeError, match="kvstore"):
         mod.fit(it, num_epoch=1, kvstore=object())
-    with pytest.raises(mt.MXNetError, match="checkpoint slice"):
-        mt.callback.do_step_checkpoint(mod, None, 10)
+    ck = mt.checkpoint.Checkpointer(str(tmp_path / "ck"), async_=False)
+    assert callable(mt.callback.do_step_checkpoint(mod, ck, 10))
+    _, mod = _small()
     mod.bind(it.provide_data, it.provide_label, force_rebind=True)
     mod.init_params()
     mod.init_optimizer()
     ff = mod._start_fused_fit()
+    # the sharded checkpoint of the live state works; the live resize
+    # stays refused, naming its part of the distributed slice
+    assert ff.save_checkpoint(ck).endswith("ck-step00000000.ckpt")
     for hook, args, slice_ in (
-            ("save_checkpoint", (None,), "distributed"),
             ("export_state", (), "distributed"),
             ("apply_resize", (None, None, None, None), "distributed")):
-        with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
+        with pytest.raises(mt.MXNetError,
+                           match="live-resize part of the %s slice"
+                           % slice_):
             getattr(ff, hook)(*args)
     # the Monitor bridge works: an armed tic samples the step's parameter
     # norms, feed turns them into rows
@@ -515,9 +528,14 @@ def test_refusals_name_their_slice():
     ff.monitor_feed(None)
     ff.sync_back()
     it.reset()
-    mod._ckpt_resume = "ck"
-    with pytest.raises(mt.MXNetError, match="distributed slice"):
-        mod._start_fused_fit()
+    # a resume from a directory that is no checkpoint: the fused fit
+    # cannot start, and fit takes the general path with the reason, as in
+    # the JAX package
+    mod._ckpt_resume = str(tmp_path / "none")
+    with caplog.at_level(logging.INFO):
+        assert mod._start_fused_fit() is None
+    assert "not a complete sharded checkpoint" in caplog.text
+    assert mod._ckpt_resume is None
     ff = mt.model.FeedForward(mt.models.get_mlp(num_classes=4),
                               ctx=mt.cpu(), num_epoch=1, numpy_batch_size=10)
     x, y = _data("mlp", n=30)

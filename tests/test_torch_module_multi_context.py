@@ -261,10 +261,12 @@ def test_create_kvstore_decisions(mx):
     for pkg, err in ((mt, TypeError), (mx, TypeError)):
         with pytest.raises(err):
             pkg.model._create_kvstore(object(), 2, small)
-    assert mx.model._create_kvstore("dist_sync", 1, small)[0] is not None
+    # a dist store is made for any device count, with the update on it
     for n in (1, 2):
-        with pytest.raises(mt.MXNetError, match="distributed slice"):
-            mt.model._create_kvstore("dist_sync", n, small)
+        rows = [(kv.type, on) for kv, on in (
+            pkg.model._create_kvstore("dist_sync", n, small)
+            for pkg in (mt, mx))]
+        assert rows == [("dist_sync", True)] * 2
 
 
 def _bound(pkg, workload=None):
