@@ -406,6 +406,37 @@ fatal on failure:
    nudged state); under MXNET_AMP=1 the loss-scale state restored
    bitwise; the checkpoint's bytes, the ms the fit blocks in ``save``, the
    writer thread's ms, a step's ms with and without checkpoints.
+13. zero: the mesh and ZeRO part of the distributed slice.  Two ranks
+   sharing the card through the launcher run ``bench/zero_ladder.py``:
+   ResNet-50 v2 at full width (1000 classes, 3x224x224) from the seed-0
+   state, ``TrainStep`` over a dp=2 mesh of the ranks, ZERO_BATCH images
+   a rank, float32, TF32 off, MXNET_NORM_CONV=1, SGD with momentum, ZeRO
+   levels 0-3 ZERO_STEPS steps each on the same batches.  (a) Levels 1-3's
+   logical parameters within RESNET_FLOOR_X times their float32 floor of
+   level 0's (the floor: the largest distance of ZERO_FLOOR_SAMPLES runs
+   of level 0 from the state nudged by RESNET_FLOOR_NUDGE); the
+   replicated leaves bitwise equal across the ranks; by the same rule,
+   level 0 with ``remat=True`` (the recompute on autograd's device thread
+   takes the global batch's statistics: more ``stats`` collectives a step
+   than without) and one process's ``TrainStep`` without a mesh over the
+   whole global batch of 2 x ZERO_BATCH rows, which holds the peephole's
+   statistics summed across the ranks to the kernel's over the whole
+   batch.  (b) For each rank and level the plan's param, grad and
+   optimizer bytes (``TrainStep.zero_bytes``) and the bytes the card
+   holds (``torch.cuda.memory_allocated``: the placed state, the reduced
+   gradients at the update): level 3 about 1/dp of level 0 for each, as
+   in MULTICHIP_ZERO_r01.json's ladder.  (c) 52 NormConv launches a step
+   on each rank, 32 with statistics.  (d) The collectives a step by kind,
+   counts and MB (``dist.collective_calls`` / ``_bytes``): an all-reduce
+   at levels 0-1, a reduce-scatter at 2-3, an all-gather at 1-3, and
+   BatchNorm's statistics.  (e) ``Policy("bfloat16")`` at level 3, a batch
+   with an inf in rank 0's rows: every rank skips (masters, optimizer
+   rows, moving statistics bitwise unchanged), the scale halves, one
+   overflow counts, a clean step moves the masters.  (f) ``Module.fit``
+   under MXNET_ZERO=2 through ``parallel.elastic.fit_elastic``, a step
+   checkpoint every 2 steps with its ZeRO rows, stopped after 2 steps and
+   resumed: the restored state bitwise the saved one.  Img/s and update ms
+   a level.
 
 Prints the card's name and power limit, whether ml_dtypes imports,
 per-geometry numbers, serving qps and latency, the ResNet-50 training
@@ -418,13 +449,14 @@ operators phase's checks and rates, the rcnn phase's checks and times,
 the observability phase's host split, MFU, profile ranges and checks,
 Updater and Rtc numbers, the parallel slice's checks, copies and rates,
 the capi phase's build, checks, C and HTTP times, the dist phase's route,
-checks, rates and checkpoint times, each phase's seconds, a
+checks, rates and checkpoint times, the zero phase's checks, bytes,
+collectives and rates, each phase's seconds, a
 JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
 geometries, batch 32, and its launches in the imagenet phase, and its
-launches in the image, capi and dist phases;
+launches in the image, capi, dist and zero phases;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -7067,12 +7099,26 @@ def capi_cpp_package(mt, host):
         np.savetxt(lcsv, y.astype(np.float32), delimiter=",", fmt="%g")
         runs = {"mlp_predict": [prefix, "4", str(batch), str(dim)],
                 "lenet_train": [dcsv, lcsv, "32", "8"]}
-        for name in CAPI_EXAMPLES:
+        # both examples at once (each embeds Python and imports the port
+        # first: most of its seconds)
+        done = {}
+
+        def run(name):
             t0 = time.perf_counter()
-            res = subprocess.run([host.example(name)] + runs[name],
-                                 capture_output=True, text=True,
-                                 env=host.run_env(), timeout=300)
-            secs = time.perf_counter() - t0
+            done[name] = (subprocess.run(
+                [host.example(name)] + runs[name], capture_output=True,
+                text=True, env=host.run_env(), timeout=300),
+                time.perf_counter() - t0)
+        threads = [threading.Thread(target=run, args=(n,))
+                   for n in CAPI_EXAMPLES]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for name in CAPI_EXAMPLES:
+            if name not in done:
+                fail("capi: %s did not run" % name)
+            res, secs = done[name]
             lines = res.stdout.strip().splitlines()
             print("capi cpp-package %s rc=%d seconds=%r last=%r"
                   % (name, res.returncode, secs, lines[-1] if lines else ""))
@@ -7334,7 +7380,7 @@ ts = [torch.randn(n, generator=g, device="cuda").to(getattr(torch, dt))
 outs = dist.bucket_allreduce(ts)
 torch.cuda.synchronize()
 equal = all(torch.equal(a, b) for a, b in zip(ts, outs))
-calls = dist.allreduce_calls        # one a dtype: 2
+calls = dist.collective_calls["all_reduce"]    # one a dtype: 2
 ms = []
 for _ in range(5):
     torch.cuda.synchronize(); t0 = time.perf_counter()
@@ -7642,6 +7688,168 @@ def dist_phase(torch, mt, nc, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+ZERO_BATCH = 16            # a rank's batch: 32 a step over both ranks
+ZERO_STEPS = 3
+ZERO_LEVELS = (0, 1, 2, 3)
+ZERO_AMP_SCALE = 16.0
+ZERO_FLOOR_SAMPLES = 3     # nudged runs of level 0 behind the floor
+ZERO_ELASTIC_BATCHES = 4
+ZERO_RECORD = "MULTICHIP_ZERO_r01.json"
+# level 3's bytes over level 0's, times dp: 1 but for the rows' padding
+# and the aux states (replicated); the allocator rounds each tensor up
+ZERO_RATIO_SLACK = 0.02
+ZERO_RESIDENT_SLACK = 0.05
+# the collectives of a step by level, BatchNorm's sums aside
+ZERO_KINDS = {0: {"all_reduce"}, 1: {"all_reduce", "all_gather"},
+              2: {"reduce_scatter", "all_gather"},
+              3: {"reduce_scatter", "all_gather"}}
+
+
+def zero_phase(torch, mt):
+    """(a)-(f) of the zero phase (see the docstring).  Returns the NormConv
+    launches the ranks counted."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        torch.cuda.empty_cache()
+        rows = dist_ranks(
+            work, "mxnet_tpu_torch.bench.zero_ladder", "--ctx", "gpu",
+            "--num-layers", "50", "--image", str(IMAGE), "--classes",
+            str(CLASSES), "--batch", str(DIST_RANKS * ZERO_BATCH),
+            "--dtype", "float32", "--levels",
+            ",".join(str(v) for v in ZERO_LEVELS), "--optimizers", "sgd",
+            "--steps", str(ZERO_STEPS), "--seed", str(SEED),
+            "--floor-nudge", repr(RESNET_FLOOR_NUDGE), "--floor-samples",
+            str(ZERO_FLOOR_SAMPLES), "--floor-x",
+            repr(RESNET_FLOOR_X), "--floor-min", repr(RESNET_FLOOR_MIN),
+            "--amp", "bfloat16", "--amp-scale", repr(ZERO_AMP_SCALE),
+            "--elastic", str(ZERO_ELASTIC_BATCHES), "--remat-levels", "0",
+            "--single", env={"MXNET_NORM_CONV": "1"})
+        with open(os.path.join(ROOT, ZERO_RECORD)) as f:
+            ladder = json.load(f)["ladder"]
+        rec = {k: ladder[3]["zero_%s_bytes_mb" % k] * ladder[3]["dp"]
+               / ladder[0]["zero_%s_bytes_mb" % k]
+               for k in ("param", "grad", "opt")}
+        launches = 0
+        for r in rows:
+            launches += r["norm_conv_launches"]
+            if r["world"] != DIST_RANKS or r["route"] != DIST_ROUTE \
+                    or not r["device"].startswith("cuda"):
+                fail("zero: rank %d world %d route %s on %s"
+                     % (r["rank"], r["world"], r["route"], r["device"]))
+            lv = {x["level"]: x for x in r["levels"]}
+            for level in ZERO_LEVELS:
+                x = lv[level]
+                print("zero level=%d rank=%d img_per_s=%r step_ms=%r "
+                      "update_ms=%r plan_bytes=%s resident_bytes=%r "
+                      "grad_resident_bytes=%r norm_conv=%r stats=%r "
+                      "collectives=%s collective_mb=%s worst=%r "
+                      "replicated_bitwise_equal=%s"
+                      % (level, r["rank"], x["img_per_s"], x["step_ms"],
+                         x["update_ms"], json.dumps(x["plan_bytes"],
+                                                    sort_keys=True),
+                         x["resident_bytes"], x["grad_resident_bytes"],
+                         x["norm_conv_per_step"],
+                         x["norm_conv_stats_per_step"],
+                         json.dumps(x["collectives_per_step"],
+                                    sort_keys=True),
+                         json.dumps(x["collective_mb_per_step"],
+                                    sort_keys=True),
+                         x.get("worst_over_floor"),
+                         x["replicated_bitwise_equal"]))
+                # (a)
+                if not x["replicated_bitwise_equal"]:
+                    fail("zero (a): level %d: the ranks' replicated leaves "
+                         "differ" % level)
+                if level and x["worst_over_floor"][0] > 1.0:
+                    fail("zero (a): level %d's %s beyond RESNET_FLOOR_X x "
+                         "its floor of level 0's (%r)"
+                         % (level, x["worst_over_floor"][1],
+                            x["worst_over_floor"][0]))
+                # (c)
+                if x["norm_conv_per_step"] != RESNET_NC_PER_STEP or \
+                        x["norm_conv_stats_per_step"] != \
+                        RESNET_NC_STATS_PER_STEP:
+                    fail("zero (c): level %d rank %d: %r NormConv launches "
+                         "a step (%r with statistics)"
+                         % (level, r["rank"], x["norm_conv_per_step"],
+                            x["norm_conv_stats_per_step"]))
+                # (d)
+                kinds = set(x["collectives_per_step"]) - {"stats"}
+                if kinds != ZERO_KINDS[level] or any(
+                        x["collectives_per_step"][k] != 1 for k in kinds):
+                    fail("zero (d): level %d's collectives %s"
+                         % (level, x["collectives_per_step"]))
+            # (a) remat and one process against level 0
+            for x in r["variants"]:
+                print("zero variant=%s level=%d rank=%d img_per_s=%r "
+                      "step_ms=%r norm_conv=%r collectives=%s worst=%r"
+                      % (x["variant"], x["level"], r["rank"],
+                         x["img_per_s"], x["step_ms"],
+                         x["norm_conv_per_step"],
+                         json.dumps(x["collectives_per_step"],
+                                    sort_keys=True),
+                         x["worst_over_floor"]))
+                if x["worst_over_floor"][0] > 1.0:
+                    fail("zero (a): the %s run's %s beyond RESNET_FLOOR_X "
+                         "x its floor of level 0's (%r)"
+                         % (x["variant"], x["worst_over_floor"][1],
+                            x["worst_over_floor"][0]))
+                if x["norm_conv_per_step"] < RESNET_NC_PER_STEP:
+                    fail("zero (c): the %s run launched %r NormConv kernels "
+                         "a step" % (x["variant"], x["norm_conv_per_step"]))
+            variants = {x["variant"]: x for x in r["variants"]}
+            if set(variants) != {"remat", "single"} or \
+                    variants["remat"]["collectives_per_step"]["stats"] <= \
+                    lv[0]["collectives_per_step"]["stats"] or \
+                    variants["single"]["collectives_per_step"]:
+                fail("zero (a): the remat recompute or the one-process "
+                     "step's collectives: %s"
+                     % json.dumps({k: v["collectives_per_step"]
+                                   for k, v in variants.items()}))
+            print("zero amp rank=%d %s"
+                  % (r["rank"], json.dumps(r["amp"], sort_keys=True)))
+            print("zero elastic rank=%d %s"
+                  % (r["rank"], json.dumps(r["elastic"], sort_keys=True)))
+            # (b) level 3 against level 0, times dp
+            l0, l3 = lv[0], lv[3]
+            ratios = {k: l3["plan_bytes"][k] * DIST_RANKS
+                      / l0["plan_bytes"][k] for k in ("param", "grad",
+                                                      "opt")}
+            resident = (l3["resident_bytes"] * DIST_RANKS
+                        / l0["resident_bytes"])
+            grads = (l3["grad_resident_bytes"] * DIST_RANKS
+                     / l0["grad_resident_bytes"])
+            print("zero bytes rank=%d level3_over_level0_times_dp plan=%s "
+                  "resident=%r grad_resident=%r record(dp=%d)=%s"
+                  % (r["rank"], json.dumps(ratios, sort_keys=True),
+                     resident, grads, ladder[3]["dp"],
+                     json.dumps(rec, sort_keys=True)))
+            if any(abs(ratios[k] - rec[k]) > ZERO_RATIO_SLACK
+                   for k in ratios) or \
+                    abs(resident - 1.0) > ZERO_RESIDENT_SLACK or \
+                    abs(grads - 1.0) > ZERO_RESIDENT_SLACK:
+                fail("zero (b): level 3 over level 0 times dp: plan %s, "
+                     "resident %r, gradients %r; the record's %s"
+                     % (ratios, resident, grads, rec))
+            # (e)
+            amp = r["amp"]
+            if not (amp["skipped"] and amp["every_rank_skipped"]
+                    and amp["scale"] == ZERO_AMP_SCALE / 2
+                    and amp["overflow"] == 1 and amp["clean_step_moved"]):
+                fail("zero (e): %s" % amp)
+            # (f)
+            el = r["elastic"]
+            if not (el["stopped"] and el["restored_bitwise"]
+                    and el["zero"] == 2 and el["saved_step"] == 2
+                    and "stage0-zero%d.params" % r["rank"] in el["shards"]):
+                fail("zero (f): %s" % el)
+        print("zero norm_conv launches=%d" % launches)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -7866,6 +8074,9 @@ def main():
     dist_launches = dist_phase(torch, mt, nc, True)
     torch.cuda.empty_cache()
     phase_done("dist")
+    zero_launches = zero_phase(torch, mt)
+    torch.cuda.empty_cache()
+    phase_done("zero")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
     print("chip_smoke seconds=%r (the whole script, builds included)"
           % (time.perf_counter() - t_start))
@@ -7876,7 +8087,7 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
         + mf["norm_conv"] + obs_launches + im["launches"] + img_launches
-        + capi_launches + dist_launches,
+        + capi_launches + dist_launches + zero_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -7886,6 +8097,7 @@ def main():
         "image_phase_launches": img_launches,
         "capi_phase_launches": capi_launches,
         "dist_phase_launches": dist_launches,
+        "zero_phase_launches": zero_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],

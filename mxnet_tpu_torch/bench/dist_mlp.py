@@ -168,7 +168,8 @@ def run(args):
         upd[0] += time.perf_counter() - t0
     mod.update = timed_update
     nc.launches = nc.stats_launches = 0
-    calls0, secs0 = dist.allreduce_calls, dist.allreduce_seconds
+    calls0 = dist.collective_calls.get("all_reduce", 0)
+    secs0 = dist.collective_seconds.get("all_reduce", 0.0)
     mod.fit(it, num_epoch=args.epochs, kvstore="dist_sync", optimizer="sgd",
             optimizer_params={"learning_rate": args.lr, "momentum": 0.9},
             arg_params=arg_params, aux_params=aux_params,
@@ -177,9 +178,11 @@ def run(args):
     res = {"rank": rank, "world": world, "route": dist.route(),
            "network": args.network, "batch": batch, "steps": steps,
            "nc_launches": nc.launches, "nc_stats_launches": nc.stats_launches,
-           "collective_calls": dist.allreduce_calls - calls0,
+           "collective_calls":
+               dist.collective_calls.get("all_reduce", 0) - calls0,
            "collective_ms_per_batch":
-               (dist.allreduce_seconds - secs0) * 1e3 / max(1, steps),
+               (dist.collective_seconds.get("all_reduce", 0.0) - secs0)
+               * 1e3 / max(1, steps),
            "update_ms_per_batch": upd[0] * 1e3 / max(1, steps)}
     gaps = np.diff(marks) * 1e3
     if len(gaps):

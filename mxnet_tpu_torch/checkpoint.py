@@ -11,17 +11,21 @@ in the ``.params`` byte format (``ndarray.serialize_arrays``) and a
   the i-th tensor of the JAX ``_FunctionalOptimizer.init_state`` tuple);
 - ``stage<k>-zero<j>.params``: row ``j`` of stage ``k``'s ZeRO ``(dp,
   chunk)`` shards (optimizer state at level >= 1, ``argz:`` parameters at
-  level 3), written by the JAX package's mesh runs and read here;
+  level 3), written by the rank that holds row ``j`` (a ``TrainStep`` over
+  a ``dp`` mesh keeps only its own row), byte for byte the JAX package's
+  shard of the same topology;
 - ``manifest.json``: format and version, step, epoch, batch, topology,
   the stage map, logical shapes and dtypes, the optimizer state's tuple
   lengths, ``extra`` (the loss-scale state), and a crc32 and size a shard;
   ``json.dumps(sort_keys=True, indent=1)``, written last.
 
-In a world of several processes the groups are owned round-robin over the
-ranks (group i, in sorted order, by rank ``i % world``): each rank writes
-its own, rank 0 serialises every group for the checksum table and writes
-the manifest after the writers meet at ``dist.coordination_barrier`` (from
-the writer's thread).  Every file goes through ``base.atomic_write``
+In a world of several processes the ZeRO rows are owned by the ranks that
+hold them, and the other groups round-robin over the ranks (group i, in
+sorted order, by rank ``i % world``): each rank writes its own, rank 0
+serialises every group it holds for the checksum table, the other ranks
+publish their rows' checksums on the store, and rank 0 writes the manifest
+after the writers meet at ``dist.coordination_barrier`` (from the writer's
+thread).  Every file goes through ``base.atomic_write``
 (write to a temporary, fsync, rename), so a checkpoint is complete or
 invisible to ``latest_sharded``.
 
@@ -157,23 +161,40 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
     host_params, host_state, host_aux = _host_fetch(
         [params, opt_state, aux])
     stage_of = topo["stage_of"]
-    # the port's steps replicate their state (ZeRO level 0): the writer
-    # has no ZeRO rows to cut; the reader below takes the JAX package's
-    if int(topo["zero"]):
-        raise MXNetError("snapshot: ZeRO level %d state arrives with the "
-                         "ZeRO part of the distributed slice" % topo["zero"])
+    # the ZeRO level: optimizer state at >= 1, and the parameters at 3, are
+    # this rank's row ``row`` of their flat (dp, chunk) views
+    zlevel = int(topo["zero"])
+    row = int(topo.get("row", 0))
+    pshapes = topo.get("param_shapes") or {}
+    if zlevel and int(topo["dp"]) != _world() and _world() > 1:
+        raise MXNetError(
+            "snapshot: a ZeRO level %d step over a dp mesh of %d in a world "
+            "of %d ranks: every rank must hold one row of the mesh"
+            % (zlevel, int(topo["dp"]), _world()))
     groups = {}
+    zero_groups = []
 
     def grp(name):
         return groups.setdefault(name, {})
 
     for n, v in host_params.items():
-        grp("stage%d" % stage_of[n])["arg:%s" % n] = v
+        if zlevel >= 3:
+            grp("stage%d-zero%d" % (stage_of[n], row))["argz:%s" % n] = v
+        else:
+            grp("stage%d" % stage_of[n])["arg:%s" % n] = v
     for n, v in host_aux.items():
         grp("stage%d" % stage_of[n])["aux:%s" % n] = v
     for n, st in host_state.items():
         for i, leaf in enumerate(st):
-            grp("stage%d-opt" % stage_of[n])["opt:%s:%d" % (n, i)] = leaf
+            g = "stage%d-zero%d" % (stage_of[n], row) if zlevel \
+                else "stage%d-opt" % stage_of[n]
+            grp(g)["opt:%s:%d" % (n, i)] = leaf
+    if zlevel:
+        # every row's group, this rank's and its peers'
+        stages = sorted({stage_of[n] for n in host_state} | (
+            {stage_of[n] for n in host_params} if zlevel >= 3 else set()))
+        zero_groups = ["stage%d-zero%d" % (k, j) for k in stages
+                       for j in range(int(topo["dp"]))]
     manifest = {
         "format": FORMAT,
         "version": VERSION,
@@ -181,11 +202,12 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
         "epoch": int(epoch),
         "nbatch": int(nbatch),
         "topology": {"pp": int(topo["pp"]), "dp": int(topo["dp"]),
-                     "zero": 0,
+                     "zero": zlevel,
                      "microbatches": topo["microbatches"],
                      "world": _world()},
         "stage_of": {n: int(s) for n, s in stage_of.items()},
-        "params": {n: {"shape": [int(d) for d in v.shape],
+        "params": {n: {"shape": [int(d) for d in (
+            pshapes[n] if zlevel >= 3 else v.shape)],
                        "dtype": _dtype_name(v)}
                    for n, v in host_params.items()},
         "aux": {n: {"shape": [int(d) for d in v.shape],
@@ -199,7 +221,7 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
     if scale is not None:
         manifest["extra"]["loss_scale"] = scale
     return {"manifest": manifest, "groups": groups,
-            "world": _world(), "rank": _rank()}
+            "zero_groups": zero_groups, "world": _world(), "rank": _rank()}
 
 
 # ------------------------------------------------------------------- writer
@@ -239,28 +261,42 @@ def write_snapshot(dirname, job):
     manifest = dict(job["manifest"])
     shards = {}
     total = 0
-    for i, g in enumerate(sorted(job["groups"])):
-        owner = i % world
+    zero = set(job.get("zero_groups", ()))
+    save_id = "ckpt-%d-%d" % (manifest["step"], job.get("_seq", 0))
+    peers = []
+    for i, g in enumerate(sorted(set(job["groups"]) | zero)):
+        # a ZeRO row's owner is the rank that holds it (row j on rank j)
+        owner = int(_ZERO_RE.match(g).group(2)) if g in zero else i % world
         fname = "%s.params" % g
+        if g not in job["groups"]:
+            peers.append(fname)
+            continue
         if owner != rank and rank != 0:
             continue
         blob = nd.serialize_arrays(job["groups"][g])
-        shards[fname] = {"group": g, "rank": owner,
-                         "crc32": zlib.crc32(blob) & 0xFFFFFFFF,
-                         "bytes": len(blob)}
+        meta = {"group": g, "rank": owner,
+                "crc32": zlib.crc32(blob) & 0xFFFFFFFF, "bytes": len(blob)}
+        shards[fname] = meta
         total += len(blob)
         if owner == rank:
             with atomic_write(os.path.join(dirname, fname)) as f:
                 f.write(blob)
-    manifest["shards"] = shards
+            if g in zero and rank != 0:
+                # rank 0 lists this row's checksum in the manifest
+                from .parallel import dist
+                dist.kv_set("mxtpu/%s/%s" % (save_id, fname),
+                            json.dumps(meta))
     if world > 1:
         # every rank's shards are durable before the manifest makes the
         # checkpoint visible; the writers meet on the store (no collective:
         # the main thread may be in one), bounded, with an id unique a save
         from .parallel import dist
-        dist.coordination_barrier(
-            "ckpt-%d-%d" % (manifest["step"], job.get("_seq", 0)),
-            timeout_ms=300000)
+        dist.coordination_barrier(save_id, timeout_ms=300000)
+        if rank == 0:
+            for fname in peers:
+                shards[fname] = json.loads(dist.kv_get(
+                    "mxtpu/%s/%s" % (save_id, fname), timeout_ms=300000))
+    manifest["shards"] = shards
     if rank == 0:
         with atomic_write(os.path.join(dirname, MANIFEST)) as f:
             f.write(json.dumps(manifest, sort_keys=True,

@@ -60,10 +60,12 @@ from . import ndarray as nd
 from . import profiler as _profiler
 from . import random as _random
 from . import telemetry as _tel
-from .ops.nn import _bn_moving, bn_scale_shift, input_bn_conv
+from .ops.nn import (_bn_moving, bn_scale_shift, input_bn_conv,
+                     stats_sync)
 from .ops.norm_conv import (NormConv, PEEPHOLE_DTYPES, _apply, geometry_ok,
                              norm_conv)
 from .ops.registry import get_op
+from .parallel.dist import sum_across
 from .symbol import _topo
 
 __all__ = ["Executor"]
@@ -394,6 +396,12 @@ class _Lowered(object):
                 ssum = x32.sum(dim=dims)
                 ssq = x32.square().sum(dim=dims)
             nhw = x.numel() // ssum.numel()
+            sync = stats_sync()
+            if sync is not None:
+                # the global batch's sums, summed again in the backward
+                group, size = sync
+                ssum, ssq = sum_across(torch.stack([ssum, ssq]), group)
+                nhw *= size
             mean = ssum / nhw
             var = torch.maximum(ssq / nhw - mean.square(),
                                 torch.zeros((), dtype=acc))

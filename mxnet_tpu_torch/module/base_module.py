@@ -42,11 +42,9 @@ __all__ = ["BaseModule"]
 # them off.
 NUMERICS_KNOBS = ("MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
                   "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR", "MXNET_MONITOR")
-# the fused fit's pipeline and ZeRO levers (the pipeline and ZeRO parts of
-# the distributed slice), with the values that leave them off: one
-# pipeline stage, ZeRO level 0
-PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1"), "pipeline"),
-                  ("MXNET_ZERO", ("", "0"), "ZeRO"))
+# the fused fit's pipeline lever (the pipeline part of the distributed
+# slice), with the values that leave it off: one pipeline stage
+PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1"), "pipeline"),)
 
 
 def _as_list(obj):

@@ -25,9 +25,13 @@ collective a key a batch; ``init_optimizer`` scales the batch size by the
 world's size for the ``_sync`` types.  The fused fit writes sharded step
 checkpoints of its live state (``_FusedFit.save_checkpoint``) and resumes
 from one (``module._ckpt_resume``, set by ``parallel.elastic.fit_elastic``).
-Not ported here, refused with ``MXNetError`` naming its part of the
-distributed slice: the fused fit's pipeline and ZeRO branches and the
-live resize.
+``MXNET_ZERO=<level>`` trains the fused fit through one ``TrainStep`` over
+a ``dp`` mesh of the world at that ZeRO level: under ``launch.py`` every
+rank reads the same global batches and steps on its rows of each, so the
+fit means what the JAX package's one-process fit over its devices means
+(the outputs are gathered for the metric).  Not ported here, refused with
+``MXNetError`` naming its part of the distributed slice: the fused fit's
+pipeline branch and the live resize.
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -50,7 +54,10 @@ from ..initializer import InitDesc, Uniform
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      _update_params_on_kvstore, load_checkpoint,
                      save_checkpoint)
-from ..train import TrainStep
+from ..parallel import dist as _dist
+from ..parallel import mesh as _mesh
+from ..parallel.placement import normalize_zero
+from ..train import TrainStep, _to_device
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup, _descs
 
@@ -466,11 +473,15 @@ class Module(BaseModule):
         from .. import monitor as _mon_mod
         from .. import telemetry as _tel
         policy = _amp.resolve_policy(policy)
+        zero_req = get_env("MXNET_ZERO", "") not in ("", "0")
 
         def fallback(why):
             if policy is not None:
                 why += " (MXNET_AMP/policy ignored: the general path " \
                        "trains f32)"
+            if zero_req:
+                why += " (MXNET_ZERO ignored: the general path " \
+                       "replicates params/grads/optimizer state)"
             logging.info("Module.fit: general (executor) path — %s", why)
             return None
 
@@ -509,6 +520,9 @@ class Module(BaseModule):
         try:
             return _FusedFit(self, policy)
         except MXNetError as e:
+            if zero_req:
+                # a ZeRO level asked for must not train replicated instead
+                raise
             return fallback(str(e))
 
 
@@ -532,6 +546,7 @@ def _fused_fit_key_fields(optimizer, policy):
         "lr_mult": tuple(sorted(optimizer.lr_mult.items())),
         "wd_mult": tuple(sorted(optimizer.wd_mult.items())),
         "policy": policy.key() if policy is not None else None,
+        "zero": get_env("MXNET_ZERO", None, typ=int),
     }
 
 
@@ -564,6 +579,18 @@ class _FusedFit(object):
         opt_ = module._optimizer
         fields = _fused_fit_key_fields(opt_, policy)
         key = tuple(sorted(fields.items()))
+        # MXNET_ZERO=<level>: one step over a dp mesh of the world, read
+        # here and carried in the key; checked at every dispatch, so a
+        # re-bound batch size meets this error, not a failing step
+        zero = normalize_zero(fields["zero"] or 0)
+        if zero:
+            world = _dist.num_workers()
+            bs = module._exec_group.batch_size
+            if bs % world:
+                raise MXNetError(
+                    "MXNET_ZERO=%d shards each batch over the %d rank(s) of "
+                    "the world; batch size %d is not divisible: pick a "
+                    "divisible batch size" % (zero, world, bs))
         cached = module._fused_ts_cache
         if cached is not None and cached[0] == key:
             self._ts = cached[1]
@@ -574,6 +601,8 @@ class _FusedFit(object):
             self._ts = TrainStep(module._symbol, opt_,
                                  data_names=tuple(module._data_names),
                                  label_names=tuple(module._label_names),
+                                 mesh=_mesh.make_mesh({"dp": -1})
+                                 if zero else None, zero=zero,
                                  policy=policy, ctx=module._context[0])
             module._fused_ts_cache = (key, self._ts)
         # the fit loop emits the AMP telemetry (train_loss_scale, the
@@ -596,6 +625,11 @@ class _FusedFit(object):
                              for n, v in self._params.items()}
         self._state = self._ts.fopt.init_state(self._params)
         self._merge_updater_state()
+        if self._ts.zero:
+            # the plan's rows of the logical state (and level-3 parameters)
+            self._params, self._state, self._aux = \
+                self._ts.place_checkpoint(self._params, self._state,
+                                          self._aux, device=dev)
         self._input_names = module._data_names + module._label_names
         resume = getattr(module, "_ckpt_resume", None)
         if resume is not None:
@@ -750,15 +784,28 @@ class _FusedFit(object):
         the compute stream waits on its copies; otherwise each input moves
         in one copy."""
         staged = getattr(data_batch, "_staged", None)
-        batch = staged.take() if staged is not None \
-            else self._ts.shard_batch(self._host_batch(data_batch))
+        ts = self._ts
+        names = self._mod._label_names
+        if staged is not None:
+            # the global batch: on a mesh the step takes this rank's rows
+            batch = labelled = staged.take()
+        else:
+            # only this rank's rows cross, but for the metric's labels
+            host = self._host_batch(data_batch)
+            batch = labelled = ts.shard_batch(host)
+            if ts._dp > 1:
+                labelled = _to_device({n: host[n] for n in names
+                                       if n in host}, self._dev)
         self._params, self._state, self._aux, outs = self._ts(
             self._params, self._state, self._aux, batch)
+        if ts._dp > 1:
+            # the metric reads the whole batch's outputs
+            outs = [_dist.all_gather_batch(o.contiguous(), ts._group,
+                                           ts._dp) for o in outs]
         # the live parameters are ours now: get_params syncs through us
         self._mod._params_dirty = True
         self._mod._active_fused = self
-        labels = [nd.NDArray(batch[n]) for n in self._mod._label_names
-                  if n in batch]
+        labels = [nd.NDArray(labelled[n]) for n in names if n in labelled]
         return [nd.NDArray(o) for o in outs], labels
 
     def sync_back(self):
@@ -768,10 +815,13 @@ class _FusedFit(object):
         tensors in place, so an alias would change under the next fit),
         and continue the optimizer's update counts."""
         mod = self._mod
+        # logical tensors from the ZeRO rows (the identity at level 0)
+        params = self._ts.gather_params(self._params)
+        opt_state = self._ts.gather_state(self._state)
         mod._exec_group.set_params(
-            {n: nd.NDArray(v.clone()) for n, v in self._params.items()},
+            {n: nd.NDArray(v.clone()) for n, v in params.items()},
             {n: nd.NDArray(v.clone()) for n, v in self._aux.items()})
-        for n, v in self._params.items():
+        for n, v in params.items():
             mod._arg_params[n]._set_value(v.clone())
         for n, v in self._aux.items():
             mod._aux_params[n]._set_value(v.clone())
@@ -779,7 +829,7 @@ class _FusedFit(object):
             # the store's values are what a later update pulls
             for idx, n in enumerate(self._ts.param_names):
                 if idx in mod._kvstore._store:
-                    mod._kvstore._store[idx]._set_value(self._params[n])
+                    mod._kvstore._store[idx]._set_value(params[n])
         mod._params_dirty = False
         mod._active_fused = None
         opt_ = mod._optimizer
@@ -791,4 +841,4 @@ class _FusedFit(object):
         for idx, name in enumerate(self._ts.param_names):
             updater.states[idx] = _updater_state(
                 kind, tuple(nd.NDArray(s.clone())
-                            for s in self._state[name]))
+                            for s in opt_state[name]))

@@ -8,12 +8,31 @@ package writes each as a ``jax.custom_vjp``; here each is a
 ``torch.autograd.Function`` whose backward ignores the incoming gradient and
 gives the label a zero gradient.  At inference they are the plain forward
 (SoftmaxOutput's label is bound, as zeros by the predictor, and ignored).
+Under a data-parallel step (``nn.global_batch_stats``) the "batch" and
+"valid" normalizations count the global batch, as the JAX package's one
+program does.
 """
 from __future__ import annotations
 
 import torch
 
+from .nn import stats_sync
 from .registry import register, parse_bool, parse_float, parse_str
+
+
+def _global_rows(n, sync):
+    """A row count over every rank's batch (``n`` on this rank)."""
+    return n if sync is None else n * sync[1]
+
+
+def _global_valid(valid, sync):
+    """A count tensor of this rank's valid entries, summed over the ranks
+    of a data-parallel step."""
+    if sync is None:
+        return valid
+    from ..parallel.dist import all_reduce_
+    return all_reduce_(valid.reshape(1).to(torch.float64), sync[0],
+                       "stats")[0]
 
 
 def _no_label_grad(ctx, label):
@@ -64,6 +83,7 @@ class _SoftmaxOutput(torch.autograd.Function):
                 use_ignore, preserve_shape, normalization):
         out = _softmax_fwd(data, multi_output, preserve_shape)
         ctx.save_for_backward(out, label)
+        ctx.sync = stats_sync()
         ctx.attrs = (grad_scale, ignore_label, multi_output, use_ignore,
                      preserve_shape, normalization)
         return out
@@ -94,12 +114,13 @@ class _SoftmaxOutput(torch.autograd.Function):
             else:
                 grad = grad * mask.reshape((-1,) + (1,) * (out.dim() - 1))
         if normalization == "batch":
-            grad = grad / out.shape[0]
+            grad = grad / _global_rows(out.shape[0], ctx.sync)
         elif normalization == "valid":
             if use_ignore:
-                valid = (label != ignore_label).sum().clamp_min(1)
+                valid = _global_valid((label != ignore_label).sum(),
+                                      ctx.sync).clamp_min(1)
             else:
-                valid = label.numel()
+                valid = _global_rows(label.numel(), ctx.sync)
             grad = grad / valid
         return (grad * grad_scale, _no_label_grad(ctx, label)) + (None,) * 6
 
@@ -182,6 +203,7 @@ class _MakeLoss(torch.autograd.Function):
     def forward(ctx, data, grad_scale, valid_thresh, normalization):
         ctx.save_for_backward(data)
         ctx.attrs = (grad_scale, valid_thresh, normalization)
+        ctx.sync = stats_sync()
         return data.clone()
 
     @staticmethod
@@ -190,10 +212,10 @@ class _MakeLoss(torch.autograd.Function):
         grad_scale, valid_thresh, normalization = ctx.attrs
         grad = torch.full_like(data, grad_scale)
         if normalization == "batch":
-            grad = grad / data.shape[0]
+            grad = grad / _global_rows(data.shape[0], ctx.sync)
         elif normalization == "valid":
-            valid = (data > valid_thresh).sum().clamp_min(1).to(data.dtype)
-            grad = grad / valid
+            valid = _global_valid((data > valid_thresh).sum(), ctx.sync)
+            grad = grad / valid.clamp_min(1).to(data.dtype)
         return grad, None, None, None
 
 

@@ -9,6 +9,13 @@ convolution (``InputBNConv``, counterpart of ``_input_bn_conv_core``) and
 the max-pool equality-mask backward of ``MXNET_POOL_MASK_BWD``
 (``MaxPoolMask``).
 
+Under a data-parallel ``TrainStep`` (``global_batch_stats``) the training
+BatchNorms take their statistics over the global batch, as the JAX
+package's one GSPMD program does: the per-channel sums are all-reduced
+across the ``dp`` group in the forward, and the backward all-reduces the
+sums its data gradient needs (the parameter gradients stay the rank's
+own, summed later with every other gradient).
+
 Convolution and pooling call PyTorch's own (cuDNN on the card), as the JAX
 package leaves them to XLA.  With ``layout='NHWC'`` (set by the executor's
 layout pass) the activation arrives channel-last; it is handed to PyTorch as
@@ -16,7 +23,9 @@ a permuted view, which PyTorch treats as a ``channels_last`` tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
 
 import numpy as _np
 import torch
@@ -308,6 +317,28 @@ def _pooling(data, kernel=None, stride=(), pad=(), pool_type="max",
 
 
 # ------------------------------------------------------------------- BatchNorm
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch_stats(sync):
+    """Within the block, training BatchNorms take their statistics over the
+    global batch: ``sync`` is ``(group, size)``, the data-parallel group
+    and its rank count (None: this process's batch alone)."""
+    prev = getattr(_STATS, "sync", None)
+    _STATS.sync = sync
+    try:
+        yield
+    finally:
+        _STATS.sync = prev
+
+
+def stats_sync():
+    """The ``(group, size)`` of the enclosing ``global_batch_stats``, or
+    None."""
+    return getattr(_STATS, "sync", None)
+
+
 def bn_scale_shift(gamma, beta, mean, var, eps, fix_gamma, dtype):
     """Per-channel (scale, shift) of an inference BatchNorm, in the
     accumulation dtype (at least float32)."""
@@ -335,8 +366,20 @@ def _bn_train_fwd(x, g, b, eps, caxis):
     axes, cshape = _bn_axes(x.dim(), caxis)
     acc = torch.promote_types(x.dtype, torch.float32)
     x32 = x.to(acc)
-    mean = x32.mean(dim=axes)
-    var = (x32 * x32).mean(dim=axes) - mean * mean
+    sync = stats_sync()
+    if sync is None:
+        mean = x32.mean(dim=axes)
+        var = (x32 * x32).mean(dim=axes) - mean * mean
+    else:
+        # sum x and sum x^2 over every rank's rows
+        from ..parallel.dist import all_reduce_
+        group, size = sync
+        s = all_reduce_(torch.stack([x32.sum(dim=axes),
+                                     (x32 * x32).sum(dim=axes)]),
+                        group, "stats")
+        n = x32.numel() // x32.shape[caxis % x.dim()] * size
+        mean = s[0] / n
+        var = s[1] / n - mean * mean
     var = var.clamp_min(0.0)
     inv = torch.rsqrt(var + eps)
     scale = g.to(acc) * inv
@@ -360,6 +403,23 @@ def _bn_bwd_shared(caxis, x, g, mean, inv, dy, dmean_ct, dvar_ct):
     sum_dy = dy.to(acc).sum(dim=axes)
     sum_dy_x = (dy * x).to(acc).sum(dim=axes)
     sum_dy_xhat = inv * (sum_dy_x - mean * sum_dy)
+    dg, db = sum_dy_xhat, sum_dy
+    sync = stats_sync()
+    if sync is not None:
+        # dx needs the global sums and the statistics' cotangents summed
+        # over the ranks; dgamma and dbeta stay this rank's
+        from ..parallel.dist import all_reduce_
+        group, size = sync
+        cts = [c for c in (dmean_ct, dvar_ct) if c is not None]
+        s = all_reduce_(torch.stack([sum_dy, sum_dy_x]
+                                    + [c.to(acc) for c in cts]),
+                        group, "stats")
+        sum_dy, sum_dy_x = s[0], s[1]
+        rest = iter(s[2:])
+        dmean_ct = None if dmean_ct is None else next(rest)
+        dvar_ct = None if dvar_ct is None else next(rest)
+        sum_dy_xhat = inv * (sum_dy_x - mean * sum_dy)
+        n *= size
     # dL/dvar = -1/2 inv^2 g sum(dy*xhat): inv^2, because xhat carries one
     # factor of inv already
     dvar = -0.5 * inv ** 2 * g32 * sum_dy_xhat
@@ -374,7 +434,7 @@ def _bn_bwd_shared(caxis, x, g, mean, inv, dy, dmean_ct, dvar_ct):
     dx = dy * coef_dy.reshape(cshape).to(x.dtype) \
         + x * coef_x.reshape(cshape).to(x.dtype) \
         + coef_1.reshape(cshape).to(x.dtype)
-    return dx, sum_dy_xhat.to(g.dtype), sum_dy.to(g.dtype)
+    return dx, dg.to(g.dtype), db.to(g.dtype)
 
 
 class BatchNormTrain(torch.autograd.Function):
@@ -388,6 +448,7 @@ class BatchNormTrain(torch.autograd.Function):
         out, mean, var, inv = _bn_train_fwd(x, g, b, eps, caxis)
         ctx.save_for_backward(x, g, mean, inv)
         ctx.caxis = caxis
+        ctx.sync = stats_sync()
         ctx.set_materialize_grads(False)
         return out, mean, var
 
@@ -396,8 +457,9 @@ class BatchNormTrain(torch.autograd.Function):
         x, g, mean, inv = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy, dmean,
-                                    dvar)
+        with global_batch_stats(ctx.sync):
+            dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy,
+                                        dmean, dvar)
         return dx, dg, db, None, None
 
 
@@ -413,6 +475,7 @@ class BatchNormReLUTrain(torch.autograd.Function):
         out, mean, var, inv = _bn_train_fwd(x, g, b, eps, caxis)
         ctx.save_for_backward(x, g, b, mean, inv)
         ctx.caxis = caxis
+        ctx.sync = stats_sync()
         ctx.set_materialize_grads(False)
         return torch.relu(out), mean, var
 
@@ -428,8 +491,9 @@ class BatchNormReLUTrain(torch.autograd.Function):
         pre = x * scale.reshape(cshape).to(x.dtype) \
             + shift.reshape(cshape).to(x.dtype)
         dy = torch.where(pre > 0, dy, 0.0)
-        dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy, dmean,
-                                    dvar)
+        with global_batch_stats(ctx.sync):
+            dx, dg, db = _bn_bwd_shared(ctx.caxis, x, g, mean, inv, dy,
+                                        dmean, dvar)
         return dx, dg, db, None, None
 
 

@@ -33,12 +33,26 @@ ranks with all the arrays of one call in one collective a dtype: the
 tensors of one dtype and device are flattened into one bucket, summed by
 one ``all_reduce``, and split back (``bucket_allreduce``), the shape of the
 JAX package's one fused reduction a push.  At world 1 they return their
-inputs.  Each call adds its collectives to ``allreduce_calls``, its bytes
-to ``allreduce_bytes`` and its host seconds to ``allreduce_seconds``
-(module integers; on the ``gloo-cuda`` route the host waits for the
-bucket's producer first).  While telemetry records, each call is the span
+inputs.  While telemetry records, each call is the span
 ``dist.allreduce`` (cat ``comm``, waiting for the result) with the
 ``dist_allreduce`` and ``dist_allreduce_bytes`` counters.
+
+The ZeRO step's collectives (``all_reduce_``, ``reduce_scatter_rows``,
+``all_gather_rows``, ``all_gather_batch``, ``all_finite``, ``sum_across``)
+run over a mesh axis's group.
+
+Every collective counts by kind into three module dicts:
+``collective_calls`` (calls), ``collective_bytes`` (the bytes of its
+buffer) and ``collective_seconds`` (host seconds; on the ``gloo-cuda``
+route the host waits for the buffer's producer first);
+``reset_collectives`` zeroes them.  The kinds: ``all_reduce`` (a
+kvstore's buckets, gradients at ZeRO 0-1), ``reduce_scatter`` (the bucket
+at 2-3), ``all_gather`` (updated rows, level-3 parameters, eval outputs),
+``verdict`` (the AMP overflow flag) and ``stats`` (BatchNorm's per-channel
+sums, ``sum_across``, whose backward sums the cotangents across the ranks
+too).  gloo takes all of them on CUDA tensors when ranks share a card
+(checked on the H100 with torch 2.11).  ``ensure_group`` gives a world of
+1 a one-rank gloo group, so a mesh works in one process.
 
 Not ported here: the reference's hooks into the sanitizer and diagnostics,
 and its clock offset, straggler and wire-byte exchanges (``clock_offset``,
@@ -55,22 +69,28 @@ import socket
 import threading
 import time
 
+import torch
+import torch.distributed as tdist
+
 from ..base import MXNetError, get_env
 
 __all__ = ["init_process_group", "shutdown_process_group", "rank",
            "num_workers", "local_rank", "route", "barrier", "peer_world",
            "membership_barrier", "kv_set", "kv_get", "coordination_barrier",
            "allreduce_arrays", "allreduce", "allreduce_tree",
-           "bucket_allreduce"]
+           "bucket_allreduce", "ensure_group", "reset_collectives",
+           "all_reduce_", "reduce_scatter_rows", "all_gather_rows",
+           "all_gather_batch", "all_finite", "sum_across"]
 
 _LOG = logging.getLogger(__name__)
 
 # seconds any rendezvous, service call or collective may wait for a peer
 TIMEOUT_S = 300.0
 
-allreduce_calls = 0
-allreduce_bytes = 0
-allreduce_seconds = 0.0
+# every collective by kind: {kind: calls}, {kind: bytes}, {kind: seconds}
+collective_calls = {}
+collective_bytes = {}
+collective_seconds = {}
 
 _lock = threading.Lock()
 _state = {"initialized": False, "world": 1, "rank": 0, "local_rank": 0,
@@ -300,27 +320,20 @@ def bucket_allreduce(tensors):
     device flattened into one bucket, one ``all_reduce`` a bucket, the
     sums split back into new tensors of the inputs' shapes (the inputs are
     not changed).  Runs in any world the group spans, 1 included."""
-    global allreduce_calls, allreduce_bytes, allreduce_seconds
-    import torch
-    import torch.distributed as tdist
     groups = {}
     for i, t in enumerate(tensors):
         groups.setdefault((t.dtype, t.device), []).append(i)
     out = [None] * len(tensors)
-    t0 = time.perf_counter()
     for idx in groups.values():
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
         # the group's backend takes the route: gloo stages a CUDA bucket
         # through host buffers itself, NCCL sums it on the cards
-        tdist.all_reduce(flat)
-        allreduce_calls += 1
-        allreduce_bytes += flat.numel() * flat.element_size()
+        all_reduce_(flat, None)
         off = 0
         for i in idx:
             n = tensors[i].numel()
             out[i] = flat[off:off + n].view(tensors[i].shape)
             off += n
-    allreduce_seconds += time.perf_counter() - t0
     return out
 
 
@@ -364,3 +377,91 @@ def allreduce_tree(values):
     outs = allreduce_arrays([values[k].value for k in keys])
     return {k: nd.NDArray(o, ctx=values[k].context)
             for k, o in zip(keys, outs)}
+
+
+# ------------------------------------------------------ mesh collectives
+def ensure_group():
+    """Bring up the world and make sure a torch process group exists: a
+    world of 1 gets a one-rank gloo group over an in-process store."""
+    init_process_group()
+    if not tdist.is_initialized():
+        tdist.init_process_group("gloo", store=tdist.HashStore(),
+                                 rank=0, world_size=1)
+
+
+def reset_collectives():
+    """Zero the collectives' counters."""
+    collective_calls.clear()
+    collective_bytes.clear()
+    collective_seconds.clear()
+
+
+def _count(kind, t, t0):
+    collective_calls[kind] = collective_calls.get(kind, 0) + 1
+    collective_bytes[kind] = collective_bytes.get(kind, 0) \
+        + t.numel() * t.element_size()
+    collective_seconds[kind] = collective_seconds.get(kind, 0.0) \
+        + time.perf_counter() - t0
+
+
+def all_reduce_(t, group, kind="all_reduce"):
+    """Sum ``t`` across ``group`` (None: the world) in place; returns
+    it."""
+    t0 = time.perf_counter()
+    tdist.all_reduce(t, group=group)
+    _count(kind, t, t0)
+    return t
+
+
+def reduce_scatter_rows(bucket, group):
+    """Sum a (dp, C) bucket across ``group`` and keep this rank's row: a
+    (C,) tensor (gloo takes flat buffers only)."""
+    bucket = bucket.contiguous()
+    out = torch.empty(bucket.shape[1:], dtype=bucket.dtype,
+                      device=bucket.device)
+    t0 = time.perf_counter()
+    tdist.reduce_scatter_tensor(out, bucket.reshape(-1), group=group)
+    _count("reduce_scatter", bucket, t0)
+    return out
+
+
+def all_gather_rows(row, group, dp):
+    """Every rank's (C,) row -> the (dp, C) stack, on every rank."""
+    row = row.contiguous()
+    out = torch.empty(dp * row.numel(), dtype=row.dtype, device=row.device)
+    t0 = time.perf_counter()
+    tdist.all_gather_into_tensor(out, row.reshape(-1), group=group)
+    _count("all_gather", out, t0)
+    return out.reshape((dp,) + tuple(row.shape))
+
+
+def all_gather_batch(x, group, dp):
+    """Every rank's rows of a batch-major tensor, concatenated along axis
+    0 in rank order."""
+    return all_gather_rows(x, group, dp).reshape(
+        (dp * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def all_finite(finite, group):
+    """True on every rank when ``finite`` (a 0-d bool tensor) holds on
+    every rank of ``group``: one sum of the ranks' non-finite flags."""
+    bad = (~finite).to(torch.float32).reshape(1)
+    all_reduce_(bad, group, "verdict")
+    return bad[0] == 0
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(t.detach().clone(), group, "stats")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group, "stats"), None
+
+
+def sum_across(t, group):
+    """``t`` summed across ``group``; its gradient is the cotangents summed
+    across the group (each rank's loss reads the same sum)."""
+    return _SumAcross.apply(t, group)

@@ -36,16 +36,45 @@ the AMP ``loss_scale`` gauge and ``amp_overflow_steps`` counter;
 (``cost.graph_flops``); the Monitor bridge (``_mon_force``) samples the
 parameters' squared norms on the card before a step.
 
-Checkpoints: ``checkpoint_topology`` (one stage, no data parallelism, ZeRO
-level 0), ``place_checkpoint``, ``export_host`` and the loss-scale hooks
-serve ``checkpoint.py``'s sharded format, whose optimizer-state tuples are
-the JAX ``_FunctionalOptimizer.init_state``'s, in its order.
+Data parallelism (``mesh=``, a ``parallel.mesh.make_mesh`` DeviceMesh with
+a ``dp`` axis, and ``zero=0..3``): the JAX step is one GSPMD program over
+the global batch; here every rank of the mesh's ``dp`` axis runs the step
+on its rows of the same global batch (``shard_batch``: rank ``r`` takes
+rows ``[r B/dp, (r+1) B/dp)``) and the ranks meet in collectives, counted
+by kind in ``parallel.dist.collective_calls`` / ``collective_bytes``:
 
-Not ported here: ``mesh``, ``param_shardings`` and ``zero`` (the mesh and
-ZeRO part of the distributed slice); the ``MXNET_MONITOR`` statistics,
-their cadence, history ring and provenance replay (the numerics slice);
-the sanitizer's hooks; SGLD, DCASGD and Test run through the imperative
-``optimizer.Updater``, not here.
+- BatchNorm statistics and the "batch"/"valid" loss normalizations are
+  taken over the global batch (``ops.nn.global_batch_stats``), so every
+  level matches the JAX package's one program;
+- levels 0-1: the gradients are all-reduced, one bucket a dtype;
+- levels 2-3: the gradient tree is folded into one flat ``(dp, chunk)``
+  bucket (``parallel.placement``) and reduce-scattered: row ``r`` is the
+  only gradient residency;
+- levels 1-3: the optimizer state is row ``r`` of each leaf's flat view;
+  levels 1-2 all-gather the updated rows once (one collective a step);
+- level 3: the parameters are row ``r``; ``gather_params`` all-gathers
+  them just in time for the forward (the ``zero.gather`` span), and the
+  gathered tensors are freed after the backward;
+- AMP: the loss-scale state is replicated (each rank moves its copy by
+  the same verdict); at levels 2-3 the overflow verdict on the bucket row
+  is agreed by one sum across the ranks, so every rank skips together.
+
+The outputs a step returns are this rank's rows.  ``param_shardings``
+naming only ``dp`` (or no axis) is accepted and leaves the parameter
+replicated; a ``tp`` axis of size > 1 is the tensor-parallel part of the
+distributed slice and raises, as do ``pp`` and ``sp`` axes.
+
+Checkpoints: ``checkpoint_topology`` (one stage, the ZeRO level and dp
+width, the logical shapes at level 3), ``place_checkpoint`` (re-chunked to
+this mesh's dp, whatever topology saved them), ``export_host`` and the
+loss-scale hooks serve ``checkpoint.py``'s sharded format, whose
+optimizer-state tuples are the JAX ``_FunctionalOptimizer.init_state``'s,
+in its order.
+
+Not ported here: the ``MXNET_MONITOR`` statistics, their cadence, history
+ring and provenance replay (the numerics slice); the sanitizer's hooks;
+SGLD, DCASGD and Test run through the imperative ``optimizer.Updater``, not
+here.
 """
 from __future__ import annotations
 
@@ -65,17 +94,19 @@ from . import profiler as _profiler
 from . import random as _random
 from . import telemetry as _tel
 from .executor import _Lowered, head_grads
+from .ops.nn import global_batch_stats
 from .ops.registry import get_op
 from .optimizer import adadelta_rule, adagrad_rule, nag_rule
+from .parallel import dist as _dist
+from .parallel import mesh as _mesh
+from .parallel.placement import PlacementPlan, normalize_zero
 
 __all__ = ["TrainStep", "EvalStep"]
 
-# TrainStep/EvalStep arguments not ported yet -> the slice of the port that
-# brings them
-_NOT_PORTED = (("mesh", "the distributed slice, in its mesh part"),
-               ("param_shardings",
-                "the distributed slice, in its mesh part"),
-               ("zero", "the distributed slice, in its ZeRO part"))
+# mesh axes the port does not run yet, of size > 1 -> the part of the
+# distributed slice that brings them
+_AXIS_PARTS = {"tp": "tensor-parallel", "pp": "pipeline",
+               "sp": "ring-attention"}
 
 # remat="dots": the matrix products without batch dimensions whose outputs
 # the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither
@@ -83,12 +114,86 @@ _NOT_PORTED = (("mesh", "the distributed slice, in its mesh part"),
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _refuse(who, **given):
-    for name, item in _NOT_PORTED:
-        if given.get(name, None):
-            raise MXNetError("%s(%s=...) is not ported yet (it arrives "
-                             "with %s): the port trains on one device"
-                             % (who, name, item))
+def _refuse_axis(who, axis, size=None):
+    sized = "" if size is None else " of size %d" % size
+    part = _AXIS_PARTS.get(axis)
+    if part is None:
+        raise MXNetError("%s: mesh axis %r%s: the port shards over 'dp' "
+                         "only" % (who, axis, sized))
+    raise MXNetError("%s: a %r axis%s is not ported yet: it arrives with "
+                     "the %s part of the distributed slice"
+                     % (who, axis, sized, part))
+
+
+def _check_mesh(who, mesh):
+    """The mesh is a DeviceMesh whose axes other than ``dp`` have size 1."""
+    if mesh is None:
+        return
+    if not _mesh._is_mesh(mesh):
+        raise MXNetError("%s(mesh=...) takes a parallel.mesh.make_mesh "
+                         "mesh (a torch DeviceMesh), got %r"
+                         % (who, type(mesh).__name__))
+    for axis in _mesh.axis_names(mesh):
+        size = _mesh.axis_size(mesh, axis)
+        if axis != "dp" and size > 1:
+            _refuse_axis(who, axis, size)
+
+
+def _check_shardings(who, mesh, shardings):
+    """Each spec names only ``dp`` or no axis (the parameter stays
+    replicated); another axis of size > 1, or one the mesh lacks,
+    raises."""
+    for name, spec in shardings.items():
+        axes = []
+        for entry in (spec or ()):
+            axes.extend(entry if isinstance(entry, (tuple, list))
+                        else [entry])
+        for axis in axes:
+            if axis is None or axis == "dp":
+                continue
+            if mesh is None or axis not in _mesh.axis_names(mesh):
+                if axis in _AXIS_PARTS:
+                    _refuse_axis(who, axis)
+                raise MXNetError("%s: param_shardings[%r] names axis %r, "
+                                 "which the mesh has not" % (who, name,
+                                                             axis))
+            size = _mesh.axis_size(mesh, axis)
+            if size > 1:
+                _refuse_axis(who, axis, size)
+
+
+class _RankBatch(dict):
+    """A batch already cut to this rank's rows by ``shard_batch``."""
+
+
+def _batch_rows(who, batch, axis, dp, row):
+    """Rank ``row``'s rows of every input of a global batch, along
+    ``axis`` (the batch must divide by ``dp``)."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, nd.NDArray):
+            v = v.value
+        if not isinstance(v, torch.Tensor):
+            v = _np.asarray(v)
+        b = v.shape[axis]
+        if b % dp:
+            raise MXNetError("%s: the batch of %d rows of %r is not "
+                             "divisible by the mesh's dp width %d"
+                             % (who, b, k, dp))
+        per = b // dp
+        idx = [slice(None)] * len(v.shape)
+        idx[axis] = slice(row * per, (row + 1) * per)
+        out[k] = v[tuple(idx)]
+    return out
+
+
+class _Meta(object):
+    """Shape and dtype of an array of the JAX package's global layout (a
+    flat (dp, chunk) array of which this rank holds one row)."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = dtype
 
 
 def _compute_dtype(who, dtype, policy):
@@ -271,12 +376,18 @@ def _to_device(batch, dev):
 
 
 class TrainStep(object):
-    """Symbol + Optimizer -> one training step on one device (parity:
-    mxnet_tpu.train.TrainStep with ``mesh=None``).
+    """Symbol + Optimizer -> one training step on one device, or on each
+    rank of a data-parallel mesh (parity: mxnet_tpu.train.TrainStep).
 
     symbol : the loss-topped Symbol (e.g. a SoftmaxOutput head)
     optimizer : an ``optimizer.Optimizer``
     data_names / label_names : the input variables (not trained)
+    mesh : None, or a ``parallel.mesh.make_mesh`` mesh with a ``dp`` axis:
+        each rank steps on its rows of the global batch (see the module's
+        docstring)
+    param_shardings : {param name: spec}; a spec names only ``dp`` or no
+        axis (the parameter stays replicated)
+    zero : the ZeRO level 0-3 (True is 1), which needs a ``dp`` mesh
     remat : False; True recomputes the forward in the backward
         (``torch.utils.checkpoint``); "dots" keeps the outputs of the matrix
         products without batch dimensions and recomputes the rest
@@ -293,25 +404,29 @@ class TrainStep(object):
         ``gpu(0)`` unless a ``with cpu():`` block says otherwise)
 
     ``init`` returns (params, opt_state, aux) dicts of tensors on that
-    device; ``__call__`` and ``run_steps`` update them in place (JAX's
-    donation) and return them with the step's outputs.
+    device (rows of the flat view where the ZeRO level shards them);
+    ``__call__`` and ``run_steps`` update them in place (JAX's donation)
+    and return them with the step's outputs.
     """
 
     def __init__(self, symbol, optimizer, data_names=("data",),
                  label_names=("softmax_label",), mesh=None,
                  param_shardings=None, remat=False, dtype=None, zero=False,
                  policy=None, ctx=None):
-        _refuse("TrainStep", mesh=mesh, param_shardings=param_shardings,
-                zero=zero)
         if remat not in (False, None, True, "dots"):
             raise MXNetError("TrainStep: remat must be False, True or "
                              "'dots', got %r" % (remat,))
+        _check_mesh("TrainStep", mesh)
+        self.param_shardings = dict(param_shardings or {})
+        _check_shardings("TrainStep", mesh, self.param_shardings)
+        self.zero = normalize_zero(zero)
         self.policy, self._dtype = _compute_dtype("TrainStep", dtype, policy)
         self._has_scale = self.policy is not None
         self._scale_state = None
         self._overflow_seen = 0
         self.remat = remat or False
         self.symbol = symbol
+        self.mesh = mesh
         self.ctx = Context(ctx) if ctx is not None else current_context()
         self._low = _Lowered(symbol)
         self.data_names = tuple(data_names)
@@ -321,6 +436,28 @@ class TrainStep(object):
         self.param_names = [n for n in self._low.arg_names
                             if n not in self._inputs]
         self.aux_names = list(self._low.aux_names)
+        if self.zero:
+            if mesh is None or "dp" not in _mesh.axis_names(mesh):
+                raise MXNetError("TrainStep(zero=%d) needs a mesh with a "
+                                 "'dp' axis" % self.zero)
+            if any(n in self.param_shardings for n in self.param_names):
+                raise MXNetError(
+                    "TrainStep(zero=%d) shards the optimizer over dp; "
+                    "combining it with param_shardings is not supported"
+                    % self.zero)
+        # the data-parallel width, this rank's row and the group of the
+        # mesh's dp axis (a mesh without one replicates the step)
+        if mesh is not None and "dp" in _mesh.axis_names(mesh):
+            self._dp = _mesh.axis_size(mesh, "dp")
+            self._row = _mesh.axis_rank(mesh, "dp")
+            self._group = _mesh.axis_group(mesh, "dp")
+        else:
+            self._dp, self._row, self._group = 1, 0, None
+        # BatchNorm's statistics over the global batch
+        self._sync = (self._group, self._dp) if self._dp > 1 else None
+        self.plan = PlacementPlan(zero=self.zero, dp=self._dp,
+                                  who="TrainStep", row=self._row)
+        self._zb_cache = None         # zero_bytes of the gauges, per step
         self.fopt = _FunctionalOptimizer(optimizer, self.param_names)
         self.optimizer = optimizer
         self.num_update = 0
@@ -333,25 +470,58 @@ class TrainStep(object):
         self._mon_force = False       # the Monitor bridge's force-sample
         self._last_mon_entry = None   # the last sampled step's norms
 
+    def _placed(self, params, state, aux, dev):
+        """Logical host (params, state, aux) placed on ``dev`` by the plan:
+        level-3 parameters and level >= 1 optimizer state as this rank's
+        rows of their flat views; ``state=None`` builds fresh state."""
+        plan = self.plan
+
+        def host(v):
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                _np.asarray(v))
+            return t.detach()
+
+        def put(v):
+            return host(v).to(dev, copy=True)
+
+        def row(v):
+            return plan.row_of(host(v)).to(dev, copy=True)
+        placed = {n: (row if plan.shard_params else put)(params[n])
+                  for n in self.param_names}
+        if state is None:
+            state = self.fopt.init_state(
+                {n: row(params[n]) if plan.shard_state else placed[n]
+                 for n in self.param_names})
+        else:
+            state = {n: tuple((row if plan.shard_state else put)(s)
+                              for s in state[n])
+                     for n in self.param_names}
+        return placed, state, {n: put(aux[n]) for n in self.aux_names}
+
     def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
         """Infer shapes, initialise the parameters and aux states with
         ``initializer`` on the host, build the optimizer state, and move
-        everything to the step's device in one hop.  Returns (params,
-        opt_state, aux)."""
+        everything to the step's device in one hop (each rank of a mesh
+        draws the same values from ``seed`` and keeps what the plan gives
+        it).  Returns (params, opt_state, aux)."""
         params, aux = _host_init(self.symbol, self._low, self.param_names,
                                  self.aux_names, data_shapes, label_shapes,
                                  initializer, seed, "TrainStep")
-        dev = self.ctx.torch_device()
-        params = {n: v.to(dev) for n, v in params.items()}
-        opt_state = self.fopt.init_state(params)
-        aux = {n: v.to(dev) for n, v in aux.items()}
-        return params, opt_state, aux
+        self.plan.note_host(params)
+        return self._placed(params, None, aux, self.ctx.torch_device())
 
     def shard_batch(self, batch):
         """Place a host batch dict (numpy arrays, tensors or NDArrays) on
-        the step's device, each at its own dtype (one device: nothing is
-        sharded)."""
-        return _to_device(batch, self.ctx.torch_device())
+        the step's device, each at its own dtype.  On a ``dp`` mesh of
+        width dp, rank r keeps rows ``[r B/dp, (r+1) B/dp)`` of every input
+        (the global batch B must divide by dp)."""
+        if isinstance(batch, _RankBatch):
+            return batch
+        if self._dp == 1:
+            return _to_device(batch, self.ctx.torch_device())
+        return _RankBatch(_to_device(
+            _batch_rows("TrainStep", batch, 0, self._dp, self._row),
+            self.ctx.torch_device()))
 
     # ------------------------------------------------------------ loss scale
     def _scale_state_dev(self):
@@ -386,31 +556,29 @@ class TrainStep(object):
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint_topology(self):
-        """The shard ownership of this step for ``checkpoint.snapshot``:
-        one stage owns every parameter and aux state, no data parallelism,
-        ZeRO level 0 (parity: TrainStep.checkpoint_topology without a
-        mesh)."""
-        return {"pp": 1, "dp": 1, "zero": 0, "microbatches": None,
+        """The shard ownership of this step for ``checkpoint.snapshot``: one
+        stage owns every parameter and aux state; the ZeRO level, its dp
+        width and, at level 3, the logical shapes (parity:
+        TrainStep.checkpoint_topology)."""
+        topo = {"pp": 1, "dp": self.plan.dp, "zero": self.zero,
+                "row": self.plan.row, "microbatches": None,
                 "stage_of": {n: 0 for n in self.param_names
                              + self.aux_names}}
+        if self.plan.shard_params:
+            topo["param_shapes"] = {n: list(self.plan.shape_of(n))
+                                    for n in self.param_names}
+        return topo
 
     def place_checkpoint(self, host_params, host_state, host_aux,
                          device=None):
         """Restored host tensors (or numpy arrays) in their logical shapes,
-        placed on ``device`` (default: the step's): new (params,
+        placed on ``device`` (default: the step's) by this step's plan,
+        re-chunked to its dp whatever topology saved them: new (params,
         opt_state, aux) dicts in this step's name order."""
         dev = torch.device(device) if device is not None \
             else self.ctx.torch_device()
-
-        def put(v):
-            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
-                _np.asarray(v))
-            return t.detach().to(dev, copy=True)
-        params = {n: put(host_params[n]) for n in self.param_names}
-        state = {n: tuple(put(s) for s in host_state[n])
-                 for n in self.param_names}
-        aux = {n: put(host_aux[n]) for n in self.aux_names}
-        return params, state, aux
+        self.plan.note_host({n: host_params[n] for n in self.param_names})
+        return self._placed(host_params, host_state, host_aux, dev)
 
     def export_host(self, params, opt_state, aux):
         """The live state as a checkpoint save and load of it would give,
@@ -436,7 +604,10 @@ class TrainStep(object):
     def _forward(self, leaves, aux, batch, scale):
         """The walk under autograd: inputs and a copy of every parameter
         cast to the compute dtype (labels and aux uncast), the loss scale
-        at the heads; recomputed in the backward under ``remat``."""
+        at the heads; recomputed in the backward under ``remat``.  The
+        global-batch statistics are set inside the walk: a recompute runs
+        on whatever thread drives the backward (autograd's device thread
+        for CUDA tensors), which does not see the caller's setting."""
         dtype = self._dtype
 
         def fwd():
@@ -446,9 +617,10 @@ class TrainStep(object):
                 vals = _cast_inputs(vals, dtype, self.label_names)
                 params = {k: v.to(dtype) for k, v in leaves.items()}
             vals.update(params)
-            return self._low.run(vals, aux, True,
-                                 no_grad_inputs=self._inputs,
-                                 device=self.ctx, head_grad_scale=scale)
+            with global_batch_stats(self._sync):
+                return self._low.run(vals, aux, True,
+                                     no_grad_inputs=self._inputs,
+                                     device=self.ctx, head_grad_scale=scale)
         if not self.remat:
             return fwd()
         # Dropout and the samplers draw from the step device's explicit
@@ -472,59 +644,199 @@ class TrainStep(object):
 
     def _step(self, params, opt_state, aux, batch, hyper, t):
         lsc = self._scale_state_dev() if self._has_scale else None
-        leaves = {n: params[n].detach().requires_grad_(True)
+        full = self._gather(params) if self.plan.shard_params else params
+        leaves = {n: full[n].detach().requires_grad_(True)
                   for n in self.param_names}
-        outs, aux_upd = self._forward(leaves, aux, batch,
-                                      None if lsc is None else lsc["scale"])
+        del full
+        outs, aux_upd = self._forward(
+            leaves, aux, batch, None if lsc is None else lsc["scale"])
         seeds = [torch.ones((), dtype=o.dtype, device=o.device)
                  .expand(o.shape) for o in outs]
-        grads = head_grads(outs, seeds,
-                           [leaves[n] for n in self.param_names])
-        del leaves
-        grads = [torch.zeros_like(params[n]) if g is None
+        grads = head_grads(outs, seeds, [leaves[n] for n in self.param_names])
+        grads = {n: torch.zeros_like(leaves[n]) if g is None
                  else g.to(params[n].dtype)
-                 for n, g in zip(self.param_names, grads)]
+                 for n, g in zip(self.param_names, grads)}
+        # the graph goes with the outputs' history, and at level 3 the
+        # gathered parameters with the leaves
+        outs = [o.detach() for o in outs]
+        del leaves
         # the range names the optimizer rule's kernels in a profile
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.update"):
-            if lsc is None:
-                self._update(params, opt_state, aux, aux_upd, grads, hyper,
-                             t, None)
-                return params, opt_state, aux, tuple(o.detach()
-                                                     for o in outs)
-            # overflow is judged on the scaled float32 gradients, on the
-            # device; the update is unscaled by 1/S once and kept only
-            # where the verdict is finite (a select, not a host branch)
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads]).all()
-            inv = 1.0 / lsc["scale"]
-            grads = [g * inv.to(g.dtype) for g in grads]
+            grads = self._reduce(grads)
+            finite = None
+            if lsc is not None:
+                # overflow is judged on the scaled float32 gradients, on the
+                # device (agreed by the ranks when each holds a row); the
+                # update is unscaled by 1/S once and kept only where the
+                # verdict is finite (a select, not a host branch)
+                finite = self._finite(grads)
+                inv = 1.0 / lsc["scale"]
+                grads = {n: g * inv.to(g.dtype) for n, g in grads.items()}
             self._update(params, opt_state, aux, aux_upd, grads, hyper, t,
                          finite)
-            self._scale_state = self.policy.next_state(lsc, finite)
-        # the loss surface crosses back in float32
-        return params, opt_state, aux, tuple(o.detach().to(torch.float32)
-                                             for o in outs)
+            if lsc is not None:
+                self._scale_state = self.policy.next_state(lsc, finite)
+                # the loss surface crosses back in float32
+                outs = [o.to(torch.float32) for o in outs]
+        return params, opt_state, aux, tuple(outs)
+
+    def _reduce(self, grads):
+        """The gradients across the dp ranks: all-reduced, one bucket a
+        dtype (levels 0-1), or folded into the flat bucket whose
+        reduce-scatter leaves this rank's row (levels 2-3: ``{"": row}``).
+        Unchanged at dp 1 but for the fold."""
+        plan = self.plan
+        if plan.bucket_grads:
+            layout = plan.bucket_layout(self.param_names)
+            bucket = plan.fold_bucket(grads, layout)
+            if self._dp == 1:
+                return {"": bucket[0]}
+            return {"": _dist.reduce_scatter_rows(bucket, self._group)}
+        if self._dp == 1:
+            return grads
+        by_dtype = {}
+        for n in self.param_names:
+            by_dtype.setdefault(grads[n].dtype, []).append(n)
+        out = {}
+        for names in by_dtype.values():
+            flat = _dist.all_reduce_(torch.cat(
+                [grads[n].reshape(-1) for n in names]), self._group)
+            off = 0
+            for n in names:
+                k = grads[n].numel()
+                out[n] = flat[off:off + k].view(grads[n].shape)
+                off += k
+        return out
+
+    def _finite(self, grads):
+        """The overflow verdict on the reduced gradients, a 0-d bool on
+        the device: a bucket row's verdict is agreed across the ranks."""
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
+        if self.plan.bucket_grads and self._dp > 1:
+            finite = _dist.all_finite(finite, self._group)
+        return finite
 
     def _update(self, params, opt_state, aux, aux_upd, grads, hyper, t,
                 finite):
         """The rule's results copied into the caller's tensors; with a
         ``finite`` verdict, each copy keeps the old value where it is
-        false."""
+        false.  Levels >= 1 step this rank's rows; levels 1-2 then gather
+        the updated rows into the replicated parameters."""
         def put(dst, new):
             new = new.to(dst.dtype)
             dst.copy_(new if finite is None
                       else torch.where(finite, new, dst))
-        for n, g in zip(self.param_names, grads):
-            w = params[n]
-            new_w, new_state = self.fopt.update(n, w, g, opt_state[n],
-                                                hyper, t)
-            put(w, new_w)
-            for st, v in zip(opt_state[n], new_state):
-                put(st, v)
+        plan = self.plan
+        if not plan.shard_state:
+            for n in self.param_names:
+                w = params[n]
+                new_w, new_state = self.fopt.update(n, w, grads[n],
+                                                    opt_state[n], hyper, t)
+                put(w, new_w)
+                for st, v in zip(opt_state[n], new_state):
+                    put(st, v)
+        else:
+            layout = plan.bucket_layout(self.param_names)
+            bucket = grads.get("")
+            rows, off = [], 0
+            for n, c in layout:
+                w = params[n] if plan.shard_params else plan.row_of(
+                    params[n])
+                g = bucket[off:off + c] if bucket is not None \
+                    else plan.row_of(grads[n])
+                off += c
+                new_w, new_state = self.fopt.update(n, w, g, opt_state[n],
+                                                    hyper, t)
+                for st, v in zip(opt_state[n], new_state):
+                    put(st, v)
+                if plan.shard_params:
+                    put(params[n], new_w)
+                else:
+                    rows.append(new_w.to(params[n].dtype))
+            if rows:
+                # one all-gather of every updated row
+                row = torch.cat(rows)
+                full = _dist.all_gather_rows(row, self._group, self._dp) \
+                    if self._dp > 1 else row.unsqueeze(0)
+                off = 0
+                for n, c in layout:
+                    put(params[n], plan.from_flat(full[:, off:off + c],
+                                                  plan.shape_of(n)))
+                    off += c
         for k, v in aux_upd.items():
             if k in aux:
                 put(aux[k], v)
+
+    # ----------------------------------------------------------------- ZeRO
+    def _gather(self, params):
+        """Level-3 rows -> logical parameters: one all-gather of every
+        row."""
+        plan = self.plan
+        row = torch.cat([params[n].reshape(-1) for n in self.param_names])
+        full = _dist.all_gather_rows(row, self._group, self._dp) \
+            if self._dp > 1 else row.unsqueeze(0)
+        out, off = {}, 0
+        for n in self.param_names:
+            c = params[n].numel()
+            out[n] = plan.from_flat(full[:, off:off + c], plan.shape_of(n))
+            off += c
+        return out
+
+    def gather_params(self, params):
+        """Logical, replicated parameters from the level-3 rows (the
+        ``zero.gather`` span while telemetry records).  The identity below
+        level 3: callers that need full weights (the fit's sync-back, an
+        eval hand-off) call it unconditionally."""
+        if not self.plan.shard_params:
+            return params
+        if not _tel._enabled:
+            return self._gather(params)
+        with _tel.span("zero.gather", cat="distributed", level=self.zero,
+                       tensors=len(params)):
+            out = self._gather(params)
+            _engine.settle(list(out.values()))
+        return out
+
+    def gather_state(self, opt_state):
+        """Logical optimizer state from the rows of levels >= 1 (one
+        all-gather a dtype's rows); the identity below level 1."""
+        plan = self.plan
+        if not plan.shard_state:
+            return opt_state
+        leaves = [(n, i) for n in self.param_names
+                  for i in range(len(opt_state[n]))]
+        out = {n: [None] * len(opt_state[n]) for n in self.param_names}
+        if leaves:
+            row = torch.cat([opt_state[n][i].reshape(-1) for n, i in leaves])
+            full = _dist.all_gather_rows(row, self._group, self._dp) \
+                if self._dp > 1 else row.unsqueeze(0)
+            off = 0
+            for n, i in leaves:
+                c = opt_state[n][i].numel()
+                out[n][i] = plan.from_flat(full[:, off:off + c],
+                                           plan.shape_of(n))
+                off += c
+        return {n: tuple(v) for n, v in out.items()}
+
+    def unflatten_host(self, name, arr):
+        """A host flat (dp, chunk) array -> the logical array."""
+        return self.plan.unflatten_host(name, arr)
+
+    def zero_bytes(self, params, opt_state=None):
+        """Per-device {param, grad, opt} bytes of this step's placement
+        plan, from shape metadata (readable with telemetry off; the
+        ``zero_param_bytes`` / ``zero_grad_bytes`` gauges)."""
+        plan = self.plan
+        ps = {n: _Meta((plan.dp, v.numel()), v.dtype) if plan.shard_params
+              else v for n, v in params.items()}
+        st = None
+        if opt_state:
+            st = {n: tuple(_Meta((plan.dp, x.numel()), x.dtype)
+                           if plan.shard_state else x for x in leaves)
+                  for n, leaves in opt_state.items()}
+        return plan.per_device_bytes(ps, st)
 
     # ------------------------------------------------------- observability
     def step_flops(self):
@@ -547,7 +859,13 @@ class TrainStep(object):
         sq = [params[n].detach().to(torch.promote_types(
             params[n].dtype, torch.float32)).square().sum().to(torch.float64)
             for n in self.param_names]
-        return torch.stack(sq) if sq else None
+        if not sq:
+            return None
+        sq = torch.stack(sq)
+        if self.plan.shard_params and self._dp > 1:
+            # level-3 rows: the norms of the whole parameters
+            _dist.all_reduce_(sq, self._group, "monitor")
+        return sq
 
     def _publish_monitor(self, sq, upd_idx):
         """Read the sampled step's squared norms to the host (the one
@@ -565,9 +883,11 @@ class TrainStep(object):
         """One step.  Returns (params, opt_state, aux, outputs); the first
         three are the dicts passed in, updated in place.  ``batch`` may lie
         on the host (``shard_batch`` places it, as the JAX package's jit
-        does).  ``rng`` is accepted for the JAX signature: an op that draws
-        random numbers (Dropout, the samplers) draws from the generator of
-        the step's device (``random.generator``).
+        does; on a mesh ``batch`` is the global batch, of which the step
+        takes this rank's rows, and the outputs are those rows).  ``rng``
+        is accepted for the JAX signature: an op that draws random numbers
+        (Dropout, the samplers) draws from the generator of the step's
+        device (``random.generator``).
 
         The step is the profiler range ``train_step[n]`` and, while
         telemetry records, the span ``train_step``; either waits for the
@@ -601,6 +921,15 @@ class TrainStep(object):
             _tel.gauge("loss_scale", scale)
             if overflow:
                 _tel.counter("amp_overflow_steps", overflow)
+        if _tel._enabled and self.zero:
+            # the plan's per-device bytes: shape metadata, the same every
+            # step
+            if self._zb_cache is None:
+                self._zb_cache = self.zero_bytes(res[0], res[1])
+            _tel.gauge("zero_param_bytes", self._zb_cache["param"],
+                       level=self.zero)
+            _tel.gauge("zero_grad_bytes", self._zb_cache["grad"],
+                       level=self.zero)
         if sq is not None:
             self._publish_monitor(sq, upd_idx)
         return res
@@ -618,6 +947,11 @@ class TrainStep(object):
         bias correction) advances per step, and the loss-scale state is
         carried from step to step, so the result equals sequential
         stepping.  Returns (params, opt_state, aux, last_outputs)."""
+        if stacked and self._dp > 1 and not isinstance(batch, _RankBatch):
+            # the batch axis of a stacked leaf is axis 1
+            batch = _RankBatch(_to_device(
+                _batch_rows("TrainStep", batch, 1, self._dp, self._row),
+                self.ctx.torch_device()))
         batch = self.shard_batch(batch)
         if stacked:
             for k, v in batch.items():
@@ -645,29 +979,46 @@ class TrainStep(object):
 
 
 class EvalStep(object):
-    """Forward-only step (parity: mxnet_tpu.train.EvalStep with
-    ``mesh=None``): ``step(params, aux, batch)`` returns the outputs as a
-    tuple, computed without autograd.  ``dtype=`` casts the float32 inputs
-    (labels excepted) and the parameters to that dtype; ``policy=``
-    contributes only its compute dtype (no backward, so no loss scale).
-    The outputs stay in the compute dtype.  A host batch (numpy arrays,
-    NDArrays) moves to the parameters' device, as the JAX package's jit
-    moves it."""
+    """Forward-only step (parity: mxnet_tpu.train.EvalStep):
+    ``step(params, aux, batch)`` returns the outputs as a tuple, computed
+    without autograd.  ``dtype=`` casts the float32 inputs (labels
+    excepted) and the parameters to that dtype; ``policy=`` contributes
+    only its compute dtype (no backward, so no loss scale).  The outputs
+    stay in the compute dtype.  A host batch (numpy arrays, NDArrays)
+    moves to the parameters' device, as the JAX package's jit moves it.
+
+    ``mesh=`` (a ``dp`` mesh): each rank runs the forward on its rows of
+    the global batch, and the outputs are gathered along the batch axis,
+    so every rank returns the whole batch's outputs.  The parameters are
+    the logical ones (``TrainStep.gather_params`` gives them at level
+    3)."""
 
     def __init__(self, symbol, mesh=None, dtype=None,
                  label_names=("softmax_label",), policy=None):
-        _refuse("EvalStep", mesh=mesh)
+        _check_mesh("EvalStep", mesh)
         _, self._dtype = _compute_dtype("EvalStep", dtype, policy)
         self._low = _Lowered(symbol)
         self.label_names = tuple(label_names)
+        self.mesh = mesh
+        if mesh is not None and "dp" in _mesh.axis_names(mesh):
+            self._dp = _mesh.axis_size(mesh, "dp")
+            self._row = _mesh.axis_rank(mesh, "dp")
+            self._group = _mesh.axis_group(mesh, "dp")
+        else:
+            self._dp, self._row, self._group = 1, 0, None
 
     def __call__(self, params, aux, batch, rng=None):
         dev = next(iter(params.values())).device if params \
             else current_context().torch_device()
+        if self._dp > 1 and not isinstance(batch, _RankBatch):
+            batch = _batch_rows("EvalStep", batch, 0, self._dp, self._row)
         vals = _to_device(batch, dev)
         if self._dtype is not None:
             vals = _cast_inputs(vals, self._dtype, self.label_names)
             params = {k: v.to(self._dtype) for k, v in params.items()}
         vals.update(params)
         outs, _ = self._low.run(vals, aux, False)
+        if self._dp > 1:
+            outs = [_dist.all_gather_batch(o.contiguous(), self._group,
+                                           self._dp) for o in outs]
         return tuple(outs)

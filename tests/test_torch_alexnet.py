@@ -24,6 +24,7 @@ from mxnet_tpu_torch import name as pname
 from mxnet_tpu_torch.models import alexnet as palexnet
 from mxnet_tpu_torch.ops import nn as pnn
 from mxnet_tpu_torch.ops.registry import get_op as pget_op
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 CLASSES = 10
 BATCH = 2

@@ -41,6 +41,7 @@ from mxnet_tpu_torch.amp import Policy, resolve_policy
 from mxnet_tpu_torch.executor import _Lowered
 from mxnet_tpu_torch.ops import norm_conv as pnc
 from test_torch_resnet_train import _resnet, _state
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 F64_TOL = 1e-9
 # a bfloat16 step of the port against the JAX package's bfloat16 step, per
@@ -702,15 +703,17 @@ def test_remat_refuses_unknown_mode():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "the distributed slice"),
-    ({"param_shardings": {"x": None}}, "the distributed slice"),
-    ({"zero": 1}, "the distributed slice")])
+    ({"param_shardings": {"x": ("pp", None)}}, "the distributed slice"),
+    ({"param_shardings": {"x": ("tp", None)}}, "the distributed slice"),
+    ({"zero": 1, "param_shardings": {"x": ("tp",)}},
+     "the distributed slice")])
 def test_only_the_parallel_arguments_refuse(kw, item):
-    with pytest.raises(mt.MXNetError, match="arrives with %s" % item):
+    """The mesh and ZeRO arguments train (tests/test_torch_zero*.py); a
+    pipeline or tensor-parallel axis still refuses, naming its part."""
+    part = "pipeline" if "pp" in str(kw) else "tensor-parallel"
+    with pytest.raises(mt.MXNetError,
+                       match="arrives with the %s part of %s" % (part, item)):
         mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
-    if "mesh" in kw:
-        with pytest.raises(mt.MXNetError, match=item):
-            mt.EvalStep(_mlp(mt.sym), **kw)
 
 
 # ------------------------------------------- float16 and the NormConv gate

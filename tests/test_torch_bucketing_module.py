@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 V, H, E, BATCH = 20, 8, 8, 4
 BUCKETS = [3, 6]

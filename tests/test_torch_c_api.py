@@ -24,6 +24,8 @@ import pytest
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops.kernel_build import HostLibrary
+from test_torch_threads import child_env
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 BATCH, DIM, HIDDEN, CLASSES = 3, 32, 128, 4
@@ -313,7 +315,8 @@ def test_cpp_example_binary(host, mx, tmp_path):
     _mlp_checkpoint(prefix)
     res = subprocess.run([host.example("mlp_predict"), prefix, "4",
                           str(BATCH), str(DIM)], capture_output=True,
-                         text=True, env=host.run_env(), timeout=300)
+                         text=True, env=host.run_env(child_env()),
+                         timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "output shape: (3, 4)" in res.stdout
     rows = [int(m) for m in re.findall(r"row \d+ argmax (\d+)", res.stdout)]
@@ -329,7 +332,8 @@ def test_cpp_train_binary(host):
     Executor, SGDOptimizer and the KVStore updater through the port's
     library, converging."""
     res = subprocess.run([host.example("mlp_train")], capture_output=True,
-                         text=True, env=host.run_env(), timeout=300)
+                         text=True, env=host.run_env(child_env()),
+                         timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "PASS" in res.stdout
 

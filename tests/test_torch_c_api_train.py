@@ -17,6 +17,7 @@ import ctypes
 import numpy as np
 
 from test_torch_c_api import _check, host, libmx, mx  # noqa: F401
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 FLOOR_X = 4.0
 FLOOR_MIN = 1e-6

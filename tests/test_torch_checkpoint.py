@@ -39,6 +39,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import checkpoint as pck
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 BATCH = 8
 F64_TOL = 1e-9

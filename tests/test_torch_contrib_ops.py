@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 F32_TOL = 1e-6
 F64_TOL = 1e-12

@@ -23,6 +23,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import cost
 from mxnet_tpu_torch import telemetry as tel
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 RATES = (None, "", "fast", "-3T", "0", "T", "275e12", "275T", "1228G",

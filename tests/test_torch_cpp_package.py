@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 from mxnet_tpu_torch.ops.kernel_build import HostLibrary
+from test_torch_threads import child_env
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 EXAMPLES = ("lenet_train", "resnet_train", "charrnn_train")
 
@@ -55,7 +57,8 @@ def _images(tmp_path):
 def _run(binaries, name, args):
     host, built = binaries
     res = subprocess.run([built[name]] + args, capture_output=True,
-                         text=True, env=host.run_env(), timeout=600)
+                         text=True, env=host.run_env(child_env()),
+                         timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "PASS" in res.stdout
     return res.stdout

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 F64 = dict(rtol=1e-9, atol=1e-12)

@@ -25,6 +25,7 @@ import pytest
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.bench import dcgan
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, CODE = 8, 16

@@ -41,6 +41,8 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import models as pmodels
 from mxnet_tpu_torch import launch as plaunch
 from mxnet_tpu_torch.parallel import dist
+from test_torch_threads import child_env
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIST_TYPES = ("dist_sync", "dist_async", "dist_sync_device",
@@ -54,7 +56,7 @@ def launch(args, timeout=120, env=None):
     """Run a command in a session of its own with the repo importable and
     no MXTPU_* variables of ours; on timeout kill its process group.
     Returns (rc, stdout, stderr)."""
-    full = {k: v for k, v in os.environ.items()
+    full = {k: v for k, v in child_env().items()
             if not k.startswith("MXTPU_")}
     full["PYTHONPATH"] = ROOT
     full.update(env or {})

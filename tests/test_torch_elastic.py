@@ -31,6 +31,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import checkpoint as pck
 from mxnet_tpu_torch.parallel import elastic
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-5
 SCALE_MIN = 1e-4

@@ -17,6 +17,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import _Lowered
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 PKGS = ["jax", "torch"]
 

@@ -15,6 +15,7 @@ import torch
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import attention as pattn
 from mxnet_tpu_torch.ops import flash_attention as pfa
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 # the JAX suite's tolerance (test_pallas.py)
 RTOL, ATOL = 2e-4, 2e-5

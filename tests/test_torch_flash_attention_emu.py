@@ -16,6 +16,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.bench import host_emu
 from mxnet_tpu_torch.ops import flash_attention as pfa
 from mxnet_tpu_torch.ops.kernel_build import CSRC
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 # max |o_kernel - o_plain| over max |o_plain|, as chip_smoke.py's O_TOL:
 # float32 sums in another order; bfloat16 rounds o once from float32 sums

@@ -22,6 +22,7 @@ from mxnet_tpu_torch.ops import attention as pattn
 from mxnet_tpu_torch.ops import flash_attention as pfa
 from mxnet_tpu_torch.ops import norm_conv as pnc
 from mxnet_tpu_torch.ops.kernel_build import CSRC, c_argtypes
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 # float32 on both sides, sums taken in other orders (the JAX suite's
 # forward tolerance, test_pallas.py)

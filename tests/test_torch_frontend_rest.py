@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

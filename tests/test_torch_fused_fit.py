@@ -34,6 +34,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import executor as pexec
 from mxnet_tpu_torch import random as prandom
 from mxnet_tpu_torch.amp import Policy
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _env(env):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-5
 SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-3)

@@ -23,6 +23,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import recordio as mt_rio
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mxnet_tpu_torch")
@@ -95,7 +96,8 @@ def test_c_api_bridge_embeds_only_the_port():
 
 
 DIST_SLICE = ("parallel.dist", "parallel.elastic", "checkpoint", "launch",
-              "bench.dist_sync_kvstore", "bench.dist_mlp")
+              "bench.dist_sync_kvstore", "bench.dist_mlp", "parallel.mesh",
+              "parallel.placement", "bench.zero_ladder")
 
 
 @pytest.mark.parametrize("name", DIST_SLICE)

@@ -28,6 +28,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.bench import train_imagenet as ti
 from mxnet_tpu_torch.executor import _Lowered
 from mxnet_tpu_torch.ops import norm_conv as pnc
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 REL = 1e-9
 SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4, rescale_grad=0.5)

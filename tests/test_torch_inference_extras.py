@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 DTYPES = ("float32", "float16", "uint8", "int32", "int8", "bfloat16")

@@ -11,6 +11,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import initializer as pinit
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 

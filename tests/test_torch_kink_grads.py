@@ -11,6 +11,7 @@ import torch
 from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch  # noqa: F401  (registers the port's ops)
 from mxnet_tpu_torch.ops import registry as preg
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-12
 # off-kink points beside the kink's, as float64

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 TOL = 1e-6

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 PROD_TOL = 1e-5
 BF16_TOL = 2e-2

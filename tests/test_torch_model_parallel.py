@@ -38,6 +38,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import executor as exm
 from mxnet_tpu_torch.bench import model_parallel_lstm as mpl
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 OUT_RTOL = 1e-5

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 FLOOR_X = 4.0
@@ -433,12 +434,18 @@ def _small():
     ("MXNET_ZERO", "1", "distributed")])
 def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
     """Each knob the JAX package's fit reads for an unported layer raises,
-    naming the slice; "0" leaves it off and fit trains."""
+    naming the slice; "0" leaves it off and fit trains.  MXNET_ZERO trains
+    (tests/test_torch_zero*.py): composed with MXNET_PP it meets the
+    pipeline part's refusal."""
     it, mod = _small()
     monkeypatch.setenv(knob, value)
+    if knob == "MXNET_ZERO":
+        monkeypatch.setenv("MXNET_PP", "2")
     with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
         mod.fit(it, num_epoch=1)
     monkeypatch.setenv(knob, "0")
+    if knob == "MXNET_ZERO":
+        monkeypatch.delenv("MXNET_PP")
     mod.fit(it, num_epoch=1)
 
 

@@ -25,6 +25,7 @@ import pytest
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.monitor import Monitor
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 FIT_RTOL = 1e-4

@@ -25,6 +25,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.bench import host_emu
 from mxnet_tpu_torch.ops import contrib
 from mxnet_tpu_torch.ops.kernel_build import CudaLibrary
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 IDS = [host_emu.nms_case_id(c) for c in host_emu.NMS_CASES]
 

@@ -22,6 +22,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import elemwise as pelem
 from mxnet_tpu_torch.ops import registry as preg
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 F64 = 1e-9
 F32 = 1e-6

@@ -7,6 +7,7 @@ import torch
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 

@@ -13,6 +13,7 @@ import pytest
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.bench import neural_style as pns
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL = 1e-5

@@ -13,6 +13,7 @@ import torch
 
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.ops import norm_conv as pnc
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 GEOMS = [
     # H, K, S, P, Cin, Cout, relu, prologue, stats (test_norm_conv.GEOMS)

@@ -16,6 +16,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.bench import host_emu
 from mxnet_tpu_torch.ops import norm_conv as pnc
 from mxnet_tpu_torch.ops.kernel_build import CSRC
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 # max |y_kernel - y_plain| over max |y_plain|, as chip_smoke.py's Y_TOL:
 # float32 sums in another order; bfloat16 rounds y once from float32 sums

@@ -17,6 +17,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import _Lowered
 from mxnet_tpu_torch.ops import norm_conv as pnc
 from test_torch_resnet_train import SGD, _resnet, _state
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 GEOMS = [
     # H, K, S, P, Cin, Cout, relu, prologue, stats (test_norm_conv.GEOMS)

@@ -8,6 +8,7 @@ import torch
 
 from mxnet_tpu.ops.registry import get_op as jget_op
 from mxnet_tpu_torch.ops.registry import get_op as pget_op
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 BN_IN = [(2, 3, 4, 5), (3,), (3,), (3,), (3,)]
 BN_IN_NHWC = [(2, 4, 5, 3), (3,), (3,), (3,), (3,)]

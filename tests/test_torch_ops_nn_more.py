@@ -21,6 +21,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu.ops.registry import get_op as jget_op
 from mxnet_tpu_torch.ops.registry import get_op as pget_op
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 

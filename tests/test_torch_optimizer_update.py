@@ -13,6 +13,7 @@ import torch
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.train import _FunctionalOptimizer
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 REL = 1e-9
 SHAPES = {"fc1_weight": (4, 3), "fc1_bias": (3,), "bn_gamma": (3,),

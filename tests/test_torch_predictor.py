@@ -13,6 +13,7 @@ from mxnet_tpu import name as jname
 from mxnet_tpu.models import resnet as jresnet
 from mxnet_tpu.predictor import Predictor as JPredictor
 from mxnet_tpu_torch import executor as pexec
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ import pytest
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import image as mt_image
 from mxnet_tpu_torch import recordio as mt_rio
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 

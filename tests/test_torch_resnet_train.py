@@ -35,6 +35,7 @@ from mxnet_tpu_torch import name as pname
 from mxnet_tpu_torch.bench import resnet50_train
 from mxnet_tpu_torch.models import resnet as presnet
 from mxnet_tpu_torch.ops import nn as pnn
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 BN_TOL = 1e-10
 STEP_TOL = 1e-9
@@ -443,8 +444,18 @@ def _bench_record(capsys, seen):
     assert seen["ctx"] == mt.gpu(0)
     assert rec == resnet50_train.record(seen["img_per_sec"], rec["config"])
     assert rec["unit"] == "img/s" and rec["value"] > 0
-    assert rec["vs_baseline"] == round(rec["value"] / 181.53, 3)
+    # the record's own rule: the unrounded rate over the P100 baseline
+    assert rec["vs_baseline"] == round(seen["img_per_sec"] / 181.53, 3)
     return rec
+
+
+def test_bench_record_vs_baseline_at_a_rounding_edge():
+    """``vs_baseline`` is the unrounded rate over the baseline: at 10.6194
+    img/s it is 0.058, where the rounded value (10.62) would give 0.059, so
+    ``_bench_record`` holds it to the unrounded rate it saw."""
+    rec = resnet50_train.record(10.6194, {"dtype": "float32"})
+    assert rec["value"] == 10.62 and rec["vs_baseline"] == 0.058
+    assert round(rec["value"] / 181.53, 3) == 0.059
 
 
 def test_bench_script_runs_at_toy_size(capsys, monkeypatch):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-9
 NH, NI, BATCH, T = 8, 5, 3, 4

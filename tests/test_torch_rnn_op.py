@@ -30,6 +30,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import rnn_op
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-9
 MODES = ["lstm", "gru", "rnn_tanh", "rnn_relu"]

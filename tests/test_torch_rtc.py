@@ -17,6 +17,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import MXNetError, rtc
 from mxnet_tpu_torch import rtc_kernels as rk
 from mxnet_tpu_torch.ops.kernel_build import BUILD_DIR, CudaLibrary
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 DTYPES = [(torch.float32, "float"), (torch.float64, "double"),
           (torch.float16, "__half"), (torch.bfloat16, "__nv_bfloat16"),

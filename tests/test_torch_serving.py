@@ -14,6 +14,7 @@ from mxnet_tpu.models import mlp as jmlp
 from mxnet_tpu.predictor import Predictor as JPredictor
 from mxnet_tpu_torch import serving
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 

@@ -22,6 +22,7 @@ import pytest
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import serving
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 RS = np.random.RandomState
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,6 +25,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import spatial
 from mxnet_tpu_torch.ops.registry import get_op as pget_op
 from test_torch_ordering_misc import _both
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 C = mt.cpu()

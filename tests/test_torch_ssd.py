@@ -24,6 +24,7 @@ import pytest
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.bench import ssd_train
 from mxnet_tpu_torch.models import ssd as pssd
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 STEP_TOL = 1e-9
 FLOOR_X = 4.0

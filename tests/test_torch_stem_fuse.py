@@ -19,6 +19,7 @@ import torch.nn.functional as F
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import nn as pnn
 from test_torch_resnet_train import _resnet, _state
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-9
 GEOMS = [

@@ -9,6 +9,7 @@ from mxnet_tpu import name as jname
 from mxnet_tpu.models import resnet as jresnet
 from mxnet_tpu_torch import name as pname
 from mxnet_tpu_torch.models import resnet as presnet
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 CONFIGS = [
     # num_classes, num_layers, image_shape, data shape

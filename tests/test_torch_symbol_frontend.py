@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 import mxnet_tpu_torch as mt
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 1e-12
 

@@ -39,6 +39,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import telemetry as tel
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 RS = np.random.RandomState

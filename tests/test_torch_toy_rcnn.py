@@ -22,6 +22,7 @@ import pytest
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.bench import toy_rcnn
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 STEP_TOL = 1e-9
 BATCH = 2

@@ -20,6 +20,7 @@ from mxnet_tpu.train import EvalStep as JEvalStep
 from mxnet_tpu.train import TrainStep as JTrainStep
 from mxnet_tpu_torch import name as pname
 from mxnet_tpu_torch.models import transformer as ptransformer
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(vocab_size=97, seq_len=128, num_layers=2, num_hidden=64,
            num_heads=4)
@@ -291,11 +292,16 @@ def test_eval_step_matches_mxnet_tpu(f64):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "the distributed slice"),
-    ({"param_shardings": {"x": None}}, "the distributed slice"),
-    ({"zero": 1}, "the distributed slice")])
+    ({"param_shardings": {"x": ("pp", None)}}, "the distributed slice"),
+    ({"param_shardings": {"x": ("tp", None)}}, "the distributed slice"),
+    ({"zero": 1, "param_shardings": {"x": ("tp",)}},
+     "the distributed slice")])
 def test_trainstep_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(mt.MXNetError, match="arrives with %s" % item):
+    """A pipeline or tensor-parallel axis refuses, naming its part; the
+    mesh and ZeRO arguments train (tests/test_torch_zero*.py)."""
+    part = "pipeline" if "pp" in str(kw) else "tensor-parallel"
+    with pytest.raises(mt.MXNetError,
+                       match="arrives with the %s part of %s" % (part, item)):
         mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
 
 

@@ -15,6 +15,7 @@ from mxnet_tpu.predictor import Predictor as JPredictor
 from mxnet_tpu_torch import name as pname
 from mxnet_tpu_torch.models import transformer as ptransformer
 from mxnet_tpu_torch.ops import attention as pattn
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 CFG = dict(vocab_size=97, seq_len=128, num_layers=2, num_hidden=64,
            num_heads=4)

@@ -17,6 +17,7 @@ import torch
 
 from mxnet_tpu.ops.registry import get_op as jget_op
 from mxnet_tpu_torch.ops.registry import get_op as pget_op
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 
 ATT = [(2, 3, 16, 8)] * 3
 
