@@ -248,8 +248,16 @@ fatal on failure:
    the fit loop's ``data_wait`` ms a batch (telemetry in memory,
    MXNET_TELEMETRY_FUSED=1), the busy share of a torch.profiler window over
    epoch 1, peak memory, 52 NormConv launches a step (32 with statistics;
-   0 with the knob off), the loss from records finite and falling; the
-   knob-on fits from records and synthetic in turns.  (c) At one decode
+   0 with the knob off); the knob-on fits from records (IMAGE_THREADS
+   threads, one epoch) and synthetic in turns, then the two fits from
+   records whose loss must fall (the mean over the last epoch below the
+   first loss, lr IMAGE_LR), knob on and off, through one decode thread,
+   the constructor's epoch drained and one producer an epoch
+   (``image_checked_iter``: the crops drawn in record order, so the
+   batches do not depend on thread scheduling) and cuDNN's deterministic
+   algorithms (knob off: the same fit in every run; knob on, NormConv's
+   atomic statistics still differ in the last bits), their losses a batch
+   and an epoch printed.  (c) At one decode
    thread, MXNET_NORM_CONV=0 and cuDNN deterministic, the fit from records
    equal bit for bit to an ``NDArrayIter`` fit of the batches the iterator
    yielded.
@@ -437,6 +445,34 @@ fatal on failure:
    checkpoint every 2 steps with its ZeRO rows, stopped after 2 steps and
    resumed: the restored state bitwise the saved one.  Img/s and update ms
    a level.
+14. pipeline: the pipeline part of the distributed slice.  Two ranks
+   sharing the card through the launcher run ``bench/pp_ladder.py``:
+   ResNet-50 v2 at full width from the seed-0 state, ``PipelineTrainStep``
+   over ``make_pp_mesh(2)`` (pp=2, dp=1), a global batch of PP_BATCH,
+   float32, TF32 off, MXNET_NORM_CONV=1, SGD with momentum, PP_STEPS steps
+   a case on the same batches.  (a) gpipe at M=1 within RESNET_FLOOR_X
+   times its float32 floor of one process's ``TrainStep`` over the same
+   rows (the floor: the largest distance of PP_FLOOR_SAMPLES runs of that
+   reference from the state nudged by RESNET_FLOOR_NUDGE); (b) gpipe, 1f1b
+   and interleaved (v=2) at M=4, each by the same rule to one process's
+   ``PipelineTrainStep`` with pp=1 and M=4 (the floor of (a): the same
+   state and batches).  (c) Each rank's NormConv
+   launches a step (a forward and its recompute a microbatch on its
+   slice's stages: PP_NC_SLICE), summed over the ranks; the P2P transfers
+   a step by kind (calls, MB, seconds) and the pinned staging copies;
+   ``last_live_bytes`` and ``torch.cuda.max_memory_allocated`` a rank,
+   1f1b's flat from M=2 to M=8 while gpipe's grows; step and update ms
+   and img/s beside one process's.  (d) ``Module.fit`` under MXNET_PP=2
+   (M=1) for PP_FIT_BATCHES batches against ``PipelineTrainStep`` over
+   them, within RESNET_FLOOR_X times the M=1 floor.  (e) The state saved
+   under pp=2, restored into pp=2 and into one process's ``TrainStep``
+   bitwise, and a one-process save restored into pp=2 bitwise.  (f) The
+   phase within PP_PHASE_S seconds.
+
+Each phase prints its seconds split into the host's set-up (the CPU
+references and seed states) and the rest, after a host-speed line (the
+seconds of a fixed float64 matmul on the host), so runs on different
+hosts compare.
 
 Prints the card's name and power limit, whether ml_dtypes imports,
 per-geometry numbers, serving qps and latency, the ResNet-50 training
@@ -450,13 +486,14 @@ the observability phase's host split, MFU, profile ranges and checks,
 Updater and Rtc numbers, the parallel slice's checks, copies and rates,
 the capi phase's build, checks, C and HTTP times, the dist phase's route,
 checks, rates and checkpoint times, the zero phase's checks, bytes,
-collectives and rates, each phase's seconds, a
+collectives and rates, the pipeline phase's checks, launches, transfers,
+live bytes and rates, each phase's seconds, a
 JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
 geometries, batch 32, and its launches in the imagenet phase, and its
-launches in the image, capi, dist and zero phases;
+launches in the image, capi, dist, zero and pipeline phases;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -788,6 +825,163 @@ ITERS = 20
 def fail(msg):
     print("FAIL: %s" % msg, file=sys.stderr)
     sys.exit(1)
+
+
+# the host's set-up seconds of the running phase (CPU references, seed
+# states), which ``phase_done`` splits from the phase's other seconds
+HOST_SETUP = {"s": 0.0, "depth": 0}
+
+
+def host_setup(fn):
+    """Count the wall seconds of ``fn``'s calls (outermost only) as the
+    running phase's host set-up."""
+    def wrapped(*a, **k):
+        HOST_SETUP["depth"] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            HOST_SETUP["depth"] -= 1
+            if not HOST_SETUP["depth"]:
+                HOST_SETUP["s"] += time.perf_counter() - t0
+    wrapped.__name__ = fn.__name__
+    wrapped.__doc__ = fn.__doc__
+    return wrapped
+
+
+# ---------------------------------------------------- the CPU references
+# Each full-width check's CPU reference (its float64 step and the float32
+# or bfloat16 floor steps from nudged states) is a job of REF_JOBS, built
+# once and read by name through ``reference``.  ``start_references`` runs
+# the jobs in a spawned process while the card runs the build, kernel and
+# later phases; ``reference`` waits there for a job's file, or builds the
+# job in this process when no such process runs it.  A job's floors come
+# back as a table ({(kind index, leaf): (max_rel, norm_rel)}, the largest
+# of its floor steps), not as the steps themselves.
+REF_JOBS = []
+# the order the phases read them in
+REF_ORDER = ("resnet50_f32_0", "resnet50_f32_1", "resnet50_amp_0",
+             "resnet50_amp_1", "alexnet_f32", "inception_f32", "vgg16_f32",
+             "parallel_lstm_f32", "parallel_resnet50_f32",
+             "resnet50_seed_params")
+_REF = {"dir": None, "proc": None, "names": (), "memo": {}}
+_STATES = {}
+
+
+def _run_ref_job(mt, name):
+    memo = _REF["memo"]
+    if name not in memo:
+        t0 = time.perf_counter()
+        memo[name] = dict(REF_JOBS)[name](mt)
+        print("reference %s built seconds=%r (%s)"
+              % (name, time.perf_counter() - t0,
+                 "reference process" if _REF.get("worker") else "here"),
+              flush=True)
+    return memo[name]
+
+
+def reference_worker(work, names, threads):
+    """The spawned process: build every job of ``names`` in order, each
+    saved as ``work/<name>.pt`` (written whole, then renamed)."""
+    import torch
+    torch.set_num_threads(threads)
+    # this process takes the cores the card's phases leave idle
+    os.nice(19)
+    import mxnet_tpu_torch as mt
+    _REF["worker"] = True
+    _REF["dir"] = work
+    for name in names:
+        res = _run_ref_job(mt, name)
+        tmp = os.path.join(work, name + ".tmp")
+        torch.save(res, tmp)
+        os.replace(tmp, os.path.join(work, name + ".pt"))
+
+
+def start_references():
+    """Start the process that builds REF_JOBS (the host's cores but two)."""
+    import multiprocessing
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_refs_")
+    names = sorted((n for n, _ in REF_JOBS), key=REF_ORDER.index)
+    threads = max(1, (os.cpu_count() or 2) - 2)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=reference_worker, args=(work, names, threads), daemon=True)
+    proc.start()
+    _REF.update(dir=work, proc=proc, names=names)
+    print("references: %d jobs in a spawned process (%d threads): %s"
+          % (len(names), threads, ", ".join(names)))
+
+
+def stop_references():
+    proc = _REF["proc"]
+    if proc is not None:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(30)
+        shutil.rmtree(_REF["dir"], ignore_errors=True)
+        _REF.update(dir=None, proc=None, names=())
+
+
+@host_setup
+def reference(mt, name, keep=True):
+    """The result of job ``name``: from the spawned process when it runs
+    the job (waiting for it), else built here; kept for later readers
+    unless ``keep`` is false."""
+    memo = _REF["memo"]
+    if name in memo:
+        return memo[name] if keep else memo.pop(name)
+    proc = _REF["proc"]
+    if proc is not None and name in _REF["names"]:
+        import torch
+        path = os.path.join(_REF["dir"], name + ".pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if not proc.is_alive() and not os.path.exists(path):
+                fail("the reference process exited (%r) before building %s"
+                     % (proc.exitcode, name))
+            time.sleep(0.05)
+        res = torch.load(path, weights_only=False)
+        os.remove(path)
+        print("reference %s read from the reference process: waited and "
+              "read seconds=%r" % (name, time.perf_counter() - t0))
+    else:
+        res = _run_ref_job(mt, name)
+        memo.pop(name, None)
+    if keep:
+        memo[name] = res
+    return res
+
+
+def ref_job(name):
+    def deco(fn):
+        REF_JOBS.append((name, fn))
+        return fn
+    return deco
+
+
+def floor_table(want, floors, kinds):
+    """{(k, leaf): (max_rel, norm_rel)}: the largest distance of the floor
+    steps ``floors`` from ``want`` for each leaf of ``want[k]``."""
+    return {(k, n): tuple(max(m) for m in zip(*(resnet_dist(f[k][n], ref)
+                                                 for f in floors)))
+            for k in range(len(kinds)) for n, ref in want[k].items()}
+
+
+def host_speed():
+    """Seconds of a fixed float64 matmul on the host (2048 x 2048, 4
+    products, the best of 3): the host's speed, so that runs on different
+    hosts compare."""
+    import torch
+    g = torch.Generator().manual_seed(SEED)
+    a = torch.rand((2048, 2048), dtype=torch.float64, generator=g)
+    best = None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            a @ a
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best
 
 
 def is_kernel(e, device_type):
@@ -1232,10 +1426,19 @@ def serving_phase(torch, mt, nc, launches_per_forward):
     return numbers
 
 
+@host_setup
 def resnet50_state(mt, net, batch, image=IMAGE):
     """Seed-SEED parameters (the TrainStep initializer on the host), zero
     momenta, moving statistics and a batch (3 x ``image`` x ``image``), as
-    float64 numpy."""
+    float64 numpy; built once a (graph, batch, image)."""
+    import hashlib
+    key = (hashlib.sha1(net.tojson().encode()).hexdigest(), batch, image)
+    if key not in _STATES:
+        _STATES[key] = _resnet50_state(mt, net, batch, image)
+    return _STATES[key]
+
+
+def _resnet50_state(mt, net, batch, image):
     ts = mt.TrainStep(net, mt.optimizer.SGD(learning_rate=RESNET_LR,
                                             momentum=0.9), ctx=mt.cpu())
     p, s, a = ts.init({"data": (batch, 3, image, image)},
@@ -1298,6 +1501,7 @@ def resnet50_step(mt, net, state, ctx, dtype, batch, policy=None):
             (ts, p, s, a, data, outs))
 
 
+@host_setup
 def resnet50_reference(mt, net, state, batch, tag="resnet50_train"):
     """The check's references on the CPU, on the graph MXNET_NORM_CONV
     selects: (the float64 step, the RESNET_FLOOR_SAMPLES float32 steps that
@@ -1323,15 +1527,17 @@ def resnet50_leaf_rows(torch, got, want, floors, kinds=("grad", "aux")):
     """Per gradient and moving statistic (and, with "update" in ``kinds``,
     each parameter's update) of the step ``got`` against ``want``:
     (max_rel, norm_rel, floor max_rel, floor norm_rel, max_rel and norm_rel
-    as multiples of max(floor, RESNET_FLOOR_MIN), kind, name)."""
+    as multiples of max(floor, RESNET_FLOOR_MIN), kind, name).  ``floors``
+    is the floor steps or their ``floor_table``."""
+    if not isinstance(floors, dict):
+        floors = floor_table(want, floors, kinds)
     rows = []
     for k, kind in enumerate(kinds):
         for n, ref in want[k].items():
             if not torch.isfinite(got[k][n]).all():
                 fail("non-finite %s of %s" % (kind, n))
             d = resnet_dist(got[k][n], ref)
-            floor = [max(m) for m in zip(*(resnet_dist(f[k][n], ref)
-                                           for f in floors))]
+            floor = floors[(k, n)]
             rows.append(d + tuple(floor)
                         + tuple(x / max(f, RESNET_FLOOR_MIN)
                                 for x, f in zip(d, floor)) + (kind, n))
@@ -1388,7 +1594,8 @@ def resnet50_train_phase(torch, mt, nc, norm_conv, unfused_want=None):
         print("%s step=card_%s seconds=%r"
               % (tag, np.dtype(dt).name, time.perf_counter() - t0))
     got, trainer = card[np.float32]
-    want, floors = resnet50_reference(mt, net, state, b, tag)
+    ref = reference(mt, "resnet50_f32_" + norm_conv)
+    want, floors = ref["want"], ref["floors"]
     rows = resnet50_leaf_rows(torch, got, want, floors)
     if fused:
         f64_what = "cpu_f64_fused vs cpu_f64_unfused"
@@ -1464,6 +1671,7 @@ def amp_policy(mt):
     return mt.amp.Policy("bfloat16")
 
 
+@host_setup
 def resnet50_amp_reference(mt, net, state, batch, tag):
     """The RESNET_FLOOR_SAMPLES bfloat16-policy steps of the port on the
     CPU, on the graph MXNET_NORM_CONV selects, that give each leaf its
@@ -1478,6 +1686,67 @@ def resnet50_amp_reference(mt, net, state, batch, tag):
     print("%s steps=%d cpu_bf16_policy seconds=%r"
           % (tag, RESNET_FLOOR_SAMPLES, time.perf_counter() - t0))
     return floors
+
+
+def resnet50_net(mt):
+    return mt.models.resnet.get_symbol(CLASSES, 50,
+                                      "3,%d,%d" % (IMAGE, IMAGE))
+
+
+@ref_job("resnet50_seed_params")
+def resnet50_seed_params(mt):
+    """ResNet-50's seed-SEED state (``TrainStep.init``) as a ``.params``
+    file of ``arg:`` / ``aux:`` entries, float32: what every rank of the
+    zero and pipeline ladders would initialise from ``--seed``, read from
+    ``--params`` instead.  Returns {"path": the file}."""
+    import tempfile
+    net = resnet50_net(mt)
+    ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
+    p0, _, a0 = ts0.init({"data": (PP_BATCH, 3, IMAGE, IMAGE)},
+                         {"softmax_label": (PP_BATCH,)}, seed=SEED)
+    work = _REF["dir"] or tempfile.mkdtemp(prefix="chip_smoke_refs_")
+    path = os.path.join(work, "resnet50_seed.params")
+    mt.nd.save(path, dict(
+        [("arg:" + k, mt.nd.NDArray(v)) for k, v in p0.items()]
+        + [("aux:" + k, mt.nd.NDArray(v)) for k, v in a0.items()]))
+    return {"path": path}
+
+
+def _resnet50_f32_job(knob):
+    tag = "resnet50_train_fused" if knob == "1" else "resnet50_train"
+
+    def job(mt):
+        net = resnet50_net(mt)
+        b = RESNET_CHECK_BATCH
+        state = resnet50_state(mt, net, b)
+        want, floors = module_env({"MXNET_NORM_CONV": knob},
+                                  lambda: resnet50_reference(mt, net, state,
+                                                             b, tag))
+        return {"want": want,
+                "floors": floor_table(want, floors, ("grad", "aux"))}
+    return job
+
+
+def _resnet50_amp_job(knob):
+    tag = "resnet50_train_amp_fused" if knob == "1" \
+        else "resnet50_train_amp"
+
+    def job(mt):
+        net = resnet50_net(mt)
+        b = RESNET_CHECK_BATCH
+        state = resnet50_state(mt, net, b)
+        want = reference(mt, "resnet50_f32_" + knob)["want"]
+        floors = module_env({"MXNET_NORM_CONV": knob},
+                            lambda: resnet50_amp_reference(mt, net, state, b,
+                                                           tag))
+        return {"floors": floor_table(want, floors, AMP_KINDS)}
+    return job
+
+
+for _knob in ("0", "1"):
+    ref_job("resnet50_f32_" + _knob)(_resnet50_f32_job(_knob))
+for _knob in ("0", "1"):
+    ref_job("resnet50_amp_" + _knob)(_resnet50_amp_job(_knob))
 
 
 def amp_function_rows(torch, mt):
@@ -1665,7 +1934,7 @@ def resnet50_train_amp_phase(torch, mt, nc, norm_conv, want, f32_img_s):
         mt, net, state, gpu, np.float32, b, policy))
     print("%s step=card_bf16_policy seconds=%r"
           % (tag, time.perf_counter() - t0))
-    floors = resnet50_amp_reference(mt, net, state, b, tag)
+    floors = reference(mt, "resnet50_amp_" + norm_conv)["floors"]
     worst = resnet50_check_rows(
         torch, tag, resnet50_leaf_rows(torch, got, want, floors, AMP_KINDS),
         "bf16_floor")
@@ -3331,10 +3600,13 @@ def floor_check(torch, tag, got, want, floors, pair=None):
     floor (the largest distance of ``floors`` from ``want``, by max and by
     norm; RESNET_FLOOR_MIN at least) of ``want``; with ``pair``, hold
     ``got`` within twice that of ``pair``.  Prints one row a leaf; returns
-    the worst multiple of the floor."""
+    the worst multiple of the floor.  ``floors``: the floor steps or their
+    ``floor_table``."""
     worst = 0.0
-    for row in resnet50_leaf_rows(torch, (got,), (want,),
-                                  [(f,) for f in floors], kinds=(tag,)):
+    if not isinstance(floors, dict):
+        floors = [(f,) for f in floors]
+    for row in resnet50_leaf_rows(torch, (got,), (want,), floors,
+                                  kinds=(tag,)):
         k, floor, x = row[7], row[2:4], row[4:6]
         line = ("%s %s max_rel=%.3e norm_rel=%.3e floor=%.3e/%.3e "
                 "x_floor=%.3f/%.3f" % ((tag, k) + row[:6]))
@@ -4144,9 +4416,12 @@ def alexnet_step(torch, mt, net, params, data, masks, ctx, dtype,
             {n: v.double().cpu() - before[n] for n, v in p.items()})
 
 
-def alexnet_step_check(torch, mt, net):
-    """(b)'s step: float32 on the card under each layout against float64
-    on the host; floors from float32 host steps from the state and nudges."""
+@ref_job("alexnet_f32")
+def alexnet_reference(mt):
+    """AlexNet's check state, its float64 host step and the floor table of
+    its float32 host steps from the state and nudges."""
+    import torch
+    net = mt.models.alexnet.get_symbol(num_classes=CLASSES)
     b = ALEX_CHECK_BATCH
     ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
     p0, _, _ = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
@@ -4170,6 +4445,17 @@ def alexnet_step_check(torch, mt, net):
                                    np.float32))
     print("alexnet_train steps=cpu_f64+%d cpu_f32 batch=%d seconds=%r"
           % (RESNET_FLOOR_SAMPLES, b, time.perf_counter() - t0))
+    return {"params": params, "data": data, "masks": masks, "want": want,
+            "floors": floor_table(want, floors, ("grad", "update"))}
+
+
+def alexnet_step_check(torch, mt, net):
+    """(b)'s step: float32 on the card under each layout against float64
+    on the host; floors from float32 host steps from the state and nudges
+    (``alexnet_reference``)."""
+    ref = reference(mt, "alexnet_f32", keep=False)
+    params, data, masks = ref["params"], ref["data"], ref["masks"]
+    want, floors = ref["want"], ref["floors"]
     for layout in ("NHWC", "NCHW"):
         got = module_env({"MXNET_CONV_LAYOUT": layout}, lambda: alexnet_step(
             torch, mt, net, params, data, masks, mt.gpu(0), np.float32))
@@ -4206,23 +4492,37 @@ def alexnet_fit(torch, mt, net, args, x, y, env):
             mod._fused_ts_cache is not None)
 
 
+def card_kernels(prof):
+    """(device ms, count) of the card's kernels (``is_kernel``'s rule) in
+    a finished torch.profiler session, summed over its raw events: the
+    FunctionEvents ``key_averages`` builds took 10-26 s for an epoch of
+    ResNet-50 steps."""
+    from torch.autograd import DeviceType
+    ms, n = 0.0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA \
+                and not e.is_user_annotation() \
+                and e.name() != "TrainStep.update":
+            ms += e.duration_ns() * 1e-6
+            n += 1
+    return ms, n
+
+
 def busy_steps(torch, fn, reps):
     """(device ms, wall ms, launches) a call of ``fn`` over ``reps`` calls
-    inside one torch.profiler context, the wall clock started and stopped
-    inside it (the profiler's start and stop outside)."""
-    from torch.autograd import DeviceType
+    inside one torch.profiler context of the card's activity, the wall
+    clock started and stopped inside it (the profiler's start and stop
+    outside)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if is_kernel(e, DeviceType)]
-    return (sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
-            wall * 1e3 / reps, sum(e.count for e in kernels) // reps)
+    dev, n = card_kernels(prof)
+    return dev / reps, wall * 1e3 / reps, n // reps
 
 
 def lrn_step_ms(torch, mt):
@@ -4949,19 +5249,25 @@ def mp_timed(torch, mt, mpl, net, ctx, plan, state, batches, on_card,
             float(np.median(gaps)), copies[-1], ppl, busy)
 
 
-def mp_phase(torch, mt, card, gpu, host):
-    """(a) and (b) of the parallel phase: BASELINE #5 on the one-card plan
-    and on the two-device plan, against the unplaced bind and float64."""
-    from mxnet_tpu_torch import executor as exm
+def mp_case(mt):
+    """BASELINE #5's graph, seed state and batch at MP_WIDTHS."""
     from mxnet_tpu_torch.bench import model_parallel_lstm as mpl
     w = MP_WIDTHS
     net = mpl.model(mt, w["num_layers"], w["seq_len"], w["num_hidden"],
                     w["num_embed"], w["vocab_size"])
     state = mpl.init_state(mt, net, w["batch_size"], w["seq_len"], SEED)
-    nparam = sum(v.size for v in state.values())
     batch = mpl.synthetic_batch(np.random.RandomState(SEED),
                                 w["batch_size"], w["seq_len"],
                                 w["vocab_size"])
+    return mpl, net, state, batch
+
+
+@ref_job("parallel_lstm_f32")
+def mp_reference(mt):
+    """BASELINE #5's float64 host step and the floor table of its float32
+    host steps from the state and nudges."""
+    import torch
+    mpl, net, state, batch = mp_case(mt)
     t0 = time.perf_counter()
     want = mp_step(torch, mt, mpl, net, mt.cpu(), None, state, batch,
                    np.float64)[0]
@@ -4970,8 +5276,24 @@ def mp_phase(torch, mt, card, gpu, host):
                       batch, np.float32)[0]
               for i in range(RESNET_FLOOR_SAMPLES)]
     print("parallel lstm widths=%s parameters=%d cpu_f64+%d cpu_f32 "
-          "steps seconds=%r" % (json.dumps(w), nparam, RESNET_FLOOR_SAMPLES,
+          "steps seconds=%r" % (json.dumps(MP_WIDTHS),
+                                sum(v.size for v in state.values()),
+                                RESNET_FLOOR_SAMPLES,
                                 time.perf_counter() - t0))
+    return {"want": want, "floors": floor_table((want,),
+                                                [(f,) for f in floors],
+                                                ("lstm",))}
+
+
+def mp_phase(torch, mt, card, gpu, host):
+    """(a) and (b) of the parallel phase: BASELINE #5 on the one-card plan
+    and on the two-device plan, against the unplaced bind and float64
+    (``mp_reference``)."""
+    from mxnet_tpu_torch import executor as exm
+    w = MP_WIDTHS
+    mpl, net, state, batch = mp_case(mt)
+    ref = reference(mt, "parallel_lstm_f32", keep=False)
+    want, floors = ref["want"], ref["floors"]
     # (a) the reference's ngpu = 1: every group on the card
     plan1 = mpl.placement([gpu], w["num_layers"])
     before = exm.cross_device_copies
@@ -5118,9 +5440,11 @@ def dp_step(torch, mt, net, ctxs, kvstore, state, dtype, lr):
 
 def floor_summary(torch, tag, got, want, floors):
     """``floor_check``'s rule over many leaves, printing the worst three
-    by multiple of their floor; returns the worst multiple."""
-    rows = resnet50_leaf_rows(torch, (got,), (want,),
-                              [(f,) for f in floors], kinds=(tag,))
+    by multiple of their floor (``floors``: the floor steps or their
+    ``floor_table``); returns the worst multiple."""
+    if not isinstance(floors, dict):
+        floors = [(f,) for f in floors]
+    rows = resnet50_leaf_rows(torch, (got,), (want,), floors, kinds=(tag,))
     rows.sort(key=lambda r: -max(r[4:6]))
     for r in rows[:3]:
         print("%s %s max_rel=%.3e norm_rel=%.3e floor=%.3e/%.3e "
@@ -5133,9 +5457,23 @@ def floor_summary(torch, tag, got, want, floors):
     return max(rows[0][4:6])
 
 
-def dp_check(torch, mt, tag, net, ctxs, cpu_ctxs, kvstore, state, lr):
+def dp_check(torch, mt, tag, net, ctxs, cpu_ctxs, kvstore, state, lr,
+             pre=None):
     """One two-context step on the card (``ctxs``) in float32 within the
-    floor rule of the float64 step over ``cpu_ctxs`` on the CPU."""
+    floor rule of the float64 step over ``cpu_ctxs`` on the CPU (``pre``:
+    that step and its floor table, built already)."""
+    if pre is not None:
+        got = dp_step(torch, mt, net, ctxs, kvstore, state, np.float32, lr)
+        return floor_summary(torch, tag, got, pre["want"], pre["floors"])
+    pre = dp_reference(mt, tag, net, cpu_ctxs, kvstore, state, lr)
+    return dp_check(torch, mt, tag, net, ctxs, cpu_ctxs, kvstore, state, lr,
+                    pre)
+
+
+def dp_reference(mt, tag, net, cpu_ctxs, kvstore, state, lr):
+    """The float64 two-context step over ``cpu_ctxs`` and the floor table
+    of its float32 steps from the state and nudges."""
+    import torch
     t0 = time.perf_counter()
     want = dp_step(torch, mt, net, cpu_ctxs, kvstore, state, np.float64, lr)
     args, aux, data = state
@@ -5146,13 +5484,25 @@ def dp_check(torch, mt, tag, net, ctxs, cpu_ctxs, kvstore, state, lr):
                                      skip=("softmax_label",)))
                       if i else state, np.float32, lr)
               for i in range(RESNET_FLOOR_SAMPLES)]
-    seconds = time.perf_counter() - t0
-    got = dp_step(torch, mt, net, ctxs, kvstore, state, np.float32, lr)
     print("%s contexts=%s kvstore=%s batch=%d references cpu_f64+%d "
-          "cpu_f32 seconds=%r" % (tag, ctxs, kvstore,
+          "cpu_f32 seconds=%r" % (tag, cpu_ctxs, kvstore,
                                   len(data["softmax_label"]),
-                                  RESNET_FLOOR_SAMPLES, seconds))
-    return floor_summary(torch, tag, got, want, floors)
+                                  RESNET_FLOOR_SAMPLES,
+                                  time.perf_counter() - t0))
+    return {"want": want, "floors": floor_table((want,),
+                                                [(f,) for f in floors],
+                                                (tag,))}
+
+
+@ref_job("parallel_resnet50_f32")
+def parallel_resnet50_reference(mt):
+    """dp_reference of the parallel phase's ResNet-50 step over [cpu(0),
+    cpu(1)] with the "device" store."""
+    net = resnet50_net(mt)
+    args, _, aux, data = resnet50_state(mt, net, DP_RESNET_CHECK_BATCH)
+    return dp_reference(mt, "parallel resnet50 step", net,
+                        [mt.cpu(0), mt.cpu(1)], "device", (args, aux, data),
+                        RESNET_LR)
 
 
 def dp_fit_rate(torch, mt, net, ctxs, kvstore, x, y, batch, lr, epochs=1,
@@ -5244,7 +5594,8 @@ def dp_phase(torch, mt, card, gpu, host):
         torch.cuda.empty_cache()
     args, _, aux, data = resnet50_state(mt, net, DP_RESNET_CHECK_BATCH)
     dp_check(torch, mt, "parallel resnet50 step", net, same,
-             [mt.cpu(0), mt.cpu(1)], "device", (args, aux, data), RESNET_LR)
+             [mt.cpu(0), mt.cpu(1)], "device", (args, aux, data), RESNET_LR,
+             reference(mt, "parallel_resnet50_f32", keep=False))
 
 
 def parallel_phase(torch, mt, card, gpu=None, host=None):
@@ -5711,6 +6062,26 @@ def imagenet_args(ti, network, batch, lr):
                                    str(batch), "--lr", repr(lr)])
 
 
+def inception_net(mt):
+    from mxnet_tpu_torch.bench import train_imagenet as ti
+    return ti.get_symbol(imagenet_args(ti, "inception-v3",
+                                       INCEPTION_FIT_BATCH, INCEPTION_LR))
+
+
+@ref_job("inception_f32")
+def inception_reference(mt):
+    """Inception-v3's float64 host step at INCEPTION_CHECK_BATCH (unfused)
+    and the floor table of its float32 host steps."""
+    net = inception_net(mt)
+    b = INCEPTION_CHECK_BATCH
+    state = resnet50_state(mt, net, b, image=INCEPTION_IMAGE)
+    want, floors = module_env({"MXNET_NORM_CONV": "0"},
+                              lambda: resnet50_reference(
+                                  mt, net, state, b, tag="inception_train"))
+    return {"want": want, "floors": floor_table(want, floors,
+                                                ("grad", "aux"))}
+
+
 def inception_step_check(torch, mt, nc, net):
     """(a): one SGD-momentum step at batch INCEPTION_CHECK_BATCH, float32
     on the card with MXNET_NORM_CONV 0 and 1, against the float64 step on
@@ -5720,9 +6091,8 @@ def inception_step_check(torch, mt, nc, net):
     the knob off.  Returns (the seed state, the launches counted)."""
     b = INCEPTION_CHECK_BATCH
     state = resnet50_state(mt, net, b, image=INCEPTION_IMAGE)
-    want, floors = module_env({"MXNET_NORM_CONV": "0"},
-                              lambda: resnet50_reference(
-                                  mt, net, state, b, tag="inception_train"))
+    ref = reference(mt, "inception_f32", keep=False)
+    want, floors = ref["want"], ref["floors"]
     launches = 0
     for knob in ("0", "1"):
         nc.launches = nc.stats_launches = 0
@@ -5915,6 +6285,43 @@ def vgg_phase(torch, mt, ti, card):
     floor, Dropout masks injected; a short Module.fit at VGG_FIT_BATCH."""
     args = imagenet_args(ti, "vgg", VGG_FIT_BATCH, VGG_LR)
     net = ti.get_symbol(args)
+    ref = reference(mt, "vgg16_f32", keep=False)
+    params, data, masks = ref["params"], ref["data"], ref["masks"]
+    want, floors = ref["want"], ref["floors"]
+    n_params = sum(int(v.size) for v in params.values())
+    b = VGG_CHECK_BATCH
+    got = alexnet_step(torch, mt, net, params, data, masks, mt.gpu(0),
+                       np.float32, VGG_LR, b)
+    resnet50_check_rows(torch, "vgg16_train",
+                        resnet50_leaf_rows(torch, got, want, floors,
+                                           kinds=("grad", "update")),
+                        "float32 floor")
+    del got, want, floors, ref
+    rng = np.random.default_rng(SEED + 33)
+    x = rng.uniform(-1, 1, (VGG_FIT_BATCHES * VGG_FIT_BATCH, 3, IMAGE,
+                            IMAGE)).astype(np.float32)
+    y = rng.integers(0, CLASSES, len(x)).astype(np.float32)
+    r = imagenet_fit(torch, mt, ti, net, args, x, y,
+                     {n: v.astype(np.float32) for n, v in params.items()},
+                     {}, {})
+    del r["module"]
+    if not r["fused"] or not np.isfinite(r["losses"]).all():
+        fail("vgg16 fit: fused %r, losses %r" % (r["fused"], r["losses"]))
+    print("vgg16 fit params=%d batch=%d batches=%d img_per_s=%r "
+          "host_ms_per_batch=%r peak_mem_gb=%r losses=%r (%s)"
+          % (n_params, VGG_FIT_BATCH, VGG_FIT_BATCHES, r["img_s"],
+             r["host_ms"], r["peak_gb"], r["losses"], card))
+    return r
+
+
+@ref_job("vgg16_f32")
+def vgg_reference(mt):
+    """VGG-16's check state (seed-SEED parameters, a batch, Dropout
+    masks), its float64 host step and the floor table of its float32 host
+    steps from the state and nudges."""
+    import torch
+    from mxnet_tpu_torch.bench import train_imagenet as ti
+    net = ti.get_symbol(imagenet_args(ti, "vgg", VGG_FIT_BATCH, VGG_LR))
     b = VGG_CHECK_BATCH
     ts0 = mt.TrainStep(net, mt.optimizer.SGD(), ctx=mt.cpu())
     p0, _, _ = ts0.init({"data": (b, 3, IMAGE, IMAGE)},
@@ -5938,27 +6345,8 @@ def vgg_phase(torch, mt, ti, card):
     print("vgg16_train params=%d steps=cpu_f64+%d cpu_f32 batch=%d "
           "seconds=%r" % (n_params, RESNET_FLOOR_SAMPLES, b,
                           time.perf_counter() - t0))
-    got = alexnet_step(torch, mt, net, params, data, masks, mt.gpu(0),
-                       np.float32, VGG_LR, b)
-    resnet50_check_rows(torch, "vgg16_train",
-                        resnet50_leaf_rows(torch, got, want, floors,
-                                           kinds=("grad", "update")),
-                        "float32 floor")
-    rng = np.random.default_rng(SEED + 33)
-    x = rng.uniform(-1, 1, (VGG_FIT_BATCHES * VGG_FIT_BATCH, 3, IMAGE,
-                            IMAGE)).astype(np.float32)
-    y = rng.integers(0, CLASSES, len(x)).astype(np.float32)
-    r = imagenet_fit(torch, mt, ti, net, args, x, y,
-                     {n: v.astype(np.float32) for n, v in params.items()},
-                     {}, {})
-    del r["module"]
-    if not r["fused"] or not np.isfinite(r["losses"]).all():
-        fail("vgg16 fit: fused %r, losses %r" % (r["fused"], r["losses"]))
-    print("vgg16 fit params=%d batch=%d batches=%d img_per_s=%r "
-          "host_ms_per_batch=%r peak_mem_gb=%r losses=%r (%s)"
-          % (n_params, VGG_FIT_BATCH, VGG_FIT_BATCHES, r["img_s"],
-             r["host_ms"], r["peak_gb"], r["losses"], card))
-    return r
+    return {"params": params, "data": data, "masks": masks, "want": want,
+            "floors": floor_table(want, floors, ("grad", "update"))}
 
 
 def imagenet_phase(torch, mt, nc, card):
@@ -6296,12 +6684,12 @@ def image_fit(torch, mt, ti, args, net, it, params, aux, env, epochs):
     epoch left out), busy, device_ms, wall_ms (a torch.profiler window
     over epoch 1 after its first batch), peak_gb, losses, fused, batches,
     module}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     b = args.batch_size
     args.num_epochs = epochs
     ends = {}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # the card's activity only: the busy share reads the kernels
+    prof = profile(activities=[ProfilerActivity.CUDA])
     window = {}
 
     def batch_end(param):
@@ -6338,9 +6726,11 @@ def image_fit(torch, mt, ti, args, net, it, params, aux, env, epochs):
             mt.telemetry.stop()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t_call = time.perf_counter()
     mod, loss = module_env(dict(env, MXNET_TELEMETRY_FUSED="1",
                                 MXNET_SCALARS_EVERY=IMAGE_SCALARS_EVERY),
                            run)
+    t_fit = time.perf_counter()
     e0 = ends[0]
     gaps = [(t1 - t0) * 1e3 for t0, t1 in zip(e0, e0[1:])]
     out = {"img_s": (len(e0) - 1) * b / (e0[-1] - e0[0]),
@@ -6351,12 +6741,16 @@ def image_fit(torch, mt, ti, args, net, it, params, aux, env, epochs):
            "fused": mod._fused_ts_cache is not None,
            "batches": sum(len(v) for v in ends.values())}
     if "wall" in window:
-        kernels = [e for e in prof.key_averages() if is_kernel(e, DeviceType)]
-        dev = sum(e.self_device_time_total for e in kernels) * 1e-3
+        dev = card_kernels(prof)[0]
         steps = len(ends[epochs - 1]) - 1
         out.update(device_ms=dev, wall_ms=window["wall"] * 1e3,
                    busy=dev / (window["wall"] * 1e3),
                    busy_unprofiled=dev / steps / (1e3 * b / out["img_s"]))
+    last = max(max(v) for v in ends.values())
+    print("image fit timing batches=%d setup_s=%r (to the first batch's "
+          "end) batches_s=%r teardown_s=%r profile_read_s=%r"
+          % (out["batches"], e0[0] - t_call, last - e0[0], t_fit - last,
+             time.perf_counter() - t_fit))
     if not np.isfinite(out["losses"]).all():
         fail("image fit: non-finite losses %r" % out["losses"])
     return out
@@ -6413,6 +6807,49 @@ def image_u8_net(mt):
                                        data=prep)
 
 
+class _OneProducer(object):
+    """An ``ImageRecordIter``'s batches with one producer an epoch:
+    ``iter()`` starts the epoch (the iterator's own reset) and ``reset()``
+    does nothing.  ``Module.fit`` resets its iterator at an epoch's end and
+    calls ``iter()`` at the next one's start; through the iterator itself
+    that starts two producers whose crops draw from its one generator at
+    once, in an order that depends on scheduling."""
+
+    def __init__(self, it):
+        self.it = it
+        self.batch_size = it.batch_size
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        self.it.reset()
+        return self
+
+    def __next__(self):
+        return self.it.next()
+
+    next = __next__
+
+
+def image_checked_iter(ti, args, **kw):
+    """The feed of the image fits whose loss is checked: the example's
+    ``ImageRecordIter`` with one preprocessing thread, so that its crops
+    and mirrors are drawn in record order from its one generator (with
+    IMAGE_THREADS threads which image gets which draw depends on
+    scheduling), the epoch its constructor starts drained, and one
+    producer an epoch (``_OneProducer``): the fit's batches are the same
+    in every run."""
+    it = ti.record_iter(args, preprocess_threads=1, **kw)
+    while True:
+        try:
+            it.next()
+        except StopIteration:
+            return _OneProducer(it)
+
+
 def image_resnet(torch, mt, nc, ti, rec, card):
     """(a)-(e) of the image phase on ResNet-50 v2 at batch IMAGE_BATCH;
     returns the NormConv launches of the counted fits."""
@@ -6430,18 +6867,35 @@ def image_resnet(torch, mt, nc, ti, rec, card):
               "rand_crop, rand_mirror; %s)"
               % (tag, IMAGE_BATCH, IMAGE_THREADS, ips, dt, IMAGE_RAW[0],
                  IMAGE_RAW[1], card))
-    # (b) the fits: from records and the synthetic yardstick in turns
-    # (records, synthetic, synthetic, records), knob on; records, knob off
+    # (b) the fits: from records (IMAGE_THREADS threads) and the synthetic
+    # yardstick in turns (records, synthetic, synthetic, records), knob on;
+    # then the two fits whose loss is checked, from records through one
+    # thread (image_checked_iter), knob on and off
     launches = 0
     fits = []
-    for tag, knob, epochs in (("records", "1", 2), ("synthetic", "1", 2),
+    for tag, knob, epochs in (("records", "1", 1), ("synthetic", "1", 2),
                               ("synthetic", "1", 1), ("records", "1", 1),
-                              ("records", "0", 2)):
-        it = ti.record_iter(args, **raw) if tag == "records" else \
-            mt.io.NDArrayIter(x, y, batch_size=IMAGE_BATCH)
+                              ("checked", "1", 2), ("checked", "0", 2)):
+        if tag == "records":
+            it = ti.record_iter(args, **raw)
+        elif tag == "checked":
+            it = image_checked_iter(ti, args, **raw)
+        else:
+            it = mt.io.NDArrayIter(x, y, batch_size=IMAGE_BATCH)
         nc.launches = nc.stats_launches = 0
-        r = image_fit(torch, mt, ti, args, net, it, params, aux,
-                      {"MXNET_NORM_CONV": knob}, epochs=epochs)
+        # the checked fits under cuDNN's deterministic algorithms: with
+        # the knob off the fit is then the same in every run; with it on,
+        # NormConv's statistics (atomic sums) still differ in the last bits
+        deterministic = torch.backends.cudnn.deterministic
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic = tag == "checked"
+        torch.backends.cudnn.benchmark = benchmark and tag != "checked"
+        try:
+            r = image_fit(torch, mt, ti, args, net, it, params, aux,
+                          {"MXNET_NORM_CONV": knob}, epochs=epochs)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            torch.backends.cudnn.benchmark = benchmark
         counts = (nc.launches, nc.stats_launches)
         launches += counts[0]
         want = (RESNET_NC_PER_STEP * r["batches"],
@@ -6453,10 +6907,15 @@ def image_resnet(torch, mt, nc, ti, rec, card):
                  "fused %r" % (tag, knob, counts, want, r["fused"]))
         del r["module"]
         losses = r["losses"]
-        if tag == "records" and epochs == 2 and \
-                not np.mean(losses[-nb:]) < losses[0]:
-            fail("image fit %s knob %s: the loss %r did not fall"
-                 % (tag, knob, losses))
+        if tag == "checked":
+            print("image fit checked threads=1 MXNET_NORM_CONV=%s "
+                  "first_loss=%r epoch_mean_losses=%r losses=%r"
+                  % (knob, losses[0],
+                     [float(np.mean(losses[e * nb:(e + 1) * nb]))
+                      for e in range(epochs)], losses))
+            if not np.mean(losses[-nb:]) < losses[0]:
+                fail("image fit %s knob %s: the loss %r did not fall"
+                     % (tag, knob, losses))
         fits.append(r)
         torch.cuda.empty_cache()
     for (rec1, syn1) in ((fits[0], fits[1]), (fits[3], fits[2])):
@@ -7063,10 +7522,12 @@ def capi_train(torch, mt, lib, net):
     return launches
 
 
-def capi_cpp_package(mt, host):
-    """mlp_predict and lenet_train (built in the build phase) run against
-    the port's library on the box's CPU: mlp_predict's argmax rows are the
-    Predictor's and its feature path runs; lenet_train prints PASS."""
+def capi_cpp_package_start(mt, host):
+    """Start mlp_predict and lenet_train (built in the build phase) against
+    the port's library on the box's CPU, both at once, in threads (each
+    embeds Python and imports the port first: most of its seconds); they
+    run beside the card's phases.  Returns the handle
+    ``capi_cpp_package`` checks."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip_smoke_capi_")
     try:
@@ -7099,8 +7560,6 @@ def capi_cpp_package(mt, host):
         np.savetxt(lcsv, y.astype(np.float32), delimiter=",", fmt="%g")
         runs = {"mlp_predict": [prefix, "4", str(batch), str(dim)],
                 "lenet_train": [dcsv, lcsv, "32", "8"]}
-        # both examples at once (each embeds Python and imports the port
-        # first: most of its seconds)
         done = {}
 
         def run(name):
@@ -7109,11 +7568,23 @@ def capi_cpp_package(mt, host):
                 [host.example(name)] + runs[name], capture_output=True,
                 text=True, env=host.run_env(), timeout=300),
                 time.perf_counter() - t0)
-        threads = [threading.Thread(target=run, args=(n,))
+        threads = [threading.Thread(target=run, args=(n,), daemon=True)
                    for n in CAPI_EXAMPLES]
         for th in threads:
             th.start()
-        for th in threads:
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    return {"work": work, "threads": threads, "done": done, "want": want}
+
+
+def capi_cpp_package(handle):
+    """Wait for the examples ``capi_cpp_package_start`` started:
+    mlp_predict's argmax rows are the Predictor's and its feature path
+    runs; lenet_train prints PASS."""
+    work, done, want = handle["work"], handle["done"], handle["want"]
+    try:
+        for th in handle["threads"]:
             th.join()
         for name in CAPI_EXAMPLES:
             if name not in done:
@@ -7243,7 +7714,7 @@ def capi_http(torch, mt, nc, net, blob, serving_numbers):
     return launches
 
 
-def capi_phase(torch, mt, nc, host, serving_numbers):
+def capi_phase(torch, mt, nc, host, serving_numbers, cpp_package):
     """The inference extras: ResNet-50 through the C predict API and the C
     executor, the cpp-package on the box, the HTTP front end, cpu_pinned.
     Returns the NormConv launches of the phase."""
@@ -7260,8 +7731,9 @@ def capi_phase(torch, mt, nc, host, serving_numbers):
     launches += capi_http(torch, mt, nc, net, blob, serving_numbers)
     print("capi http seconds=%r" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
-    capi_cpp_package(mt, host)
-    print("capi cpp-package seconds=%r" % (time.perf_counter() - t0))
+    capi_cpp_package(cpp_package)
+    print("capi cpp-package seconds=%r (waited here; started after the "
+          "build)" % (time.perf_counter() - t0))
     os.environ["MXNET_NORM_CONV"] = "0"
     return launches
 
@@ -7278,46 +7750,129 @@ ELASTIC_BATCHES = 4
 ELASTIC_EVERY = 2
 
 
-def dist_launch(label, args, timeout, env=None):
-    """Run ``args`` in a session of its own (the launcher and its ranks),
-    killing the whole group at ``timeout``; (rc, stdout, stderr)."""
+# a held rank: imports torch and the port and starts its card's context,
+# then waits for the file CHIP_SMOKE_GO names before it runs the module
+# (its command's first argument) as ``python -m`` would
+HOLD_SRC = """import os, runpy, sys, time
+import torch
+import mxnet_tpu_torch
+if torch.cuda.is_available():
+    torch.cuda.init()
+go = os.environ["CHIP_SMOKE_GO"]
+while not os.path.exists(go):
+    time.sleep(0.02)
+del sys.argv[0]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def dist_start(label, args, env=None, go=None):
+    """Start ``args`` in a session of its own (the launcher and its
+    ranks), its output to temporary files; with ``go`` (a path) in the
+    environment as CHIP_SMOKE_GO, which held ranks wait for.  Returns the
+    handle ``dist_finish`` takes."""
+    import tempfile
     full = dict(os.environ)
     full.update(env or {})
     full["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in full.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
-    t0 = time.perf_counter()
+    if go is not None:
+        full["CHIP_SMOKE_GO"] = go
+    out = tempfile.TemporaryFile(mode="w+")
+    err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen(args, cwd=ROOT, env=full, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            start_new_session=True)
+                            stdout=out, stderr=err, start_new_session=True)
+    _STARTED.append(proc)
+    return {"label": label, "proc": proc, "out": out, "err": err,
+            "go": go, "t0": time.perf_counter()}
+
+
+# every world started; any still running when the script exits (a failed
+# phase with a held world) is killed with its whole session
+_STARTED = []
+
+
+def _kill_started():
+    for proc in _STARTED:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, 9)
+            except OSError:
+                pass
+
+
+def dist_finish(h, timeout):
+    """Release a started launch (its go file) and wait for it, killing the
+    whole group at ``timeout`` seconds after the release; (rc, stdout,
+    stderr)."""
+    t_go = time.perf_counter()
+    if h["go"] is not None:
+        open(h["go"], "w").close()
+    proc = h["proc"]
+
+    def read():
+        texts = []
+        for f in (h["out"], h["err"]):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return texts
     try:
-        out, err = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
-        out, err = proc.communicate()
+        proc.wait()
+        out, err = read()
         fail("dist: %s timed out after %d s\n%s\n%s"
-             % (label, timeout, out[-3000:], err[-3000:]))
-    print("dist launch %s seconds=%r rc=%d"
-          % (label, time.perf_counter() - t0, proc.returncode))
+             % (h["label"], timeout, out[-3000:], err[-3000:]))
+    out, err = read()
+    print("dist launch %s seconds=%r rc=%d%s"
+          % (h["label"], time.perf_counter() - t_go, proc.returncode,
+             " (its ranks started %r s before and held until then)"
+             % (t_go - h["t0"]) if h["go"] is not None else ""))
     return proc.returncode, out, err
 
 
-def dist_ranks(work, module, *args, env=None):
-    """The port's launcher with DIST_RANKS ranks of ``python -m module``;
-    each rank's JSON report."""
-    rc, out, err = dist_launch(
+def dist_launch(label, args, timeout, env=None):
+    """Run ``args`` in a session of its own (the launcher and its ranks),
+    killing the whole group at ``timeout``; (rc, stdout, stderr)."""
+    return dist_finish(dist_start(label, args, env), timeout)
+
+
+def dist_ranks_start(work, module, *args, env=None, hold=False):
+    """Start the port's launcher with DIST_RANKS ranks of ``python -m
+    module`` writing to ``work``; with ``hold`` the ranks import and start
+    the card's context at once, then wait for ``dist_ranks_finish`` (the
+    start-up overlaps the script's earlier work)."""
+    rank = [sys.executable, "-c", HOLD_SRC, module] if hold \
+        else [sys.executable, "-m", module]
+    return dist_start(
         module.rsplit(".", 1)[1],
         [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
-         str(DIST_RANKS), sys.executable, "-m", module, "--out", work]
-        + list(args), DIST_LAUNCH_S, env)
+         str(DIST_RANKS)] + rank + ["--out", work] + list(args), env,
+        go=os.path.join(work, "go") if hold else None)
+
+
+def dist_ranks_finish(h, work):
+    """Release and wait for ``dist_ranks_start``'s world; each rank's JSON
+    report."""
+    rc, out, err = dist_finish(h, DIST_LAUNCH_S)
     if rc != 0:
-        fail("dist: %s exited %d\n%s\n%s" % (module, rc, out[-4000:],
+        fail("dist: %s exited %d\n%s\n%s" % (h["label"], rc, out[-4000:],
                                              err[-4000:]))
     rows = []
     for r in range(DIST_RANKS):
         with open(os.path.join(work, "rank%d.json" % r)) as f:
             rows.append(json.load(f))
     return rows
+
+
+def dist_ranks(work, module, *args, env=None):
+    """The port's launcher with DIST_RANKS ranks of ``python -m module``;
+    each rank's JSON report."""
+    return dist_ranks_finish(dist_ranks_start(work, module, *args, env=env),
+                             work)
 
 
 def dist_leaves(mt, path):
@@ -7470,6 +8025,17 @@ def dist_phase(torch, mt, nc, card):
     launches = 0
     work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
+        # (b)'s world starts first and is held until (b): its start-up
+        # overlaps (a)
+        init = os.path.join(work, "init.params")
+        wb = os.path.join(work, "b")
+        os.makedirs(wb)
+        held_b = dist_ranks_start(
+            wb, "mxnet_tpu_torch.bench.dist_mlp", "--network", "resnet50",
+            "--ctx", kind, "--batch", str(DIST_BATCH), "--batches",
+            str(DIST_BATCHES), "--epochs", "1", "--lr", str(DIST_LR),
+            "--image", str(IMAGE), "--classes", str(CLASSES), "--params",
+            init, env={"MXNET_NORM_CONV": "1"}, hold=True)
         # (a) the dist_sync arithmetic on the card's tensors
         wa = os.path.join(work, "a")
         os.makedirs(wa)
@@ -7498,22 +8064,14 @@ def dist_phase(torch, mt, nc, card):
         aux = {k: v.numpy() for k, v in a0.items()}
         nkeys = len(args)              # one push a parameter a step
         del ts0, p0, a0
-        init = os.path.join(work, "init.params")
         mt.nd.save(init, dict(
             [("arg:" + k, mt.nd.array(v, ctx=mt.cpu()))
              for k, v in args.items()]
             + [("aux:" + k, mt.nd.array(v, ctx=mt.cpu()))
                for k, v in aux.items()]))
-        wb = os.path.join(work, "b")
-        os.makedirs(wb)
         if card:
             torch.cuda.empty_cache()
-        rows = dist_ranks(wb, "mxnet_tpu_torch.bench.dist_mlp", "--network",
-                          "resnet50", "--ctx", kind, "--batch",
-                          str(DIST_BATCH), "--batches", str(DIST_BATCHES),
-                          "--epochs", "1", "--lr", str(DIST_LR), "--image",
-                          str(IMAGE), "--classes", str(CLASSES), "--params",
-                          init, env={"MXNET_NORM_CONV": "1"})
+        rows = dist_ranks_finish(held_b, wb)
         for r in rows:
             print("dist resnet50 rank=%d route=%s steps=%d img_per_s=%r "
                   "host_ms_per_batch=%r update_ms_per_batch=%r "
@@ -7705,26 +8263,34 @@ ZERO_KINDS = {0: {"all_reduce"}, 1: {"all_reduce", "all_gather"},
               3: {"reduce_scatter", "all_gather"}}
 
 
-def zero_phase(torch, mt):
-    """(a)-(f) of the zero phase (see the docstring).  Returns the NormConv
-    launches the ranks counted."""
+def zero_start(mt):
+    """Start the zero phase's world, held (``dist_ranks_start``): (work
+    directory, handle)."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    return work, dist_ranks_start(
+        work, "mxnet_tpu_torch.bench.zero_ladder", "--ctx", "gpu",
+        "--num-layers", "50", "--image", str(IMAGE), "--classes",
+        str(CLASSES), "--batch", str(DIST_RANKS * ZERO_BATCH),
+        "--dtype", "float32", "--levels",
+        ",".join(str(v) for v in ZERO_LEVELS), "--optimizers", "sgd",
+        "--steps", str(ZERO_STEPS), "--seed", str(SEED), "--params",
+        reference(mt, "resnet50_seed_params")["path"],
+        "--floor-nudge", repr(RESNET_FLOOR_NUDGE), "--floor-samples",
+        str(ZERO_FLOOR_SAMPLES), "--floor-x",
+        repr(RESNET_FLOOR_X), "--floor-min", repr(RESNET_FLOOR_MIN),
+        "--amp", "bfloat16", "--amp-scale", repr(ZERO_AMP_SCALE),
+        "--elastic", str(ZERO_ELASTIC_BATCHES), "--remat-levels", "0",
+        "--single", env={"MXNET_NORM_CONV": "1"}, hold=True)
+
+
+def zero_phase(torch, mt, held):
+    """(a)-(f) of the zero phase (see the docstring) over ``zero_start``'s
+    world.  Returns the NormConv launches the ranks counted."""
+    work, handle = held
     try:
         torch.cuda.empty_cache()
-        rows = dist_ranks(
-            work, "mxnet_tpu_torch.bench.zero_ladder", "--ctx", "gpu",
-            "--num-layers", "50", "--image", str(IMAGE), "--classes",
-            str(CLASSES), "--batch", str(DIST_RANKS * ZERO_BATCH),
-            "--dtype", "float32", "--levels",
-            ",".join(str(v) for v in ZERO_LEVELS), "--optimizers", "sgd",
-            "--steps", str(ZERO_STEPS), "--seed", str(SEED),
-            "--floor-nudge", repr(RESNET_FLOOR_NUDGE), "--floor-samples",
-            str(ZERO_FLOOR_SAMPLES), "--floor-x",
-            repr(RESNET_FLOOR_X), "--floor-min", repr(RESNET_FLOOR_MIN),
-            "--amp", "bfloat16", "--amp-scale", repr(ZERO_AMP_SCALE),
-            "--elastic", str(ZERO_ELASTIC_BATCHES), "--remat-levels", "0",
-            "--single", env={"MXNET_NORM_CONV": "1"})
+        rows = dist_ranks_finish(handle, work)
         with open(os.path.join(ROOT, ZERO_RECORD)) as f:
             ladder = json.load(f)["ladder"]
         rec = {k: ladder[3]["zero_%s_bytes_mb" % k] * ladder[3]["dp"]
@@ -7850,6 +8416,150 @@ def zero_phase(torch, mt):
         shutil.rmtree(work, ignore_errors=True)
 
 
+PP_BATCH = 32              # the global batch of a pipelined step
+PP_STEPS = 2
+PP_CASES = "gpipe:2:1:1,gpipe:2:1:4,1f1b:2:1:4,interleaved:2:1:4:2"
+PP_FLOOR_SAMPLES = 2       # nudged runs of the one-process TrainStep
+PP_LIVE = "2,8"            # microbatch counts of the live-bytes ladder
+PP_LIVE_ROWS = 2           # a rank's rows of a microbatch in that ladder
+PP_FIT_BATCHES = 2
+PP_PHASE_S = 90.0
+# the NormConv launches of one ResNet-50 forward on each slice of the
+# pp=2 cut (46 + 6 = 52; 28 + 4 = 32 with statistics), and of the
+# interleaved v=2 cut's slices (stages 0+2 and 1+3: 39 + 6, 7 + 0)
+PP_NC_SLICE = {1: ((46, 28), (6, 4)), 2: ((45, 28), (7, 4))}
+
+
+def pipeline_start(mt):
+    """Start the pipeline phase's world, held (``dist_ranks_start``):
+    (work directory, handle)."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    return work, dist_ranks_start(
+        work, "mxnet_tpu_torch.bench.pp_ladder", "--ctx", "gpu",
+        "--network", "resnet", "--num-layers", "50", "--image",
+        str(IMAGE), "--classes", str(CLASSES), "--batch", str(PP_BATCH),
+        "--dtype", "float32", "--steps", str(PP_STEPS), "--seed",
+        str(SEED), "--params",
+        reference(mt, "resnet50_seed_params")["path"], "--cases",
+        PP_CASES, "--single", "--micro-ref", "4",
+        "--floor-nudge", repr(RESNET_FLOOR_NUDGE), "--floor-samples",
+        str(PP_FLOOR_SAMPLES), "--floor-refs", "single",
+        "--floor-x", repr(RESNET_FLOOR_X),
+        "--floor-min", repr(RESNET_FLOOR_MIN), "--live", PP_LIVE,
+        "--live-rows", str(PP_LIVE_ROWS), "--ckpt", "--fit",
+        str(PP_FIT_BATCHES), env={"MXNET_NORM_CONV": "1"}, hold=True)
+
+
+def pipeline_phase(torch, mt, held):
+    """(a)-(f) of the pipeline phase (see the docstring): two ranks on the
+    card through ``bench/pp_ladder.py``, ``pipeline_start``'s world (its
+    start-up overlapped the zero phase; the phase's seconds run from its
+    release).  Returns the NormConv launches the ranks counted."""
+    work, handle = held
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        rows = dist_ranks_finish(handle, work)
+        launches = 0
+        summed = {}
+        for r in rows:
+            launches += r["norm_conv_launches"]
+            print("pipeline rank=%d route=%s p2p_route=%s seconds=%s "
+                  "floors=%s one_process_step_ms=%r img_per_s=%r"
+                  % (r["rank"], r["route"], r["p2p_route"],
+                     json.dumps(r["seconds"], sort_keys=True),
+                     json.dumps(r["floors"], sort_keys=True),
+                     r["single_step_ms"], r["single_img_per_s"]))
+            if r["world"] != DIST_RANKS or r["route"] != DIST_ROUTE \
+                    or not r["device"].startswith("cuda"):
+                fail("pipeline: rank %d world %d route %s on %s"
+                     % (r["rank"], r["world"], r["route"], r["device"]))
+            for x in r["cases"]:
+                m, v = x["microbatches"], x["interleave"]
+                calls = x["collectives_per_step"]
+                print("pipeline case=%s rank=%d stages=%s step_ms=%r "
+                      "update_ms=%r img_per_s=%r norm_conv=%r stats=%r "
+                      "p2p=%s staged_copies=%r last_live_bytes=%s "
+                      "max_memory_allocated_mb=%r stage_param_mb=%s "
+                      "bubble=%r reference=%s worst=%r"
+                      % (x["tag"], r["rank"], x["my_stages"],
+                         x["pp_step_time_ms"], x["update_ms"],
+                         x["img_per_s"], x["launches_per_step"],
+                         x["stats_launches_per_step"],
+                         json.dumps(calls, sort_keys=True),
+                         x["p2p_staged_copies_per_step"],
+                         x["last_live_bytes"], x["max_memory_allocated_mb"],
+                         x["stage_param_mb"], x["pp_bubble_fraction"],
+                         x.get("reference"), x.get("worst_over_floor")))
+                # (a), (b): within RESNET_FLOOR_X x the reference's floor
+                if not x["outputs_finite"] or \
+                        x["worst_over_floor"][0] > 1.0:
+                    fail("pipeline (a)/(b): %s's %s beyond RESNET_FLOOR_X "
+                         "x the floor of %s (%r)"
+                         % (x["tag"], x["worst_over_floor"][1],
+                            x["reference"], x["worst_over_floor"][0]))
+                # (c): a forward and its recompute a microbatch
+                want = tuple(2 * m * c for c in PP_NC_SLICE[v][r["rank"]])
+                got = (x["launches_per_step"], x["stats_launches_per_step"])
+                if got != want:
+                    fail("pipeline (c): %s rank %d: %r NormConv launches "
+                         "a step (with statistics), want %r"
+                         % (x["tag"], r["rank"], got, want))
+                if x["p2p_staged_copies_per_step"] != \
+                        calls["send"]["calls"] + calls["recv"]["calls"] + \
+                        calls.get("send_outputs", {}).get("calls", 0) + \
+                        calls.get("recv_outputs", {}).get("calls", 0):
+                    fail("pipeline (c): %s: %r staging copies for %s"
+                         % (x["tag"], x["p2p_staged_copies_per_step"],
+                            calls))
+                acc = summed.setdefault(x["tag"], [0, 0])
+                acc[0] += got[0]
+                acc[1] += got[1]
+            lad = {(y["schedule"], y["microbatches"]): y
+                   for y in r["live_bytes_ladder"]}
+            print("pipeline live rank=%d %s" % (r["rank"], json.dumps(
+                r["live_bytes_ladder"], sort_keys=True)))
+            if not (lad[("1f1b", 8)]["pp_live_bytes_max_mb"]
+                    <= lad[("1f1b", 2)]["pp_live_bytes_max_mb"]
+                    < lad[("gpipe", 8)]["pp_live_bytes_max_mb"]
+                    and lad[("gpipe", 2)]["pp_live_bytes_max_mb"]
+                    < lad[("gpipe", 8)]["pp_live_bytes_max_mb"]):
+                fail("pipeline (c): 1f1b's stash not flat or gpipe's not "
+                     "growing: %s" % r["live_bytes_ladder"])
+            # (d) the fit against PipelineTrainStep over its batches; the
+            # floor of the M=1 reference bounds the difference
+            fit = r["fit"]
+            floor = r["floors"]["single"]["max"]
+            print("pipeline fit rank=%d %s (the single floor's max %r)"
+                  % (r["rank"], json.dumps(fit, sort_keys=True), floor))
+            if not (fit["pipeline"] == "PipelineTrainStep"
+                    and fit["host_backed"] and fit["max_abs"]
+                    <= RESNET_FLOOR_X * max(floor, RESNET_FLOOR_MIN)):
+                fail("pipeline (d): %s" % fit)
+            # (e)
+            ck = r["ckpt"]
+            print("pipeline ckpt rank=%d %s"
+                  % (r["rank"], json.dumps(ck, sort_keys=True)))
+            if not (ck["pp_bitwise"] and ck["one_process_bitwise"]
+                    and ck["one_to_pp_bitwise"]
+                    and ck["topology"]["pp"] == 2):
+                fail("pipeline (e): %s" % ck)
+        for tag, (n, st) in sorted(summed.items()):
+            print("pipeline norm_conv case=%s summed_over_ranks=%d "
+                  "with_statistics=%d a step" % (tag, n, st))
+        secs = time.perf_counter() - t0
+        print("pipeline norm_conv launches=%d phase_seconds=%r (limit %r)"
+              % (launches, secs, PP_PHASE_S))
+        # (f)
+        if secs > PP_PHASE_S:
+            fail("pipeline (f): the phase took %r s, more than %r"
+                 % (secs, PP_PHASE_S))
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -7879,6 +8589,8 @@ def build_all(kernels):
 
 
 def main():
+    import atexit
+    atexit.register(_kill_started)
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -7914,11 +8626,17 @@ def main():
           % ("imports" if bf16_np is not None else "does not import",
              mt.nd.array(np.zeros(1, np.float32), ctx=mt.cpu(),
                          dtype="bfloat16").dtype))
+    print("host_speed float64_matmul_2048x4_s=%r torch_threads=%d cpus=%d"
+          % (host_speed(), torch.get_num_threads(), os.cpu_count()))
+    start_references()
     t_phase = [time.perf_counter()]
 
     def phase_done(name):
         now = time.perf_counter()
-        print("phase %s seconds=%r" % (name, now - t_phase[0]))
+        total = now - t_phase[0]
+        print("phase %s seconds=%r host_setup_s=%r card_s=%r"
+              % (name, total, HOST_SETUP["s"], total - HOST_SETUP["s"]))
+        HOST_SETUP["s"] = 0.0
         t_phase[0] = now
 
     t0 = time.perf_counter()
@@ -7928,6 +8646,7 @@ def main():
                ("multibox_nms", contrib.build),
                ("c_api.cc+cpp-package", lambda: capi_build(host))])
     print("build all seconds=%r" % (time.perf_counter() - t0))
+    cpp_package = capi_cpp_package_start(mt, host)
     phase_done("build")
 
     geoms, stats_geoms = resnet50_geometries(mt, BATCH)
@@ -8030,7 +8749,8 @@ def main():
     img_launches = image_phase(torch, mt, nc, card)
     torch.cuda.empty_cache()
     phase_done("image")
-    capi_launches = capi_phase(torch, mt, nc, host, serving_numbers)
+    capi_launches = capi_phase(torch, mt, nc, host, serving_numbers,
+                               cpp_package)
     torch.cuda.empty_cache()
     phase_done("capi")
     print(card)
@@ -8071,13 +8791,21 @@ def main():
     parallel_phase(torch, mt, card)
     phase_done("parallel")
     torch.cuda.empty_cache()
+    # the zero phase's world starts here and waits through the dist phase,
+    # the pipeline's through the zero phase (their ranks' start-up aside)
+    held_zero = zero_start(mt)
     dist_launches = dist_phase(torch, mt, nc, True)
     torch.cuda.empty_cache()
     phase_done("dist")
-    zero_launches = zero_phase(torch, mt)
+    held_pp = pipeline_start(mt)
+    zero_launches = zero_phase(torch, mt, held_zero)
     torch.cuda.empty_cache()
     phase_done("zero")
+    pp_launches = pipeline_phase(torch, mt, held_pp)
+    torch.cuda.empty_cache()
+    phase_done("pipeline")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
+    stop_references()
     print("chip_smoke seconds=%r (the whole script, builds included)"
           % (time.perf_counter() - t_start))
 
@@ -8087,7 +8815,7 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
         + mf["norm_conv"] + obs_launches + im["launches"] + img_launches
-        + capi_launches + dist_launches + zero_launches,
+        + capi_launches + dist_launches + zero_launches + pp_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -8098,6 +8826,7 @@ def main():
         "capi_phase_launches": capi_launches,
         "dist_phase_launches": dist_launches,
         "zero_phase_launches": zero_launches,
+        "pipeline_phase_launches": pp_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],

@@ -61,7 +61,7 @@ without one on the whole batch, and a level-2 step of an MLP whose
 SoftmaxOutput normalizes by "batch" and by "valid" (ignoring label 0)
 against the same step without a mesh.  ``--refusals``: the mesh refusals
 (a ``tp`` axis of size 2, a ``tp`` spec, a batch that does not divide,
-``MXNET_PP``).
+``MXNET_PP`` composed with ``MXNET_ZERO``).
 
 ``--out DIR`` writes ``rank<r>.json`` (printed too) and, with
 ``--save-arrays``, ``rank<r>.params``: every run's logical parameters, aux
@@ -415,18 +415,19 @@ def refusal_checks(net, mesh, batches, ctx):
     res["batch_not_divisible"] = raises(lambda: ts.shard_batch(odd),
                                         "not divisible")
     x, y = fit_data()
-    for knob, value, words, n in (
-            ("MXNET_ZERO", "2", "not divisible", 7),
-            ("MXNET_PP", "2", "pipeline part of the distributed slice",
-             FIT_BATCH)):
-        os.environ[knob] = value
+    for knob, env, words, n in (
+            ("MXNET_ZERO", {"MXNET_ZERO": "2"}, "not divisible", 7),
+            ("MXNET_PP", {"MXNET_PP": "2", "MXNET_ZERO": "2"},
+             "ZeRO and AMP part of the pipeline", FIT_BATCH)):
+        os.environ.update(env)
         try:
             mod = mt.Module(fit_net(mt), context=ctx)
             res["fit_%s" % knob] = raises(lambda: mod.fit(
                 mt.io.NDArrayIter(x[:n * 2], y[:n * 2], batch_size=n),
                 num_epoch=1, optimizer="sgd"), words)
         finally:
-            del os.environ[knob]
+            for k in env:
+                del os.environ[k]
     return res
 
 

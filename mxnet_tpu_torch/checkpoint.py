@@ -20,8 +20,12 @@ in the ``.params`` byte format (``ndarray.serialize_arrays``) and a
   ``json.dumps(sort_keys=True, indent=1)``, written last.
 
 In a world of several processes the ZeRO rows are owned by the ranks that
-hold them, and the other groups round-robin over the ranks (group i, in
-sorted order, by rank ``i % world``): each rank writes its own, rank 0
+hold them, a ``PipelineTrainStep``'s ``stage<k>`` and ``stage<k>-opt``
+groups by the rank of dp row 0 that runs stage ``k``
+(``checkpoint_topology()["stage_owner"]``; the manifest's shapes and
+dtypes come from its ``meta``, since no rank holds every stage), and the
+other groups round-robin over the ranks (group i, in sorted order, by
+rank ``i % world``): each rank writes its own, rank 0
 serialises every group it holds for the checksum table, the other ranks
 publish their rows' checksums on the store, and rank 0 writes the manifest
 after the writers meet at ``dist.coordination_barrier`` (from the writer's
@@ -195,6 +199,31 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
             {stage_of[n] for n in host_params} if zlevel >= 3 else set()))
         zero_groups = ["stage%d-zero%d" % (k, j) for k in stages
                        for j in range(int(topo["dp"]))]
+    owners = {}
+    pmeta = {n: {"shape": [int(d) for d in (
+        pshapes[n] if zlevel >= 3 else v.shape)], "dtype": _dtype_name(v)}
+        for n, v in host_params.items()}
+    ameta = {n: {"shape": [int(d) for d in v.shape],
+                 "dtype": _dtype_name(v)} for n, v in host_aux.items()}
+    opt_len = {n: len(st) for n, st in host_state.items()}
+    if "stage_owner" in topo:
+        # a pipeline: this rank holds its stages' groups only; each stage's
+        # owner writes them, and the manifest lists every stage's variables
+        meta = topo["meta"]
+        names = [n for n in stage_of if n in meta]
+        aux_names = set(topo.get("aux_names") or ())
+        pmeta = {n: {"shape": list(meta[n][0]), "dtype": meta[n][1]}
+                 for n in names if n not in aux_names}
+        ameta = {n: {"shape": list(meta[n][0]), "dtype": meta[n][1]}
+                 for n in names if n in aux_names}
+        opt_len = {n: int(topo["opt_len"][n]) for n in pmeta}
+        for n in names:
+            k = stage_of[n]
+            owners["stage%d" % k] = int(topo["stage_owner"][k])
+            if has_opt and n in pmeta and opt_len[n]:
+                owners["stage%d-opt" % k] = int(topo["stage_owner"][k])
+        if not topo.get("writes", True):
+            groups = {}
     manifest = {
         "format": FORMAT,
         "version": VERSION,
@@ -206,22 +235,17 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
                      "microbatches": topo["microbatches"],
                      "world": _world()},
         "stage_of": {n: int(s) for n, s in stage_of.items()},
-        "params": {n: {"shape": [int(d) for d in (
-            pshapes[n] if zlevel >= 3 else v.shape)],
-                       "dtype": _dtype_name(v)}
-                   for n, v in host_params.items()},
-        "aux": {n: {"shape": [int(d) for d in v.shape],
-                    "dtype": _dtype_name(v)}
-                for n, v in host_aux.items()},
-        "opt_state": {n: len(st) for n, st in host_state.items()}
-        if has_opt else None,
+        "params": pmeta,
+        "aux": ameta,
+        "opt_state": opt_len if has_opt else None,
         "extra": dict(extra or {}),
     }
     scale = ts.scale_state_host()
     if scale is not None:
         manifest["extra"]["loss_scale"] = scale
     return {"manifest": manifest, "groups": groups,
-            "zero_groups": zero_groups, "world": _world(), "rank": _rank()}
+            "zero_groups": zero_groups, "owners": owners,
+            "world": _world(), "rank": _rank()}
 
 
 # ------------------------------------------------------------------- writer
@@ -262,16 +286,23 @@ def write_snapshot(dirname, job):
     shards = {}
     total = 0
     zero = set(job.get("zero_groups", ()))
+    # groups of a fixed owner: a ZeRO row's (row j on rank j) and a
+    # pipeline stage's; their owners publish the checksums
+    fixed = dict(job.get("owners") or {})
+    for g in zero:
+        fixed[g] = int(_ZERO_RE.match(g).group(2))
     save_id = "ckpt-%d-%d" % (manifest["step"], job.get("_seq", 0))
     peers = []
-    for i, g in enumerate(sorted(set(job["groups"]) | zero)):
-        # a ZeRO row's owner is the rank that holds it (row j on rank j)
-        owner = int(_ZERO_RE.match(g).group(2)) if g in zero else i % world
+    for i, g in enumerate(sorted(set(job["groups"]) | set(fixed))):
+        owner = fixed[g] if g in fixed else i % world
         fname = "%s.params" % g
-        if g not in job["groups"]:
+        if g not in job["groups"] or (g in fixed and owner != rank
+                                      and rank == 0):
             peers.append(fname)
             continue
         if owner != rank and rank != 0:
+            continue
+        if g in fixed and owner != rank:
             continue
         blob = nd.serialize_arrays(job["groups"][g])
         meta = {"group": g, "rank": owner,
@@ -281,7 +312,7 @@ def write_snapshot(dirname, job):
         if owner == rank:
             with atomic_write(os.path.join(dirname, fname)) as f:
                 f.write(blob)
-            if g in zero and rank != 0:
+            if g in fixed and rank != 0:
                 # rank 0 lists this row's checksum in the manifest
                 from .parallel import dist
                 dist.kv_set("mxtpu/%s/%s" % (save_id, fname),

@@ -173,6 +173,35 @@ class _ScaleBackward(torch.autograd.Function):
         return g * s.to(g.dtype), None
 
 
+class _Stage(object):
+    """One pipeline stage of a partitioned symbol graph (parity:
+    mxnet_tpu.executor._Stage): a contiguous sub-range of the walk order,
+    the variables it binds and the activation frontier it exchanges with
+    its neighbours (see ``_Lowered.stage_partition``)."""
+
+    __slots__ = ("index", "final", "nodes", "params", "aux", "inputs",
+                 "carry_in", "carry_out")
+
+    def __init__(self, index, final, nodes, params, aux, inputs,
+                 carry_in, carry_out):
+        self.index = index
+        self.final = final
+        self.nodes = nodes          # var + op nodes, original walk order
+        self.params = params        # parameter names bound by this stage
+        self.aux = aux              # aux (BN moving stat) names
+        self.inputs = inputs        # data/label input names consumed here
+        self.carry_in = carry_in    # value keys received from earlier stages
+        self.carry_out = carry_out  # value keys handed to later stages
+
+    def describe(self):
+        return {"index": self.index, "final": self.final,
+                "ops": sum(1 for n in self.nodes if not n.is_var),
+                "params": list(self.params), "aux": list(self.aux),
+                "inputs": list(self.inputs),
+                "carry_in": len(self.carry_in),
+                "carry_out": len(self.carry_out)}
+
+
 class _Lowered(object):
     """The graph in walk order, with the peephole maps built once."""
 
@@ -209,6 +238,152 @@ class _Lowered(object):
                 self.fused_relu[id(n)] = act
         self._init_norm_conv(consumers, outs)
         self._init_stem(consumers, outs)
+        # a node's position in the walk order (the JAX package's uid)
+        self.uid = {id(n): i for i, n in enumerate(self.order)}
+
+    # ------------------------------------------------------ pipeline stages
+    def _glue_edges(self):
+        """Op-order index pairs (lo, hi) that must stay in one stage: the
+        peepholes (BatchNorm+ReLU, the stem BatchNorm+conv, NormConv's
+        prologue and statistics epilogue) rewrite both members together,
+        so a cut between them would change what the one-program step and
+        the stages run (parity: _Lowered._glue_edges)."""
+        op_pos = {}
+        for n in self.order:
+            if not n.is_var:
+                op_pos[id(n)] = len(op_pos)
+        edges = []
+
+        def edge(a_id, b_id):
+            pa, pb = op_pos.get(a_id), op_pos.get(b_id)
+            if pa is not None and pb is not None and pa != pb:
+                edges.append((min(pa, pb), max(pa, pb)))
+        for bn_id, act in self.fused_relu.items():
+            edge(bn_id, id(act))
+        for bn_id, info in self.stem_fuse.items():
+            edge(bn_id, id(info["conv"]))
+        for bn_id, info in self.nc_bn.items():
+            if info["act"] is not None:
+                edge(bn_id, id(info["act"]))
+            for c in info["convs"]:
+                edge(bn_id, id(c))
+        for bn_id, src in self.nc_stats_src.items():
+            edge(id(src), bn_id)
+        return op_pos, edges
+
+    def stage_partition(self, num_stages, input_names=(), param_sizes=None):
+        """Cut the op sequence into ``num_stages`` contiguous stages (parity:
+        _Lowered.stage_partition; the interleaved schedule passes ``pp *
+        v`` and places chunk ``k`` on slice ``k % pp``).
+
+        Cuts land only where no peephole pair straddles them, and balance
+        the parameter footprint when ``param_sizes`` ({name: element
+        count}) is given, the op count otherwise: each stage closes at the
+        first legal boundary past its share of the remaining weight.  A
+        variable belongs to the stage that consumes it; a parameter or aux
+        state consumed by two stages raises (weight sharing across
+        stages), data and label inputs may feed any stage.  The frontier
+        between stages s and s+1 is every value produced at or before s
+        and consumed after it (the symbol's outputs ride it to the final
+        stage)."""
+        input_names = set(input_names)
+        op_nodes = [n for n in self.order if not n.is_var]
+        if num_stages < 1:
+            raise MXNetError("stage_partition: num_stages must be >= 1")
+        if num_stages > len(op_nodes):
+            raise MXNetError(
+                "stage_partition: %d stages > %d ops in the graph"
+                % (num_stages, len(op_nodes)))
+        op_pos, glue = self._glue_edges()
+        illegal = set()
+        for lo, hi in glue:
+            illegal.update(range(lo + 1, hi + 1))
+        # an op's weight: the parameters it consumes first, plus 1
+        first_consumer = {}
+        for n in op_nodes:
+            for c, _ in n.inputs:
+                if c.is_var and c.name not in first_consumer:
+                    first_consumer[c.name] = op_pos[id(n)]
+        weights = [1.0] * len(op_nodes)
+        if param_sizes:
+            for name, pos in first_consumer.items():
+                weights[pos] += float(param_sizes.get(name, 0))
+        cuts = []
+        pos = 0
+        for s in range(num_stages - 1):
+            remaining = sum(weights[pos:])
+            target = remaining / (num_stages - s)
+            acc = 0.0
+            cut = None
+            last = len(op_nodes) - (num_stages - 1 - s)
+            for k in range(pos, last):
+                acc += weights[k]
+                if acc >= target and (k + 1) not in illegal:
+                    cut = k + 1
+                    break
+            if cut is None:
+                for k in range(pos, last):
+                    if (k + 1) not in illegal:
+                        cut = k + 1
+                        break
+            if cut is None:
+                raise MXNetError(
+                    "stage_partition: no legal cut for stage %d of %d "
+                    "(fusion glue spans the remaining ops)"
+                    % (s + 1, num_stages))
+            cuts.append(cut)
+            pos = cut
+        bounds = [0] + cuts + [len(op_nodes)]
+        stage_at = []
+        for s in range(num_stages):
+            stage_at += [s] * (bounds[s + 1] - bounds[s])
+        prod_stage = {}
+        for n in op_nodes:
+            for i in range(n.op.num_outputs_for(n.params)):
+                prod_stage[(id(n), i)] = stage_at[op_pos[id(n)]]
+        consumers = {}      # value key -> consuming stages
+        var_stages = {}     # var name -> consuming stages
+        for n in op_nodes:
+            s = stage_at[op_pos[id(n)]]
+            for c, i in n.inputs:
+                if c.is_var:
+                    var_stages.setdefault(c.name, set()).add(s)
+                else:
+                    consumers.setdefault((id(c), i), set()).add(s)
+        for k in self.out_keys:
+            consumers.setdefault(k, set()).add(num_stages - 1)
+        aux_set = set(self.aux_names)
+        for name, stages in sorted(var_stages.items()):
+            if name in input_names or len(stages) == 1:
+                continue
+            kind = "aux state" if name in aux_set else "parameter"
+            raise MXNetError(
+                "stage_partition: %s %s is consumed by stages %s — "
+                "cross-stage weight sharing is not supported by the "
+                "pipeline schedule" % (kind, name, sorted(stages)))
+        frontiers = []
+        for s in range(num_stages - 1):
+            keys = [k for k, cons in consumers.items()
+                    if k in prod_stage and prod_stage[k] <= s
+                    and any(cs > s for cs in cons)]
+            keys.sort(key=lambda k: (self.uid.get(k[0], 0), k[1]))
+            frontiers.append(keys)
+        stages = []
+        for s in range(num_stages):
+            ops = set(id(n) for n in op_nodes[bounds[s]:bounds[s + 1]])
+            svars = {name for name, st in var_stages.items() if s in st}
+            nodes = [n for n in self.order
+                     if (n.is_var and n.name in svars) or id(n) in ops]
+            stages.append(_Stage(
+                index=s, final=(s == num_stages - 1), nodes=nodes,
+                params=[n for n in self.arg_names
+                        if n in svars and n not in input_names],
+                aux=[n for n in self.aux_names if n in svars],
+                inputs=sorted(svars & input_names),
+                carry_in=list(frontiers[s - 1]) if s else [],
+                carry_out=list(frontiers[s]) if s < num_stages - 1
+                else []))
+        return stages
 
     def placement(self, group2ctx, var_ctx, default_ctx):
         """{node id: Context} of every node (parity: the JAX package's
@@ -492,7 +667,8 @@ class _Lowered(object):
 
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
             device=None, head_grad_scale=None, place=None,
-            unfusable=frozenset(), collect=False):
+            unfusable=frozenset(), collect=False, stage=None,
+            carry_vals=None):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
@@ -514,12 +690,21 @@ class _Lowered(object):
         ``collect`` (the Monitor) also returns {node output name: tensor}
         of every op output in walk order, in logical layout and detached,
         as a third value; the peepholes stay off so that every node's
-        output exists (parity: the JAX package's ``collect``)."""
+        output exists (parity: the JAX package's ``collect``).
+
+        ``stage`` (a ``_Stage`` of ``stage_partition``) walks that stage's
+        nodes only: ``carry_vals`` are the values of ``stage.carry_in``, in
+        logical NCHW, and the return is ``(outputs, aux_updates,
+        carry_out)``: the outputs on the final stage only, ``carry_out``
+        the values of ``stage.carry_out`` restored to logical NCHW."""
+        if stage is not None and (collect or place is not None):
+            raise MXNetError("the pipeline stage walk takes neither the "
+                             "monitor's collection nor a group2ctx plan")
         with torch.set_grad_enabled(bool(is_train)):
             return self._run(arg_vals, aux_vals, bool(is_train),
                              frozenset(no_grad_inputs), device,
                              head_grad_scale if is_train else None, place,
-                             unfusable, collect)
+                             unfusable, collect, stage, carry_vals)
 
     @staticmethod
     def _device(device, arg_vals, aux_vals):
@@ -533,7 +718,8 @@ class _Lowered(object):
         return torch.device("cpu")
 
     def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device,
-             head_grad_scale, place, unfusable, collect):
+             head_grad_scale, place, unfusable, collect, stage=None,
+             carry_vals=None):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and not collect and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
@@ -559,7 +745,12 @@ class _Lowered(object):
             if m is None:
                 m = moved[(k, tgt)] = to_device(v, tgt)
             return m
-        for node in self.order:
+        order = self.order
+        if stage is not None:
+            order = stage.nodes
+            for key, v in zip(stage.carry_in, carry_vals or ()):
+                values[key] = v
+        for node in order:
             if node.is_var:
                 if node.name in arg_vals:
                     v = arg_vals[node.name]
@@ -674,6 +865,12 @@ class _Lowered(object):
                     child = node.inputs[pos][0]
                     if child.is_var:
                         aux_updates[child.name] = out[n_vis + k]
+        if stage is not None:
+            carry_out = [_to_cf(values[k]) if k in nhwc else values[k]
+                         for k in stage.carry_out]
+            outputs = [_to_cf(values[k]) if k in nhwc else values[k]
+                       for k in self.out_keys] if stage.final else []
+            return outputs, aux_updates, carry_out
         outputs = [_to_cf(values[k]) if k in nhwc else values[k]
                    for k in self.out_keys]
         if collect:

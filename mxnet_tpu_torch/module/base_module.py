@@ -42,9 +42,6 @@ __all__ = ["BaseModule"]
 # them off.
 NUMERICS_KNOBS = ("MXNET_CHECK_NUMERICS", "MXNET_SENTINEL",
                   "MXNET_WATCHDOG_SEC", "MXNET_DIAG_DIR", "MXNET_MONITOR")
-# the fused fit's pipeline lever (the pipeline part of the distributed
-# slice), with the values that leave it off: one pipeline stage
-PARALLEL_KNOBS = (("MXNET_PP", ("", "0", "1"), "pipeline"),)
 
 
 def _as_list(obj):
@@ -96,11 +93,6 @@ def _refuse_unported():
             raise MXNetError("%s=%r is not ported yet: it arrives with the "
                              "numerics slice; unset it"
                              % (knob, get_env(knob)))
-    for knob, off, part in PARALLEL_KNOBS:
-        if get_env(knob, "") not in off:
-            raise MXNetError("%s=%r is not ported yet: it arrives with the "
-                             "%s part of the distributed slice; unset it"
-                             % (knob, get_env(knob), part))
 
 
 class BaseModule(object):

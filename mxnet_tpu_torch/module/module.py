@@ -29,9 +29,16 @@ from one (``module._ckpt_resume``, set by ``parallel.elastic.fit_elastic``).
 a ``dp`` mesh of the world at that ZeRO level: under ``launch.py`` every
 rank reads the same global batches and steps on its rows of each, so the
 fit means what the JAX package's one-process fit over its devices means
-(the outputs are gathered for the metric).  Not ported here, refused with
-``MXNetError`` naming its part of the distributed slice: the fused fit's
-pipeline branch and the live resize.
+(the outputs are gathered for the metric).  ``MXNET_PP=<stages>`` trains
+it through one ``PipelineTrainStep`` over ``make_pp_mesh(stages)`` of the
+world (dp = world / stages; ``MXNET_PP_MICROBATCH``,
+``MXNET_PP_SCHEDULE`` and ``MXNET_PP_INTERLEAVE`` set the microbatches
+and the schedule): each rank holds its stage's variables, every rank gets
+the whole batch's outputs for the metric, and ``sync_back`` installs
+host-backed arrays of every stage.  ``MXNET_PP`` with ``MXNET_ZERO`` or
+``MXNET_AMP`` raises, naming the ZeRO and AMP part of the pipeline.  Not
+ported here, refused with ``MXNetError`` naming its part of the
+distributed slice: the live resize.
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -57,7 +64,7 @@ from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
 from ..parallel import dist as _dist
 from ..parallel import mesh as _mesh
 from ..parallel.placement import normalize_zero
-from ..train import TrainStep, _to_device
+from ..train import PipelineTrainStep, TrainStep, _to_device
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup, _descs
 
@@ -474,11 +481,15 @@ class Module(BaseModule):
         from .. import telemetry as _tel
         policy = _amp.resolve_policy(policy)
         zero_req = get_env("MXNET_ZERO", "") not in ("", "0")
+        pp_req = (get_env("MXNET_PP", None, typ=int) or 0) > 1
 
         def fallback(why):
             if policy is not None:
                 why += " (MXNET_AMP/policy ignored: the general path " \
                        "trains f32)"
+            if pp_req:
+                why += " (MXNET_PP ignored: the general path is " \
+                       "single-program)"
             if zero_req:
                 why += " (MXNET_ZERO ignored: the general path " \
                        "replicates params/grads/optimizer state)"
@@ -499,7 +510,8 @@ class Module(BaseModule):
                 "on-device parameter norms (parameter rows; per-op "
                 "activation streaming needs the general path — "
                 "MXNET_FUSED_FIT=0)")
-        if _tel.enabled() and get_env("MXNET_TELEMETRY_FUSED", "0") != "1":
+        if _tel.enabled() and get_env("MXNET_TELEMETRY_FUSED", "0") != "1" \
+                and not pp_req:
             # the fused step cannot be split into forward/backward/update
             # spans; telemetry asks for that breakdown, so the general path
             # runs.  MXNET_TELEMETRY_FUSED=1 keeps the fused path, with one
@@ -520,8 +532,9 @@ class Module(BaseModule):
         try:
             return _FusedFit(self, policy)
         except MXNetError as e:
-            if zero_req:
-                # a ZeRO level asked for must not train replicated instead
+            if zero_req or pp_req:
+                # a ZeRO level or a pipeline asked for must not train
+                # replicated or single-program instead
                 raise
             return fallback(str(e))
 
@@ -536,7 +549,10 @@ def _fused_fit_key_fields(optimizer, policy):
     levers (``MXNET_NORM_CONV``, ``MXNET_STEM_FUSE``, ``MXNET_STEM_S2D``,
     ``MXNET_CONV_LAYOUT``, ``MXNET_POOL_MASK_BWD``) need no field: the port
     traces nothing, and ``executor._Lowered`` reads them at every run, so a
-    toggle takes effect at the next step of the same TrainStep."""
+    toggle takes effect at the next step of the same TrainStep.  The
+    pipeline levers (``MXNET_PP``, ``MXNET_PP_MICROBATCH``,
+    ``MXNET_PP_SCHEDULE``, ``MXNET_PP_INTERLEAVE``) and ``MXNET_ZERO`` are
+    read at dispatch and carried in the key."""
     return {
         "optimizer": type(optimizer).__name__,
         "opt_hyper": tuple(sorted(
@@ -546,6 +562,10 @@ def _fused_fit_key_fields(optimizer, policy):
         "lr_mult": tuple(sorted(optimizer.lr_mult.items())),
         "wd_mult": tuple(sorted(optimizer.wd_mult.items())),
         "policy": policy.key() if policy is not None else None,
+        "pp": get_env("MXNET_PP", None, typ=int),
+        "pp_microbatch": get_env("MXNET_PP_MICROBATCH", None, typ=int),
+        "pp_schedule": get_env("MXNET_PP_SCHEDULE", None),
+        "pp_interleave": get_env("MXNET_PP_INTERLEAVE", None, typ=int),
         "zero": get_env("MXNET_ZERO", None, typ=int),
     }
 
@@ -583,7 +603,23 @@ class _FusedFit(object):
         # here and carried in the key; checked at every dispatch, so a
         # re-bound batch size meets this error, not a failing step
         zero = normalize_zero(fields["zero"] or 0)
-        if zero:
+        pp = fields["pp"] or 0
+        self._pipeline = pp > 1
+        if self._pipeline:
+            for knob, on in (("MXNET_ZERO", zero), ("MXNET_AMP", policy)):
+                if on:
+                    raise MXNetError(
+                        "MXNET_PP=%d with %s is not ported yet: the ZeRO "
+                        "levels and AMP under the pipeline arrive with the "
+                        "ZeRO and AMP part of the pipeline (the distributed "
+                        "slice); unset one"
+                        % (pp, knob))
+            world = _dist.num_workers()
+            if world % pp:
+                raise MXNetError(
+                    "MXNET_PP=%d needs a world divisible by the stage "
+                    "count; the world has %d rank(s)" % (pp, world))
+        elif zero:
             world = _dist.num_workers()
             bs = module._exec_group.batch_size
             if bs % world:
@@ -597,6 +633,16 @@ class _FusedFit(object):
             self._ts.optimizer = opt_
             self._ts.fopt.opt = opt_
             self._ts.num_update = 0
+        elif self._pipeline:
+            self._ts = PipelineTrainStep(
+                module._symbol, opt_, data_names=tuple(module._data_names),
+                label_names=tuple(module._label_names),
+                mesh=_mesh.make_pp_mesh(pp),
+                num_microbatches=fields["pp_microbatch"],
+                schedule=fields["pp_schedule"],
+                interleave=fields["pp_interleave"],
+                ctx=module._context[0])
+            module._fused_ts_cache = (key, self._ts)
         else:
             self._ts = TrainStep(module._symbol, opt_,
                                  data_names=tuple(module._data_names),
@@ -625,8 +671,9 @@ class _FusedFit(object):
                              for n, v in self._params.items()}
         self._state = self._ts.fopt.init_state(self._params)
         self._merge_updater_state()
-        if self._ts.zero:
-            # the plan's rows of the logical state (and level-3 parameters)
+        if self._ts.zero or self._pipeline:
+            # the plan's rows of the logical state (and level-3
+            # parameters), or this rank's stages' variables
             self._params, self._state, self._aux = \
                 self._ts.place_checkpoint(self._params, self._state,
                                           self._aux, device=dev)
@@ -705,7 +752,8 @@ class _FusedFit(object):
         """Wrap an epoch's iterator in the device prefetcher of
         ``MXNET_DEVICE_PREFETCH``'s depth (unchanged when it is 0)."""
         depth = _io.device_prefetch_depth()
-        if depth == 0:
+        if depth == 0 or self._pipeline:
+            # the pipeline stages each microbatch's rows itself
             return data_iter
         return _io.DevicePrefetchIter(data_iter, stage=self._stage,
                                       depth=depth)
@@ -786,6 +834,18 @@ class _FusedFit(object):
         staged = getattr(data_batch, "_staged", None)
         ts = self._ts
         names = self._mod._label_names
+        if self._pipeline:
+            # every rank gets the whole batch's outputs from the step
+            host = self._host_batch(data_batch)
+            self._params, self._state, self._aux, outs = ts(
+                self._params, self._state, self._aux, host)
+            self._mod._params_dirty = True
+            self._mod._active_fused = self
+            labelled = _to_device({n: host[n] for n in names if n in host},
+                                  self._dev)
+            return ([nd.NDArray(o) for o in outs],
+                    [nd.NDArray(labelled[n]) for n in names
+                     if n in labelled])
         if staged is not None:
             # the global batch: on a mesh the step takes this rank's rows
             batch = labelled = staged.take()
@@ -815,15 +875,22 @@ class _FusedFit(object):
         tensors in place, so an alias would change under the next fit),
         and continue the optimizer's update counts."""
         mod = self._mod
-        # logical tensors from the ZeRO rows (the identity at level 0)
-        params = self._ts.gather_params(self._params)
-        opt_state = self._ts.gather_state(self._state)
+        if self._pipeline:
+            # every stage's tensors on every rank, as host tensors (the
+            # module's arrays are host-backed then)
+            params, opt_state, aux = self._ts.gather_host(
+                self._params, self._state, self._aux)
+        else:
+            # logical tensors from the ZeRO rows (the identity at level 0)
+            params = self._ts.gather_params(self._params)
+            opt_state = self._ts.gather_state(self._state)
+            aux = self._aux
         mod._exec_group.set_params(
             {n: nd.NDArray(v.clone()) for n, v in params.items()},
-            {n: nd.NDArray(v.clone()) for n, v in self._aux.items()})
+            {n: nd.NDArray(v.clone()) for n, v in aux.items()})
         for n, v in params.items():
             mod._arg_params[n]._set_value(v.clone())
-        for n, v in self._aux.items():
+        for n, v in aux.items():
             mod._aux_params[n]._set_value(v.clone())
         if mod._kvstore is not None:
             # the store's values are what a later update pulls

@@ -8,13 +8,15 @@
   world) with the JAX package's axis names;
 - ``placement``: the ZeRO placement plan and its flat ``(dp, chunk)``
   layout;
-- ``ring``: the single-device attention reference.
+- ``ring``: the single-device attention reference;
+- ``schedule``: the pipeline dispatch schedules (GPipe, 1F1B, interleaved).
 
-The pipeline schedules, ring attention over a sequence mesh and the live
-resize arrive with the later parts of the distributed slice.
+Ring attention over a sequence mesh and the live resize arrive with the
+later parts of the distributed slice.
 """
 from . import dist
 from . import elastic
 from . import mesh
 from . import placement
 from . import ring
+from . import schedule

@@ -41,6 +41,18 @@ The ZeRO step's collectives (``all_reduce_``, ``reduce_scatter_rows``,
 ``all_gather_rows``, ``all_gather_batch``, ``all_finite``, ``sum_across``)
 run over a mesh axis's group.
 
+The pipeline's point-to-point transfers (``send_`` / ``recv_``, over
+``isend`` / ``irecv``) return a handle whose ``wait()`` finishes the
+transfer; they count as the kinds ``send`` and ``recv`` (``send_outputs``
+/ ``recv_outputs`` for the step's outputs handed to the other stages), the
+seconds being the host's time to post the transfer and to wait for it.
+gloo sends and receives host memory only (its buffers are raw host
+pointers: on the H100 box, torch 2.11, a CUDA tensor's ``isend`` kills
+the sender with "writev ... Bad address"), so on the ``gloo-cuda`` route
+a CUDA tensor crosses through a pinned host buffer: copied there before the send and from there after the
+receive (``p2p_route()`` names the rule, ``p2p_staged_copies`` counts the
+copies); NCCL and host tensors go direct.
+
 Every collective counts by kind into three module dicts:
 ``collective_calls`` (calls), ``collective_bytes`` (the bytes of its
 buffer) and ``collective_seconds`` (host seconds; on the ``gloo-cuda``
@@ -48,10 +60,12 @@ route the host waits for the buffer's producer first);
 ``reset_collectives`` zeroes them.  The kinds: ``all_reduce`` (a
 kvstore's buckets, gradients at ZeRO 0-1), ``reduce_scatter`` (the bucket
 at 2-3), ``all_gather`` (updated rows, level-3 parameters, eval outputs),
-``verdict`` (the AMP overflow flag) and ``stats`` (BatchNorm's per-channel
+``verdict`` (the AMP overflow flag), ``stats`` (BatchNorm's per-channel
 sums, ``sum_across``, whose backward sums the cotangents across the ranks
-too).  gloo takes all of them on CUDA tensors when ranks share a card
-(checked on the H100 with torch 2.11).  ``ensure_group`` gives a world of
+too), ``broadcast`` (a pipeline's stages gathered on every rank) and the
+P2P kinds above.  gloo takes every collective on CUDA tensors when ranks
+share a card (checked on the H100 with torch 2.11), but not send and
+receive.  ``ensure_group`` gives a world of
 1 a one-rank gloo group, so a mesh works in one process.
 
 Not ported here: the reference's hooks into the sanitizer and diagnostics,
@@ -80,7 +94,8 @@ __all__ = ["init_process_group", "shutdown_process_group", "rank",
            "allreduce_arrays", "allreduce", "allreduce_tree",
            "bucket_allreduce", "ensure_group", "reset_collectives",
            "all_reduce_", "reduce_scatter_rows", "all_gather_rows",
-           "all_gather_batch", "all_finite", "sum_across"]
+           "all_gather_batch", "all_finite", "sum_across", "send_",
+           "recv_", "p2p_route", "broadcast_"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -91,6 +106,8 @@ TIMEOUT_S = 300.0
 collective_calls = {}
 collective_bytes = {}
 collective_seconds = {}
+# pinned host copies of the P2P transfers of CUDA tensors over gloo
+p2p_staged_copies = [0]
 
 _lock = threading.Lock()
 _state = {"initialized": False, "world": 1, "rank": 0, "local_rank": 0,
@@ -390,10 +407,11 @@ def ensure_group():
 
 
 def reset_collectives():
-    """Zero the collectives' counters."""
+    """Zero the collectives' counters (the P2P staging copies too)."""
     collective_calls.clear()
     collective_bytes.clear()
     collective_seconds.clear()
+    p2p_staged_copies[0] = 0
 
 
 def _count(kind, t, t0):
@@ -465,3 +483,80 @@ def sum_across(t, group):
     """``t`` summed across ``group``; its gradient is the cotangents summed
     across the group (each rank's loss reads the same sum)."""
     return _SumAcross.apply(t, group)
+
+
+# ------------------------------------------------------ point to point
+def p2p_route(t):
+    """How ``send_`` / ``recv_`` move ``t``: ``direct`` (host tensors, and
+    CUDA tensors on the ``nccl`` route) or ``host-staged`` (CUDA tensors
+    over gloo, through a pinned host buffer)."""
+    if t.device.type == "cuda" and route() != "nccl":
+        return "host-staged"
+    return "direct"
+
+
+def _add_seconds(kind, dt):
+    collective_seconds[kind] = collective_seconds.get(kind, 0.0) + dt
+
+
+class _P2P(object):
+    """A posted transfer: ``wait()`` blocks until it is done (a staged
+    receive then copies into its tensor) and returns the tensor."""
+
+    def __init__(self, work, kind, tensor, staged=None):
+        self._work, self._kind = work, kind
+        self.tensor, self._staged = tensor, staged
+        self._done = False
+
+    def is_completed(self):
+        return self._done or self._work.is_completed()
+
+    def wait(self):
+        if not self._done:
+            t0 = time.perf_counter()
+            self._work.wait()
+            if self._staged is not None and self._kind.startswith("recv"):
+                self.tensor.copy_(self._staged, non_blocking=True)
+                p2p_staged_copies[0] += 1
+            _add_seconds(self._kind, time.perf_counter() - t0)
+            self._done = True
+            self._staged = None
+        return self.tensor
+
+
+def send_(t, dst, tag, kind="send"):
+    """Post the send of ``t`` to global rank ``dst`` under ``tag``;
+    returns its handle (``t`` must stay unchanged until ``wait()``)."""
+    t0 = time.perf_counter()
+    t = t.detach().contiguous()
+    staged = None
+    if p2p_route(t) == "host-staged":
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        p2p_staged_copies[0] += 1
+    work = tdist.isend(staged if staged is not None else t, int(dst),
+                       tag=int(tag))
+    _count(kind, t, t0)
+    return _P2P(work, kind, t, staged)
+
+
+def recv_(t, src, tag, kind="recv"):
+    """Post the receive into ``t`` (contiguous) from global rank ``src``
+    under ``tag``; ``wait()`` on the handle gives ``t`` filled."""
+    t0 = time.perf_counter()
+    staged = None
+    if p2p_route(t) == "host-staged":
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    work = tdist.irecv(staged if staged is not None else t, int(src),
+                       tag=int(tag))
+    _count(kind, t, t0)
+    return _P2P(work, kind, t, staged)
+
+
+def broadcast_(t, src, group=None, kind="broadcast"):
+    """``t`` from global rank ``src`` to every rank of ``group`` (None:
+    the world), in place.  Returns ``t``."""
+    t0 = time.perf_counter()
+    tdist.broadcast(t, int(src), group=group)
+    _count(kind, t, t0)
+    return t

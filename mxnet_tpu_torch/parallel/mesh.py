@@ -11,10 +11,12 @@ on its own card over NCCL, or all of them on one card over gloo, by
 (``dist.ensure_group``), so the same code runs in one process.
 
 The axis helpers (``axis_names``, ``axis_size``, ``axis_rank``,
-``axis_group``) read a mesh the way the step needs it.  Not ported here:
-the pipeline meshes (``make_pp_mesh``, ``pp_submeshes``) and the sequence
-mesh of ring attention (``set_sequence_mesh``) raise, naming their parts of
-the distributed slice.
+``axis_group``) read a mesh the way the step needs it.  ``make_pp_mesh``
+is a ``dp x pp`` mesh with ``pp`` the minor axis (rank = d * pp + s), and
+``pp_submeshes`` cuts it into one ``StageMesh`` a stage: the ranks of the
+stage's ``dp`` slice, with that slice's process group on its own ranks.
+Not ported here: the sequence mesh of ring attention
+(``set_sequence_mesh``) raises, naming its part of the distributed slice.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ from ..base import MXNetError
 
 __all__ = ["make_mesh", "data_parallel_mesh", "local_devices_for",
            "set_sequence_mesh", "sequence_mesh", "mesh_cache_key",
-           "make_pp_mesh", "pp_submeshes", "axis_names", "axis_size",
-           "axis_rank", "axis_group"]
+           "make_pp_mesh", "pp_submeshes", "StageMesh", "axis_names",
+           "axis_size", "axis_rank", "axis_group"]
 
 
 def _is_mesh(mesh):
@@ -139,10 +141,57 @@ def data_parallel_mesh(ctx_list=None):
 
 
 def make_pp_mesh(pp, dp=None, devices=None):
-    raise MXNetError("make_pp_mesh is not ported yet: it arrives with the "
-                     "pipeline part of the distributed slice")
+    """A ``dp x pp`` mesh for pipelined training (parity:
+    mesh.make_pp_mesh): ``pp`` is the minor axis, so stage ``s`` owns the
+    ranks ``d * pp + s`` of every dp index ``d``.  ``dp`` defaults to what
+    the rank count leaves over."""
+    return make_mesh({"dp": dp if dp is not None else -1, "pp": pp},
+                     devices=devices)
+
+
+class StageMesh(object):
+    """One stage's slice of a pipeline mesh (what ``pp_submeshes`` gives):
+    ``ranks`` the global ranks of its ``dp`` slice in dp order, ``shape``
+    ``{"dp": len(ranks)}`` (or the remaining axes), and ``group`` that
+    slice's process group on the ranks of the slice (None elsewhere)."""
+
+    def __init__(self, index, ranks, names, shape, group):
+        self.index = index
+        self.ranks = list(ranks)
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(names, shape))
+        self.group = group
+
+    def __repr__(self):
+        return "StageMesh(%d, ranks=%r)" % (self.index, self.ranks)
 
 
 def pp_submeshes(mesh, axis="pp"):
-    raise MXNetError("pp_submeshes is not ported yet: it arrives with the "
-                     "pipeline part of the distributed slice")
+    """The stages of a pipeline mesh, one ``StageMesh`` an index of
+    ``axis`` (parity: mesh.pp_submeshes): stage ``s`` of a ``dp x pp``
+    mesh holds the dp slice ``mesh[:, s]``; a pure ``pp`` mesh gives
+    one-rank stages with a ``dp`` axis of size 1."""
+    if not _is_mesh(mesh):
+        raise MXNetError("pp_submeshes takes a parallel.mesh mesh (a torch "
+                         "DeviceMesh), got %r" % type(mesh).__name__)
+    names = axis_names(mesh)
+    if axis not in names:
+        raise MXNetError("pp_submeshes: mesh %r has no %r axis"
+                         % (names, axis))
+    ax = names.index(axis)
+    rest = tuple(n for n in names if n != axis)
+    grid = mesh.mesh
+    me = int(mesh.get_rank())
+    subs = []
+    for s in range(int(grid.shape[ax])):
+        part = grid.select(ax, s)
+        ranks = [int(r) for r in part.reshape(-1).tolist()]
+        if not rest:
+            sub_names, sub_shape, group = ("dp",), (1,), None
+        else:
+            sub_names, sub_shape = rest, tuple(int(x) for x in part.shape)
+            group = None
+            if me in ranks and len(rest) == 1:
+                group = mesh.get_group(rest[0])
+        subs.append(StageMesh(s, ranks, sub_names, sub_shape, group))
+    return subs

@@ -101,12 +101,12 @@ from .parallel import dist as _dist
 from .parallel import mesh as _mesh
 from .parallel.placement import PlacementPlan, normalize_zero
 
-__all__ = ["TrainStep", "EvalStep"]
+__all__ = ["TrainStep", "EvalStep", "PipelineTrainStep",
+           "pipeline_bubble_fraction"]
 
 # mesh axes the port does not run yet, of size > 1 -> the part of the
 # distributed slice that brings them
-_AXIS_PARTS = {"tp": "tensor-parallel", "pp": "pipeline",
-               "sp": "ring-attention"}
+_AXIS_PARTS = {"tp": "tensor-parallel", "sp": "ring-attention"}
 
 # remat="dots": the matrix products without batch dimensions whose outputs
 # the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither
@@ -116,6 +116,10 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 def _refuse_axis(who, axis, size=None):
     sized = "" if size is None else " of size %d" % size
+    if axis == "pp":
+        raise MXNetError("%s: a 'pp' axis%s: pipelined training runs "
+                         "through PipelineTrainStep over "
+                         "parallel.mesh.make_pp_mesh" % (who, sized))
     part = _AXIS_PARTS.get(axis)
     if part is None:
         raise MXNetError("%s: mesh axis %r%s: the port shards over 'dp' "
@@ -152,7 +156,7 @@ def _check_shardings(who, mesh, shardings):
             if axis is None or axis == "dp":
                 continue
             if mesh is None or axis not in _mesh.axis_names(mesh):
-                if axis in _AXIS_PARTS:
+                if axis in _AXIS_PARTS or axis == "pp":
                     _refuse_axis(who, axis)
                 raise MXNetError("%s: param_shardings[%r] names axis %r, "
                                  "which the mesh has not" % (who, name,
@@ -1022,3 +1026,746 @@ class EvalStep(object):
             outs = [_dist.all_gather_batch(o.contiguous(), self._group,
                                            self._dp) for o in outs]
         return tuple(outs)
+
+
+def pipeline_bubble_fraction(pp, microbatches, interleave=1):
+    """Idle-slot share of the executed pipeline schedule under the
+    equal-cost slot model (parity: train.pipeline_bubble_fraction): GPipe
+    and 1F1B pay ``(pp - 1) / (pp - 1 + M)``, the interleaved schedule's
+    ramps cost one chunk, ``(pp - 1) / ((pp - 1) + v * M)``.  The executed
+    order is asserted against it when the plan is built
+    (``parallel.schedule.simulate``)."""
+    return float(pp - 1) / float(pp - 1 + interleave * microbatches)
+
+
+# the pipeline's P2P message tags: (microbatch, virtual stage, direction,
+# tensor index) packed into one int; the outputs' hand-off takes tags of
+# (0, 0, forward), which no carry uses (stage 0 receives none)
+_TAG_TENSORS = 64
+_OUT_TAG = 1
+
+
+def _pp_tag(m, k, V, back, j):
+    return ((m * V + k) * 2 + int(back)) * _TAG_TENSORS + j
+
+
+def _meta_nbytes(shape, dtype):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+class PipelineTrainStep(object):
+    """Stage-partitioned, microbatched training over the ``pp`` axis of a
+    ``dp x pp`` mesh (parity: mxnet_tpu.train.PipelineTrainStep), one rank
+    a device slice.
+
+    The symbol's op sequence is cut into ``pp * v`` virtual stages
+    (``executor._Lowered.stage_partition``: cuts where no peephole pair
+    straddles them, the parameter footprint balanced); virtual stage ``k``
+    lives on slice ``k % pp``, whose ranks (one a dp index, rank = d * pp
+    + s) hold only its parameters, optimizer state and moving statistics.
+    Every rank passes the GLOBAL batch; a step splits it into ``M``
+    microbatches (``num_microbatches``, default pp) and each rank runs its
+    slice's work items of the schedule in the planned order
+    (``parallel.schedule``: ``gpipe``, ``1f1b``, ``interleaved``;
+    ``schedule=`` / ``interleave=`` default to ``MXNET_PP_SCHEDULE`` /
+    ``MXNET_PP_INTERLEAVE``).  The idle share of the planned order is
+    asserted against :func:`pipeline_bubble_fraction` when the plan is
+    built; the gpipe order is m-major, as the reference's.
+
+    A forward item walks its stage (``_Lowered.run(stage=)``) without
+    autograd and stashes only its boundary inputs (the received carry and
+    its rows of the data or labels); the backward item recomputes the
+    stage's forward under autograd, as the reference's ``jax.vjp`` of the
+    rematerialised stage does, and accumulates the parameter gradients
+    over the microbatches.  Boundary activations go forward and
+    cotangents back point to point (``parallel.dist.send_`` / ``recv_``,
+    counted as ``send`` / ``recv``); each rank posts its receives a few
+    items ahead in its planned order, and a send never waits for its
+    receiver, so no schedule can deadlock.  The final stage hands the
+    step's outputs (the whole global batch's loss heads) to the other
+    slices (``send_outputs`` / ``recv_outputs``), so every rank returns
+    them.
+
+    On a dp x pp mesh every microbatch is split over the stage's dp ranks:
+    BatchNorm's statistics are the whole microbatch's (summed across the
+    stage's dp group, ``ops.nn.global_batch_stats``), the moving
+    statistics chain through the microbatches in order, and each stage's
+    gradients are all-reduced over its dp group (one bucket a dtype)
+    before its one SGD / Adam (any ``TrainStep`` rule) update.
+
+    Semantics against the one-program ``TrainStep`` (same global batch,
+    same update count), as the reference's: per-sample loss heads
+    accumulate to the same gradient; ``'batch'``-normalized heads are
+    folded by ``1/M`` (the head-gradient scale); ``'valid'`` raises when
+    M > 1; BatchNorm nets match exactly at M = 1, at M > 1 the
+    microbatched reference (``pp = 1`` with the same M).
+
+    ``last_live_bytes`` is each slice's parameters, optimizer state and
+    moving statistics plus the peak stash of its planned order, from shape
+    metadata (the global microbatch's bytes, as the reference counts
+    them).  While telemetry records, a step emits the ``pp.stage`` span
+    of this rank's slice (its items' seconds, waited for), ``pp.bubble``
+    and the ``pp_bubble_fraction`` / ``pp_stage<N>_live_bytes`` gauges.
+
+    Not ported here (they raise, naming the ZeRO and AMP part of the
+    pipeline): ``zero`` >= 1, ``policy=`` and a ``dtype=`` other than
+    float32; the overlapped bucketed dp gradients of the 1f1b and
+    interleaved schedules come with them (here every schedule all-reduces
+    a stage's gradients once, after its backward wave).  A ``tp`` axis
+    raises as it does for ``TrainStep``.
+    """
+
+    _PART = ("the ZeRO and AMP part of the pipeline (the pipeline part of "
+             "the distributed slice, second half)")
+    # receives posted ahead of the item being run, in its slice's order
+    RECV_AHEAD = 2
+
+    def __init__(self, symbol, optimizer, data_names=("data",),
+                 label_names=("softmax_label",), mesh=None,
+                 num_microbatches=None, zero=False, policy=None, dtype=None,
+                 schedule=None, interleave=None, ctx=None):
+        from .base import get_env
+        from .parallel import schedule as _sched
+        if mesh is None or not _mesh._is_mesh(mesh) \
+                or "pp" not in _mesh.axis_names(mesh):
+            raise MXNetError(
+                "PipelineTrainStep needs a mesh with a 'pp' axis "
+                "(parallel.mesh.make_pp_mesh)")
+        for axis in _mesh.axis_names(mesh):
+            if axis in ("dp", "pp"):
+                continue
+            size = _mesh.axis_size(mesh, axis)
+            if size > 1:
+                _refuse_axis("PipelineTrainStep", axis, size)
+        if normalize_zero(zero):
+            raise MXNetError("PipelineTrainStep(zero=%d) is not ported yet: "
+                             "it arrives with %s"
+                             % (normalize_zero(zero), self._PART))
+        if policy is not None:
+            raise MXNetError("PipelineTrainStep(policy=...) is not ported "
+                             "yet: it arrives with %s" % self._PART)
+        if dtype is not None and torch_dtype(dtype) != torch.float32:
+            raise MXNetError("PipelineTrainStep(dtype=%r) is not ported "
+                             "yet: it arrives with %s" % (dtype, self._PART))
+        self.policy = None
+        self._has_scale = False
+        self._amp_emit = True
+        self.zero = 0
+        self.symbol = symbol
+        self.mesh = mesh
+        self.ctx = Context(ctx) if ctx is not None else current_context()
+        self._pp = _mesh.axis_size(mesh, "pp")
+        self._dp = _mesh.axis_size(mesh, "dp")
+        self._slice = _mesh.axis_rank(mesh, "pp")
+        self._row = _mesh.axis_rank(mesh, "dp") \
+            if "dp" in _mesh.axis_names(mesh) else 0
+        self._group = _mesh.axis_group(mesh, "dp") if self._dp > 1 else None
+        self._sync = (self._group, self._dp) if self._dp > 1 else None
+        self._subs = _mesh.pp_submeshes(mesh)
+        # this rank's dp row: the global rank of each slice
+        self._row_ranks = [sub.ranks[self._row] for sub in self._subs]
+        self._micro = int(num_microbatches) \
+            if num_microbatches is not None else self._pp
+        if self._micro < 1:
+            raise MXNetError("PipelineTrainStep: num_microbatches must be "
+                             ">= 1, got %d" % self._micro)
+        if schedule is None:
+            schedule = get_env("MXNET_PP_SCHEDULE", "gpipe")
+        if interleave is None:
+            interleave = get_env("MXNET_PP_INTERLEAVE", None, typ=int)
+            if interleave is None:
+                interleave = 2 if str(schedule).lower() == "interleaved" \
+                    else 1
+        self._schedule, self._v = _sched.validate_schedule(
+            schedule, self._pp, self._micro, interleave)
+        self._V = self._pp * self._v
+        self._low = _Lowered(symbol)
+        self.data_names = tuple(data_names)
+        self.label_names = tuple(label_names)
+        self._inputs = frozenset(self.data_names) | frozenset(
+            self.label_names)
+        self.param_names = [n for n in self._low.arg_names
+                            if n not in self._inputs]
+        self.aux_names = list(self._low.aux_names)
+        self.fopt = _FunctionalOptimizer(optimizer, self.param_names)
+        self.optimizer = optimizer
+        self.num_update = 0
+        self._stages = None
+        self._var_stage = {}
+        self._stage_has_loss = None
+        self._micro_comp = False
+        self._meta = None          # {name: (shape, dtype)} of every variable
+        self._plans = {}
+        self._carry_cache = {}
+        self._opt_lens = {}
+        self.last_live_bytes = None
+        self._mon_force = False
+        self._last_mon_entry = None
+
+    # ------------------------------------------------------------- planning
+    def _ensure_plan(self, param_sizes=None):
+        if self._stages is not None:
+            return
+        self._stages = self._low.stage_partition(
+            self._V, input_names=self._inputs, param_sizes=param_sizes)
+        for st in self._stages:
+            for n in list(st.params) + list(st.aux):
+                self._var_stage[n] = st.index
+        has_loss = [False] * self._V
+        norm_modes = set()
+        for st in self._stages:
+            for n in st.nodes:
+                if not n.is_var and getattr(n.op, "is_loss", False):
+                    has_loss[st.index] = True
+                    norm_modes.add(n.op.normalize_attrs(n.params)
+                                   .get("normalization") or "null")
+        self._stage_has_loss = has_loss
+        if self._micro > 1 and "valid" in norm_modes:
+            raise MXNetError(
+                "pipeline microbatching: a loss head uses "
+                "normalization='valid' — its per-microbatch valid count "
+                "cannot be folded into a constant head-grad scale; use "
+                "'null'/'batch' normalization or num_microbatches=1")
+        if self._micro > 1 and "batch" in norm_modes and len(norm_modes) > 1:
+            raise MXNetError(
+                "pipeline microbatching: loss heads mix 'batch' and "
+                "per-sample normalization — one head-grad scale cannot "
+                "compensate both")
+        self._micro_comp = self._micro > 1 and norm_modes == {"batch"}
+        # the virtual stages of this rank's slice
+        self._mine = [k for k in range(self._V)
+                      if k % self._pp == self._slice]
+
+    def stages(self):
+        """The stage plan (``executor._Stage`` list, ``pp * interleave``
+        virtual stages; stage ``k`` on slice ``k % pp``), or None before
+        ``init`` / ``place_params``."""
+        return self._stages
+
+    def schedule(self):
+        """(schedule name, interleave) of this step's plan."""
+        return self._schedule, self._v
+
+    def my_stages(self):
+        """The virtual stages this rank runs."""
+        self._require_plan("my_stages")
+        return list(self._mine)
+
+    def _require_plan(self, what):
+        if self._stages is None:
+            raise MXNetError(
+                "PipelineTrainStep.%s: call init() or place_params() first "
+                "— the stage plan is balanced from parameter sizes" % what)
+
+    def _get_plan(self):
+        """The dispatch plan of (schedule, interleave, M): every work item
+        in planned order, this slice's items, and the simulated idle
+        share, asserted against the closed form."""
+        from .parallel import schedule as _sched
+        key = (self._schedule, self._v, self._micro)
+        plan = self._plans.get(key)
+        if plan is not None:
+            return plan
+        orders = _sched.stage_orders(self._pp, self._micro, self._schedule,
+                                     self._v)
+        if self._schedule == "gpipe":
+            # the reference's m-major waves; the simulation scores the
+            # per-slice order
+            sim = _sched.simulate(orders, self._pp, self._v)
+            items = [("fwd", m, k) for m in range(self._micro)
+                     for k in range(self._V)]
+            items += [("bwd", m, k) for m in reversed(range(self._micro))
+                      for k in reversed(range(self._V))]
+        else:
+            items, sim = _sched.dispatch_order(orders, self._pp, self._v)
+        want = pipeline_bubble_fraction(self._pp, self._micro, self._v)
+        if abs(sim["bubble"] - want) > 1e-9:
+            raise MXNetError(
+                "pipeline schedule %s: executed idle share %.6f does not "
+                "match pipeline_bubble_fraction(pp=%d, M=%d, v=%d)=%.6f"
+                % (self._schedule, sim["bubble"], self._pp, self._micro,
+                   self._v, want))
+        plan = {"items": items, "bubble": sim["bubble"],
+                "slices": [[it for it in items if it[2] % self._pp == d]
+                           for d in range(self._pp)]}
+        self._plans[key] = plan
+        return plan
+
+    # ----------------------------------------------------------- placement
+    def _host(self, v):
+        t = v.value if isinstance(v, nd.NDArray) else v
+        t = t if isinstance(t, torch.Tensor) else torch.as_tensor(
+            _np.asarray(v))
+        return t.detach()
+
+    def _note_meta(self, host_params, host_aux=None):
+        meta = dict(self._meta or {})
+        for src in (host_params, host_aux or {}):
+            for n, v in src.items():
+                t = self._host(v)
+                meta[n] = (tuple(t.shape), t.dtype)
+        self._meta = meta
+
+    def _put(self, v):
+        return self._host(v).to(self.ctx.torch_device(), copy=True)
+
+    def place_params(self, host_params):
+        """Host {name: array} of every parameter -> this rank's stages'
+        parameters on its device (the stage plan is balanced from the
+        sizes at the first call)."""
+        self._ensure_plan({n: int(self._host(v).numel())
+                           for n, v in host_params.items()})
+        self._note_meta(host_params)
+        return {n: self._put(host_params[n]) for n in self.param_names
+                if self._var_stage[n] % self._pp == self._slice}
+
+    def place_aux(self, host_aux):
+        """This rank's stages' aux states on its device."""
+        self._require_plan("place_aux")
+        self._note_meta({}, host_aux)
+        return {n: self._put(host_aux[n]) for n in self.aux_names
+                if self._var_stage[n] % self._pp == self._slice}
+
+    def place_state(self, host_state):
+        """This rank's stages' optimizer state tuples on its device."""
+        self._require_plan("place_state")
+        return {n: tuple(self._put(x) for x in host_state[n])
+                for n in self.param_names
+                if self._var_stage[n] % self._pp == self._slice}
+
+    def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
+        """Initialise every parameter and aux state on the host from
+        ``seed`` (each rank draws the same values), balance the stage plan
+        from their sizes, and keep this rank's stages' variables and their
+        fresh optimizer state on its device.  Returns (params, opt_state,
+        aux)."""
+        params, aux = _host_init(self.symbol, self._low, self.param_names,
+                                 self.aux_names, data_shapes, label_shapes,
+                                 initializer, seed, "PipelineTrainStep")
+        p = self.place_params(params)
+        return p, self.fopt.init_state(p), self.place_aux(aux)
+
+    def place_checkpoint(self, host_params, host_state, host_aux,
+                         device=None):
+        """Restored logical host trees placed on this rank's stages
+        (``device`` is accepted for TrainStep's signature; the step's own
+        device is used).  ``host_state`` None builds fresh state."""
+        p = self.place_params(host_params)
+        s = self.fopt.init_state(p) if host_state is None \
+            else self.place_state(host_state)
+        return p, s, self.place_aux(host_aux)
+
+    def shard_batch(self, batch):
+        """The global batch as host tensors: the step takes each
+        microbatch's rows of this rank itself."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, nd.NDArray):
+                v = v.value
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(_np.array(v, copy=True))
+            out[k] = v
+        return out
+
+    def output_sharding(self):
+        """The final stage's ``StageMesh``: where the outputs are made
+        (every rank returns them after the hand-off)."""
+        return self._subs[-1]
+
+    # ----------------------------------------------------------- checkpoint
+    def _owner(self, k):
+        """The rank that writes virtual stage ``k``'s shards: its slice's
+        rank of dp row 0."""
+        return self._subs[k % self._pp].ranks[0]
+
+    def checkpoint_topology(self):
+        """Shard ownership for ``checkpoint.snapshot`` (parity:
+        PipelineTrainStep.checkpoint_topology): every variable belongs to
+        its virtual stage, whose ``stage<k>`` / ``stage<k>-opt`` shards its
+        slice's rank of dp row 0 writes; ``meta`` lists every variable's
+        shape and dtype for the manifest, which rank 0 writes."""
+        self._require_plan("checkpoint_topology")
+        meta = self._meta or {}
+        return {"pp": self._pp, "dp": self._dp, "zero": 0, "row": 0,
+                "microbatches": self._micro, "schedule": self._schedule,
+                "interleave": self._v, "stage_of": dict(self._var_stage),
+                "stage_owner": {k: self._owner(k) for k in range(self._V)},
+                "writes": self._row == 0,
+                "aux_names": list(self.aux_names),
+                "meta": {n: (list(s), str(d).replace("torch.", ""))
+                         for n, (s, d) in meta.items()},
+                "opt_len": {n: self._opt_len(n) for n in self.param_names}}
+
+    def scale_state_host(self):
+        return None
+
+    def load_scale_state(self, host):
+        return None
+
+    def amp_stats(self):
+        return None
+
+    def step_flops(self):
+        return None
+
+    def _opt_len(self, name):
+        """The number of optimizer-state tensors of parameter ``name``."""
+        n = self._opt_lens.get(name)
+        if n is None:
+            n = self._opt_lens[name] = len(
+                self.fopt.init_state({name: torch.zeros(1)})[name])
+        return n
+
+    def gather_host(self, params=None, opt_state=None, aux=None):
+        """Every stage's parameters, optimizer state and aux states (each
+        tree given, None stays None) as logical host tensors on every
+        rank: each virtual stage's owner (its slice's rank of dp row 0)
+        broadcasts one flat buffer a dtype (``dist.broadcast_``, kind
+        ``broadcast``).  A collective: every rank calls it."""
+        self._require_plan("gather_host")
+        meta = self._meta
+        trees = (params, opt_state, aux)
+        out = [None if t is None else {} for t in trees]
+        world = _dist.num_workers()
+        for k in range(self._V):
+            st = self._stages[k]
+            owner = self._owner(k)
+            mine = world == 1 or _dist.rank() == owner
+            leaves = []         # (tree, name, tuple index or None)
+            if params is not None:
+                leaves += [(0, n, None) for n in st.params]
+            if opt_state is not None:
+                leaves += [(1, n, j) for n in st.params
+                           for j in range(self._opt_len(n))]
+            if aux is not None:
+                leaves += [(2, n, None) for n in st.aux]
+            by_dt = {}
+            for leaf in leaves:
+                by_dt.setdefault(meta[leaf[1]][1], []).append(leaf)
+            for dt, group in by_dt.items():
+                sizes = [_meta_nbytes(meta[n][0], dt)
+                         // torch.empty((), dtype=dt).element_size()
+                         for _, n, _ in group]
+                if mine:
+                    buf = torch.cat([
+                        (trees[i][n] if j is None else trees[i][n][j])
+                        .detach().reshape(-1).to("cpu", dt)
+                        for i, n, j in group])
+                else:
+                    buf = torch.empty(sum(sizes), dtype=dt)
+                if world > 1:
+                    _dist.broadcast_(buf, owner)
+                off = 0
+                for (i, n, j), c in zip(group, sizes):
+                    v = buf[off:off + c].view(meta[n][0]).clone()
+                    off += c
+                    if j is None:
+                        out[i][n] = v
+                    else:
+                        out[i][n] = out[i].get(n, ()) + (v,)
+        return tuple(out)
+
+    def gather_params(self, params):
+        """Every stage's parameters as host tensors on every rank (a
+        collective; see ``gather_host``)."""
+        return self.gather_host(params=params)[0]
+
+    def export_host(self, params, opt_state, aux):
+        """The live state as logical host tensors on every rank (parity:
+        PipelineTrainStep.export_host, the stage partition merged away):
+        ``(manifest, params, opt_state, aux)``, the manifest holding the
+        step, the topology and the stage map."""
+        p, s, a = self.gather_host(params, opt_state, aux)
+        topo = self.checkpoint_topology()
+        man = {"step": int(self.num_update),
+               "topology": {"pp": self._pp, "dp": self._dp, "zero": 0,
+                            "microbatches": self._micro},
+               "stage_of": {n: int(v) for n, v in topo["stage_of"].items()}}
+        return man, p, s, a
+
+    # ------------------------------------------------------------ metadata
+    def _carry_meta(self, shapes):
+        """{virtual stage: ([carry_in (shape, dtype)], [carry_out ...])}
+        and the outputs' (shape, dtype) list, from shape inference at the
+        input shapes ``shapes`` (a microbatch of one rank); cached."""
+        key = tuple(sorted(shapes.items()))
+        got = self._carry_cache.get(key)
+        if got is not None:
+            return got
+        from .symbol import _run_shape_inference
+        _, vshapes = _run_shape_inference(self.symbol, dict(shapes))
+        dt = self._value_dtype()
+        per = {}
+        for st in self._stages:
+            per[st.index] = ([(tuple(vshapes[k]), dt) for k in st.carry_in],
+                             [(tuple(vshapes[k]), dt)
+                              for k in st.carry_out])
+        outs = [(tuple(vshapes[k]), dt) for k in self._low.out_keys]
+        self._carry_cache[key] = (per, outs)
+        return per, outs
+
+    def _value_dtype(self):
+        """The activations' dtype: the parameters' (float32 or float64)."""
+        meta = self._meta or {}
+        for n in self.param_names:
+            if n in meta:
+                return meta[n][1]
+        return torch.float32
+
+    def _live_bytes(self, per, in_nb):
+        """Each slice's parameters, optimizer state and aux states plus
+        the peak stash of its planned order, from shape metadata; carries
+        and inputs at the global microbatch (``per`` and ``in_nb`` are one
+        rank's microbatch: times dp)."""
+        meta = self._meta
+        plan = self._get_plan()
+        out = []
+        for d in range(self._pp):
+            static = 0
+            for k in range(d, self._V, self._pp):
+                st = self._stages[k]
+                for n in st.params:
+                    nb = _meta_nbytes(*meta[n])
+                    static += nb * (1 + self._opt_len(n))
+                static += sum(_meta_nbytes(*meta[n]) for n in st.aux)
+            cur = peak = 0
+            for kind, m, k in plan["slices"][d]:
+                st = self._stages[k]
+                nb = self._dp * (sum(_meta_nbytes(*c) for c in per[k][0])
+                                 + sum(in_nb[n] for n in st.inputs))
+                cur += nb if kind == "fwd" else -nb
+                peak = max(peak, cur)
+            out.append(static + peak)
+        return out
+
+    # ------------------------------------------------------------------ step
+    def __call__(self, params, opt_state, aux, batch, rng=None):
+        """One pipelined, microbatched step of the global ``batch`` under
+        the planned schedule.  ``params`` / ``opt_state`` / ``aux`` hold
+        this rank's stages' tensors and are updated in place.  Returns
+        them with the outputs: the loss heads over the whole global batch
+        (microbatches in order), on every rank."""
+        import time as _time
+        if self._stages is None:
+            raise MXNetError(
+                "PipelineTrainStep: call init() (or place_params/"
+                "place_state/place_aux) before stepping")
+        M, P, V = self._micro, self._pp, self._V
+        batch = self.shard_batch(batch)
+        for n in self.data_names + self.label_names:
+            if n not in batch:
+                raise MXNetError("pipeline step: missing input %s" % n)
+        b0 = batch[self.data_names[0]].shape[0]
+        if b0 % M:
+            raise MXNetError(
+                "pipeline step: global batch %d is not divisible by "
+                "num_microbatches=%d" % (b0, M))
+        mb = b0 // M
+        if mb % self._dp:
+            raise MXNetError(
+                "pipeline step: microbatch %d (batch %d / M=%d) is not "
+                "divisible by dp=%d" % (mb, b0, M, self._dp))
+        rb = mb // self._dp
+        plan = self._get_plan()
+        dev = self.ctx.torch_device()
+        shapes = {n: (rb,) + tuple(v.shape[1:]) for n, v in batch.items()}
+        per, out_meta = self._carry_meta(shapes)
+        hyper = self.fopt.hyper(self.num_update)
+        self.num_update += 1
+        t = self.num_update
+        telem = _tel._enabled
+        busy = [0.0]
+        wall0 = _time.time()
+        t_start = _time.perf_counter()
+        ranks = self._row_ranks
+
+        def rows(n, m):
+            lo = m * mb + self._row * rb
+            return batch[n][lo:lo + rb].to(dev)
+        comp = torch.tensor(_np.float32(1.0 / M), device=dev) \
+            if self._micro_comp else None
+        mine = plan["slices"][self._slice]
+        aux_w = {n: aux[n] for n in aux}
+        acc = {n: torch.zeros_like(params[n]) for n in params}
+        recvs = {}          # item -> [handles]
+        posted = [0]
+        sends = []
+        stash = {}
+        outs_m = [None] * M
+
+        def post_until(i):
+            while posted[0] < len(mine) and posted[0] <= i + self.RECV_AHEAD:
+                kind, m, k = it = mine[posted[0]]
+                posted[0] += 1
+                if kind == "fwd" and k > 0:
+                    src, metas, back = ranks[(k - 1) % P], per[k][0], False
+                elif kind == "bwd" and k < V - 1:
+                    src, metas, back = ranks[(k + 1) % P], per[k][1], True
+                else:
+                    continue
+                recvs[it] = [_dist.recv_(
+                    torch.empty(sh, dtype=dt, device=dev), src,
+                    _pp_tag(m, k, V, back, j))
+                    for j, (sh, dt) in enumerate(metas)]
+
+        def walk(k, vals, aux_k, carry, scale):
+            with global_batch_stats(self._sync):
+                return self._low._run(
+                    vals, aux_k, True, self._inputs, self.ctx, scale, None,
+                    frozenset(), False, self._stages[k], carry)
+
+        with _profiler.Scope("pipeline_step[%d]" % self.num_update,
+                             "symbolic"):
+            for i, it in enumerate(mine):
+                kind, m, k = it
+                st = self._stages[k]
+                post_until(i)
+                t0 = _time.perf_counter()
+                if kind == "fwd":
+                    cin = [h.wait() for h in recvs.pop(it, ())]
+                    ex = {n: rows(n, m) for n in st.inputs}
+                    vals = dict(ex)
+                    vals.update({n: params[n] for n in st.params})
+                    gen = _random.generator(dev)
+                    start = gen.get_state()
+                    with torch.no_grad():
+                        outs, aux_upd, cout = walk(
+                            k, vals, {n: aux_w[n] for n in st.aux}, cin,
+                            None)
+                    for n, v in aux_upd.items():
+                        if n in aux_w:
+                            aux_w[n] = v.to(aux_w[n].dtype)
+                    stash[(m, k)] = (cin, ex, start)
+                    if k == V - 1:
+                        outs_m[m] = [o.detach() for o in outs]
+                    else:
+                        sends += [_dist.send_(c, ranks[(k + 1) % P],
+                                              _pp_tag(m, k + 1, V, False, j))
+                                  for j, c in enumerate(cout)]
+                else:
+                    cin, ex, start = stash.pop((m, k))
+                    gout = [h.wait() for h in recvs.pop(it, ())]
+                    leaves = {n: params[n].detach().requires_grad_(True)
+                              for n in st.params}
+                    cin_l = [c.detach().requires_grad_(True)
+                             if c.is_floating_point() else c for c in cin]
+                    vals = dict(ex)
+                    vals.update(leaves)
+                    scale = comp if self._stage_has_loss[k] else None
+                    gen = _random.generator(dev)
+                    with torch.enable_grad(), \
+                            _random.replaying(gen, start):
+                        outs, _, cout = walk(
+                            k, vals, {n: aux_w[n] for n in st.aux},
+                            cin_l, scale)
+                    targets = list(cout) + list(outs)
+                    seeds = list(gout) + [
+                        torch.ones((), dtype=o.dtype, device=o.device)
+                        .expand(o.shape) for o in outs]
+                    wrt = [leaves[n] for n in st.params] + \
+                        [c for c in cin_l if c.requires_grad]
+                    grads = head_grads(targets, seeds, wrt)
+                    with torch.no_grad():
+                        for n, g in zip(st.params, grads):
+                            if g is not None:
+                                acc[n] += g.to(acc[n].dtype)
+                    del outs, cout, targets, leaves
+                    if k > 0:
+                        gc = list(grads[len(st.params):])
+                        full, it_g = [], iter(gc)
+                        for c in cin_l:
+                            g = next(it_g) if c.requires_grad else None
+                            full.append(torch.zeros_like(c) if g is None
+                                        else g.detach())
+                        sends += [_dist.send_(g, ranks[(k - 1) % P],
+                                              _pp_tag(m, k - 1, V, True, j))
+                                  for j, g in enumerate(full)]
+                    del grads
+                if telem:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    busy[0] += _time.perf_counter() - t0
+                sends = [h for h in sends if not h.is_completed()]
+            for h in sends:
+                h.wait()
+            self._update(params, opt_state, aux, aux_w, acc, hyper, t)
+            outs = self._hand_off(outs_m, out_meta, M, dev)
+            _engine.settle(list(outs))
+        in_nb = {n: _meta_nbytes(shapes[n], batch[n].dtype)
+                 for n in batch}
+        self.last_live_bytes = self._live_bytes(per, in_nb)
+        if telem:
+            frac = plan["bubble"]
+            _tel.record_span("pp.stage", wall0, busy[0], cat="pipeline",
+                             stage=self._slice, microbatches=M,
+                             schedule=self._schedule)
+            wall = _time.perf_counter() - t_start
+            _tel.record_span("pp.bubble", wall0, wall * frac,
+                             cat="pipeline", pp=P, microbatches=M,
+                             schedule=self._schedule, interleave=self._v)
+            _tel.gauge("pp_bubble_fraction", frac)
+            for d in range(P):
+                _tel.gauge("pp_stage%d_live_bytes" % d,
+                           self.last_live_bytes[d], stage=d)
+        return params, opt_state, aux, outs
+
+    def _update(self, params, opt_state, aux, aux_w, acc, hyper, t):
+        """Each of this rank's stages: its gradients all-reduced over the
+        stage's dp group (one bucket a dtype), then its rule into the
+        caller's tensors; the moving statistics the forwards chained."""
+        with torch.no_grad(), torch.profiler.record_function(
+                "PipelineTrainStep.update"):
+            for k in self._mine:
+                st = self._stages[k]
+                if self._dp > 1 and st.params:
+                    by_dtype = {}
+                    for n in st.params:
+                        by_dtype.setdefault(acc[n].dtype, []).append(n)
+                    for names in by_dtype.values():
+                        flat = _dist.all_reduce_(torch.cat(
+                            [acc[n].reshape(-1) for n in names]),
+                            self._group)
+                        off = 0
+                        for n in names:
+                            c = acc[n].numel()
+                            acc[n] = flat[off:off + c].view(acc[n].shape)
+                            off += c
+                for n in st.params:
+                    new_w, new_s = self.fopt.update(
+                        n, params[n], acc[n], opt_state[n], hyper, t)
+                    params[n].copy_(new_w.to(params[n].dtype))
+                    for dst, v in zip(opt_state[n], new_s):
+                        dst.copy_(v.to(dst.dtype))
+            for n, v in aux_w.items():
+                if v is not aux[n]:
+                    aux[n].copy_(v)
+
+    def _hand_off(self, outs_m, out_meta, M, dev):
+        """The whole global batch's outputs on every rank: the final
+        stage's dp ranks gather their rows of each microbatch, then send
+        the result to the other slices of their dp row."""
+        P = self._pp
+        ranks = self._row_ranks
+        gb = [(sh[0] * self._dp * M,) + tuple(sh[1:]) for sh, _ in out_meta]
+        if self._slice == P - 1:
+            outs = []
+            for i in range(len(out_meta)):
+                parts = [om[i] for om in outs_m]
+                if self._dp > 1:
+                    parts = [_dist.all_gather_batch(x.contiguous(),
+                                                    self._group, self._dp)
+                             for x in parts]
+                outs.append(torch.cat(parts) if M > 1 else parts[0])
+            hs = [_dist.send_(o, ranks[d], _OUT_TAG + i,
+                              kind="send_outputs")
+                  for d in range(P - 1) for i, o in enumerate(outs)]
+            for h in hs:
+                h.wait()
+            return tuple(outs)
+        hs = [_dist.recv_(torch.empty(sh, dtype=dt, device=dev),
+                          ranks[P - 1], _OUT_TAG + i, kind="recv_outputs")
+              for i, (sh, (_, dt)) in enumerate(zip(gb, out_meta))]
+        return tuple(h.wait() for h in hs)

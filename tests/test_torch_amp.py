@@ -709,10 +709,14 @@ def test_remat_refuses_unknown_mode():
      "the distributed slice")])
 def test_only_the_parallel_arguments_refuse(kw, item):
     """The mesh and ZeRO arguments train (tests/test_torch_zero*.py); a
-    pipeline or tensor-parallel axis still refuses, naming its part."""
-    part = "pipeline" if "pp" in str(kw) else "tensor-parallel"
-    with pytest.raises(mt.MXNetError,
-                       match="arrives with the %s part of %s" % (part, item)):
+    tensor-parallel axis still refuses, naming its part, and a pipeline
+    axis names PipelineTrainStep, which trains it
+    (tests/test_torch_pipeline.py)."""
+    if "pp" in str(kw):
+        match = "pipelined training runs through PipelineTrainStep"
+    else:
+        match = "arrives with the tensor-parallel part of %s" % item
+    with pytest.raises(mt.MXNetError, match=match):
         mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
 
 

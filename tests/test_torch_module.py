@@ -434,18 +434,25 @@ def _small():
     ("MXNET_ZERO", "1", "distributed")])
 def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
     """Each knob the JAX package's fit reads for an unported layer raises,
-    naming the slice; "0" leaves it off and fit trains.  MXNET_ZERO trains
-    (tests/test_torch_zero*.py): composed with MXNET_PP it meets the
-    pipeline part's refusal."""
+    naming the slice; "0" leaves it off and fit trains.  MXNET_ZERO and
+    MXNET_PP train (tests/test_torch_zero*.py, test_torch_pipeline.py):
+    composed they meet the refusal of the ZeRO and AMP part of the
+    pipeline, and so does MXNET_PP with MXNET_AMP."""
     it, mod = _small()
     monkeypatch.setenv(knob, value)
-    if knob == "MXNET_ZERO":
-        monkeypatch.setenv("MXNET_PP", "2")
+    partner = {"MXNET_ZERO": ("MXNET_PP", "2"),
+               "MXNET_PP": ("MXNET_AMP", "1")}.get(knob)
+    if partner:
+        monkeypatch.setenv(*partner)
     with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
         mod.fit(it, num_epoch=1)
+    if partner:
+        with pytest.raises(mt.MXNetError,
+                           match="ZeRO and AMP part of the pipeline"):
+            mod.fit(it, num_epoch=1)
     monkeypatch.setenv(knob, "0")
-    if knob == "MXNET_ZERO":
-        monkeypatch.delenv("MXNET_PP")
+    if partner:
+        monkeypatch.delenv(partner[0])
     mod.fit(it, num_epoch=1)
 
 

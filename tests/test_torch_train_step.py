@@ -297,11 +297,14 @@ def test_eval_step_matches_mxnet_tpu(f64):
     ({"zero": 1, "param_shardings": {"x": ("tp",)}},
      "the distributed slice")])
 def test_trainstep_refuses_what_is_not_ported(kw, item):
-    """A pipeline or tensor-parallel axis refuses, naming its part; the
+    """A tensor-parallel axis refuses, naming its part; a pipeline axis
+    refuses, naming PipelineTrainStep (tests/test_torch_pipeline.py); the
     mesh and ZeRO arguments train (tests/test_torch_zero*.py)."""
-    part = "pipeline" if "pp" in str(kw) else "tensor-parallel"
-    with pytest.raises(mt.MXNetError,
-                       match="arrives with the %s part of %s" % (part, item)):
+    if "pp" in str(kw):
+        match = "pipelined training runs through PipelineTrainStep"
+    else:
+        match = "arrives with the tensor-parallel part of %s" % item
+    with pytest.raises(mt.MXNetError, match=match):
         mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
 
 

@@ -177,11 +177,15 @@ def test_refusals_without_a_world():
                      param_shardings={"fc1_weight": ("tp", None)})
     with pytest.raises(mt.MXNetError, match="takes a parallel.mesh"):
         mt.EvalStep(_mlp(), mesh=object())
-    for fn in (lambda: pmesh.make_pp_mesh(2),
-               lambda: pmesh.pp_submeshes(None)):
-        with pytest.raises(mt.MXNetError,
-                           match="pipeline part of the distributed slice"):
-            fn()
+    # the pipeline meshes train (tests/test_torch_pipeline.py); what still
+    # refuses: two stages over a world of one, and a mesh that is none
+    try:
+        with pytest.raises(mt.MXNetError, match="cannot infer mesh axis"):
+            pmesh.make_pp_mesh(2)
+    finally:
+        dist.shutdown_process_group()
+    with pytest.raises(mt.MXNetError, match="takes a parallel.mesh mesh"):
+        pmesh.pp_submeshes(None)
     with pytest.raises(mt.MXNetError, match="ring-attention part"):
         pmesh.set_sequence_mesh(object())
     pmesh.set_sequence_mesh(None)
