@@ -455,8 +455,9 @@ fatal on failure:
    rows (the floor: the largest distance of PP_FLOOR_SAMPLES runs of that
    reference from the state nudged by RESNET_FLOOR_NUDGE); (b) gpipe, 1f1b
    and interleaved (v=2) at M=4, each by the same rule to one process's
-   ``PipelineTrainStep`` with pp=1 and M=4 (the floor of (a): the same
-   state and batches).  (c) Each rank's NormConv
+   ``PipelineTrainStep`` with pp=1 and M=4 (its own floor: the moving
+   statistics chain M updates a step, which the M=1 floor of (a) does
+   not).  (c) Each rank's NormConv
    launches a step (a forward and its recompute a microbatch on its
    slice's stages: PP_NC_SLICE), summed over the ranks; the P2P transfers
    a step by kind (calls, MB, seconds) and the pinned staging copies;
@@ -467,7 +468,36 @@ fatal on failure:
    them, within RESNET_FLOOR_X times the M=1 floor.  (e) The state saved
    under pp=2, restored into pp=2 and into one process's ``TrainStep``
    bitwise, and a one-process save restored into pp=2 bitwise.  (f) The
-   phase within PP_PHASE_S seconds.
+   phase within PP_PHASE_S seconds.  The ZeRO and AMP part of the
+   pipeline: (g) a second world of PP4_RANKS ranks sharing the card,
+   dp2 x pp2 (``make_pp_mesh(2, dp=2)``), started held with the first and
+   run beside it:
+   PP4_CASES (ZeRO 1-3 under gpipe at M=2, levels 2 and 0 under 1f1b at
+   M=4, level 0 through the overlapped bucket), each within
+   RESNET_FLOOR_X times the float32 floor of its reference, one process's
+   pp=1 step of its M (the first world's references and floors, read from
+   its files); a step's collectives by kind against
+   ``pp_ladder.predicted_collectives``, the NormConv launches a rank
+   (PP_NC_SLICE), the bytes a placement allocates over level 0's against
+   the plan's ratio
+   (``zero_bytes`` of the rank's slice and its moving statistics, within
+   ZERO_RESIDENT_SLACK, the zero phase's idiom).
+   (h) In the first world: PP_POLICY_CASES, the bfloat16 policy at M=1
+   within RESNET_FLOOR_X times the bfloat16 floor of one process's bf16
+   ``TrainStep`` (the floor: the largest distance of its runs from the
+   state nudged by the ladder's BF16_FLOOR_NUDGE, 2^-9; that step shares
+   none of the pipeline's cast, loss-scale or verdict code), and under
+   1f1b at M=4 by the same rule to one process's bf16 pp=1 step of M=4
+   (no TrainStep normalises a BatchNorm over each microbatch), every
+   NormConv launch in bfloat16; the float32 policy under 1f1b at M=4
+   (the loss scale folded into the 1/M head scale, the unscale and the
+   verdict: the M>1 part of the policy's code) held to the float32 pp=1
+   step of M=4, which runs none of that code, by its float32 floor (a
+   scale of 2^10 is exact in float32); PP_OVERFLOW (the float32
+   policy at the ladder's LOSS_SCALE) on a batch with one inf: parameters,
+   optimizer state and moving statistics bitwise unchanged, the scale
+   halved, one overflow on each rank.  (i) Step ms, update ms and img/s of
+   every case beside the card's name and power limit.
 
 Each phase prints its seconds split into the host's set-up (the CPU
 references and seed states) and the rest, after a host-speed line (the
@@ -7840,18 +7870,21 @@ def dist_launch(label, args, timeout, env=None):
     return dist_finish(dist_start(label, args, env), timeout)
 
 
-def dist_ranks_start(work, module, *args, env=None, hold=False):
-    """Start the port's launcher with DIST_RANKS ranks of ``python -m
+def dist_ranks_start(work, module, *args, env=None, hold=False,
+                     ranks=DIST_RANKS):
+    """Start the port's launcher with ``ranks`` ranks of ``python -m
     module`` writing to ``work``; with ``hold`` the ranks import and start
     the card's context at once, then wait for ``dist_ranks_finish`` (the
     start-up overlaps the script's earlier work)."""
     rank = [sys.executable, "-c", HOLD_SRC, module] if hold \
         else [sys.executable, "-m", module]
-    return dist_start(
+    h = dist_start(
         module.rsplit(".", 1)[1],
         [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
-         str(DIST_RANKS)] + rank + ["--out", work] + list(args), env,
+         str(ranks)] + rank + ["--out", work] + list(args), env,
         go=os.path.join(work, "go") if hold else None)
+    h["ranks"] = ranks
+    return h
 
 
 def dist_ranks_finish(h, work):
@@ -7862,7 +7895,7 @@ def dist_ranks_finish(h, work):
         fail("dist: %s exited %d\n%s\n%s" % (h["label"], rc, out[-4000:],
                                              err[-4000:]))
     rows = []
-    for r in range(DIST_RANKS):
+    for r in range(h["ranks"]):
         with open(os.path.join(work, "rank%d.json" % r)) as f:
             rows.append(json.load(f))
     return rows
@@ -8419,11 +8452,28 @@ def zero_phase(torch, mt, held):
 PP_BATCH = 32              # the global batch of a pipelined step
 PP_STEPS = 2
 PP_CASES = "gpipe:2:1:1,gpipe:2:1:4,1f1b:2:1:4,interleaved:2:1:4:2"
+# (h) in the two-rank world: the bfloat16 policy at M=1, held to one
+# process's bfloat16 TrainStep, and under 1f1b at M=4, held to one
+# process's bfloat16 pp=1 step of M=4, each by its reference's bf16 floor;
+# the float32 policy under 1f1b at M=4, held to the float32 pp=1 step of
+# M=4 by its float32 floor; an overflow step under the float32 policy
+PP_POLICY_CASES = "gpipe:2:1:1:1:bf16,1f1b:2:1:4:1:bf16,1f1b:2:1:4:1:amp32"
+PP_OVERFLOW = "gpipe:2:1:2:1:amp32"
 PP_FLOOR_SAMPLES = 2       # nudged runs of the one-process TrainStep
 PP_LIVE = "2,8"            # microbatch counts of the live-bytes ladder
 PP_LIVE_ROWS = 2           # a rank's rows of a microbatch in that ladder
 PP_FIT_BATCHES = 2
-PP_PHASE_S = 90.0
+# (g) the four-rank dp2 x pp2 world: ZeRO 1-3 under gpipe at M=2, level 2
+# and level 0 (the overlapped bucket) under 1f1b at M=4
+PP4_RANKS = 4
+PP4_CASES = ("gpipe:2:2:2:1:z1", "gpipe:2:2:2:1:z2", "gpipe:2:2:2:1:z3",
+             "1f1b:2:2:4:1:z2", "1f1b:2:2:4:1:z0")
+# the phase's limit: 90 s for the two-rank world's cases before the ZeRO
+# and AMP cases, 60 s more for the bf16 and overflow steps, their
+# references and the four-rank world, which runs beside the two-rank one
+# (the phase took 56.7 s so alone and 97.0 s inside the whole script;
+# 119-135 s with the worlds one after the other)
+PP_PHASE_S = 150.0
 # the NormConv launches of one ResNet-50 forward on each slice of the
 # pp=2 cut (46 + 6 = 52; 28 + 4 = 32 with statistics), and of the
 # interleaved v=2 cut's slices (stages 0+2 and 1+3: 39 + 6, 7 + 0)
@@ -8431,46 +8481,63 @@ PP_NC_SLICE = {1: ((46, 28), (6, 4)), 2: ((45, 28), (7, 4))}
 
 
 def pipeline_start(mt):
-    """Start the pipeline phase's world, held (``dist_ranks_start``):
-    (work directory, handle)."""
+    """Start the pipeline phase's two worlds, held (``dist_ranks_start``):
+    the two-rank pp=2 world and the four-rank dp2 x pp2 one, which reads
+    the first one's floors and its pp=1 references of M=2 and M=4.
+    Returns ((work, handle), (work, handle))."""
     import tempfile
     work = tempfile.mkdtemp(prefix="chip_smoke_pp_")
-    return work, dist_ranks_start(
-        work, "mxnet_tpu_torch.bench.pp_ladder", "--ctx", "gpu",
-        "--network", "resnet", "--num-layers", "50", "--image",
-        str(IMAGE), "--classes", str(CLASSES), "--batch", str(PP_BATCH),
-        "--dtype", "float32", "--steps", str(PP_STEPS), "--seed",
-        str(SEED), "--params",
-        reference(mt, "resnet50_seed_params")["path"], "--cases",
-        PP_CASES, "--single", "--micro-ref", "4",
+    work4 = tempfile.mkdtemp(prefix="chip_smoke_pp4_")
+    seed_params = reference(mt, "resnet50_seed_params")["path"]
+    common = ["--ctx", "gpu", "--network", "resnet", "--num-layers", "50",
+              "--image", str(IMAGE), "--classes", str(CLASSES), "--batch",
+              str(PP_BATCH), "--dtype", "float32", "--steps", str(PP_STEPS),
+              "--seed", str(SEED), "--params", seed_params, "--floor-x",
+              repr(RESNET_FLOOR_X), "--floor-min", repr(RESNET_FLOOR_MIN)]
+    two = dist_ranks_start(
+        work, "mxnet_tpu_torch.bench.pp_ladder", *common, "--cases",
+        PP_CASES + "," + PP_POLICY_CASES, "--single", "--micro-ref", "2,4",
         "--floor-nudge", repr(RESNET_FLOOR_NUDGE), "--floor-samples",
-        str(PP_FLOOR_SAMPLES), "--floor-refs", "single",
-        "--floor-x", repr(RESNET_FLOOR_X),
-        "--floor-min", repr(RESNET_FLOOR_MIN), "--live", PP_LIVE,
+        str(PP_FLOOR_SAMPLES), "--floor-refs", "single,micro2,micro4",
+        "--floors-out",
+        os.path.join(work, "floors.json"), "--refs-out",
+        os.path.join(work, "refs.pt") + ":micro2,micro4", "--live", PP_LIVE,
         "--live-rows", str(PP_LIVE_ROWS), "--ckpt", "--fit",
-        str(PP_FIT_BATCHES), env={"MXNET_NORM_CONV": "1"}, hold=True)
+        str(PP_FIT_BATCHES), "--overflow", PP_OVERFLOW,
+        env={"MXNET_NORM_CONV": "1"}, hold=True)
+    four = dist_ranks_start(
+        work4, "mxnet_tpu_torch.bench.pp_ladder", *common, "--cases",
+        ",".join(PP4_CASES), "--refs-in", os.path.join(work, "refs.pt"),
+        "--floors-in", os.path.join(work, "floors.json"),
+        env={"MXNET_NORM_CONV": "1"}, hold=True, ranks=PP4_RANKS)
+    return (work, two), (work4, four)
 
 
-def pipeline_phase(torch, mt, held):
-    """(a)-(f) of the pipeline phase (see the docstring): two ranks on the
-    card through ``bench/pp_ladder.py``, ``pipeline_start``'s world (its
-    start-up overlapped the zero phase; the phase's seconds run from its
+def pipeline_phase(torch, mt, held, card):
+    """(a)-(i) of the pipeline phase (see the docstring): the two-rank
+    world on the card through ``bench/pp_ladder.py`` and the four-rank
+    dp2 x pp2 world beside it (both started held: their start-up
+    overlapped the zero phase; the phase's seconds run from their
     release).  Returns the NormConv launches the ranks counted."""
-    work, handle = held
+    (work, handle), (work4, handle4) = held
     t0 = time.perf_counter()
     try:
         torch.cuda.empty_cache()
+        # the four-rank world runs beside the two-rank one (their ranks
+        # share the host's cores and the card); it reads the first one's
+        # references and floors when they land
+        open(handle4["go"], "w").close()
         rows = dist_ranks_finish(handle, work)
         launches = 0
         summed = {}
         for r in rows:
             launches += r["norm_conv_launches"]
             print("pipeline rank=%d route=%s p2p_route=%s seconds=%s "
-                  "floors=%s one_process_step_ms=%r img_per_s=%r"
+                  "floors=%s one_process_step_ms=%r img_per_s=%r card=%s"
                   % (r["rank"], r["route"], r["p2p_route"],
                      json.dumps(r["seconds"], sort_keys=True),
                      json.dumps(r["floors"], sort_keys=True),
-                     r["single_step_ms"], r["single_img_per_s"]))
+                     r["single_step_ms"], r["single_img_per_s"], card))
             if r["world"] != DIST_RANKS or r["route"] != DIST_ROUTE \
                     or not r["device"].startswith("cuda"):
                 fail("pipeline: rank %d world %d route %s on %s"
@@ -8480,25 +8547,38 @@ def pipeline_phase(torch, mt, held):
                 calls = x["collectives_per_step"]
                 print("pipeline case=%s rank=%d stages=%s step_ms=%r "
                       "update_ms=%r img_per_s=%r norm_conv=%r stats=%r "
-                      "p2p=%s staged_copies=%r last_live_bytes=%s "
+                      "bf16=%r p2p=%s staged_copies=%r last_live_bytes=%s "
                       "max_memory_allocated_mb=%r stage_param_mb=%s "
-                      "bubble=%r reference=%s worst=%r"
+                      "bubble=%r reference=%s floor_of=%s worst=%r card=%s"
                       % (x["tag"], r["rank"], x["my_stages"],
                          x["pp_step_time_ms"], x["update_ms"],
                          x["img_per_s"], x["launches_per_step"],
                          x["stats_launches_per_step"],
+                         x["bf16_launches_per_step"],
                          json.dumps(calls, sort_keys=True),
                          x["p2p_staged_copies_per_step"],
                          x["last_live_bytes"], x["max_memory_allocated_mb"],
                          x["stage_param_mb"], x["pp_bubble_fraction"],
-                         x.get("reference"), x.get("worst_over_floor")))
-                # (a), (b): within RESNET_FLOOR_X x the reference's floor
+                         x.get("reference"), x.get("floor_of"),
+                         x.get("worst_over_floor"), card))
+                # (a), (b), (h): within RESNET_FLOOR_X x the reference's
+                # floor (bf16: its bfloat16 reference's)
                 if not x["outputs_finite"] or \
                         x["worst_over_floor"][0] > 1.0:
-                    fail("pipeline (a)/(b): %s's %s beyond RESNET_FLOOR_X "
-                         "x the floor of %s (%r)"
+                    fail("pipeline (a)/(b)/(h): %s's %s beyond "
+                         "RESNET_FLOOR_X x the floor of %s (%r)"
                          % (x["tag"], x["worst_over_floor"][1],
-                            x["reference"], x["worst_over_floor"][0]))
+                            x["floor_of"], x["worst_over_floor"][0]))
+                if x["precision"] == "bf16" and not (
+                        x["floor_of"] == x["reference"] == (
+                            "single-bf16" if m == 1 else "micro%d-bf16" % m)
+                        and x["bf16_launches_per_step"]
+                        == x["launches_per_step"] > 0):
+                    fail("pipeline (h): %s: reference %s, floor of %s, %r of "
+                         "%r NormConv launches in bfloat16" % (
+                             x["tag"], x["reference"], x["floor_of"],
+                             x["bf16_launches_per_step"],
+                             x["launches_per_step"]))
                 # (c): a forward and its recompute a microbatch
                 want = tuple(2 * m * c for c in PP_NC_SLICE[v][r["rank"]])
                 got = (x["launches_per_step"], x["stats_launches_per_step"])
@@ -8545,19 +8625,118 @@ def pipeline_phase(torch, mt, held):
                     and ck["one_to_pp_bitwise"]
                     and ck["topology"]["pp"] == 2):
                 fail("pipeline (e): %s" % ck)
+            # (h) the overflow step: nothing moves, the scale halves
+            from mxnet_tpu_torch.bench.pp_ladder import LOSS_SCALE
+            ov = r["overflow"]
+            print("pipeline overflow rank=%d %s"
+                  % (r["rank"], json.dumps(ov, sort_keys=True)))
+            if not (ov["params_bitwise"] and ov["state_bitwise"]
+                    and ov["aux_bitwise"]
+                    and list(ov["amp_stats"]) == [LOSS_SCALE / 2, 1]):
+                fail("pipeline (h): the overflow step %s" % ov)
         for tag, (n, st) in sorted(summed.items()):
             print("pipeline norm_conv case=%s summed_over_ranks=%d "
                   "with_statistics=%d a step" % (tag, n, st))
+        launches += pipeline_dp_phase(torch, work4, handle4, card)
         secs = time.perf_counter() - t0
-        print("pipeline norm_conv launches=%d phase_seconds=%r (limit %r)"
-              % (launches, secs, PP_PHASE_S))
-        # (f)
+        print("pipeline norm_conv launches=%d phase_seconds=%r (limit %r) "
+              "card=%s" % (launches, secs, PP_PHASE_S, card))
+        # (i)
         if secs > PP_PHASE_S:
-            fail("pipeline (f): the phase took %r s, more than %r"
+            fail("pipeline (i): the phase took %r s, more than %r"
                  % (secs, PP_PHASE_S))
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(work4, ignore_errors=True)
+
+
+def pipeline_dp_phase(torch, work4, handle4, card):
+    """(g): the four-rank dp2 x pp2 world at ZeRO 1-3 and under the
+    overlapped bucket, each case against one process's pp=1 step of its M
+    by the two-rank world's float32 floor of that step; the collectives
+    against ``predicted_collectives``, the NormConv launches a rank and
+    each level's allocated bytes over level 0's against the plan's ratio.
+    Returns its NormConv launches."""
+    torch.cuda.empty_cache()
+    rows = dist_ranks_finish(handle4, work4)
+    launches = 0
+    for r in rows:
+        launches += r["norm_conv_launches"]
+        print("pipeline dp2xpp2 rank=%d route=%s seconds=%s card=%s"
+              % (r["rank"], r["route"], json.dumps(r["seconds"],
+                                                   sort_keys=True), card))
+        if r["world"] != PP4_RANKS or r["route"] != DIST_ROUTE \
+                or not r["device"].startswith("cuda"):
+            fail("pipeline (g): rank %d world %d route %s on %s"
+                 % (r["rank"], r["world"], r["route"], r["device"]))
+        by_tag = {x["tag"]: x for x in r["cases"]}
+        from mxnet_tpu_torch.bench.pp_ladder import (
+            case_tag, parse_case, predicted_collectives)
+        for spec in PP4_CASES:
+            x = by_tag[case_tag(parse_case(spec))]
+            m, s = x["microbatches"], r["rank"] % 2
+            calls = {k: v["calls"] for k, v in
+                     x["collectives_per_step"].items()
+                     if k not in ("send", "recv", "send_outputs",
+                                  "recv_outputs", "stats")}
+            mbs = {k: round(v["mb"], 3) for k, v in
+                   x["collectives_per_step"].items()}
+            want = predicted_collectives(parse_case(spec), r["rank"],
+                                         x["stage_holds_params"])
+            resident = x["resident_bytes"] / float(x["plan_bytes_mine"])
+            print("pipeline dp2xpp2 case=%s rank=%d step_ms=%r update_ms=%r "
+                  "img_per_s=%r norm_conv=%r stats=%r collectives=%s "
+                  "predicted=%s collective_mb=%s zero_bytes=%s "
+                  "resident_bytes=%r plan_bytes=%r resident_over_plan=%r "
+                  "last_live_bytes=%s max_memory_allocated_mb=%r "
+                  "reference=%s floor_of=%s worst=%r card=%s"
+                  % (x["tag"], r["rank"], x["pp_step_time_ms"],
+                     x["update_ms"], x["img_per_s"], x["launches_per_step"],
+                     x["stats_launches_per_step"],
+                     json.dumps(calls, sort_keys=True),
+                     json.dumps(want, sort_keys=True),
+                     json.dumps(mbs, sort_keys=True),
+                     json.dumps(x["zero_bytes_by_slice"], sort_keys=True),
+                     x["resident_bytes"], x["plan_bytes_mine"], resident,
+                     x["last_live_bytes"], x["max_memory_allocated_mb"],
+                     x.get("reference"), x.get("floor_of"),
+                     x.get("worst_over_floor"), card))
+            if not x["outputs_finite"] or \
+                    x.get("floor_of") != x.get("reference") \
+                    or x["worst_over_floor"][0] > 1.0:
+                fail("pipeline (g): %s's %s beyond RESNET_FLOOR_X x the "
+                     "floor of %s (%r)" % (x["tag"],
+                                           x["worst_over_floor"][1],
+                                           x.get("floor_of"),
+                                           x["worst_over_floor"][0]))
+            if calls != want:
+                fail("pipeline (g): %s rank %d collectives %s, predicted %s"
+                     % (x["tag"], r["rank"], calls, want))
+            got = (x["launches_per_step"], x["stats_launches_per_step"])
+            if got != tuple(2 * m * c for c in PP_NC_SLICE[1][s]):
+                fail("pipeline (g): %s rank %d: %r NormConv launches a step"
+                     % (x["tag"], r["rank"], got))
+        # the zero phase's idiom: a level's allocated bytes over level 0's
+        # equal the plan's ratio (the allocator's blocks aside)
+        base = by_tag[case_tag(parse_case(PP4_CASES[-1]))]
+        for spec in PP4_CASES[:-1]:
+            x = by_tag[case_tag(parse_case(spec))]
+            ratio = (x["resident_bytes"] / float(base["resident_bytes"])) / (
+                x["plan_bytes_mine"] / float(base["plan_bytes_mine"]))
+            print("pipeline dp2xpp2 bytes case=%s rank=%d resident_over_"
+                  "level0=%r plan_over_level0=%r ratio=%r (slack %r)"
+                  % (x["tag"], r["rank"], x["resident_bytes"]
+                     / float(base["resident_bytes"]), x["plan_bytes_mine"]
+                     / float(base["plan_bytes_mine"]), ratio,
+                     ZERO_RESIDENT_SLACK))
+            if abs(ratio - 1.0) > ZERO_RESIDENT_SLACK:
+                fail("pipeline (g): %s rank %d holds %r bytes, level 0 %r; "
+                     "the plan %r and %r" % (
+                         x["tag"], r["rank"], x["resident_bytes"],
+                         base["resident_bytes"], x["plan_bytes_mine"],
+                         base["plan_bytes_mine"]))
+    return launches
 
 
 def build_all(kernels):
@@ -8801,7 +8980,7 @@ def main():
     zero_launches = zero_phase(torch, mt, held_zero)
     torch.cuda.empty_cache()
     phase_done("zero")
-    pp_launches = pipeline_phase(torch, mt, held_pp)
+    pp_launches = pipeline_phase(torch, mt, held_pp, card)
     torch.cuda.empty_cache()
     phase_done("pipeline")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]

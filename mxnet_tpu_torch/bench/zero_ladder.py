@@ -60,8 +60,8 @@ resumed, the restored state bitwise the saved one.  ``--eval``:
 without one on the whole batch, and a level-2 step of an MLP whose
 SoftmaxOutput normalizes by "batch" and by "valid" (ignoring label 0)
 against the same step without a mesh.  ``--refusals``: the mesh refusals
-(a ``tp`` axis of size 2, a ``tp`` spec, a batch that does not divide,
-``MXNET_PP`` composed with ``MXNET_ZERO``).
+(a ``tp`` axis of size 2, a ``tp`` spec, a batch that does not divide),
+and ``MXNET_PP`` composed with ``MXNET_ZERO``, which trains.
 
 ``--out DIR`` writes ``rank<r>.json`` (printed too) and, with
 ``--save-arrays``, ``rank<r>.params``: every run's logical parameters, aux
@@ -415,19 +415,27 @@ def refusal_checks(net, mesh, batches, ctx):
     res["batch_not_divisible"] = raises(lambda: ts.shard_batch(odd),
                                         "not divisible")
     x, y = fit_data()
-    for knob, env, words, n in (
-            ("MXNET_ZERO", {"MXNET_ZERO": "2"}, "not divisible", 7),
-            ("MXNET_PP", {"MXNET_PP": "2", "MXNET_ZERO": "2"},
-             "ZeRO and AMP part of the pipeline", FIT_BATCH)):
-        os.environ.update(env)
-        try:
-            mod = mt.Module(fit_net(mt), context=ctx)
-            res["fit_%s" % knob] = raises(lambda: mod.fit(
-                mt.io.NDArrayIter(x[:n * 2], y[:n * 2], batch_size=n),
-                num_epoch=1, optimizer="sgd"), words)
-        finally:
-            for k in env:
-                del os.environ[k]
+    env = {"MXNET_ZERO": "2"}
+    os.environ.update(env)
+    try:
+        mod = mt.Module(fit_net(mt), context=ctx)
+        res["fit_MXNET_ZERO"] = raises(lambda: mod.fit(
+            mt.io.NDArrayIter(x[:14], y[:14], batch_size=7), num_epoch=1,
+            optimizer="sgd"), "not divisible")
+        # composed with MXNET_PP the level shards each stage over its dp
+        # group: the fit trains through a PipelineTrainStep
+        os.environ["MXNET_PP"] = str(dist.num_workers())
+        mod = mt.Module(fit_net(mt), context=ctx)
+        mod.fit(mt.io.NDArrayIter(x[:FIT_BATCH * 2], y[:FIT_BATCH * 2],
+                                  batch_size=FIT_BATCH), num_epoch=1,
+                optimizer="sgd")
+        ts = mod._fused_ts_cache[1]
+        res["fit_MXNET_PP"] = "stepped" if (
+            type(ts).__name__ == "PipelineTrainStep" and ts.zero == 2
+            and ts.num_update == 2) else repr(ts)
+    finally:
+        for k in ("MXNET_ZERO", "MXNET_PP"):
+            os.environ.pop(k, None)
     return res
 
 

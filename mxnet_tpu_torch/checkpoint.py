@@ -170,11 +170,12 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
     zlevel = int(topo["zero"])
     row = int(topo.get("row", 0))
     pshapes = topo.get("param_shapes") or {}
-    if zlevel and int(topo["dp"]) != _world() and _world() > 1:
+    ranks = int(topo["dp"]) * int(topo["pp"])
+    if zlevel and ranks != _world() and _world() > 1:
         raise MXNetError(
-            "snapshot: a ZeRO level %d step over a dp mesh of %d in a world "
-            "of %d ranks: every rank must hold one row of the mesh"
-            % (zlevel, int(topo["dp"]), _world()))
+            "snapshot: a ZeRO level %d step over a mesh of %d ranks in a "
+            "world of %d ranks: every rank must hold one row of the mesh"
+            % (zlevel, ranks, _world()))
     groups = {}
     zero_groups = []
 
@@ -208,7 +209,8 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
     opt_len = {n: len(st) for n, st in host_state.items()}
     if "stage_owner" in topo:
         # a pipeline: this rank holds its stages' groups only; each stage's
-        # owner writes them, and the manifest lists every stage's variables
+        # owner writes them, the rank of dp row j of a stage's slice its
+        # ZeRO rows, and the manifest lists every stage's variables
         meta = topo["meta"]
         names = [n for n in stage_of if n in meta]
         aux_names = set(topo.get("aux_names") or ())
@@ -217,13 +219,24 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
         ameta = {n: {"shape": list(meta[n][0]), "dtype": meta[n][1]}
                  for n in names if n in aux_names}
         opt_len = {n: int(topo["opt_len"][n]) for n in pmeta}
+        zstages = set()
         for n in names:
             k = stage_of[n]
-            owners["stage%d" % k] = int(topo["stage_owner"][k])
-            if has_opt and n in pmeta and opt_len[n]:
+            if n in ameta or zlevel < 3:
+                owners["stage%d" % k] = int(topo["stage_owner"][k])
+            rows = n in pmeta and (zlevel >= 3 or (has_opt and opt_len[n]))
+            if rows and zlevel:
+                zstages.add(k)
+            elif has_opt and n in pmeta and opt_len[n]:
                 owners["stage%d-opt" % k] = int(topo["stage_owner"][k])
+        zero_groups = []
+        for k in sorted(zstages):
+            for j, r in enumerate(topo["zero_owner"][k]):
+                zero_groups.append("stage%d-zero%d" % (k, j))
+                owners["stage%d-zero%d" % (k, j)] = int(r)
         if not topo.get("writes", True):
-            groups = {}
+            # a rank of dp row > 0 writes its ZeRO rows only
+            groups = {g: v for g, v in groups.items() if _ZERO_RE.match(g)}
     manifest = {
         "format": FORMAT,
         "version": VERSION,
@@ -286,11 +299,12 @@ def write_snapshot(dirname, job):
     shards = {}
     total = 0
     zero = set(job.get("zero_groups", ()))
-    # groups of a fixed owner: a ZeRO row's (row j on rank j) and a
-    # pipeline stage's; their owners publish the checksums
+    # groups of a fixed owner: a ZeRO row's (row j on rank j, or the rank
+    # the pipeline names) and a pipeline stage's; their owners publish the
+    # checksums
     fixed = dict(job.get("owners") or {})
     for g in zero:
-        fixed[g] = int(_ZERO_RE.match(g).group(2))
+        fixed.setdefault(g, int(_ZERO_RE.match(g).group(2)))
     save_id = "ckpt-%d-%d" % (manifest["step"], job.get("_seq", 0))
     peers = []
     for i, g in enumerate(sorted(set(job["groups"]) | set(fixed))):

@@ -35,10 +35,12 @@ world (dp = world / stages; ``MXNET_PP_MICROBATCH``,
 ``MXNET_PP_SCHEDULE`` and ``MXNET_PP_INTERLEAVE`` set the microbatches
 and the schedule): each rank holds its stage's variables, every rank gets
 the whole batch's outputs for the metric, and ``sync_back`` installs
-host-backed arrays of every stage.  ``MXNET_PP`` with ``MXNET_ZERO`` or
-``MXNET_AMP`` raises, naming the ZeRO and AMP part of the pipeline.  Not
-ported here, refused with ``MXNetError`` naming its part of the
-distributed slice: the live resize.
+host-backed arrays of every stage (logical ones, the ZeRO rows gathered).
+With ``MXNET_ZERO`` each stage shards over its dp group (world / stages
+ranks) at that level, and under ``MXNET_AMP`` the pipeline takes the
+policy (the loss scale at the final stage's heads, one overflow verdict
+for every stage).  Not ported here, refused with ``MXNetError`` naming
+its part of the distributed slice: the live resize.
 
 ``bind(shared_module=...)`` binds onto another module's parameter, gradient
 and aux tensors and shares its host dicts and optimizer: the buckets of a
@@ -606,14 +608,6 @@ class _FusedFit(object):
         pp = fields["pp"] or 0
         self._pipeline = pp > 1
         if self._pipeline:
-            for knob, on in (("MXNET_ZERO", zero), ("MXNET_AMP", policy)):
-                if on:
-                    raise MXNetError(
-                        "MXNET_PP=%d with %s is not ported yet: the ZeRO "
-                        "levels and AMP under the pipeline arrive with the "
-                        "ZeRO and AMP part of the pipeline (the distributed "
-                        "slice); unset one"
-                        % (pp, knob))
             world = _dist.num_workers()
             if world % pp:
                 raise MXNetError(
@@ -640,8 +634,8 @@ class _FusedFit(object):
                 mesh=_mesh.make_pp_mesh(pp),
                 num_microbatches=fields["pp_microbatch"],
                 schedule=fields["pp_schedule"],
-                interleave=fields["pp_interleave"],
-                ctx=module._context[0])
+                interleave=fields["pp_interleave"], zero=zero,
+                policy=policy, ctx=module._context[0])
             module._fused_ts_cache = (key, self._ts)
         else:
             self._ts = TrainStep(module._symbol, opt_,

@@ -443,14 +443,19 @@ def reduce_scatter_rows(bucket, group):
     return out
 
 
-def all_gather_rows(row, group, dp):
-    """Every rank's (C,) row -> the (dp, C) stack, on every rank."""
+def all_gather_rows(row, group, dp, async_op=False):
+    """Every rank's (C,) row -> the (dp, C) stack, on every rank.  With
+    ``async_op`` the gather runs while the caller goes on: the return is a
+    handle whose ``wait()`` gives the stack (``row`` must stay unchanged
+    until then)."""
     row = row.contiguous()
     out = torch.empty(dp * row.numel(), dtype=row.dtype, device=row.device)
     t0 = time.perf_counter()
-    tdist.all_gather_into_tensor(out, row.reshape(-1), group=group)
+    work = tdist.all_gather_into_tensor(out, row.reshape(-1), group=group,
+                                        async_op=async_op)
     _count("all_gather", out, t0)
-    return out.reshape((dp,) + tuple(row.shape))
+    out = out.reshape((dp,) + tuple(row.shape))
+    return _P2P(work, "all_gather", out, keep=row) if async_op else out
 
 
 def all_gather_batch(x, group, dp):
@@ -500,12 +505,15 @@ def _add_seconds(kind, dt):
 
 
 class _P2P(object):
-    """A posted transfer: ``wait()`` blocks until it is done (a staged
-    receive then copies into its tensor) and returns the tensor."""
+    """A posted transfer or asynchronous collective: ``wait()`` blocks
+    until it is done (a staged receive then copies into its tensor) and
+    returns the tensor."""
 
-    def __init__(self, work, kind, tensor, staged=None):
+    def __init__(self, work, kind, tensor, staged=None, keep=None):
         self._work, self._kind = work, kind
         self.tensor, self._staged = tensor, staged
+        # the source of an asynchronous collective, alive until wait()
+        self._keep = keep
         self._done = False
 
     def is_completed(self):
@@ -520,7 +528,7 @@ class _P2P(object):
                 p2p_staged_copies[0] += 1
             _add_seconds(self._kind, time.perf_counter() - t0)
             self._done = True
-            self._staged = None
+            self._staged = self._keep = None
         return self.tensor
 
 

@@ -99,7 +99,8 @@ from .ops.registry import get_op
 from .optimizer import adadelta_rule, adagrad_rule, nag_rule
 from .parallel import dist as _dist
 from .parallel import mesh as _mesh
-from .parallel.placement import PlacementPlan, normalize_zero
+from .parallel.placement import (PlacementPlan, chunk_rows, flat_shards,
+                                 from_flat, normalize_zero)
 
 __all__ = ["TrainStep", "EvalStep", "PipelineTrainStep",
            "pipeline_bubble_fraction"]
@@ -379,7 +380,107 @@ def _to_device(batch, dev):
     return out
 
 
-class TrainStep(object):
+def _write(dst, new, finite):
+    """``new`` copied into ``dst`` in its dtype; with a ``finite`` verdict
+    (a 0-d bool tensor) the old value stays where it is false: a select on
+    the device, not a host branch."""
+    new = new.to(dst.dtype)
+    dst.copy_(new if finite is None else torch.where(finite, new, dst))
+
+
+def _apply_rule(fopt, plan, names, params, opt_state, grads, hyper, t,
+                finite, group, dp):
+    """One optimizer step of the parameters ``names`` into the caller's
+    tensors.  Below ZeRO level 1 the rule runs on the whole tensors;
+    levels >= 1 step this rank's rows of the flat view (``grads`` is then
+    ``{"": row}`` of the reduce-scattered bucket, or the full tree whose
+    rows the rule takes), and levels 1-2 gather the updated rows into the
+    replicated parameters with one all-gather over ``group``."""
+    if not plan.shard_state:
+        for n in names:
+            w = params[n]
+            new_w, new_state = fopt.update(n, w, grads[n], opt_state[n],
+                                           hyper, t)
+            _write(w, new_w, finite)
+            for st, v in zip(opt_state[n], new_state):
+                _write(st, v, finite)
+        return
+    layout = plan.bucket_layout(names)
+    bucket = grads.get("")
+    rows, off = [], 0
+    for n, c in layout:
+        w = params[n] if plan.shard_params else plan.row_of(params[n])
+        g = bucket[off:off + c] if bucket is not None \
+            else plan.row_of(grads[n])
+        off += c
+        new_w, new_state = fopt.update(n, w, g, opt_state[n], hyper, t)
+        for st, v in zip(opt_state[n], new_state):
+            _write(st, v, finite)
+        if plan.shard_params:
+            _write(params[n], new_w, finite)
+        else:
+            rows.append(new_w.to(params[n].dtype))
+    if rows:
+        # one all-gather of every updated row
+        row = torch.cat(rows)
+        full = _dist.all_gather_rows(row, group, dp) if dp > 1 \
+            else row.unsqueeze(0)
+        off = 0
+        for n, c in layout:
+            _write(params[n], plan.from_flat(full[:, off:off + c],
+                                             plan.shape_of(n)), finite)
+            off += c
+
+
+class _LossScale(object):
+    """The loss-scale state of a step under a policy (``self.policy``,
+    ``self._has_scale``, ``self.ctx``): on the step's device, moved by
+    ``Policy.next_state`` after every step."""
+
+    def _scale_state_dev(self):
+        """The loss-scale state on the step's device (placed at first
+        use)."""
+        if self._scale_state is None:
+            self._scale_state = self.policy.init_state(
+                self.ctx.torch_device())
+        return self._scale_state
+
+    def scale_state_host(self):
+        """The loss-scale state as host scalars (checkpoint export), or
+        None without a policy.  Reads three scalars from the device: call
+        it at checkpoint time only."""
+        if not self._has_scale:
+            return None
+        return {k: float(v) if k == "scale" else int(v)
+                for k, v in self._scale_state_dev().items()}
+
+    def load_scale_state(self, host):
+        """Restore the loss-scale state from checkpointed host scalars,
+        merged over ``Policy.init_state`` (a no-op without a policy: a
+        float32 restore of an AMP checkpoint drops the scale)."""
+        if not self._has_scale or host is None:
+            return
+        dev = self.ctx.torch_device()
+        base = self.policy.init_state(dev)
+        self._scale_state = {
+            k: torch.tensor(host[k], dtype=v.dtype, device=dev)
+            if k in host else v for k, v in base.items()}
+        self._overflow_seen = int(host.get("overflow", 0))
+
+    def amp_stats(self):
+        """``(scale, overflow_delta)``: the current scale and the overflow
+        (skipped-update) count since the previous call, or None without a
+        policy or before the first step.  Reads two scalars from the
+        device: call it from diagnostics, never in the hot loop."""
+        if not self._has_scale or self._scale_state is None:
+            return None
+        total = int(self._scale_state["overflow"])
+        delta = total - self._overflow_seen
+        self._overflow_seen = total
+        return float(self._scale_state["scale"]), delta
+
+
+class TrainStep(_LossScale):
     """Symbol + Optimizer -> one training step on one device, or on each
     rank of a data-parallel mesh (parity: mxnet_tpu.train.TrainStep).
 
@@ -527,37 +628,6 @@ class TrainStep(object):
             _batch_rows("TrainStep", batch, 0, self._dp, self._row),
             self.ctx.torch_device()))
 
-    # ------------------------------------------------------------ loss scale
-    def _scale_state_dev(self):
-        """The loss-scale state on the step's device (placed at first
-        use)."""
-        if self._scale_state is None:
-            self._scale_state = self.policy.init_state(
-                self.ctx.torch_device())
-        return self._scale_state
-
-    def scale_state_host(self):
-        """The loss-scale state as host scalars (checkpoint export), or
-        None without a policy.  Reads three scalars from the device: call
-        it at checkpoint time only."""
-        if not self._has_scale:
-            return None
-        return {k: float(v) if k == "scale" else int(v)
-                for k, v in self._scale_state_dev().items()}
-
-    def load_scale_state(self, host):
-        """Restore the loss-scale state from checkpointed host scalars,
-        merged over ``Policy.init_state`` (a no-op without a policy: a
-        float32 restore of an AMP checkpoint drops the scale)."""
-        if not self._has_scale or host is None:
-            return
-        dev = self.ctx.torch_device()
-        base = self.policy.init_state(dev)
-        self._scale_state = {
-            k: torch.tensor(host[k], dtype=v.dtype, device=dev)
-            if k in host else v for k, v in base.items()}
-        self._overflow_seen = int(host.get("overflow", 0))
-
     # ----------------------------------------------------------- checkpoint
     def checkpoint_topology(self):
         """The shard ownership of this step for ``checkpoint.snapshot``: one
@@ -591,18 +661,6 @@ class TrainStep(object):
         from . import checkpoint as _ckpt
         return _ckpt.reassemble(_ckpt.snapshot(self, params, opt_state,
                                                aux))
-
-    def amp_stats(self):
-        """``(scale, overflow_delta)``: the current scale and the overflow
-        (skipped-update) count since the previous call, or None without a
-        policy or before the first step.  Reads two scalars from the
-        device: call it from diagnostics, never in the hot loop."""
-        if not self._has_scale or self._scale_state is None:
-            return None
-        total = int(self._scale_state["overflow"])
-        delta = total - self._overflow_seen
-        self._overflow_seen = total
-        return float(self._scale_state["scale"]), delta
 
     # ------------------------------------------------------------------ step
     def _forward(self, leaves, aux, batch, scale):
@@ -724,54 +782,14 @@ class TrainStep(object):
 
     def _update(self, params, opt_state, aux, aux_upd, grads, hyper, t,
                 finite):
-        """The rule's results copied into the caller's tensors; with a
-        ``finite`` verdict, each copy keeps the old value where it is
-        false.  Levels >= 1 step this rank's rows; levels 1-2 then gather
-        the updated rows into the replicated parameters."""
-        def put(dst, new):
-            new = new.to(dst.dtype)
-            dst.copy_(new if finite is None
-                      else torch.where(finite, new, dst))
-        plan = self.plan
-        if not plan.shard_state:
-            for n in self.param_names:
-                w = params[n]
-                new_w, new_state = self.fopt.update(n, w, grads[n],
-                                                    opt_state[n], hyper, t)
-                put(w, new_w)
-                for st, v in zip(opt_state[n], new_state):
-                    put(st, v)
-        else:
-            layout = plan.bucket_layout(self.param_names)
-            bucket = grads.get("")
-            rows, off = [], 0
-            for n, c in layout:
-                w = params[n] if plan.shard_params else plan.row_of(
-                    params[n])
-                g = bucket[off:off + c] if bucket is not None \
-                    else plan.row_of(grads[n])
-                off += c
-                new_w, new_state = self.fopt.update(n, w, g, opt_state[n],
-                                                    hyper, t)
-                for st, v in zip(opt_state[n], new_state):
-                    put(st, v)
-                if plan.shard_params:
-                    put(params[n], new_w)
-                else:
-                    rows.append(new_w.to(params[n].dtype))
-            if rows:
-                # one all-gather of every updated row
-                row = torch.cat(rows)
-                full = _dist.all_gather_rows(row, self._group, self._dp) \
-                    if self._dp > 1 else row.unsqueeze(0)
-                off = 0
-                for n, c in layout:
-                    put(params[n], plan.from_flat(full[:, off:off + c],
-                                                  plan.shape_of(n)))
-                    off += c
+        """The rule's results copied into the caller's tensors
+        (``_apply_rule``), then the moving statistics; with a ``finite``
+        verdict each copy keeps the old value where it is false."""
+        _apply_rule(self.fopt, self.plan, self.param_names, params,
+                    opt_state, grads, hyper, t, finite, self._group, self._dp)
         for k, v in aux_upd.items():
             if k in aux:
-                put(aux[k], v)
+                _write(aux[k], v, finite)
 
     # ----------------------------------------------------------------- ZeRO
     def _gather(self, params):
@@ -1049,14 +1067,18 @@ def _pp_tag(m, k, V, back, j):
     return ((m * V + k) * 2 + int(back)) * _TAG_TENSORS + j
 
 
-def _meta_nbytes(shape, dtype):
+def _numel(shape):
     n = 1
     for d in shape:
         n *= int(d)
-    return n * torch.empty((), dtype=dtype).element_size()
+    return n
 
 
-class PipelineTrainStep(object):
+def _meta_nbytes(shape, dtype):
+    return _numel(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+class PipelineTrainStep(_LossScale):
     """Stage-partitioned, microbatched training over the ``pp`` axis of a
     ``dp x pp`` mesh (parity: mxnet_tpu.train.PipelineTrainStep), one rank
     a device slice.
@@ -1091,10 +1113,46 @@ class PipelineTrainStep(object):
 
     On a dp x pp mesh every microbatch is split over the stage's dp ranks:
     BatchNorm's statistics are the whole microbatch's (summed across the
-    stage's dp group, ``ops.nn.global_batch_stats``), the moving
-    statistics chain through the microbatches in order, and each stage's
-    gradients are all-reduced over its dp group (one bucket a dtype)
-    before its one SGD / Adam (any ``TrainStep`` rule) update.
+    stage's dp group, ``ops.nn.global_batch_stats``) and the moving
+    statistics chain through the microbatches in order.  A stage's dp
+    gradients, counted by kind in ``dist.collective_calls``:
+
+    - gpipe at ZeRO levels 0-1: accumulated whole, then all-reduced over
+      the stage's dp group, one bucket a dtype;
+    - the bucket (ZeRO levels 2-3 on every schedule, and the 1f1b and
+      interleaved schedules at dp > 1): each microbatch's backward folds
+      the stage's gradients into one flat ``(dp, chunk)`` bucket
+      (``parallel.placement``'s layout over the stage's parameters) and
+      reduce-scatters it, so this rank's row accumulates over the
+      microbatches and is the stage's only gradient residency.  Levels
+      1-3 update from the row directly; at level 0 the stage's one
+      all-gather of the row is issued asynchronously at its last backward
+      and waited for in the update, so it runs under the rank's remaining
+      items.
+
+    ZeRO (``zero=0..3``, True is 1; needs a ``dp`` axis): the placement
+    plan applies to each stage over its dp group, as ``TrainStep(mesh=,
+    zero=)`` over a dp mesh: levels >= 1 keep the optimizer state as this
+    rank's rows of the flat view and gather the updated parameter rows
+    once a stage (levels 1-2); level 3 keeps the parameters as rows too,
+    and every forward item and backward recompute gathers its stage's
+    parameters just in time (the ``zero.gather`` span), freed when the
+    item ends: 2 M gathers a stage a step.
+
+    Mixed precision (``policy=``, an ``amp.Policy``) and the pure cast
+    (``dtype=``), as ``TrainStep``: a stage walk casts its float32 data
+    inputs and a copy of its parameters to the compute dtype (labels and
+    moving statistics uncast), the carries and their cotangents cross in
+    it, and the outputs cross back in float32 under a policy.  The loss
+    scale is the head-gradient scale of the loss-bearing stage (folded
+    into the ``'batch'`` heads' 1/M).  Each rank judges its stages' reduced
+    gradients (its rows in the bucket), and one verdict over the world
+    (``dist.all_finite``, kind ``verdict``) makes every stage skip or
+    update together: the update is unscaled by 1/S once and kept only
+    where the verdict is finite (a select, no host read), and on overflow
+    the moving statistics the forwards chained go back to their pre-step
+    values.  Every rank holds the loss-scale state and moves it by the
+    same verdict, so ``amp_stats()`` agrees on every rank.
 
     Semantics against the one-program ``TrainStep`` (same global batch,
     same update count), as the reference's: per-sample loss heads
@@ -1104,22 +1162,20 @@ class PipelineTrainStep(object):
     microbatched reference (``pp = 1`` with the same M).
 
     ``last_live_bytes`` is each slice's parameters, optimizer state and
-    moving statistics plus the peak stash of its planned order, from shape
-    metadata (the global microbatch's bytes, as the reference counts
-    them).  While telemetry records, a step emits the ``pp.stage`` span
-    of this rank's slice (its items' seconds, waited for), ``pp.bubble``
-    and the ``pp_bubble_fraction`` / ``pp_stage<N>_live_bytes`` gauges.
+    moving statistics (the sharded leaves at 1/dp) plus the peak stash of
+    its planned order, from shape metadata (the global microbatch's bytes,
+    as the reference counts them); ``zero_bytes`` the plan's per-device
+    bytes.  While telemetry records, a step emits the ``pp.stage`` span of
+    this rank's slice (its items' seconds, waited for), ``pp.bubble``, the
+    ``pp_bubble_fraction`` / ``pp_stage<N>_live_bytes`` gauges, under a
+    policy the ``loss_scale`` gauge and ``amp_overflow_steps`` counter,
+    and at a ZeRO level the ``zero_param_bytes`` / ``zero_grad_bytes``
+    gauges.
 
-    Not ported here (they raise, naming the ZeRO and AMP part of the
-    pipeline): ``zero`` >= 1, ``policy=`` and a ``dtype=`` other than
-    float32; the overlapped bucketed dp gradients of the 1f1b and
-    interleaved schedules come with them (here every schedule all-reduces
-    a stage's gradients once, after its backward wave).  A ``tp`` axis
-    raises as it does for ``TrainStep``.
+    Not ported here: a ``tp`` axis raises as it does for ``TrainStep``
+    (the tensor-parallel part of the distributed slice).
     """
 
-    _PART = ("the ZeRO and AMP part of the pipeline (the pipeline part of "
-             "the distributed slice, second half)")
     # receives posted ahead of the item being run, in its slice's order
     RECV_AHEAD = 2
 
@@ -1140,20 +1196,23 @@ class PipelineTrainStep(object):
             size = _mesh.axis_size(mesh, axis)
             if size > 1:
                 _refuse_axis("PipelineTrainStep", axis, size)
-        if normalize_zero(zero):
-            raise MXNetError("PipelineTrainStep(zero=%d) is not ported yet: "
-                             "it arrives with %s"
-                             % (normalize_zero(zero), self._PART))
-        if policy is not None:
-            raise MXNetError("PipelineTrainStep(policy=...) is not ported "
-                             "yet: it arrives with %s" % self._PART)
-        if dtype is not None and torch_dtype(dtype) != torch.float32:
-            raise MXNetError("PipelineTrainStep(dtype=%r) is not ported "
-                             "yet: it arrives with %s" % (dtype, self._PART))
-        self.policy = None
-        self._has_scale = False
+        self.zero = normalize_zero(zero)
+        if self.zero and "dp" not in _mesh.axis_names(mesh):
+            raise MXNetError("PipelineTrainStep(zero=%d) needs a mesh with a "
+                             "'dp' axis to shard over" % self.zero)
+        self.policy, self._dtype = _compute_dtype("PipelineTrainStep", dtype,
+                                                  policy)
+        ranks = int(mesh.mesh.numel())
+        if self.policy is not None and 1 < ranks != _dist.num_workers():
+            raise MXNetError(
+                "PipelineTrainStep(policy=): the overflow verdict is agreed "
+                "over the whole world; a mesh of %d of the world's %d ranks "
+                "is not ported (a mesh of every rank, or of one)"
+                % (ranks, _dist.num_workers()))
+        self._has_scale = self.policy is not None
+        self._scale_state = None
+        self._overflow_seen = 0
         self._amp_emit = True
-        self.zero = 0
         self.symbol = symbol
         self.mesh = mesh
         self.ctx = Context(ctx) if ctx is not None else current_context()
@@ -1182,6 +1241,14 @@ class PipelineTrainStep(object):
         self._schedule, self._v = _sched.validate_schedule(
             schedule, self._pp, self._micro, interleave)
         self._V = self._pp * self._v
+        # the overlapped dp gradients of the 1f1b and interleaved schedules,
+        # and the flat bucket as the gradient residency (reference :1626,
+        # :1640)
+        self._overlap = self._dp > 1 and self._schedule != "gpipe"
+        self._bucket = self.zero >= 2 or self._overlap
+        self.plan = PlacementPlan(zero=self.zero, dp=self._dp,
+                                  who="PipelineTrainStep", row=self._row)
+        self._zb_cache = None
         self._low = _Lowered(symbol)
         self.data_names = tuple(data_names)
         self.label_names = tuple(label_names)
@@ -1262,8 +1329,9 @@ class PipelineTrainStep(object):
 
     def _get_plan(self):
         """The dispatch plan of (schedule, interleave, M): every work item
-        in planned order, this slice's items, and the simulated idle
-        share, asserted against the closed form."""
+        in planned order, this slice's items, the index in them of each
+        stage's last backward, and the simulated idle share, asserted
+        against the closed form."""
         from .parallel import schedule as _sched
         key = (self._schedule, self._v, self._micro)
         plan = self._plans.get(key)
@@ -1288,9 +1356,15 @@ class PipelineTrainStep(object):
                 "match pipeline_bubble_fraction(pp=%d, M=%d, v=%d)=%.6f"
                 % (self._schedule, sim["bubble"], self._pp, self._micro,
                    self._v, want))
-        plan = {"items": items, "bubble": sim["bubble"],
-                "slices": [[it for it in items if it[2] % self._pp == d]
-                           for d in range(self._pp)]}
+        slices = [[it for it in items if it[2] % self._pp == d]
+                  for d in range(self._pp)]
+        # where the overlap path issues a stage's gradient all-gather
+        last_bwd = {}
+        for i, (kind, _, k) in enumerate(slices[self._slice]):
+            if kind == "bwd":
+                last_bwd[k] = i
+        plan = {"items": items, "bubble": sim["bubble"], "slices": slices,
+                "last_bwd": last_bwd}
         self._plans[key] = plan
         return plan
 
@@ -1312,50 +1386,82 @@ class PipelineTrainStep(object):
     def _put(self, v):
         return self._host(v).to(self.ctx.torch_device(), copy=True)
 
+    def _row_put(self, v):
+        """This rank's row of a logical host tensor's flat view, on the
+        step's device."""
+        return self.plan.row_of(self._host(v)).to(self.ctx.torch_device(),
+                                                   copy=True)
+
+    def _is_mine(self, name):
+        return self._var_stage[name] % self._pp == self._slice
+
     def place_params(self, host_params):
         """Host {name: array} of every parameter -> this rank's stages'
-        parameters on its device (the stage plan is balanced from the
-        sizes at the first call)."""
+        parameters on its device, rows of their flat views at ZeRO level 3
+        (the stage plan is balanced from the sizes at the first call)."""
         self._ensure_plan({n: int(self._host(v).numel())
                            for n, v in host_params.items()})
         self._note_meta(host_params)
-        return {n: self._put(host_params[n]) for n in self.param_names
-                if self._var_stage[n] % self._pp == self._slice}
+        self.plan.note_host({n: self._host(v) for n, v in
+                             host_params.items()})
+        put = self._row_put if self.plan.shard_params else self._put
+        return {n: put(host_params[n]) for n in self.param_names
+                if self._is_mine(n)}
 
     def place_aux(self, host_aux):
-        """This rank's stages' aux states on its device."""
+        """This rank's stages' aux states on its device (replicated at
+        every ZeRO level)."""
         self._require_plan("place_aux")
         self._note_meta({}, host_aux)
         return {n: self._put(host_aux[n]) for n in self.aux_names
-                if self._var_stage[n] % self._pp == self._slice}
+                if self._is_mine(n)}
 
     def place_state(self, host_state):
-        """This rank's stages' optimizer state tuples on its device."""
+        """This rank's stages' replicated optimizer state tuples on its
+        device.  At a ZeRO level the state is born as rows: ``init`` or
+        ``place_checkpoint`` place it (as the reference refuses)."""
         self._require_plan("place_state")
+        if self.zero:
+            raise MXNetError(
+                "PipelineTrainStep(zero=%d): the optimizer state is born as "
+                "dp rows: use init() or place_checkpoint()" % self.zero)
         return {n: tuple(self._put(x) for x in host_state[n])
-                for n in self.param_names
-                if self._var_stage[n] % self._pp == self._slice}
+                for n in self.param_names if self._is_mine(n)}
+
+    def _fresh_state(self, host_params):
+        """Zero optimizer state of this rank's stages: rows at ZeRO levels
+        >= 1, beside each parameter below."""
+        put = self._row_put if self.plan.shard_state else self._put
+        return self.fopt.init_state({n: put(host_params[n])
+                                     for n in self.param_names
+                                     if self._is_mine(n)})
 
     def init(self, data_shapes, label_shapes=None, initializer=None, seed=0):
         """Initialise every parameter and aux state on the host from
         ``seed`` (each rank draws the same values), balance the stage plan
         from their sizes, and keep this rank's stages' variables and their
-        fresh optimizer state on its device.  Returns (params, opt_state,
-        aux)."""
+        fresh optimizer state on its device (rows where the ZeRO level
+        shards them).  Returns (params, opt_state, aux)."""
         params, aux = _host_init(self.symbol, self._low, self.param_names,
                                  self.aux_names, data_shapes, label_shapes,
                                  initializer, seed, "PipelineTrainStep")
         p = self.place_params(params)
-        return p, self.fopt.init_state(p), self.place_aux(aux)
+        return p, self._fresh_state(params), self.place_aux(aux)
 
     def place_checkpoint(self, host_params, host_state, host_aux,
                          device=None):
-        """Restored logical host trees placed on this rank's stages
-        (``device`` is accepted for TrainStep's signature; the step's own
-        device is used).  ``host_state`` None builds fresh state."""
+        """Restored logical host trees placed on this rank's stages,
+        re-chunked over each stage's dp group at a ZeRO level whatever
+        topology saved them (``device`` is accepted for TrainStep's
+        signature; the step's own device is used).  ``host_state`` None
+        builds fresh state."""
         p = self.place_params(host_params)
-        s = self.fopt.init_state(p) if host_state is None \
-            else self.place_state(host_state)
+        if host_state is None:
+            s = self._fresh_state(host_params)
+        else:
+            put = self._row_put if self.plan.shard_state else self._put
+            s = {n: tuple(put(x) for x in host_state[n])
+                 for n in self.param_names if self._is_mine(n)}
         return p, s, self.place_aux(host_aux)
 
     def shard_batch(self, batch):
@@ -1385,28 +1491,26 @@ class PipelineTrainStep(object):
         """Shard ownership for ``checkpoint.snapshot`` (parity:
         PipelineTrainStep.checkpoint_topology): every variable belongs to
         its virtual stage, whose ``stage<k>`` / ``stage<k>-opt`` shards its
-        slice's rank of dp row 0 writes; ``meta`` lists every variable's
-        shape and dtype for the manifest, which rank 0 writes."""
+        slice's rank of dp row 0 writes, and whose ZeRO rows
+        ``stage<k>-zero<j>`` the slice's rank of dp row j writes; ``meta``
+        lists every variable's logical shape and dtype for the manifest,
+        which rank 0 writes."""
         self._require_plan("checkpoint_topology")
         meta = self._meta or {}
-        return {"pp": self._pp, "dp": self._dp, "zero": 0, "row": 0,
-                "microbatches": self._micro, "schedule": self._schedule,
-                "interleave": self._v, "stage_of": dict(self._var_stage),
+        return {"pp": self._pp, "dp": self._dp, "zero": self.zero,
+                "param_shapes": {n: list(meta[n][0])
+                                 for n in self.param_names if n in meta},
+                "row": self._row, "microbatches": self._micro,
+                "schedule": self._schedule, "interleave": self._v,
+                "stage_of": dict(self._var_stage),
                 "stage_owner": {k: self._owner(k) for k in range(self._V)},
+                "zero_owner": {k: list(self._subs[k % self._pp].ranks)
+                               for k in range(self._V)},
                 "writes": self._row == 0,
                 "aux_names": list(self.aux_names),
                 "meta": {n: (list(s), str(d).replace("torch.", ""))
                          for n, (s, d) in meta.items()},
                 "opt_len": {n: self._opt_len(n) for n in self.param_names}}
-
-    def scale_state_host(self):
-        return None
-
-    def load_scale_state(self, host):
-        return None
-
-    def amp_stats(self):
-        return None
 
     def step_flops(self):
         return None
@@ -1419,15 +1523,64 @@ class PipelineTrainStep(object):
                 self.fopt.init_state({name: torch.zeros(1)})[name])
         return n
 
+    def _logical_mine(self, trees):
+        """This rank's stages' leaves of ``trees`` (params, opt_state,
+        aux; None skipped) as logical tensors: the ZeRO rows gathered over
+        each stage's dp group (one all-gather a stage and dtype)."""
+        params, opt_state, aux = trees
+        out = [None if t is None else {} for t in trees]
+        for k in self._mine:
+            st = self._stages[k]
+            rows = []         # (tree, name, tuple index or None)
+            if params is not None:
+                for n in st.params:
+                    if self.plan.shard_params:
+                        rows.append((0, n, None))
+                    else:
+                        out[0][n] = params[n]
+            if opt_state is not None:
+                for n in st.params:
+                    if self.plan.shard_state:
+                        rows += [(1, n, j) for j in range(len(opt_state[n]))]
+                    else:
+                        out[1][n] = tuple(opt_state[n])
+            if aux is not None:
+                for n in st.aux:
+                    out[2][n] = aux[n]
+            by_dt = {}
+            for leaf in rows:
+                i, n, j = leaf
+                v = trees[i][n] if j is None else trees[i][n][j]
+                by_dt.setdefault(v.dtype, []).append((leaf, v))
+            for group in by_dt.values():
+                row = torch.cat([v.reshape(-1) for _, v in group])
+                full = _dist.all_gather_rows(row, self._group, self._dp) \
+                    if self._dp > 1 else row.unsqueeze(0)
+                off = 0
+                for (i, n, j), v in group:
+                    c = v.numel()
+                    x = self.plan.from_flat(full[:, off:off + c],
+                                            self.plan.shape_of(n))
+                    off += c
+                    if j is None:
+                        out[i][n] = x
+                    else:
+                        out[i].setdefault(n, [None] * len(trees[i][n]))[j] = x
+            if opt_state is not None:
+                for n in st.params:
+                    out[1][n] = tuple(out[1].get(n, ()))
+        return out
+
     def gather_host(self, params=None, opt_state=None, aux=None):
         """Every stage's parameters, optimizer state and aux states (each
         tree given, None stays None) as logical host tensors on every
-        rank: each virtual stage's owner (its slice's rank of dp row 0)
+        rank: the ZeRO rows are gathered over each stage's dp group, then
+        each virtual stage's owner (its slice's rank of dp row 0)
         broadcasts one flat buffer a dtype (``dist.broadcast_``, kind
         ``broadcast``).  A collective: every rank calls it."""
         self._require_plan("gather_host")
         meta = self._meta
-        trees = (params, opt_state, aux)
+        trees = self._logical_mine((params, opt_state, aux))
         out = [None if t is None else {} for t in trees]
         world = _dist.num_workers()
         for k in range(self._V):
@@ -1440,6 +1593,8 @@ class PipelineTrainStep(object):
             if opt_state is not None:
                 leaves += [(1, n, j) for n in st.params
                            for j in range(self._opt_len(n))]
+                for n in st.params:
+                    out[1][n] = ()
             if aux is not None:
                 leaves += [(2, n, None) for n in st.aux]
             by_dt = {}
@@ -1473,6 +1628,10 @@ class PipelineTrainStep(object):
         collective; see ``gather_host``)."""
         return self.gather_host(params=params)[0]
 
+    def unflatten_host(self, name, arr):
+        """A host flat (dp, chunk) array -> the logical array."""
+        return self.plan.unflatten_host(name, arr)
+
     def export_host(self, params, opt_state, aux):
         """The live state as logical host tensors on every rank (parity:
         PipelineTrainStep.export_host, the stage partition merged away):
@@ -1481,34 +1640,87 @@ class PipelineTrainStep(object):
         p, s, a = self.gather_host(params, opt_state, aux)
         topo = self.checkpoint_topology()
         man = {"step": int(self.num_update),
-               "topology": {"pp": self._pp, "dp": self._dp, "zero": 0,
-                            "microbatches": self._micro},
+               "topology": {"pp": self._pp, "dp": self._dp,
+                            "zero": self.zero, "microbatches": self._micro},
                "stage_of": {n: int(v) for n, v in topo["stage_of"].items()}}
         return man, p, s, a
 
     # ------------------------------------------------------------ metadata
+    def _chunk(self, name):
+        """Row width of ``name``'s flat view over the stage's dp group."""
+        return chunk_rows(_numel(self._meta[name][0]), self._dp)
+
+    def _layout(self, k):
+        """``[(name, chunk)]`` of stage ``k``'s gradient bucket over its dp
+        group (``PlacementPlan.bucket_layout`` over the stage's names)."""
+        return [(n, self._chunk(n)) for n in self._stages[k].params]
+
+    def _slice_bytes(self):
+        """Each slice's per-device {param, grad, opt} bytes of the
+        placement plan, from shape metadata (``PlacementPlan.
+        per_device_bytes`` over the stages' global layouts)."""
+        meta = self._meta
+        out = []
+        for d in range(self._pp):
+            acc = {"param": 0, "grad": 0, "opt": 0}
+            for k in range(d, self._V, self._pp):
+                names = self._stages[k].params
+                ps = {n: _Meta((self._dp, self._chunk(n)), meta[n][1])
+                      if self.plan.shard_params else _Meta(*meta[n])
+                      for n in names}
+                st = {n: tuple(_Meta((self._dp, self._chunk(n)), meta[n][1])
+                               if self.plan.shard_state else _Meta(*meta[n])
+                               for _ in range(self._opt_len(n)))
+                      for n in names}
+                zb = self.plan.per_device_bytes(ps, st)
+                for key in acc:
+                    acc[key] += zb[key]
+            out.append(acc)
+        return out
+
+    def zero_bytes(self, params=None, opt_state=None, by_slice=False):
+        """Per-device {param, grad, opt} bytes of the placement plan from
+        shape metadata, the worst slice's of each (parity:
+        PipelineTrainStep.zero_bytes; ``by_slice`` gives each slice's; the
+        ``zero_param_bytes`` / ``zero_grad_bytes`` gauges).  Every stage's
+        shapes are known on every rank, so the trees are not read; without
+        ``opt_state`` the optimizer bytes are 0."""
+        self._require_plan("zero_bytes")
+        per = self._slice_bytes()
+        if opt_state is None:
+            for zb in per:
+                zb["opt"] = 0
+        if by_slice:
+            return per
+        return {k: max(zb[k] for zb in per) for k in ("param", "grad",
+                                                      "opt")}
+
     def _carry_meta(self, shapes):
         """{virtual stage: ([carry_in (shape, dtype)], [carry_out ...])}
         and the outputs' (shape, dtype) list, from shape inference at the
-        input shapes ``shapes`` (a microbatch of one rank); cached."""
+        input shapes ``shapes`` (a microbatch of one rank); cached.  The
+        carries cross in the compute dtype, the outputs in float32 under a
+        policy."""
         key = tuple(sorted(shapes.items()))
         got = self._carry_cache.get(key)
         if got is not None:
             return got
         from .symbol import _run_shape_inference
         _, vshapes = _run_shape_inference(self.symbol, dict(shapes))
-        dt = self._value_dtype()
+        dt = self._dtype or self._value_dtype()
         per = {}
         for st in self._stages:
             per[st.index] = ([(tuple(vshapes[k]), dt) for k in st.carry_in],
                              [(tuple(vshapes[k]), dt)
                               for k in st.carry_out])
-        outs = [(tuple(vshapes[k]), dt) for k in self._low.out_keys]
+        odt = torch.float32 if self._has_scale else dt
+        outs = [(tuple(vshapes[k]), odt) for k in self._low.out_keys]
         self._carry_cache[key] = (per, outs)
         return per, outs
 
     def _value_dtype(self):
-        """The activations' dtype: the parameters' (float32 or float64)."""
+        """The masters' dtype (float32 or float64): the activations' when
+        nothing is cast."""
         meta = self._meta or {}
         for n in self.param_names:
             if n in meta:
@@ -1516,10 +1728,11 @@ class PipelineTrainStep(object):
         return torch.float32
 
     def _live_bytes(self, per, in_nb):
-        """Each slice's parameters, optimizer state and aux states plus
-        the peak stash of its planned order, from shape metadata; carries
-        and inputs at the global microbatch (``per`` and ``in_nb`` are one
-        rank's microbatch: times dp)."""
+        """Each slice's parameters, optimizer state and aux states (the
+        ZeRO rows at 1/dp: their padded row) plus the peak stash of its
+        planned order, from shape metadata; carries and inputs at the
+        global microbatch (``per`` and ``in_nb`` are one rank's
+        microbatch: times dp)."""
         meta = self._meta
         plan = self._get_plan()
         out = []
@@ -1528,8 +1741,12 @@ class PipelineTrainStep(object):
             for k in range(d, self._V, self._pp):
                 st = self._stages[k]
                 for n in st.params:
-                    nb = _meta_nbytes(*meta[n])
-                    static += nb * (1 + self._opt_len(n))
+                    isz = _meta_nbytes((), meta[n][1])
+                    whole = _meta_nbytes(*meta[n])
+                    row = self._chunk(n) * isz
+                    static += row if self.plan.shard_params else whole
+                    static += (row if self.plan.shard_state else whole) \
+                        * self._opt_len(n)
                 static += sum(_meta_nbytes(*meta[n]) for n in st.aux)
             cur = peak = 0
             for kind, m, k in plan["slices"][d]:
@@ -1542,6 +1759,42 @@ class PipelineTrainStep(object):
         return out
 
     # ------------------------------------------------------------------ step
+    def _stage_params(self, k, params):
+        """Stage ``k``'s parameters for one work item: the resident tensors,
+        or at ZeRO level 3 the logical ones gathered just in time from the
+        stage's rows (one all-gather, the ``zero.gather`` span), which the
+        caller drops when the item ends."""
+        names = self._stages[k].params
+        if not self.plan.shard_params or not names:
+            return {n: params[n] for n in names}
+
+        def gather():
+            row = torch.cat([params[n].reshape(-1) for n in names])
+            full = _dist.all_gather_rows(row, self._group, self._dp) \
+                if self._dp > 1 else row.unsqueeze(0)
+            out, off = {}, 0
+            for n in names:
+                c = params[n].numel()
+                out[n] = self.plan.from_flat(full[:, off:off + c],
+                                             self.plan.shape_of(n))
+                off += c
+            return out
+        if not _tel._enabled:
+            return gather()
+        with _tel.span("zero.gather", cat="distributed", level=self.zero,
+                       stage=k, tensors=len(names)):
+            out = gather()
+            _engine.settle(list(out.values()))
+        return out
+
+    def _agree(self, finite):
+        """The overflow verdict of every rank of the mesh, which is one
+        rank or the whole world (``__init__``): one sum of the ranks'
+        flags over the world."""
+        if int(self.mesh.mesh.numel()) == 1:
+            return finite
+        return _dist.all_finite(finite, None)
+
     def __call__(self, params, opt_state, aux, batch, rng=None):
         """One pipelined, microbatched step of the global ``batch`` under
         the planned schedule.  ``params`` / ``opt_state`` / ``aux`` hold
@@ -1581,15 +1834,28 @@ class PipelineTrainStep(object):
         wall0 = _time.time()
         t_start = _time.perf_counter()
         ranks = self._row_ranks
+        dt = self._dtype
 
         def rows(n, m):
             lo = m * mb + self._row * rb
             return batch[n][lo:lo + rb].to(dev)
-        comp = torch.tensor(_np.float32(1.0 / M), device=dev) \
+        lsc = self._scale_state_dev() if self._has_scale else None
+        # the head-gradient scale of the loss-bearing stage: the 'batch'
+        # heads' 1/M fold and the loss scale in one product
+        head = torch.tensor(_np.float32(1.0 / M), device=dev) \
             if self._micro_comp else None
+        if lsc is not None:
+            head = lsc["scale"] if head is None else lsc["scale"] * head
         mine = plan["slices"][self._slice]
         aux_w = {n: aux[n] for n in aux}
-        acc = {n: torch.zeros_like(params[n]) for n in params}
+        if self._bucket:
+            # this rank's row of each stage's flat (dp, C) bucket
+            acc = {k: torch.zeros(sum(c for _, c in self._layout(k)),
+                                  dtype=self._value_dtype(), device=dev)
+                   for k in self._mine if self._stages[k].params}
+        else:
+            acc = {n: torch.zeros_like(params[n]) for n in params}
+        pending = {}        # stage -> the asynchronous all-gather of its row
         recvs = {}          # item -> [handles]
         posted = [0]
         sends = []
@@ -1607,15 +1873,28 @@ class PipelineTrainStep(object):
                 else:
                     continue
                 recvs[it] = [_dist.recv_(
-                    torch.empty(sh, dtype=dt, device=dev), src,
+                    torch.empty(sh, dtype=dt_, device=dev), src,
                     _pp_tag(m, k, V, back, j))
-                    for j, (sh, dt) in enumerate(metas)]
+                    for j, (sh, dt_) in enumerate(metas)]
 
         def walk(k, vals, aux_k, carry, scale):
             with global_batch_stats(self._sync):
                 return self._low._run(
                     vals, aux_k, True, self._inputs, self.ctx, scale, None,
                     frozenset(), False, self._stages[k], carry)
+
+        def inputs(ex, sp):
+            # the compute dtype's copies of the data inputs and parameters
+            vals = dict(ex)
+            if dt is not None:
+                vals = _cast_inputs(vals, dt, self.label_names)
+                sp = {n: v.to(dt) for n, v in sp.items()}
+            vals.update(sp)
+            return vals
+
+        def send(ts, dst, tags, metas):
+            return [_dist.send_(x.to(mt_), dst, tag)
+                    for x, tag, (_, mt_) in zip(ts, tags, metas)]
 
         with _profiler.Scope("pipeline_step[%d]" % self.num_update,
                              "symbolic"):
@@ -1627,40 +1906,42 @@ class PipelineTrainStep(object):
                 if kind == "fwd":
                     cin = [h.wait() for h in recvs.pop(it, ())]
                     ex = {n: rows(n, m) for n in st.inputs}
-                    vals = dict(ex)
-                    vals.update({n: params[n] for n in st.params})
+                    vals = inputs(ex, self._stage_params(k, params))
                     gen = _random.generator(dev)
                     start = gen.get_state()
                     with torch.no_grad():
                         outs, aux_upd, cout = walk(
                             k, vals, {n: aux_w[n] for n in st.aux}, cin,
                             None)
+                    del vals
                     for n, v in aux_upd.items():
                         if n in aux_w:
                             aux_w[n] = v.to(aux_w[n].dtype)
                     stash[(m, k)] = (cin, ex, start)
                     if k == V - 1:
-                        outs_m[m] = [o.detach() for o in outs]
+                        outs_m[m] = [o.detach().to(odt) for o, (_, odt)
+                                     in zip(outs, out_meta)]
                     else:
-                        sends += [_dist.send_(c, ranks[(k + 1) % P],
-                                              _pp_tag(m, k + 1, V, False, j))
-                                  for j, c in enumerate(cout)]
+                        sends += send(cout, ranks[(k + 1) % P],
+                                      [_pp_tag(m, k + 1, V, False, j)
+                                       for j in range(len(cout))],
+                                      per[k][1])
                 else:
                     cin, ex, start = stash.pop((m, k))
                     gout = [h.wait() for h in recvs.pop(it, ())]
-                    leaves = {n: params[n].detach().requires_grad_(True)
-                              for n in st.params}
+                    leaves = {n: v.detach().requires_grad_(True) for n, v
+                              in self._stage_params(k, params).items()}
                     cin_l = [c.detach().requires_grad_(True)
                              if c.is_floating_point() else c for c in cin]
-                    vals = dict(ex)
-                    vals.update(leaves)
-                    scale = comp if self._stage_has_loss[k] else None
+                    vals = inputs(ex, leaves)
+                    scale = head if self._stage_has_loss[k] else None
                     gen = _random.generator(dev)
                     with torch.enable_grad(), \
                             _random.replaying(gen, start):
                         outs, _, cout = walk(
                             k, vals, {n: aux_w[n] for n in st.aux},
                             cin_l, scale)
+                    del vals
                     targets = list(cout) + list(outs)
                     seeds = list(gout) + [
                         torch.ones((), dtype=o.dtype, device=o.device)
@@ -1669,9 +1950,7 @@ class PipelineTrainStep(object):
                         [c for c in cin_l if c.requires_grad]
                     grads = head_grads(targets, seeds, wrt)
                     with torch.no_grad():
-                        for n, g in zip(st.params, grads):
-                            if g is not None:
-                                acc[n] += g.to(acc[n].dtype)
+                        self._accumulate(k, acc, leaves, grads)
                     del outs, cout, targets, leaves
                     if k > 0:
                         gc = list(grads[len(st.params):])
@@ -1680,10 +1959,17 @@ class PipelineTrainStep(object):
                             g = next(it_g) if c.requires_grad else None
                             full.append(torch.zeros_like(c) if g is None
                                         else g.detach())
-                        sends += [_dist.send_(g, ranks[(k - 1) % P],
-                                              _pp_tag(m, k - 1, V, True, j))
-                                  for j, g in enumerate(full)]
+                        sends += send(full, ranks[(k - 1) % P],
+                                      [_pp_tag(m, k - 1, V, True, j)
+                                       for j in range(len(full))],
+                                      per[k][0])
                     del grads
+                    if self._overlap and not self.zero and k in acc \
+                            and plan["last_bwd"][k] == i:
+                        # the stage's backward wave is done: its one
+                        # all-gather runs under the remaining items
+                        pending[k] = _dist.all_gather_rows(
+                            acc[k], self._group, self._dp, async_op=True)
                 if telem:
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
@@ -1691,7 +1977,8 @@ class PipelineTrainStep(object):
                 sends = [h for h in sends if not h.is_completed()]
             for h in sends:
                 h.wait()
-            self._update(params, opt_state, aux, aux_w, acc, hyper, t)
+            self._update(params, opt_state, aux, aux_w, acc, pending, hyper,
+                         t, lsc)
             outs = self._hand_off(outs_m, out_meta, M, dev)
             _engine.settle(list(outs))
         in_nb = {n: _meta_nbytes(shapes[n], batch[n].dtype)
@@ -1710,17 +1997,57 @@ class PipelineTrainStep(object):
             for d in range(P):
                 _tel.gauge("pp_stage%d_live_bytes" % d,
                            self.last_live_bytes[d], stage=d)
+            if self._has_scale and self._amp_emit \
+                    and _tel.scalar_due(self.num_update):
+                # a telemetry read of two scalars
+                scale, overflow = self.amp_stats()
+                _tel.gauge("loss_scale", scale)
+                if overflow:
+                    _tel.counter("amp_overflow_steps", overflow)
+            if self.zero:
+                if self._zb_cache is None:
+                    self._zb_cache = self.zero_bytes(params, opt_state)
+                _tel.gauge("zero_param_bytes", self._zb_cache["param"],
+                           level=self.zero)
+                _tel.gauge("zero_grad_bytes", self._zb_cache["grad"],
+                           level=self.zero)
         return params, opt_state, aux, outs
 
-    def _update(self, params, opt_state, aux, aux_w, acc, hyper, t):
-        """Each of this rank's stages: its gradients all-reduced over the
-        stage's dp group (one bucket a dtype), then its rule into the
-        caller's tensors; the moving statistics the forwards chained."""
+    def _accumulate(self, k, acc, leaves, grads):
+        """One microbatch's gradients of stage ``k`` into the accumulator:
+        whole tensors, or folded into the stage's flat (dp, C) bucket and
+        reduce-scattered over its dp group into this rank's row."""
+        st = self._stages[k]
+        if not self._bucket:
+            for n, g in zip(st.params, grads):
+                if g is not None:
+                    acc[n] += g.to(acc[n].dtype)
+            return
+        if not st.params:
+            return
+        row = acc[k]
+        bucket = torch.cat([flat_shards(
+            torch.zeros_like(leaves[n], dtype=row.dtype) if g is None
+            else g.to(row.dtype), self._dp)
+            for n, g in zip(st.params, grads)], dim=1)
+        row += _dist.reduce_scatter_rows(bucket, self._group) \
+            if self._dp > 1 else bucket[0]
+
+    def _update(self, params, opt_state, aux, aux_w, acc, pending, hyper, t,
+                lsc):
+        """Each of this rank's stages: its gradients reduced over the
+        stage's dp group (gpipe levels 0-1: one all-reduce a dtype; the
+        bucket's rows are reduced already), the overflow verdict and the
+        loss-scale state under a policy, then the rule into the caller's
+        tensors (``_apply_rule``: the rows at ZeRO levels >= 1, the stage's
+        gathered row at level 0 under the overlap) and the moving
+        statistics the forwards chained (their pre-step values on
+        overflow)."""
         with torch.no_grad(), torch.profiler.record_function(
                 "PipelineTrainStep.update"):
-            for k in self._mine:
-                st = self._stages[k]
-                if self._dp > 1 and st.params:
+            if not self._bucket and self._dp > 1:
+                for k in self._mine:
+                    st = self._stages[k]
                     by_dtype = {}
                     for n in st.params:
                         by_dtype.setdefault(acc[n].dtype, []).append(n)
@@ -1733,15 +2060,40 @@ class PipelineTrainStep(object):
                             c = acc[n].numel()
                             acc[n] = flat[off:off + c].view(acc[n].shape)
                             off += c
-                for n in st.params:
-                    new_w, new_s = self.fopt.update(
-                        n, params[n], acc[n], opt_state[n], hyper, t)
-                    params[n].copy_(new_w.to(params[n].dtype))
-                    for dst, v in zip(opt_state[n], new_s):
-                        dst.copy_(v.to(dst.dtype))
+            finite = inv = None
+            if lsc is not None:
+                # judged on the scaled, reduced gradients (this rank's rows
+                # in the bucket), agreed by every rank of the mesh
+                flags = [torch.isfinite(g).all() for g in acc.values()]
+                finite = torch.stack(flags).all() if flags else torch.ones(
+                    (), dtype=torch.bool, device=self.ctx.torch_device())
+                finite = self._agree(finite)
+                inv = 1.0 / lsc["scale"]
+            for k in self._mine:
+                names = self._stages[k].params
+                if not names:
+                    continue
+                if self._bucket:
+                    if k in pending:
+                        full = pending.pop(k).wait()
+                        grads, off = {}, 0
+                        for n, c in self._layout(k):
+                            grads[n] = from_flat(full[:, off:off + c],
+                                                 self._meta[n][0])
+                            off += c
+                    else:
+                        grads = {"": acc[k]}
+                else:
+                    grads = {n: acc[n] for n in names}
+                if inv is not None:
+                    grads = {n: g * inv.to(g.dtype) for n, g in grads.items()}
+                _apply_rule(self.fopt, self.plan, names, params, opt_state,
+                            grads, hyper, t, finite, self._group, self._dp)
             for n, v in aux_w.items():
                 if v is not aux[n]:
-                    aux[n].copy_(v)
+                    _write(aux[n], v, finite)
+            if lsc is not None:
+                self._scale_state = self.policy.next_state(lsc, finite)
 
     def _hand_off(self, outs_m, out_meta, M, dev):
         """The whole global batch's outputs on every rank: the final

@@ -434,21 +434,23 @@ def _small():
     ("MXNET_ZERO", "1", "distributed")])
 def test_fit_refuses_unported_knobs(monkeypatch, knob, value, slice_):
     """Each knob the JAX package's fit reads for an unported layer raises,
-    naming the slice; "0" leaves it off and fit trains.  MXNET_ZERO and
-    MXNET_PP train (tests/test_torch_zero*.py, test_torch_pipeline.py):
-    composed they meet the refusal of the ZeRO and AMP part of the
-    pipeline, and so does MXNET_PP with MXNET_AMP."""
+    naming the slice; "0" leaves it off and fit trains.  The distributed
+    slice's MXNET_ZERO and MXNET_PP train, composed too and with MXNET_AMP
+    (tests/test_torch_zero*.py, test_torch_pipeline*.py): in a world of one
+    process the composition meets only the pipeline's need of a rank a
+    stage, never a refusal of an unported part."""
     it, mod = _small()
     monkeypatch.setenv(knob, value)
     partner = {"MXNET_ZERO": ("MXNET_PP", "2"),
                "MXNET_PP": ("MXNET_AMP", "1")}.get(knob)
     if partner:
         monkeypatch.setenv(*partner)
-    with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
-        mod.fit(it, num_epoch=1)
-    if partner:
-        with pytest.raises(mt.MXNetError,
-                           match="ZeRO and AMP part of the pipeline"):
+        with pytest.raises(mt.MXNetError, match="needs a world divisible "
+                           "by the stage count") as exc:
+            mod.fit(it, num_epoch=1)
+        assert "not ported" not in str(exc.value)
+    else:
+        with pytest.raises(mt.MXNetError, match="%s slice" % slice_):
             mod.fit(it, num_epoch=1)
     monkeypatch.setenv(knob, "0")
     if partner:

@@ -23,8 +23,11 @@ mxnet_tpu, on the CPU.
   pp=2 and dp2 x pp2 saves of the initial state byte-equal to the JAX
   package's; restores pp 2 -> 1 and 1 -> 2; ``Module.fit`` under
   ``MXNET_PP=2``; the 'batch' head fold and the 'valid' refusal; the
-  refusals (ZeRO, AMP, ``tp``, ``MXNET_PP`` with ``MXNET_ZERO`` /
-  ``MXNET_AMP``).
+  refusals that stay (``tp``, no ``pp`` axis, ``TrainStep`` on a ``pp``
+  mesh, ``dtype=`` with ``policy=``, ZeRO without a ``dp`` axis) and the
+  lifted ones built and stepped (ZeRO, AMP, the bfloat16 cast, ``MXNET_PP``
+  with ``MXNET_ZERO`` / ``MXNET_AMP``; their parity is
+  ``test_torch_pipeline_zero_amp.py``'s).
 
 The JAX package's interleaved dp=2 cases and its 1f1b pp=4 dp=2 case fail
 in the repo's tier-1 runs (ROADMAP "Reference caveats"), so the port's 1f1b
@@ -516,9 +519,11 @@ def test_semantics_and_refusals(worlds):
         assert r["semantics"]["valid_refused"]
         assert r["semantics"]["batch_head_max_abs"] <= TOL
         assert r["refusals"] == {
-            "zero": True, "policy": True, "dtype": True, "tp_axis": True,
-            "no_pp_axis": True, "trainstep_pp_axis": True,
-            "fit_MXNET_PP+MXNET_ZERO": True, "fit_MXNET_PP+MXNET_AMP": True}
+            "tp_axis": True, "no_pp_axis": True, "trainstep_pp_axis": True,
+            "dtype_with_policy": True, "zero_without_dp_axis": True,
+            "zero": "stepped", "policy": "stepped", "dtype": "stepped",
+            "fit_MXNET_PP+MXNET_ZERO": "stepped",
+            "fit_MXNET_PP+MXNET_AMP": "stepped"}
 
 
 def test_telemetry_spans_and_gauges(tmp_path):

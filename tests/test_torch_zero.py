@@ -21,7 +21,8 @@ mxnet_tpu, on the CPU.
   own (as on the card); the optimizer rows equal the JAX rows j, the
   collectives are those of each level, the plan's bytes are the JAX step's,
   and the refusals that need two ranks raise (a ``tp`` axis of size 2, a
-  batch that does not divide, ``MXNET_ZERO`` with such a batch).
+  batch that does not divide, ``MXNET_ZERO`` with such a batch), while
+  ``MXNET_ZERO`` with ``MXNET_PP`` trains through ``PipelineTrainStep``.
 """
 import json
 import os
@@ -497,4 +498,4 @@ def test_refusals_in_a_world(ladder):
         assert r["refusals"] == {
             "tp_axis": True, "tp_spec": True, "dp_spec_accepted": True,
             "batch_not_divisible": True, "fit_MXNET_ZERO": True,
-            "fit_MXNET_PP": True}
+            "fit_MXNET_PP": "stepped"}
