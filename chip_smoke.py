@@ -498,6 +498,42 @@ fatal on failure:
    optimizer state and moving statistics bitwise unchanged, the scale
    halved, one overflow on each rank.  (i) Step ms, update ms and img/s of
    every case beside the card's name and power limit.
+15. tp_sp: the tensor-parallel and ring-attention parts of the distributed
+   slice, ranks sharing the card over gloo, float32, TF32 off, random
+   weights from seed 0, started held with the pipeline's worlds. (a) Four
+   ranks, dp2 x tp2 (``bench/tp_sp_ladder.py --mesh dp2xtp2``): ResNet-50
+   v2 at full width, a global batch of TP_SP_BATCH, ``fc1_weight`` ``("tp",
+   None)`` and ``fc1_bias`` ``("tp",)`` (column-parallel), the ladder's
+   STEPS SGD-momentum steps, held on rank 0 to one process's ``TrainStep``
+   on the same global batch and state within RESNET_FLOOR_X times that
+   step's float32 floor (the ladder's FLOOR_SAMPLES runs nudged by its
+   FLOOR_NUDGE, RESNET_FLOOR_NUDGE); each rank's collectives a step by
+   kind, calls and bytes, equal to ``tp_sp_ladder.predicted_collectives``
+   (one tp all-gather of the (16, 500) outputs, one tp all-reduce of the
+   (16, 2048) input gradient and one of the moving statistics, the
+   replicated gradients summed over the world, the rank's 1,024,500
+   classifier values over dp, BatchNorm's sums over the dp group), its
+   split bytes and ms a step; the replicated parameters bitwise equal
+   across the tp ranks and every rank's whole leaves equal; the state saved
+   as a sharded checkpoint, restored into the mesh bitwise, and loaded in
+   one process with ``fc1_weight`` whole and bitwise the gathered slices;
+   the case again under MXNET_NORM_CONV=1 (RESNET_NC_PER_STEP NormConv
+   launches a rank a step, RESNET_NC_STATS_PER_STEP with statistics). (b)
+   Beside it, two ranks on tp2 with ``fc1_weight`` ``(None, "tp")``
+   (row-parallel), held the same way. (c) Two ranks under
+   ``set_sequence_mesh`` at sp=2: the LM at the ``lm`` phase's widths (LM,
+   LM_BATCH), its forward within LM_TOL of one process's relative to the
+   largest probability (one process takes the flash kernel at T=1024: LM
+   num_layers launches) and SP_LM_STEPS SGD steps (SP_LM_LR) within
+   RESNET_FLOOR_X times one process's float32 floor, every leaf finite;
+   the trained parameters bitwise equal across the sp ranks; the ring's
+   sends, receives and gathers and the gradients' mean a step against
+   ``tp_sp_ladder.predicted_ring``, no flash launch under the ring, ms a
+   step and peak memory beside one process's. (d) Beside it,
+   ``bench/train_lm.py --sequence-parallel 2`` through the launcher at its
+   defaults: the ranks' trained parameters bitwise equal (their digests)
+   and each rank's perplexity falls. The phase's seconds beside
+   TP_SP_PHASE_S.
 
 Each phase prints its seconds split into the host's set-up (the CPU
 references and seed states) and the rest, after a host-speed line (the
@@ -517,13 +553,15 @@ Updater and Rtc numbers, the parallel slice's checks, copies and rates,
 the capi phase's build, checks, C and HTTP times, the dist phase's route,
 checks, rates and checkpoint times, the zero phase's checks, bytes,
 collectives and rates, the pipeline phase's checks, launches, transfers,
-live bytes and rates, each phase's seconds, a
+live bytes and rates, the tp_sp phase's checks, collectives, ring
+messages, rates and peak memory, each phase's seconds, a
 JSON
 line of kernel numbers (rows 1-4 with a "bf16_train" entry: the
 bfloat16 kernel at the training shapes and its launches in the AMP steps;
 row 1 with an "inception_v3_train" entry: the kernel at Inception-v3's
 geometries, batch 32, and its launches in the imagenet phase, and its
-launches in the image, capi, dist, zero and pipeline phases;
+launches in the image, capi, dist, zero, pipeline and tp_sp phases;
+rows 2-4 with their launches in the tp_sp phase's one-process LM;
 row 6 the NMS kernel, which replaces an XLA loop, not a Pallas kernel,
 with a "proposal_frcnn" entry: the kernels at Proposal's 6,000 rows),
 and as its last line
@@ -8739,6 +8777,207 @@ def pipeline_dp_phase(torch, work4, handle4, card):
     return launches
 
 
+TP_SP_BATCH = 32           # the global batch of the tensor-parallel steps
+TP_RANKS = 4               # (a) dp2 x tp2
+TP_ROW_RANKS = 2           # (b) tp2
+SP_RANKS = 2               # (c), (d)
+SP_LM_STEPS = 2
+# (c)'s SGD rate: 0.1 a token (the head's gradient sums the batch's 4,096)
+SP_LM_LR = 0.1 / (LM_BATCH * LM["seq_len"])
+# the phase's aim, printed beside its seconds (no check: the worlds share
+# the host's cores with nothing else by then)
+TP_SP_PHASE_S = 150.0
+
+
+def tp_sp_start(mt):
+    """Start the tp_sp phase's four worlds, held (``dist_ranks_start``):
+    (a) dp2 x tp2 and (b) tp2 of ``bench/tp_sp_ladder.py`` on ResNet-50,
+    (c) the LM at sp=2 through the same ladder and (d) ``bench/train_lm.py
+    --sequence-parallel 2``.  Returns ((work, handle), ...)."""
+    import tempfile
+    seed_params = reference(mt, "resnet50_seed_params")["path"]
+    resnet = ["--ctx", "gpu", "--num-layers", "50", "--image", str(IMAGE),
+              "--classes", str(CLASSES), "--batch", str(TP_SP_BATCH),
+              "--dtype", "float32", "--params", seed_params, "--single"]
+    works = [tempfile.mkdtemp(prefix="chip_smoke_tp_sp_%s_" % k)
+             for k in "abcd"]
+    a = dist_ranks_start(
+        works[0], "mxnet_tpu_torch.bench.tp_sp_ladder", *resnet, "--mesh",
+        "dp2xtp2", "--cases", "col:sgd", "--norm-conv", "--ckpt",
+        hold=True, ranks=TP_RANKS)
+    b = dist_ranks_start(
+        works[1], "mxnet_tpu_torch.bench.tp_sp_ladder", *resnet, "--mesh",
+        "tp2", "--cases", "row:sgd", hold=True, ranks=TP_ROW_RANKS)
+    c = dist_ranks_start(
+        works[2], "mxnet_tpu_torch.bench.tp_sp_ladder", "--ctx", "gpu",
+        "--lm", "sp%d" % SP_RANKS, "--lm-vocab", str(LM["vocab_size"]),
+        "--lm-seq-len", str(LM["seq_len"]), "--lm-layers",
+        str(LM["num_layers"]), "--lm-hidden", str(LM["num_hidden"]),
+        "--lm-heads", str(LM["num_heads"]), "--lm-batch", str(LM_BATCH),
+        "--lm-steps", str(SP_LM_STEPS), "--lm-lr", repr(SP_LM_LR),
+        "--single", hold=True, ranks=SP_RANKS)
+    d = dist_start(
+        "train_lm", [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+                     str(SP_RANKS), sys.executable, "-c", HOLD_SRC,
+                     "mxnet_tpu_torch.bench.train_lm", "--sequence-parallel",
+                     str(SP_RANKS)], go=os.path.join(works[3], "go"))
+    return list(zip(works, (a, b, c, d)))
+
+
+def tp_sp_resnet(rows, label, card):
+    """(a) and (b): each rank's cases against the prediction, the tp
+    replicas, the world's whole leaves and, on rank 0, the floor of one
+    process's step; (a)'s checkpoint.  Returns the NormConv launches."""
+    launches = 0
+    for r in rows:
+        launches += r["norm_conv_launches"]
+        if r["route"] != DIST_ROUTE or not r["device"].startswith("cuda"):
+            fail("tp_sp %s: rank %d route %s on %s"
+                 % (label, r["rank"], r["route"], r["device"]))
+        for x in r["cases"]:
+            want = {k: v[0] for k, v in x["predicted"].items()}
+            calls = x["collectives_per_step"]
+            nc_case = x["case"].startswith("nc-")
+            print("tp_sp %s case=%s rank=%d step_ms=%r img_per_s=%r "
+                  "split_bytes=%r collectives=%s collective_mb=%s "
+                  "predicted=%s tp_bitwise_equal=%s whole_equal=%s "
+                  "worst=%r norm_conv=%r stats=%r single_step_ms=%s card=%s"
+                  % (label, x["case"], r["rank"], x["step_ms"],
+                     x["img_per_s"], x["split_bytes"],
+                     json.dumps(calls, sort_keys=True),
+                     json.dumps({k: v / 1e6 for k, v in
+                                 x["collective_bytes_per_step"].items()},
+                                sort_keys=True),
+                     json.dumps(x["predicted"], sort_keys=True),
+                     x["tp_bitwise_equal"], x["whole_equal_across_world"],
+                     x.get("worst_over_floor"), x["norm_conv_per_step"],
+                     x["norm_conv_stats_per_step"],
+                     json.dumps(r["single_step_ms"]), card))
+            # the NormConv case's statistics are the peephole's sums
+            kinds = [k for k in want if not (nc_case and k == "stats")]
+            if any(calls.get(k) != want[k] for k in kinds) or any(
+                    x["collective_bytes_per_step"][k]
+                    != x["predicted"][k][1] for k in kinds
+                    if x["predicted"][k][1] is not None):
+                fail("tp_sp %s: %s's collectives %s (bytes %s), predicted "
+                     "%s" % (label, x["case"], calls,
+                             x["collective_bytes_per_step"],
+                             x["predicted"]))
+            if not (x["tp_bitwise_equal"] and x["whole_equal_across_world"]):
+                fail("tp_sp %s: %s's replicated leaves differ across the "
+                     "ranks" % (label, x["case"]))
+            if r["rank"] == 0 and x["worst_over_floor"][0] > 1.0:
+                fail("tp_sp %s: %s's %s beyond RESNET_FLOOR_X x the floor "
+                     "of one process's step (%r)"
+                     % (label, x["case"], x["worst_over_floor"][1],
+                        x["worst_over_floor"][0]))
+            if nc_case and (x["norm_conv_per_step"], x[
+                    "norm_conv_stats_per_step"]) != (
+                    RESNET_NC_PER_STEP, RESNET_NC_STATS_PER_STEP):
+                fail("tp_sp %s: %s: %r NormConv launches a step (%r with "
+                     "statistics)" % (label, x["case"],
+                                      x["norm_conv_per_step"],
+                                      x["norm_conv_stats_per_step"]))
+        if "ckpt" in r:
+            ck = r["ckpt"]
+            print("tp_sp %s ckpt rank=%d %s"
+                  % (label, r["rank"], json.dumps(ck, sort_keys=True)))
+            if not ck["restored_bitwise"] or (r["rank"] == 0 and not (
+                    ck["one_process_bitwise"]
+                    and ck["one_process_shapes"]["fc1_weight"]
+                    == [CLASSES, 2048])):
+                fail("tp_sp %s: the checkpoint %s" % (label, ck))
+    return launches
+
+
+def tp_sp_phase(torch, mt, held, card):
+    """(a)-(d) of the tp_sp phase (see the docstring) over
+    ``tp_sp_start``'s worlds: (a) and (b) side by side, then (c) and (d).
+    Returns (NormConv launches, [flash forward, dQ, dK/dV launches])."""
+    (wa, ha), (wb, hb), (wc, hc), (wd, hd) = held
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        open(hb["go"], "w").close()
+        launches = tp_sp_resnet(dist_ranks_finish(ha, wa), "dp2xtp2", card)
+        launches += tp_sp_resnet(dist_ranks_finish(hb, wb), "tp2", card)
+        torch.cuda.empty_cache()
+        open(hd["go"], "w").close()
+        rows = dist_ranks_finish(hc, wc)
+        flash = [0, 0, 0]
+        for r in rows:
+            flash = [a + b for a, b in zip(flash, r["flash_launches"])]
+            lm = r["lm"]
+            want = {k: v[0] for k, v in lm["predicted"].items()}
+            print("tp_sp lm sp=%d rank=%d step_ms=%r single_step_ms=%r "
+                  "peak_mb=%r single_peak_mb=%r collectives=%s "
+                  "collective_mb=%s predicted=%s forward_max_abs=%r "
+                  "forward_scale=%r worst=%r sp_bitwise_equal=%r "
+                  "flash_single_forward=%r flash_under_ring=%r card=%s"
+                  % (lm["sp"], r["rank"], lm["step_ms"],
+                     lm.get("single_step_ms"), lm["peak_bytes"] / 1e6,
+                     (lm.get("single_peak_bytes") or 0) / 1e6,
+                     json.dumps(lm["collectives_per_step"], sort_keys=True),
+                     json.dumps({k: v / 1e6 for k, v in
+                                 lm["collective_bytes_per_step"].items()},
+                                sort_keys=True),
+                     json.dumps(lm["predicted"], sort_keys=True),
+                     lm.get("forward_max_abs"), lm.get("forward_scale"),
+                     lm.get("worst_over_floor"), lm["sp_bitwise_equal"],
+                     lm.get("single_forward_flash_launches"),
+                     lm["flash_launches_under_ring"], card))
+            if lm["collectives_per_step"] != want or \
+                    lm["collective_bytes_per_step"] != {
+                        k: v[1] for k, v in lm["predicted"].items()}:
+                fail("tp_sp lm: rank %d's ring messages %s, predicted %s"
+                     % (r["rank"], lm["collective_bytes_per_step"],
+                        lm["predicted"]))
+            if lm["flash_launches_under_ring"]:
+                fail("tp_sp lm: the ring's forward launched the flash "
+                     "kernel %d times" % lm["flash_launches_under_ring"])
+            if not lm["sp_bitwise_equal"]:
+                fail("tp_sp lm: rank %d's trained parameters differ from "
+                     "the other sp rank's" % r["rank"])
+            # LM_TOL is relative to the largest probability
+            if r["rank"] == 0 and not (
+                    lm["forward_max_abs"] <= LM_TOL * lm["forward_scale"]
+                    and lm["worst_over_floor"][0] <= 1.0
+                    and lm["single_forward_flash_launches"]
+                    == LM["num_layers"]):
+                fail("tp_sp lm: forward %r (LM_TOL %r of %r), %s over 4x "
+                     "its floor, %r flash launches in one process's forward"
+                     % (lm["forward_max_abs"], LM_TOL, lm["forward_scale"],
+                        lm["worst_over_floor"],
+                        lm["single_forward_flash_launches"]))
+        rc, out, err = dist_finish(hd, DIST_LAUNCH_S)
+        recs = [json.loads(line) for line in out.splitlines()
+                if line.startswith("{") and '"perplexity"' in line]
+        if rc != 0 or len(recs) != SP_RANKS:
+            fail("tp_sp train_lm: rc %d\n%s\n%s" % (rc, out[-3000:],
+                                                     err[-3000:]))
+        for rec in recs:
+            print("tp_sp train_lm %s card=%s"
+                  % (json.dumps(rec, sort_keys=True), card))
+        # the step averages the sp replicas' gradients: the ranks end with
+        # the same parameters bit for bit, and each one's perplexity falls
+        if len({rec["params_sha256"] for rec in recs}) != 1:
+            fail("tp_sp train_lm: the ranks' trained parameters differ: %s"
+                 % [rec["params_sha256"] for rec in recs])
+        for rec in recs:
+            ppl = rec["perplexity"]
+            if not ppl[-1] < ppl[0]:
+                fail("tp_sp train_lm: rank %d's perplexity %s"
+                     % (rec["rank"], ppl))
+        secs = time.perf_counter() - t0
+        print("tp_sp norm_conv launches=%d flash launches=%s "
+              "phase_seconds=%r (aim %r) card=%s"
+              % (launches, flash, secs, TP_SP_PHASE_S, card))
+        return launches, flash
+    finally:
+        for w, _ in held:
+            shutil.rmtree(w, ignore_errors=True)
+
+
 def build_all(kernels):
     """Build every kernel library at once (one nvcc each, in threads: the
     compiler runs outside the GIL); fatal on any failure."""
@@ -8977,12 +9216,16 @@ def main():
     torch.cuda.empty_cache()
     phase_done("dist")
     held_pp = pipeline_start(mt)
+    held_tp_sp = tp_sp_start(mt)
     zero_launches = zero_phase(torch, mt, held_zero)
     torch.cuda.empty_cache()
     phase_done("zero")
     pp_launches = pipeline_phase(torch, mt, held_pp, card)
     torch.cuda.empty_cache()
     phase_done("pipeline")
+    tp_launches, tp_flash = tp_sp_phase(torch, mt, held_tp_sp, card)
+    torch.cuda.empty_cache()
+    phase_done("tp_sp")
     flb, bwb = fl["bfloat16"], bw["bfloat16"]
     stop_references()
     print("chip_smoke seconds=%r (the whole script, builds included)"
@@ -8994,7 +9237,8 @@ def main():
         "replaces": "mxnet_tpu/ops/pallas_conv.py:120",
         "launches": launches + fused["launches"] + amp_fused["launches"]
         + mf["norm_conv"] + obs_launches + im["launches"] + img_launches
-        + capi_launches + dist_launches + zero_launches + pp_launches,
+        + capi_launches + dist_launches + zero_launches + pp_launches
+        + tp_launches,
         "max_abs_err": max(tot["max_abs_err"], ttot["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -9006,6 +9250,7 @@ def main():
         "dist_phase_launches": dist_launches,
         "zero_phase_launches": zero_launches,
         "pipeline_phase_launches": pp_launches,
+        "tp_sp_phase_launches": tp_launches,
         "inception_v3_train": {
             "launches": im["launches"], "max_abs_err": itot["max_abs_err"],
             "ms": itot["ms"], "plain_ms": itot["plain_ms"],
@@ -9021,7 +9266,9 @@ def main():
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:47",
-        "launches": fl_launches + amp_counts[0] + mf["flash"][0],
+        "launches": fl_launches + amp_counts[0] + mf["flash"][0]
+        + tp_flash[0],
+        "tp_sp_phase_launches": tp_flash[0],
         "max_abs_err": fl["max_abs_err"],
         "ms": per * fl["ms"], "plain_ms": per * fl["plain_ms"],
         "bound_ms": per * fl["bound_ms"], "bound_by": fl["bound_by"],
@@ -9034,7 +9281,9 @@ def main():
         "name": "flash_attention_bwd_dq", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:137",
-        "launches": dq_launches + amp_counts[1] + mf["flash"][1],
+        "launches": dq_launches + amp_counts[1] + mf["flash"][1]
+        + tp_flash[1],
+        "tp_sp_phase_launches": tp_flash[1],
         "max_abs_err": bw["dq_err"],
         "ms": per * bw["dq_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",
@@ -9050,7 +9299,9 @@ def main():
         "name": "flash_attention_bwd_dkv", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:169",
-        "launches": dkv_launches + amp_counts[2] + mf["flash"][2],
+        "launches": dkv_launches + amp_counts[2] + mf["flash"][2]
+        + tp_flash[2],
+        "tp_sp_phase_launches": tp_flash[2],
         "max_abs_err": bw["dkv_err"],
         "ms": per * bw["dkv_ms"], "plain_ms": per * bw["plain_ms"],
         "plain_covers": "dq+dk+dv",

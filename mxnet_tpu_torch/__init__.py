@@ -40,7 +40,7 @@ from .base import MXNetError
 from . import telemetry
 from . import engine
 from . import profiler
-from .context import Context, cpu, gpu, cpu_pinned, current_context
+from .context import Context, cpu, gpu, tpu, cpu_pinned, current_context
 from . import ndarray
 from . import ndarray as nd
 from . import ops
@@ -89,7 +89,8 @@ from . import visualization as viz
 from . import test_utils
 
 __all__ = ["MXNetError", "telemetry", "engine", "profiler", "cost",
-           "monitor", "Monitor", "Context", "cpu", "gpu", "current_context", "nd",
+           "monitor", "Monitor", "Context", "cpu", "gpu", "tpu",
+           "current_context", "nd",
            "ndarray", "sym", "symbol", "Variable", "Group", "executor",
            "Executor", "AttrScope", "kvstore", "kv", "Predictor",
            "predictor", "serving", "convert", "models", "ops", "random",

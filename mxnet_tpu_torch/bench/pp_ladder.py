@@ -476,7 +476,7 @@ def refusal_checks(torch, net, ctx, world, batch):
         "tp_axis": raises(lambda: PipelineTrainStep(
             net, make_opt(batch), ctx=ctx,
             mesh=pmesh.make_mesh({"pp": 1, "tp": -1})),
-            "tensor-parallel part of the distributed slice"),
+            "composes with dp only"),
         "no_pp_axis": raises(lambda: PipelineTrainStep(
             net, make_opt(batch), mesh=pmesh.make_mesh({"dp": -1}),
             ctx=ctx), "needs a mesh with a 'pp' axis"),

@@ -60,8 +60,10 @@ resumed, the restored state bitwise the saved one.  ``--eval``:
 without one on the whole batch, and a level-2 step of an MLP whose
 SoftmaxOutput normalizes by "batch" and by "valid" (ignoring label 0)
 against the same step without a mesh.  ``--refusals``: the mesh refusals
-(a ``tp`` axis of size 2, a ``tp`` spec, a batch that does not divide),
-and ``MXNET_PP`` composed with ``MXNET_ZERO``, which trains.
+(a batch that does not divide), a ``tp`` axis of size 2 with the
+parameters replicated over it and with a row-parallel ``fc1_weight``, each
+against one process's step ("stepped"), and ``MXNET_PP`` composed with
+``MXNET_ZERO``, which trains.
 
 ``--out DIR`` writes ``rank<r>.json`` (printed too) and, with
 ``--save-arrays``, ``rank<r>.params``: every run's logical parameters, aux
@@ -398,13 +400,26 @@ def refusal_checks(net, mesh, batches, ctx):
     batch = batches["data"].shape[1]
     res = {}
     tp_mesh = pmesh.make_mesh({"dp": 1, "tp": -1})
-    res["tp_axis"] = raises(lambda: mt.TrainStep(
-        net, make_opt("sgd", batch), mesh=tp_mesh, ctx=ctx),
-        "tensor-parallel part of the distributed slice")
-    res["tp_spec"] = raises(lambda: mt.TrainStep(
-        net, make_opt("sgd", batch), mesh=mesh, ctx=ctx,
-        param_shardings={"fc1_weight": ("tp", None)}),
-        "tensor-parallel part of the distributed slice")
+    one = {k: v[0] for k, v in batches.items()}
+
+    def step(mesh_, specs):
+        ts = mt.TrainStep(net, make_opt("sgd", batch), mesh=mesh_, ctx=ctx,
+                          param_shardings=specs)
+        p, s, a = ts.init({"data": tuple(one["data"].shape)},
+                          {"softmax_label": (batch,)})
+        p = {k: v.to(one["data"].dtype) for k, v in p.items()}
+        s = {k: tuple(x.to(one["data"].dtype) for x in st)
+             for k, st in s.items()}
+        p, s, a, _ = ts(p, s, a, one)
+        return ts.gather_params(p)
+    # a tp axis of size 2 (the parameters replicated over it, or the
+    # classifier row-parallel) steps as one process does
+    want = step(None, None)
+    for key, specs in (("tp_axis", None),
+                       ("tp_spec", {"fc1_weight": (None, "tp")})):
+        got = step(tp_mesh, specs)
+        res[key] = "stepped" if all(float((got[n] - want[n]).abs().max())
+                                    <= 1e-9 for n in want) else "differs"
     res["dp_spec_accepted"] = mt.TrainStep(
         net, make_opt("sgd", batch), mesh=mesh, ctx=ctx,
         param_shardings={"fc1_weight": ("dp", None)}).param_shardings \

@@ -12,7 +12,8 @@ Raw tensor bytes cross the boundary as little-endian float32 (the C predict
 API's contract) unless a call says it is typed.
 
 Device type codes are MXNet's: 1 ``cpu``, 2 ``gpu`` (the card), 3
-``cpu_pinned``.  Any other code raises (the JAX package maps unknown codes
+``cpu_pinned``, 4 ``tpu`` (the JAX package's accelerator: the card too).
+Any other code raises (the JAX package maps unknown codes
 to the CPU; the port does not fall back), so the C call returns -1 with the
 error in ``MXGetLastError``.  The calls that take no device (``MXNDArrayLoad``,
 ``MXNDArrayLoadFromRawBytes``, ``MXNDArrayCreateNone``) give host arrays, as
@@ -31,7 +32,7 @@ from . import symbol as sym_mod
 from .context import Context, cpu
 from .predictor import Predictor
 
-_DEVTYPE = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+_DEVTYPE = {1: "cpu", 2: "gpu", 3: "cpu_pinned", 4: "tpu"}
 _DEVCODE = {v: k for k, v in _DEVTYPE.items()}
 
 
@@ -39,7 +40,7 @@ def _ctx(dev_type, dev_id):
     code = int(dev_type)
     if code not in _DEVTYPE:
         raise MXNetError("device type code %d is not a context of the port "
-                         "(1 cpu, 2 gpu, 3 cpu_pinned)" % code)
+                         "(1 cpu, 2 gpu, 3 cpu_pinned, 4 tpu)" % code)
     return Context(_DEVTYPE[code], int(dev_id))
 
 

@@ -9,6 +9,10 @@ in the ``.params`` byte format (``ndarray.serialize_arrays``) and a
   of pipeline stage ``k`` (one program: everything in stage 0);
 - ``stage<k>-opt.params``: stage ``k``'s optimizer state (``opt:<name>:<i>``,
   the i-th tensor of the JAX ``_FunctionalOptimizer.init_state`` tuple);
+- a ``TrainStep``'s ``tp``-split parameters and their optimizer states
+  whole (all-gathered over ``tp`` by ``snapshot``), as the JAX package's
+  ``device_get`` of the global arrays writes them; restoring cuts them back
+  to the restoring step's slice, whatever mesh saved them;
 - ``stage<k>-zero<j>.params``: row ``j`` of stage ``k``'s ZeRO ``(dp,
   chunk)`` shards (optimizer state at level >= 1, ``argz:`` parameters at
   level 3), written by the rank that holds row ``j`` (a ``TrainStep`` over
@@ -156,6 +160,13 @@ def snapshot(ts, params, opt_state, aux, *, step=None, epoch=0, nbatch=0,
     if step is None:
         step = ts.num_update
     has_opt = opt_state is not None
+    if int(topo.get("tp", 1)) > 1:
+        # tp-split parameters and their optimizer states are written whole,
+        # as the JAX package's device_get of the global arrays gives them
+        # (a collective over the tp group: every rank snapshots)
+        params = ts.gather_params(params)
+        if has_opt:
+            opt_state = ts.gather_state(opt_state)
     # the JAX package's device_get returns the dicts with sorted keys, the
     # order its shards list their entries in
     params = {n: params[n] for n in sorted(params)}

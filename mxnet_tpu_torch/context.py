@@ -1,10 +1,12 @@
 """Device context (counterpart: mxnet_tpu/context.py).
 
-A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i``, ``cpu()`` is
-the host, and ``cpu_pinned()`` is the host with page-locked memory (an
+A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i``, ``tpu(i)``
+(the JAX package's accelerator context, type id 4) is the same card, so
+scripts written for ``mx.tpu()`` run, ``cpu()`` is the host, and
+``cpu_pinned()`` is the host with page-locked memory (an
 NDArray there holds a pinned tensor, which the card copies to and from
 without a staging buffer).  The default context is ``gpu(0)``: the port runs
-on the card unless the caller asks for the CPU.  Resolving a gpu or
+on the card unless the caller asks for the CPU.  Resolving a gpu, tpu or
 cpu_pinned context on a machine without a CUDA device raises
 :class:`MXNetError` (pinning needs the CUDA driver); nothing ever falls back
 to the CPU or to pageable memory.
@@ -17,10 +19,11 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned",
+           "current_context"]
 
-# the device type ids of the JAX package (``tpu`` 4 has no context here)
-_DEVTYPE2ID = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+# the device type ids of the JAX package
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "tpu": 4}
 _ID2DEVTYPE = {v: k for k, v in _DEVTYPE2ID.items()}
 _DEVICE_TYPES = tuple(_DEVTYPE2ID)
 
@@ -38,14 +41,14 @@ class Context(object):
                 device_type.device_id
         if device_type not in _DEVICE_TYPES:
             raise MXNetError("unknown device type %s (the port has cpu, "
-                             "gpu and cpu_pinned)" % device_type)
+                             "gpu, tpu and cpu_pinned)" % device_type)
         self.device_type = device_type
         self.device_id = int(device_id)
         self._old_ctx = None
 
     @property
     def device_typeid(self):
-        """The device type's id (cpu 1, gpu 2, cpu_pinned 3)."""
+        """The device type's id (cpu 1, gpu 2, cpu_pinned 3, tpu 4)."""
         return _DEVTYPE2ID[self.device_type]
 
     @property
@@ -55,8 +58,8 @@ class Context(object):
 
     def torch_device(self):
         """The ``torch.device`` of this context (the host for cpu_pinned);
-        raises for a gpu context when no such CUDA device exists, and for
-        cpu_pinned when there is no CUDA device at all."""
+        raises for a gpu or tpu context when no such CUDA device exists,
+        and for cpu_pinned when there is no CUDA device at all."""
         if self.device_type == "cpu":
             return torch.device("cpu")
         if not torch.cuda.is_available():
@@ -110,6 +113,12 @@ def cpu(device_id=0):
 def gpu(device_id=0):
     """CUDA device ``device_id``."""
     return Context("gpu", device_id)
+
+
+def tpu(device_id=0):
+    """The accelerator context of the JAX package's scripts: CUDA device
+    ``device_id``, as ``gpu(device_id)`` (device type id 4)."""
+    return Context("tpu", device_id)
 
 
 def cpu_pinned(device_id=0):

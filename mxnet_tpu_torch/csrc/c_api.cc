@@ -9,8 +9,8 @@
  * reference is the *contract*: opaque handles, 0/-1 return codes,
  * thread-local MXGetLastError, API_BEGIN/API_END structure
  * (reference src/c_api/c_api_common.h).  Device type codes are checked on
- * the Python side: 1 cpu, 2 gpu, 3 cpu_pinned; any other code fails with
- * a named error.
+ * the Python side: 1 cpu, 2 gpu, 3 cpu_pinned, 4 tpu; any other code
+ * fails with a named error.
  *
  * Handles are PyObject* (INCREF'd on creation, DECREF'd in MX*Free) — the
  * same ownership discipline the reference applies to its C++ objects.

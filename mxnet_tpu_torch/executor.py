@@ -629,7 +629,7 @@ class _Lowered(object):
         nhwc.add((id(node), 0))
 
     def _stem_run(self, node, values, nhwc, aux_updates, skip, arg_vals,
-                  s2d, take, device):
+                  s2d, take, device, tp=None):
         """Run a fused input BatchNorm + conv pair (see ``_init_stem``):
         the conv's output channel-last, the BatchNorm's moving statistics
         into ``aux_updates``; each operand on ``device`` when the walk is
@@ -650,6 +650,9 @@ class _Lowered(object):
             if not wvar.is_var or wvar.name not in arg_vals:
                 return False
             w = arg_vals[wvar.name]
+            if tp is not None and wvar.name in tp.gathered:
+                # read whole here, once: the variable's turn keeps it
+                w = values[(id(wvar), 0)] = tp.gather(wvar.name, w)
         if device is not None:
             w = to_device(w, device)
         out, mean, var = input_bn_conv(x_cl, beta, w, info["eps"],
@@ -668,7 +671,7 @@ class _Lowered(object):
     def run(self, arg_vals, aux_vals, is_train=False, no_grad_inputs=(),
             device=None, head_grad_scale=None, place=None,
             unfusable=frozenset(), collect=False, stage=None,
-            carry_vals=None):
+            carry_vals=None, tp=None):
         """Walk the graph: {name: tensor} in, (outputs in logical layout,
         {aux name: updated value}) out.  Autograd records the walk only
         under ``is_train``; inputs named in ``no_grad_inputs`` (data and
@@ -696,7 +699,13 @@ class _Lowered(object):
         nodes only: ``carry_vals`` are the values of ``stage.carry_in``, in
         logical NCHW, and the return is ``(outputs, aux_updates,
         carry_out)``: the outputs on the final stage only, ``carry_out``
-        the values of ``stage.carry_out`` restored to logical NCHW."""
+        the values of ``stage.carry_out`` restored to logical NCHW.
+
+        ``tp`` (a ``parallel.tensor_parallel.TensorParallel`` plan, built
+        once with the step) reads the ``tp``-split parameters its routes
+        name: a gathered variable is all-gathered where the walk reads it,
+        and a routed ``FullyConnected`` runs column- or row-parallel over
+        the split weight (the op itself is unchanged)."""
         if stage is not None and (collect or place is not None):
             raise MXNetError("the pipeline stage walk takes neither the "
                              "monitor's collection nor a group2ctx plan")
@@ -704,7 +713,7 @@ class _Lowered(object):
             return self._run(arg_vals, aux_vals, bool(is_train),
                              frozenset(no_grad_inputs), device,
                              head_grad_scale if is_train else None, place,
-                             unfusable, collect, stage, carry_vals)
+                             unfusable, collect, stage, carry_vals, tp)
 
     @staticmethod
     def _device(device, arg_vals, aux_vals):
@@ -719,7 +728,7 @@ class _Lowered(object):
 
     def _run(self, arg_vals, aux_vals, is_train, no_grad_inputs, device,
              head_grad_scale, place, unfusable, collect, stage=None,
-             carry_vals=None):
+             carry_vals=None, tp=None):
         use_nhwc = get_env("MXNET_CONV_LAYOUT", "NHWC") == "NHWC"
         nc_on = (use_nhwc and not collect and bool(self.nc_bn)
                  and get_env("MXNET_NORM_CONV", "0") == "1")
@@ -756,6 +765,10 @@ class _Lowered(object):
                     v = arg_vals[node.name]
                     if v.requires_grad and node.name in no_grad_inputs:
                         v = v.detach()
+                    if tp is not None and node.name in tp.gathered:
+                        if (id(node), 0) in values:
+                            continue     # the stem fuse read it first
+                        v = tp.gather(node.name, v)
                     values[(id(node), 0)] = v
                 elif node.name in aux_vals:
                     values[(id(node), 0)] = aux_vals[node.name]
@@ -773,7 +786,7 @@ class _Lowered(object):
                     and not (nc_on and (id(node) in self.nc_bn
                                         or id(stem["conv"]) in self.nc_conv)):
                 if self._stem_run(node, values, nhwc, aux_updates, skip,
-                                  arg_vals, stem_s2d, take, tgt):
+                                  arg_vals, stem_s2d, take, tgt, tp):
                     continue
             if nc_on and id(node) in self.nc_bn \
                     and ("nc", id(node)) not in unfusable:
@@ -828,7 +841,10 @@ class _Lowered(object):
                 # gradient they send down instead
                 ins = [_ScaleBackward.apply(ins[0], head_grad_scale)] \
                     + ins[1:]
-            call = op.make_callable(params, is_train)
+            if tp is not None and id(node) in tp.routes:
+                call = functools.partial(tp.fc, id(node))
+            else:
+                call = op.make_callable(params, is_train)
             if not ins and dev is None:
                 dev = self._device(device, arg_vals, aux_vals)
             at = ins[0].device if ins else (dev if tgt is None else tgt)

@@ -2,8 +2,10 @@
 dot_product_attention, position_ids, softmax_mask and LayerNorm.
 
 ``dot_product_attention`` is the core primitive: (B, H, T, D) q/k/v in, the
-same shape out.  Which implementation runs is decided by ``_use_flash``
-alone:
+same shape out.  The ladder, as the JAX package's:
+- a sequence mesh is active (``parallel.mesh.set_sequence_mesh``):
+  ``parallel.ring.ring_attention`` over its axis, whatever ``impl`` says;
+otherwise ``_use_flash`` decides:
 - ``impl='flash'``: the flash wrapper (its plain version on a CPU tensor,
   the Hopper kernel on a CUDA tensor, and an error on a CUDA tensor the
   kernel does not take);
@@ -11,14 +13,14 @@ alone:
 - ``impl='auto'``: the kernel for a CUDA tensor with T >= 512 that
   ``flash_available`` admits, else the reference, as the JAX package takes
   its Pallas kernel only on a TPU and from T = 512.
-The sequence-mesh rung (ring attention) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
-from ..parallel.ring import attention_reference
+from ..parallel import mesh as _mesh
+from ..parallel.ring import attention_reference, ring_attention
 from .flash_attention import flash_attention, flash_available
 from .registry import register, parse_bool, parse_float
 
@@ -51,6 +53,10 @@ def _attn_infer(attrs, in_shapes):
 def _dot_product_attention(query, key, value, causal=False, scale=None,
                            impl="auto"):
     """Scaled dot-product attention over (B, H, T, D)."""
+    mesh, axis = _mesh.sequence_mesh()
+    if mesh is not None:
+        return ring_attention(query, key, value, mesh, axis=axis,
+                              causal=causal, scale=scale)
     if _use_flash(impl, tuple(query.shape), tuple(key.shape),
                   tuple(value.shape), query.dtype, query.is_cuda):
         return flash_attention(query, key, value, causal, scale)

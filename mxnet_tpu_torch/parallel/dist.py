@@ -41,6 +41,16 @@ The ZeRO step's collectives (``all_reduce_``, ``reduce_scatter_rows``,
 ``all_gather_rows``, ``all_gather_batch``, ``all_finite``, ``sum_across``)
 run over a mesh axis's group.
 
+The tensor-parallel step inserts by hand the collectives XLA inserted for a
+``tp`` sharding, as four autograd functions over the ``tp`` group:
+``gather_along`` (all-gather along a dimension; the backward takes this
+rank's slice), its mirror ``scatter_along`` (this rank's slice; the
+backward all-gathers), ``copy_to_group`` (the identity; the backward
+all-reduces) and its mirror ``reduce_from_group`` (all-reduce; the backward
+is the identity).  The slice's gradient is exact because every rank of the
+group computes the same loss from the gathered values.  Ring attention's
+K/V blocks go one hop around its ``sp`` group by ``ring_exchange``.
+
 The pipeline's point-to-point transfers (``send_`` / ``recv_``, over
 ``isend`` / ``irecv``) return a handle whose ``wait()`` finishes the
 transfer; they count as the kinds ``send`` and ``recv`` (``send_outputs``
@@ -62,8 +72,11 @@ kvstore's buckets, gradients at ZeRO 0-1), ``reduce_scatter`` (the bucket
 at 2-3), ``all_gather`` (updated rows, level-3 parameters, eval outputs),
 ``verdict`` (the AMP overflow flag), ``stats`` (BatchNorm's per-channel
 sums, ``sum_across``, whose backward sums the cotangents across the ranks
-too), ``broadcast`` (a pipeline's stages gathered on every rank) and the
-P2P kinds above.  gloo takes every collective on CUDA tensors when ranks
+too), ``broadcast`` (a pipeline's stages gathered on every rank), the P2P
+kinds above, ``tp_all_gather`` / ``tp_all_reduce`` (the tensor-parallel
+functions), ``ring_send`` / ``ring_recv`` (ring attention's hops) and
+``sp_all_gather`` (its output blocks, and its gradients in the
+backward).  gloo takes every collective on CUDA tensors when ranks
 share a card (checked on the H100 with torch 2.11), but not send and
 receive.  ``ensure_group`` gives a world of
 1 a one-rank gloo group, so a mesh works in one process.
@@ -95,7 +108,9 @@ __all__ = ["init_process_group", "shutdown_process_group", "rank",
            "bucket_allreduce", "ensure_group", "reset_collectives",
            "all_reduce_", "reduce_scatter_rows", "all_gather_rows",
            "all_gather_batch", "all_finite", "sum_across", "send_",
-           "recv_", "p2p_route", "broadcast_"]
+           "recv_", "p2p_route", "broadcast_", "gather_along",
+           "scatter_along", "copy_to_group", "reduce_from_group",
+           "ring_exchange", "gather_cat", "slice_of"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -443,7 +458,7 @@ def reduce_scatter_rows(bucket, group):
     return out
 
 
-def all_gather_rows(row, group, dp, async_op=False):
+def all_gather_rows(row, group, dp, async_op=False, kind="all_gather"):
     """Every rank's (C,) row -> the (dp, C) stack, on every rank.  With
     ``async_op`` the gather runs while the caller goes on: the return is a
     handle whose ``wait()`` gives the stack (``row`` must stay unchanged
@@ -453,9 +468,9 @@ def all_gather_rows(row, group, dp, async_op=False):
     t0 = time.perf_counter()
     work = tdist.all_gather_into_tensor(out, row.reshape(-1), group=group,
                                         async_op=async_op)
-    _count("all_gather", out, t0)
+    _count(kind, out, t0)
     out = out.reshape((dp,) + tuple(row.shape))
-    return _P2P(work, "all_gather", out, keep=row) if async_op else out
+    return _P2P(work, kind, out, keep=row) if async_op else out
 
 
 def all_gather_batch(x, group, dp):
@@ -490,6 +505,108 @@ def sum_across(t, group):
     return _SumAcross.apply(t, group)
 
 
+# ------------------------------------------- tensor and sequence axes
+def gather_cat(t, dim, group, size, kind="all_gather"):
+    """Every rank's ``t`` of ``group`` (``size`` ranks) concatenated along
+    ``dim`` in the group's rank order, on every rank."""
+    stack = all_gather_rows(t, group, size, kind=kind)
+    return torch.cat(stack.unbind(0), dim=dim)
+
+
+def slice_of(t, dim, index, size):
+    """Slice ``index`` of ``size`` equal slices of ``t`` along ``dim``."""
+    k = t.shape[dim] // size
+    return t.narrow(dim, index * k, k).contiguous()
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, size, index, kind):
+        ctx.args = (dim, index, size)
+        return gather_cat(t.detach(), dim, group, size, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (slice_of(g, *ctx.args),) + (None,) * 5
+
+
+class _ScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, size, index, kind):
+        ctx.args = (dim, group, size, kind)
+        return slice_of(t.detach(), dim, index, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, size, kind = ctx.args
+        return (gather_cat(g.contiguous(), dim, group, size, kind),) \
+            + (None,) * 5
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, kind):
+        ctx.args = (group, kind)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), *ctx.args), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, kind):
+        return all_reduce_(t.detach().contiguous().clone(), group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def gather_along(t, dim, group, size, index, kind="tp_all_gather"):
+    """``t`` gathered from every rank of ``group`` along ``dim`` (this
+    rank is slice ``index`` of ``size``); the backward keeps this rank's
+    slice of the cotangent."""
+    return _GatherAlong.apply(t, dim, group, size, index, kind)
+
+
+def scatter_along(t, dim, group, size, index, kind="tp_all_gather"):
+    """Slice ``index`` of ``size`` of ``t`` along ``dim``; the backward
+    all-gathers the slices' cotangents over ``group``."""
+    return _ScatterAlong.apply(t, dim, group, size, index, kind)
+
+
+def copy_to_group(t, group, kind="tp_all_reduce"):
+    """``t`` unchanged; the backward sums its cotangent over ``group``
+    (each rank's share of a replicated input's gradient)."""
+    return _CopyToGroup.apply(t, group, kind)
+
+
+def reduce_from_group(t, group, kind="tp_all_reduce"):
+    """``t`` summed over ``group``; the backward passes the (replicated)
+    cotangent on unchanged."""
+    return _ReduceFromGroup.apply(t, group, kind)
+
+
+def ring_exchange(tensors, right, left, tag):
+    """One hop of a ring: each of ``tensors`` goes to global rank
+    ``right`` and as many of the same shapes and dtypes come from global
+    rank ``left`` (tags ``tag``, ``tag + 1``, ...).  Every receive is
+    posted before any send and neither blocks until both are posted, so
+    two neighbours never wait on each other.  Returns the received
+    tensors."""
+    recvs = [recv_(torch.empty_like(t, memory_format=torch.contiguous_format),
+                   left, tag + i, kind="ring_recv")
+             for i, t in enumerate(tensors)]
+    sends = [send_(t, right, tag + i, kind="ring_send")
+             for i, t in enumerate(tensors)]
+    out = [r.wait() for r in recvs]
+    for h in sends:
+        h.wait()
+    return out
+
+
 # ------------------------------------------------------ point to point
 def p2p_route(t):
     """How ``send_`` / ``recv_`` move ``t``: ``direct`` (host tensors, and
@@ -509,9 +626,12 @@ class _P2P(object):
     until it is done (a staged receive then copies into its tensor) and
     returns the tensor."""
 
-    def __init__(self, work, kind, tensor, staged=None, keep=None):
+    def __init__(self, work, kind, tensor, staged=None, keep=None,
+                 recv=False):
         self._work, self._kind = work, kind
         self.tensor, self._staged = tensor, staged
+        # a staged receive copies its host buffer into ``tensor``
+        self._recv = recv
         # the source of an asynchronous collective, alive until wait()
         self._keep = keep
         self._done = False
@@ -523,13 +643,18 @@ class _P2P(object):
         if not self._done:
             t0 = time.perf_counter()
             self._work.wait()
-            if self._staged is not None and self._kind.startswith("recv"):
+            if self._staged is not None and self._recv:
                 self.tensor.copy_(self._staged, non_blocking=True)
                 p2p_staged_copies[0] += 1
             _add_seconds(self._kind, time.perf_counter() - t0)
             self._done = True
             self._staged = self._keep = None
         return self.tensor
+
+
+def _staging(t):
+    """The pinned host buffer a staged transfer of ``t`` crosses."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
 def send_(t, dst, tag, kind="send"):
@@ -539,7 +664,7 @@ def send_(t, dst, tag, kind="send"):
     t = t.detach().contiguous()
     staged = None
     if p2p_route(t) == "host-staged":
-        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged = _staging(t)
         staged.copy_(t)
         p2p_staged_copies[0] += 1
     work = tdist.isend(staged if staged is not None else t, int(dst),
@@ -554,11 +679,11 @@ def recv_(t, src, tag, kind="recv"):
     t0 = time.perf_counter()
     staged = None
     if p2p_route(t) == "host-staged":
-        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged = _staging(t)
     work = tdist.irecv(staged if staged is not None else t, int(src),
                        tag=int(tag))
     _count(kind, t, t0)
-    return _P2P(work, kind, t, staged)
+    return _P2P(work, kind, t, staged, recv=True)
 
 
 def broadcast_(t, src, group=None, kind="broadcast"):

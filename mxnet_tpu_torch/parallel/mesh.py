@@ -11,12 +11,19 @@ on its own card over NCCL, or all of them on one card over gloo, by
 (``dist.ensure_group``), so the same code runs in one process.
 
 The axis helpers (``axis_names``, ``axis_size``, ``axis_rank``,
-``axis_group``) read a mesh the way the step needs it.  ``make_pp_mesh``
-is a ``dp x pp`` mesh with ``pp`` the minor axis (rank = d * pp + s), and
-``pp_submeshes`` cuts it into one ``StageMesh`` a stage: the ranks of the
-stage's ``dp`` slice, with that slice's process group on its own ranks.
-Not ported here: the sequence mesh of ring attention
-(``set_sequence_mesh``) raises, naming its part of the distributed slice.
+``axis_group``, ``axis_ranks``) read a mesh the way the step needs it: on
+a ``dp x tp`` mesh (rank = d * tp + t) ``axis_group(mesh, "dp")`` is this
+rank's dp slice (the ranks of its tp index) and ``axis_group(mesh, "tp")``
+its tp slice.  ``make_pp_mesh`` is a ``dp x pp`` mesh with ``pp`` the minor
+axis (rank = d * pp + s), and ``pp_submeshes`` cuts it into one
+``StageMesh`` a stage: the ranks of the stage's ``dp`` slice, with that
+slice's process group on its own ranks.
+
+``set_sequence_mesh(mesh, axis)`` turns sequence parallelism on for the
+process: every ``dot_product_attention`` then runs ``parallel.ring.
+ring_attention`` over ``axis`` of ``mesh``, whose ranks run the same
+replicated step (the rest of the graph is not sharded, as in the JAX
+package, where only the op is).
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from ..base import MXNetError
 __all__ = ["make_mesh", "data_parallel_mesh", "local_devices_for",
            "set_sequence_mesh", "sequence_mesh", "mesh_cache_key",
            "make_pp_mesh", "pp_submeshes", "StageMesh", "axis_names",
-           "axis_size", "axis_rank", "axis_group"]
+           "axis_size", "axis_rank", "axis_group", "axis_ranks"]
 
 
 def _is_mesh(mesh):
@@ -54,6 +61,18 @@ def axis_group(mesh, name):
     return mesh.get_group(name)
 
 
+def axis_ranks(mesh, name):
+    """The global ranks of this rank's slice along axis ``name``, in the
+    axis's order."""
+    grid = mesh.mesh
+    names = axis_names(mesh)
+    me = int(mesh.get_rank())
+    coord = [int(c) for c in (grid == me).nonzero()[0].tolist()]
+    ax = names.index(name)
+    idx = tuple(slice(None) if i == ax else c for i, c in enumerate(coord))
+    return [int(r) for r in grid[idx].reshape(-1).tolist()]
+
+
 def mesh_cache_key(mesh):
     """A hashable identity of a mesh: axis names, sizes and ranks."""
     if mesh is None:
@@ -62,18 +81,31 @@ def mesh_cache_key(mesh):
             tuple(int(r) for r in mesh.mesh.reshape(-1).tolist()))
 
 
+# the process's sequence mesh: when set, attention ops run ring attention
+# over its axis (ops/attention.py)
+_seq_mesh = {"mesh": None, "axis": "sp"}
+
+
 def set_sequence_mesh(mesh, axis="sp"):
-    """Clear (``mesh=None``) the sequence mesh; a mesh raises: ring
-    attention over a sequence mesh is not ported yet."""
+    """Turn sequence parallelism on (or off, with ``mesh=None``): later
+    ``dot_product_attention`` ops run ring attention with the sequence
+    split over ``axis`` of ``mesh`` (a ``make_mesh`` mesh over the ranks
+    that run the same replicated step)."""
     if mesh is not None:
-        raise MXNetError("set_sequence_mesh is not ported yet: it arrives "
-                         "with the ring-attention part of the distributed "
-                         "slice")
+        if not _is_mesh(mesh):
+            raise MXNetError("set_sequence_mesh takes a parallel.mesh mesh "
+                             "(a torch DeviceMesh), got %r"
+                             % type(mesh).__name__)
+        if axis not in axis_names(mesh):
+            raise MXNetError("set_sequence_mesh: mesh %r has no %r axis"
+                             % (axis_names(mesh), axis))
+    _seq_mesh["mesh"] = mesh
+    _seq_mesh["axis"] = axis
 
 
 def sequence_mesh():
-    """(mesh, axis) of the sequence mesh: always (None, "sp") here."""
-    return None, "sp"
+    """(mesh, axis) of the active sequence mesh; mesh is None when off."""
+    return _seq_mesh["mesh"], _seq_mesh["axis"]
 
 
 def local_devices_for(ctx_list=None):

@@ -60,16 +60,46 @@ by kind in ``parallel.dist.collective_calls`` / ``collective_bytes``:
   is agreed by one sum across the ranks, so every rank skips together.
 
 The outputs a step returns are this rank's rows.  ``param_shardings``
-naming only ``dp`` (or no axis) is accepted and leaves the parameter
-replicated; a ``tp`` axis of size > 1 is the tensor-parallel part of the
-distributed slice and raises, as do ``pp`` and ``sp`` axes.
+naming only ``dp`` (or no axis) leaves the parameter replicated.
+
+Tensor parallelism (a ``dp x tp`` mesh, or ``tp`` alone, with
+``param_shardings`` naming ``tp`` on a dimension of a parameter, as the
+dryrun's ``{"fc1_weight": ("tp", None), "fc1_bias": ("tp",)}``): every
+rank keeps its slice of each such parameter and of its optimizer state,
+and the executor's walk reads it through the routes of a
+``parallel.tensor_parallel.TensorParallel`` plan built once with the step
+(a column- or row-parallel ``FullyConnected``, or the parameter
+all-gathered where it is read), the collectives XLA inserts for the JAX
+step. The ranks of one ``tp`` slice take the same rows (``shard_batch``
+goes by the ``dp`` coordinate), so BatchNorm's sums and the split
+gradients' all-reduce go over the ``dp`` group only (``axis_group(mesh,
+"dp")``: this tp index's dp slice), and the outputs are the dp slice's
+rows at full width. The replicas agree by construction, not by the
+kernels' determinism: the replicated gradients are summed over the whole
+mesh and scaled by 1/tp, and the moving statistics' updates averaged over
+the ``tp`` group, so every rank takes the same update bit for bit (so the
+mesh spans the world). Under a policy the overflow verdict is the world's
+(the split gradients differ across the ``tp`` ranks). ZeRO with a ``tp``
+spec refuses, in the JAX package's words. Without a mesh, or on a ``tp``
+axis of size 1, a ``tp`` spec leaves the parameter whole, as in the JAX
+package, where a spec without a mesh is not read. Any other mesh axis of
+size > 1 refuses (``pp`` names ``PipelineTrainStep``; a sequence mesh goes
+to ``parallel.mesh.set_sequence_mesh``).
+
+Sequence parallelism (``parallel.mesh.set_sequence_mesh``, read each step
+as the attention op reads it): every rank of the sequence mesh's axis runs
+the step on the same batch and only the attention op is split (ring
+attention). The replicas agree by construction, as the tp ones do: the
+gradients (after the dp reduction) and the moving statistics' updates are
+averaged over the axis's group (``sp_all_reduce``), so every rank takes
+the same update bit for bit.
 
 Checkpoints: ``checkpoint_topology`` (one stage, the ZeRO level and dp
-width, the logical shapes at level 3), ``place_checkpoint`` (re-chunked to
-this mesh's dp, whatever topology saved them), ``export_host`` and the
-loss-scale hooks serve ``checkpoint.py``'s sharded format, whose
-optimizer-state tuples are the JAX ``_FunctionalOptimizer.init_state``'s,
-in its order.
+width, the ``tp`` width, the logical shapes at level 3),
+``place_checkpoint`` (re-chunked to this mesh's dp, whatever topology
+saved them), ``export_host`` and the loss-scale hooks serve
+``checkpoint.py``'s sharded format, whose optimizer-state tuples are the
+JAX ``_FunctionalOptimizer.init_state``'s, in its order.
 
 Not ported here: the ``MXNET_MONITOR`` statistics, their cadence, history
 ring and provenance replay (the numerics slice); the sanitizer's hooks;
@@ -101,13 +131,10 @@ from .parallel import dist as _dist
 from .parallel import mesh as _mesh
 from .parallel.placement import (PlacementPlan, chunk_rows, flat_shards,
                                  from_flat, normalize_zero)
+from .parallel import tensor_parallel as _tpar
 
 __all__ = ["TrainStep", "EvalStep", "PipelineTrainStep",
            "pipeline_bubble_fraction"]
-
-# mesh axes the port does not run yet, of size > 1 -> the part of the
-# distributed slice that brings them
-_AXIS_PARTS = {"tp": "tensor-parallel", "sp": "ring-attention"}
 
 # remat="dots": the matrix products without batch dimensions whose outputs
 # the recompute keeps (JAX's dots_with_no_batch_dims_saveable saves neither
@@ -121,17 +148,14 @@ def _refuse_axis(who, axis, size=None):
         raise MXNetError("%s: a 'pp' axis%s: pipelined training runs "
                          "through PipelineTrainStep over "
                          "parallel.mesh.make_pp_mesh" % (who, sized))
-    part = _AXIS_PARTS.get(axis)
-    if part is None:
-        raise MXNetError("%s: mesh axis %r%s: the port shards over 'dp' "
-                         "only" % (who, axis, sized))
-    raise MXNetError("%s: a %r axis%s is not ported yet: it arrives with "
-                     "the %s part of the distributed slice"
-                     % (who, axis, sized, part))
+    raise MXNetError("%s: mesh axis %r%s: the port shards a step over 'dp' "
+                     "and 'tp' only (a sequence mesh goes to "
+                     "parallel.mesh.set_sequence_mesh)" % (who, axis, sized))
 
 
 def _check_mesh(who, mesh):
-    """The mesh is a DeviceMesh whose axes other than ``dp`` have size 1."""
+    """The mesh is a DeviceMesh whose axes other than ``dp`` and ``tp``
+    have size 1."""
     if mesh is None:
         return
     if not _mesh._is_mesh(mesh):
@@ -140,31 +164,34 @@ def _check_mesh(who, mesh):
                          % (who, type(mesh).__name__))
     for axis in _mesh.axis_names(mesh):
         size = _mesh.axis_size(mesh, axis)
-        if axis != "dp" and size > 1:
+        if axis not in ("dp", "tp") and size > 1:
             _refuse_axis(who, axis, size)
 
 
 def _check_shardings(who, mesh, shardings):
-    """Each spec names only ``dp`` or no axis (the parameter stays
-    replicated); another axis of size > 1, or one the mesh lacks,
-    raises."""
+    """Each spec names ``dp`` (the parameter stays replicated over it),
+    ``tp`` (a dimension split over it) or no axis.  Without a mesh a spec
+    is not read (as the JAX package's), but a ``pp`` axis raises; on a
+    mesh, an axis it lacks raises, and so does another axis of size > 1.
+    Returns ``{name: dimension}`` of the dimensions split over a ``tp``
+    axis of size > 1."""
     for name, spec in shardings.items():
-        axes = []
-        for entry in (spec or ()):
-            axes.extend(entry if isinstance(entry, (tuple, list))
-                        else [entry])
-        for axis in axes:
-            if axis is None or axis == "dp":
-                continue
+        for axis in [a for entry in (spec or ())
+                     for a in _tpar._axes(entry)]:
             if mesh is None or axis not in _mesh.axis_names(mesh):
-                if axis in _AXIS_PARTS or axis == "pp":
+                if axis == "pp":
                     _refuse_axis(who, axis)
+                if mesh is None:
+                    continue
                 raise MXNetError("%s: param_shardings[%r] names axis %r, "
                                  "which the mesh has not" % (who, name,
                                                              axis))
             size = _mesh.axis_size(mesh, axis)
-            if size > 1:
+            if axis not in ("dp", "tp") and size > 1:
                 _refuse_axis(who, axis, size)
+    if mesh is None or _mesh.axis_size(mesh, "tp") == 1:
+        return {}
+    return _tpar.shard_dims(who, shardings)
 
 
 class _RankBatch(dict):
@@ -388,6 +415,26 @@ def _write(dst, new, finite):
     dst.copy_(new if finite is None else torch.where(finite, new, dst))
 
 
+def _summed(tensors, names, group, scale=None, kind="all_reduce"):
+    """``{name: tensor}`` of ``names`` summed across ``group`` (None: the
+    world), one all-reduce a dtype, times ``scale`` when given."""
+    by_dtype = {}
+    for n in names:
+        by_dtype.setdefault(tensors[n].dtype, []).append(n)
+    out = {}
+    for ns in by_dtype.values():
+        flat = _dist.all_reduce_(torch.cat(
+            [tensors[n].detach().reshape(-1) for n in ns]), group, kind)
+        if scale is not None:
+            flat = flat * scale
+        off = 0
+        for n in ns:
+            k = tensors[n].numel()
+            out[n] = flat[off:off + k].view(tensors[n].shape)
+            off += k
+    return out
+
+
 def _apply_rule(fopt, plan, names, params, opt_state, grads, hyper, t,
                 finite, group, dp):
     """One optimizer step of the parameters ``names`` into the caller's
@@ -490,8 +537,10 @@ class TrainStep(_LossScale):
     mesh : None, or a ``parallel.mesh.make_mesh`` mesh with a ``dp`` axis:
         each rank steps on its rows of the global batch (see the module's
         docstring)
-    param_shardings : {param name: spec}; a spec names only ``dp`` or no
-        axis (the parameter stays replicated)
+    param_shardings : {param name: spec}, a spec a tuple of one entry a
+        dimension (None, ``"dp"``, ``"tp"``): ``tp`` splits that dimension
+        over the mesh's ``tp`` axis (see the module's docstring), ``dp`` or
+        no axis leaves the parameter replicated
     zero : the ZeRO level 0-3 (True is 1), which needs a ``dp`` mesh
     remat : False; True recomputes the forward in the backward
         (``torch.utils.checkpoint``); "dots" keeps the outputs of the matrix
@@ -523,7 +572,7 @@ class TrainStep(_LossScale):
                              "'dots', got %r" % (remat,))
         _check_mesh("TrainStep", mesh)
         self.param_shardings = dict(param_shardings or {})
-        _check_shardings("TrainStep", mesh, self.param_shardings)
+        tp_dims = _check_shardings("TrainStep", mesh, self.param_shardings)
         self.zero = normalize_zero(zero)
         self.policy, self._dtype = _compute_dtype("TrainStep", dtype, policy)
         self._has_scale = self.policy is not None
@@ -548,8 +597,8 @@ class TrainStep(_LossScale):
             if any(n in self.param_shardings for n in self.param_names):
                 raise MXNetError(
                     "TrainStep(zero=%d) shards the optimizer over dp; "
-                    "combining it with param_shardings is not supported"
-                    % self.zero)
+                    "combine it with tensor-parallel param_shardings is "
+                    "not supported yet" % self.zero)
         # the data-parallel width, this rank's row and the group of the
         # mesh's dp axis (a mesh without one replicates the step)
         if mesh is not None and "dp" in _mesh.axis_names(mesh):
@@ -558,7 +607,25 @@ class TrainStep(_LossScale):
             self._group = _mesh.axis_group(mesh, "dp")
         else:
             self._dp, self._row, self._group = 1, 0, None
-        # BatchNorm's statistics over the global batch
+        # the tensor-parallel plan over a tp axis of size > 1: this rank's
+        # slice of each split parameter, and the routes of their readers,
+        # chosen once here
+        tp_dims = {n: d for n, d in tp_dims.items() if n in self.param_names}
+        self._tp = None
+        if mesh is not None and _mesh.axis_size(mesh, "tp") > 1:
+            self._tp = _tpar.TensorParallel(
+                self._low, tp_dims, _mesh.axis_size(mesh, "tp"),
+                _mesh.axis_rank(mesh, "tp"), _mesh.axis_group(mesh, "tp"))
+            ranks = int(mesh.mesh.numel())
+            if ranks != _dist.num_workers():
+                raise MXNetError(
+                    "TrainStep over a tp axis: the replicated gradients, "
+                    "and an overflow verdict, are agreed over the whole "
+                    "world; a mesh of %d of the world's %d ranks is not "
+                    "ported (a mesh of every rank)"
+                    % (ranks, _dist.num_workers()))
+        # BatchNorm's statistics over the global batch: the dp group's rows
+        # (never the world's: the tp ranks of a dp slice hold the same rows)
         self._sync = (self._group, self._dp) if self._dp > 1 else None
         self.plan = PlacementPlan(zero=self.zero, dp=self._dp,
                                   who="TrainStep", row=self._row)
@@ -591,14 +658,28 @@ class TrainStep(_LossScale):
 
         def row(v):
             return plan.row_of(host(v)).to(dev, copy=True)
-        placed = {n: (row if plan.shard_params else put)(params[n])
-                  for n in self.param_names}
+        tp = self._tp
+        if tp is not None:
+            for n, d in tp.dims.items():
+                _tpar.check_divisible("TrainStep", n,
+                                      self.param_shardings[n],
+                                      tuple(host(params[n]).shape), d,
+                                      tp.size)
+
+        def mine(n, v):
+            """This rank's slice of a tp-split leaf, else the leaf."""
+            if tp is None or n not in tp.dims:
+                return put(v)
+            return _dist.slice_of(host(v), tp.dims[n], tp.index,
+                                  tp.size).to(dev, copy=True)
+        placed = {n: row(params[n]) if plan.shard_params
+                  else mine(n, params[n]) for n in self.param_names}
         if state is None:
             state = self.fopt.init_state(
                 {n: row(params[n]) if plan.shard_state else placed[n]
                  for n in self.param_names})
         else:
-            state = {n: tuple((row if plan.shard_state else put)(s)
+            state = {n: tuple(row(s) if plan.shard_state else mine(n, s)
                               for s in state[n])
                      for n in self.param_names}
         return placed, state, {n: put(aux[n]) for n in self.aux_names}
@@ -632,10 +713,13 @@ class TrainStep(_LossScale):
     def checkpoint_topology(self):
         """The shard ownership of this step for ``checkpoint.snapshot``: one
         stage owns every parameter and aux state; the ZeRO level, its dp
-        width and, at level 3, the logical shapes (parity:
+        width, the ``tp`` width (``snapshot`` gathers the split parameters
+        and states whole: ``gather_params`` / ``gather_state``) and, at
+        level 3, the logical shapes (parity:
         TrainStep.checkpoint_topology)."""
         topo = {"pp": 1, "dp": self.plan.dp, "zero": self.zero,
                 "row": self.plan.row, "microbatches": None,
+                "tp": self._tp.size if self._tp is not None else 1,
                 "stage_of": {n: 0 for n in self.param_names
                              + self.aux_names}}
         if self.plan.shard_params:
@@ -682,7 +766,8 @@ class TrainStep(_LossScale):
             with global_batch_stats(self._sync):
                 return self._low.run(vals, aux, True,
                                      no_grad_inputs=self._inputs,
-                                     device=self.ctx, head_grad_scale=scale)
+                                     device=self.ctx, head_grad_scale=scale,
+                                     tp=self._tp)
         if not self.remat:
             return fwd()
         # Dropout and the samplers draw from the step device's explicit
@@ -726,6 +811,12 @@ class TrainStep(_LossScale):
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.update"):
             grads = self._reduce(grads)
+            sp = self._sp_group()
+            if sp is not None:
+                # the sequence replicas' gradients, their mean: the same
+                # bits on every rank of the axis
+                grads = _summed(grads, sorted(grads), sp[0], 1.0 / sp[1],
+                                "sp_all_reduce")
             finite = None
             if lsc is not None:
                 # overflow is judged on the scaled float32 gradients, on the
@@ -749,6 +840,8 @@ class TrainStep(_LossScale):
         reduce-scatter leaves this rank's row (levels 2-3: ``{"": row}``).
         Unchanged at dp 1 but for the fold."""
         plan = self.plan
+        if self._tp is not None:
+            return self._tp_reduce(grads)
         if plan.bucket_grads:
             layout = plan.bucket_layout(self.param_names)
             bucket = plan.fold_bucket(grads, layout)
@@ -757,19 +850,33 @@ class TrainStep(_LossScale):
             return {"": _dist.reduce_scatter_rows(bucket, self._group)}
         if self._dp == 1:
             return grads
-        by_dtype = {}
-        for n in self.param_names:
-            by_dtype.setdefault(grads[n].dtype, []).append(n)
-        out = {}
-        for names in by_dtype.values():
-            flat = _dist.all_reduce_(torch.cat(
-                [grads[n].reshape(-1) for n in names]), self._group)
-            off = 0
-            for n in names:
-                k = grads[n].numel()
-                out[n] = flat[off:off + k].view(grads[n].shape)
-                off += k
+        return _summed(grads, self.param_names, self._group)
+
+    def _tp_reduce(self, grads):
+        """The gradients under a tp plan: the split ones summed over the
+        dp group; the replicated ones summed over the whole mesh and
+        scaled by 1/tp, the mean of the tp replicas' sums, so every rank
+        takes the same update bit for bit whatever order its kernels
+        summed in (a card's convolution backward need not repeat its
+        rounding from one process to another)."""
+        tp = self._tp
+        split = [n for n in self.param_names if n in tp.dims]
+        rep = [n for n in self.param_names if n not in tp.dims]
+        out = dict(grads)
+        if self._dp > 1 and split:
+            out.update(_summed(grads, split, self._group))
+        if rep:
+            out.update(_summed(grads, rep, None, 1.0 / tp.size))
         return out
+
+    @staticmethod
+    def _sp_group():
+        """(group, size) of the active sequence mesh's axis when it spans
+        more than one rank, else None."""
+        mesh, axis = _mesh.sequence_mesh()
+        if mesh is None or _mesh.axis_size(mesh, axis) == 1:
+            return None
+        return _mesh.axis_group(mesh, axis), _mesh.axis_size(mesh, axis)
 
     def _finite(self, grads):
         """The overflow verdict on the reduced gradients, a 0-d bool on
@@ -778,6 +885,9 @@ class TrainStep(_LossScale):
                               for g in grads.values()]).all()
         if self.plan.bucket_grads and self._dp > 1:
             finite = _dist.all_finite(finite, self._group)
+        elif self._tp is not None:
+            # the tp ranks hold different slices: the world's verdict
+            finite = _dist.all_finite(finite, None)
         return finite
 
     def _update(self, params, opt_state, aux, aux_upd, grads, hyper, t,
@@ -787,6 +897,15 @@ class TrainStep(_LossScale):
         verdict each copy keeps the old value where it is false."""
         _apply_rule(self.fopt, self.plan, self.param_names, params,
                     opt_state, grads, hyper, t, finite, self._group, self._dp)
+        if self._tp is not None and aux_upd:
+            # the tp replicas' moving statistics, their mean (one
+            # all-reduce): the same bits on every rank of the slice
+            aux_upd = _summed(aux_upd, sorted(aux_upd), self._tp.group,
+                              1.0 / self._tp.size, "tp_all_reduce")
+        sp = self._sp_group()
+        if sp is not None and aux_upd:
+            aux_upd = _summed(aux_upd, sorted(aux_upd), sp[0], 1.0 / sp[1],
+                              "sp_all_reduce")
         for k, v in aux_upd.items():
             if k in aux:
                 _write(aux[k], v, finite)
@@ -808,9 +927,14 @@ class TrainStep(_LossScale):
 
     def gather_params(self, params):
         """Logical, replicated parameters from the level-3 rows (the
-        ``zero.gather`` span while telemetry records).  The identity below
-        level 3: callers that need full weights (the fit's sync-back, an
-        eval hand-off) call it unconditionally."""
+        ``zero.gather`` span while telemetry records), or from the
+        tp-split slices (one all-gather over ``tp`` a split parameter).
+        The identity otherwise: callers that need full weights (the fit's
+        sync-back, an eval hand-off, a checkpoint) call it
+        unconditionally."""
+        if self._tp is not None:
+            return {n: self._tp.whole(n, v) if n in self._tp.dims else v
+                    for n, v in params.items()}
         if not self.plan.shard_params:
             return params
         if not _tel._enabled:
@@ -823,7 +947,12 @@ class TrainStep(_LossScale):
 
     def gather_state(self, opt_state):
         """Logical optimizer state from the rows of levels >= 1 (one
-        all-gather a dtype's rows); the identity below level 1."""
+        all-gather a dtype's rows), or from the tp-split slices; the
+        identity otherwise."""
+        if self._tp is not None:
+            return {n: tuple(self._tp.whole(n, x) for x in st)
+                    if n in self._tp.dims else st
+                    for n, st in opt_state.items()}
         plan = self.plan
         if not plan.shard_state:
             return opt_state
@@ -887,6 +1016,13 @@ class TrainStep(_LossScale):
         if self.plan.shard_params and self._dp > 1:
             # level-3 rows: the norms of the whole parameters
             _dist.all_reduce_(sq, self._group, "monitor")
+        elif self._tp is not None:
+            # the tp slices' norms summed into the whole parameters'
+            split = torch.tensor([n in self._tp.dims
+                                  for n in self.param_names],
+                                 device=sq.device)
+            whole = _dist.all_reduce_(sq.clone(), self._tp.group, "monitor")
+            sq = torch.where(split, whole, sq)
         return sq
 
     def _publish_monitor(self, sq, upd_idx):
@@ -1009,11 +1145,12 @@ class EvalStep(object):
     stay in the compute dtype.  A host batch (numpy arrays, NDArrays)
     moves to the parameters' device, as the JAX package's jit moves it.
 
-    ``mesh=`` (a ``dp`` mesh): each rank runs the forward on its rows of
-    the global batch, and the outputs are gathered along the batch axis,
-    so every rank returns the whole batch's outputs.  The parameters are
-    the logical ones (``TrainStep.gather_params`` gives them at level
-    3)."""
+    ``mesh=`` (a ``dp`` mesh, or ``dp x tp``): each rank runs the forward
+    on its dp rows of the global batch, and the outputs are gathered
+    along the batch axis over the dp group, so every rank returns the
+    whole batch's outputs.  The parameters are the logical, whole ones, as
+    the JAX package's EvalStep takes them (``TrainStep.gather_params``
+    gives them from level-3 rows or tp slices)."""
 
     def __init__(self, symbol, mesh=None, dtype=None,
                  label_names=("softmax_label",), policy=None):
@@ -1172,8 +1309,8 @@ class PipelineTrainStep(_LossScale):
     and at a ZeRO level the ``zero_param_bytes`` / ``zero_grad_bytes``
     gauges.
 
-    Not ported here: a ``tp`` axis raises as it does for ``TrainStep``
-    (the tensor-parallel part of the distributed slice).
+    A mesh axis other than ``dp`` and ``pp`` raises, in the JAX package's
+    words ("composes with dp only").
     """
 
     # receives posted ahead of the item being run, in its slice's order
@@ -1190,12 +1327,11 @@ class PipelineTrainStep(_LossScale):
             raise MXNetError(
                 "PipelineTrainStep needs a mesh with a 'pp' axis "
                 "(parallel.mesh.make_pp_mesh)")
-        for axis in _mesh.axis_names(mesh):
-            if axis in ("dp", "pp"):
-                continue
-            size = _mesh.axis_size(mesh, axis)
-            if size > 1:
-                _refuse_axis("PipelineTrainStep", axis, size)
+        extra = set(_mesh.axis_names(mesh)) - {"dp", "pp"}
+        if extra:
+            raise MXNetError(
+                "PipelineTrainStep composes with dp only; mesh axes %s "
+                "are not supported yet" % sorted(extra))
         self.zero = normalize_zero(zero)
         if self.zero and "dp" not in _mesh.axis_names(mesh):
             raise MXNetError("PipelineTrainStep(zero=%d) needs a mesh with a "

@@ -704,20 +704,48 @@ def test_remat_refuses_unknown_mode():
 
 @pytest.mark.parametrize("kw,item", [
     ({"param_shardings": {"x": ("pp", None)}}, "the distributed slice"),
-    ({"param_shardings": {"x": ("tp", None)}}, "the distributed slice"),
-    ({"zero": 1, "param_shardings": {"x": ("tp",)}},
+    ({"param_shardings": {"fc1_weight": ("tp", None)}},
+     "the distributed slice"),
+    ({"zero": 1, "param_shardings": {"fc1_weight": ("tp",)}},
      "the distributed slice")])
 def test_only_the_parallel_arguments_refuse(kw, item):
-    """The mesh and ZeRO arguments train (tests/test_torch_zero*.py); a
-    tensor-parallel axis still refuses, naming its part, and a pipeline
-    axis names PipelineTrainStep, which trains it
-    (tests/test_torch_pipeline.py)."""
+    """The mesh and ZeRO arguments train (tests/test_torch_zero*.py), and
+    so does a ``tp`` spec (without a mesh it is not read, as in the JAX
+    package: the plain step under a policy, bit for bit; over a ``tp`` axis:
+    tests/test_torch_tensor_parallel.py); ZeRO with a ``tp`` spec refuses
+    in the JAX package's words, and a pipeline axis names
+    PipelineTrainStep, which trains it (tests/test_torch_pipeline.py)."""
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as pmesh
     if "pp" in str(kw):
-        match = "pipelined training runs through PipelineTrainStep"
-    else:
-        match = "arrives with the tensor-parallel part of %s" % item
-    with pytest.raises(mt.MXNetError, match=match):
-        mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
+        with pytest.raises(mt.MXNetError, match="pipelined training runs "
+                           "through PipelineTrainStep"):
+            mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(),
+                         **kw)
+        return
+    if "zero" in kw:
+        dist.ensure_group()
+        try:
+            with pytest.raises(mt.MXNetError, match="combine it with "
+                               "tensor-parallel param_shardings is not "
+                               "supported yet"):
+                mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(), ctx=mt.cpu(),
+                             mesh=pmesh.make_mesh({"dp": 1, "tp": 1}), **kw)
+        finally:
+            dist.shutdown_process_group()
+        return
+    rs = np.random.RandomState(2)
+    batch = {"data": rs.randn(4, 10).astype(np.float32),
+             "softmax_label": rs.randint(0, 4, 4).astype(np.float32)}
+    got = []
+    for extra in (kw, {}):
+        ts = mt.TrainStep(_mlp(mt.sym), mt.optimizer.SGD(learning_rate=0.1),
+                          policy=Policy("bfloat16"), ctx=mt.cpu(), **extra)
+        p, s, a = ts.init({"data": (4, 10)}, {"softmax_label": (4,)}, seed=1)
+        p, s, a, _ = ts(p, s, a, batch)
+        got.append(p)
+    for n in got[1]:
+        assert torch.equal(got[0][n], got[1][n]), n
 
 
 # ------------------------------------------- float16 and the NormConv gate

@@ -235,9 +235,9 @@ def test_error_reporting(libmx):
     assert len(libmx.MXGetLastError()) > 0
 
 
-@pytest.mark.parametrize("dev_type", [4, 7, 0])
+@pytest.mark.parametrize("dev_type", [5, 7, 0])
 def test_unknown_device_type_fails(libmx, tmp_path, dev_type):
-    """Codes other than 1, 2 and 3 fail with a named error (the JAX
+    """Codes other than 1, 2, 3 and 4 fail with a named error (the JAX
     package's library maps them to the CPU; the port does not)."""
     h = ctypes.c_void_p()
     shape = (ctypes.c_uint * 1)(2)
@@ -252,10 +252,11 @@ def test_unknown_device_type_fails(libmx, tmp_path, dev_type):
         libmx.MXGetLastError().decode()
 
 
-@pytest.mark.parametrize("dev_type", [2, 3])
+@pytest.mark.parametrize("dev_type", [2, 3, 4])
 def test_card_device_types_fail_without_card(libmx, dev_type):
-    """gpu (2) and cpu_pinned (3) need a card: without one the call fails
-    with the context's error, and nothing falls back to the host."""
+    """gpu (2), cpu_pinned (3) and tpu (4, the card too) need a card:
+    without one the call fails with the context's error, and nothing falls
+    back to the host."""
     import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -487,3 +488,15 @@ def test_failed_build_raises_with_compiler_output(tmp_path):
     missing = HostLibrary(cxx=str(tmp_path / "no-such-g++"))
     with pytest.raises(mt.MXNetError, match="cannot run"):
         missing.build()
+
+
+def test_tpu_device_code_round_trips():
+    """Device type 4 is the JAX package's ``tpu`` context, which the port
+    maps to the card: the code gives ``mt.tpu(i)`` and the context gives
+    the code back."""
+    from mxnet_tpu_torch import capi
+    ctx = capi._ctx(4, 1)
+    assert ctx == mt.tpu(1) and ctx.device_typeid == 4
+    assert capi._DEVCODE[ctx.device_type] == 4
+    for code in (1, 2, 3, 4):
+        assert capi._DEVCODE[capi._ctx(code, 0).device_type] == code

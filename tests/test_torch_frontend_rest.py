@@ -137,16 +137,19 @@ def test_name_prefix_matches_mxnet_tpu(mx):
 
 
 def test_context_names_match_mxnet_tpu(mx):
-    """The device type ids of the three contexts the port has (cpu_pinned,
-    id 3, raises when resolved without a card), and ``default_ctx`` (the
-    current context); tpu is not a context of the port."""
-    for dt in ("cpu", "gpu", "cpu_pinned"):
+    """The device type ids of the four contexts the port has (cpu_pinned,
+    id 3, and tpu, id 4, the card, raise when resolved without a card), and
+    ``default_ctx`` (the current context)."""
+    for dt in ("cpu", "gpu", "cpu_pinned", "tpu"):
         pc, jc = mt.Context(dt, 1), mx.Context(dt, 1)
         assert pc.device_typeid == jc.device_typeid
         assert mt.Context.devstr2type[dt] == mx.Context.devstr2type[dt]
         assert mt.Context.devtype2str[pc.device_typeid] == dt == \
             mx.Context.devtype2str[jc.device_typeid]
-    assert set(mt.Context.devstr2type) == {"cpu", "gpu", "cpu_pinned"}
+    assert set(mt.Context.devstr2type) == {"cpu", "gpu", "cpu_pinned",
+                                           "tpu"}
+    assert mt.tpu(1) == mt.Context("tpu", 1) != mt.gpu(1)
+    assert mt.tpu().device_typeid == mx.tpu().device_typeid == 4
     assert mt.cpu_pinned(0) == mt.Context("cpu_pinned", 0)
     assert mt.cpu_pinned().device_typeid == 3
     with mt.cpu(0):
@@ -155,8 +158,12 @@ def test_context_names_match_mxnet_tpu(mx):
     if not torch.cuda.is_available():
         with pytest.raises(mt.MXNetError, match="needs a CUDA device"):
             mt.cpu_pinned().torch_device()
+        with pytest.raises(mt.MXNetError, match="needs a CUDA device"):
+            mt.tpu().torch_device()
+    else:
+        assert mt.tpu(0).torch_device() == mt.gpu(0).torch_device()
     with pytest.raises(mt.MXNetError):
-        mt.Context("tpu", 0)
+        mt.Context("npu", 0)
 
 
 def test_top_level_aliases(mx):

@@ -148,7 +148,7 @@ def test_partial_forward_matches_mxnet_tpu(mx, case):
 
 def test_cpu_pinned_needs_a_card():
     """cpu_pinned is a context, id 3; without a card resolving it raises,
-    as gpu does, and nothing lands in pageable memory instead."""
+    as gpu and tpu do, and nothing lands in pageable memory instead."""
     ctx = mt.cpu_pinned()
     assert ctx.device_typeid == 3 and str(ctx) == "cpu_pinned(0)"
     if torch.cuda.is_available():
@@ -162,8 +162,12 @@ def test_cpu_pinned_needs_a_card():
                    ctx=ctx)):
         with pytest.raises(mt.MXNetError, match="needs a CUDA device"):
             fn()
-    with pytest.raises(mt.MXNetError, match="unknown device type tpu"):
-        mt.Context("tpu", 0)
+    # tpu (id 4) is the card too, so it raises as gpu does; a type the
+    # port has not is unknown
+    with pytest.raises(mt.MXNetError, match="needs a CUDA device"):
+        mt.nd.zeros((2,), ctx=mt.tpu())
+    with pytest.raises(mt.MXNetError, match="unknown device type npu"):
+        mt.Context("npu", 0)
 
 
 @pytest.mark.cuda

@@ -293,19 +293,47 @@ def test_eval_step_matches_mxnet_tpu(f64):
 
 @pytest.mark.parametrize("kw,item", [
     ({"param_shardings": {"x": ("pp", None)}}, "the distributed slice"),
-    ({"param_shardings": {"x": ("tp", None)}}, "the distributed slice"),
-    ({"zero": 1, "param_shardings": {"x": ("tp",)}},
+    ({"param_shardings": {"embed_weight": ("tp", None)}},
+     "the distributed slice"),
+    ({"zero": 1, "param_shardings": {"embed_weight": ("tp",)}},
      "the distributed slice")])
 def test_trainstep_refuses_what_is_not_ported(kw, item):
-    """A tensor-parallel axis refuses, naming its part; a pipeline axis
-    refuses, naming PipelineTrainStep (tests/test_torch_pipeline.py); the
-    mesh and ZeRO arguments train (tests/test_torch_zero*.py)."""
+    """A pipeline axis refuses, naming PipelineTrainStep
+    (tests/test_torch_pipeline.py).  A ``tp`` spec without a mesh is not
+    read, as in the JAX package: the step is built and takes the plain
+    step, bit for bit (the ``tp`` axis itself trains in
+    tests/test_torch_tensor_parallel.py).  ZeRO with a ``tp`` spec still
+    refuses, in the JAX package's words."""
+    from mxnet_tpu_torch.parallel import dist
+    from mxnet_tpu_torch.parallel import mesh as pmesh
     if "pp" in str(kw):
-        match = "pipelined training runs through PipelineTrainStep"
-    else:
-        match = "arrives with the tensor-parallel part of %s" % item
-    with pytest.raises(mt.MXNetError, match=match):
-        mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
+        with pytest.raises(mt.MXNetError, match="pipelined training runs "
+                           "through PipelineTrainStep"):
+            mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(), **kw)
+        return
+    if "zero" in kw:
+        dist.ensure_group()
+        try:
+            mesh = pmesh.make_mesh({"dp": 1, "tp": 1})
+            with pytest.raises(mt.MXNetError, match="combine it with "
+                               "tensor-parallel param_shardings is not "
+                               "supported yet"):
+                mt.TrainStep(_psym(), mt.optimizer.SGD(), ctx=mt.cpu(),
+                             mesh=mesh, **kw)
+        finally:
+            dist.shutdown_process_group()
+        return
+    got = []
+    for extra in (kw, {}):
+        ts = mt.TrainStep(_psym(), mt.optimizer.SGD(learning_rate=0.1),
+                          ctx=mt.cpu(), **extra)
+        p, s, a = ts.init({"data": SHAPES["data"]},
+                          {"softmax_label": SHAPES["softmax_label"]}, seed=2)
+        p, s, a, _ = ts(p, s, a, _batch(4))
+        got.append(p)
+    assert ts.param_shardings == {} and got[0].keys() == got[1].keys()
+    for n in got[1]:
+        assert torch.equal(got[0][n], got[1][n]), n
 
 
 def test_unported_rules_and_ops_refuse():

@@ -6,8 +6,9 @@ mxnet_tpu, on the CPU.
   sizes; ``PlacementPlan.per_device_bytes`` at levels 0-3 and dp 1/2/4 for
   the ResNet-50 of ``MULTICHIP_ZERO_r01.json`` equal to the JAX package's
   and to the record's ladder; ``normalize_zero``; the refusals that need no
-  world (a ZeRO level without a mesh, a ``tp`` spec, the pipeline and
-  sequence meshes, ``MXNET_PP``); a mesh over a world of one.
+  world (a ZeRO level without a mesh, the pipeline meshes, a sequence mesh
+  that is none, ``MXNET_PP``), a ``tp`` spec without a mesh (not read) and
+  the sequence mesh set and cleared; a mesh over a world of one.
 - One world of two gloo ranks on the CPU (``bench/zero_ladder.py``, one
   launch): a 20-layer ResNet at 3x16x16 with 7 classes (an odd classifier,
   so the rows are padded) in float64, levels 0-3 with SGD-momentum and
@@ -20,9 +21,11 @@ mxnet_tpu, on the CPU.
   over the whole global batch, every backward driven from a thread of its
   own (as on the card); the optimizer rows equal the JAX rows j, the
   collectives are those of each level, the plan's bytes are the JAX step's,
-  and the refusals that need two ranks raise (a ``tp`` axis of size 2, a
-  batch that does not divide, ``MXNET_ZERO`` with such a batch), while
-  ``MXNET_ZERO`` with ``MXNET_PP`` trains through ``PipelineTrainStep``.
+  and the refusals that need two ranks raise (a batch that does not
+  divide, ``MXNET_ZERO`` with such a batch), while a ``tp`` axis of size 2
+  (replicated, and with a row-parallel ``fc1_weight``) steps as one process
+  does and ``MXNET_ZERO`` with ``MXNET_PP`` trains through
+  ``PipelineTrainStep``.
 """
 import json
 import os
@@ -172,10 +175,12 @@ def _mlp():
 def test_refusals_without_a_world():
     with pytest.raises(mt.MXNetError, match="needs a mesh with a 'dp'"):
         mt.TrainStep(_mlp(), mt.optimizer.SGD(), zero=2, ctx=mt.cpu())
-    with pytest.raises(mt.MXNetError,
-                       match="tensor-parallel part of the distributed"):
-        mt.TrainStep(_mlp(), mt.optimizer.SGD(), ctx=mt.cpu(),
-                     param_shardings={"fc1_weight": ("tp", None)})
+    # a tp spec without a mesh is not read (the JAX package's rule): the
+    # step is built with every parameter whole
+    ts = mt.TrainStep(_mlp(), mt.optimizer.SGD(), ctx=mt.cpu(),
+                      param_shardings={"fc1_weight": ("tp", None)})
+    p, _, _ = ts.init({"data": (4, 32)}, {"softmax_label": (4,)})
+    assert ts._tp is None and p["fc1_weight"].shape == (128, 32)
     with pytest.raises(mt.MXNetError, match="takes a parallel.mesh"):
         mt.EvalStep(_mlp(), mesh=object())
     # the pipeline meshes train (tests/test_torch_pipeline.py); what still
@@ -187,9 +192,19 @@ def test_refusals_without_a_world():
         dist.shutdown_process_group()
     with pytest.raises(mt.MXNetError, match="takes a parallel.mesh mesh"):
         pmesh.pp_submeshes(None)
-    with pytest.raises(mt.MXNetError, match="ring-attention part"):
+    # the sequence mesh is set and cleared (ring attention:
+    # tests/test_torch_ring_attention.py); a mesh that is none refuses
+    with pytest.raises(mt.MXNetError, match="takes a parallel.mesh mesh"):
         pmesh.set_sequence_mesh(object())
-    pmesh.set_sequence_mesh(None)
+    try:
+        mesh = pmesh.make_mesh({"sp": -1})
+        with pytest.raises(mt.MXNetError, match="has no 'tp' axis"):
+            pmesh.set_sequence_mesh(mesh, axis="tp")
+        pmesh.set_sequence_mesh(mesh)
+        assert pmesh.sequence_mesh() == (mesh, "sp")
+    finally:
+        pmesh.set_sequence_mesh(None)
+        dist.shutdown_process_group()
     assert pmesh.sequence_mesh() == (None, "sp")
 
 
@@ -496,6 +511,7 @@ def test_refusals_in_a_world(ladder):
     assert rc == 0, log[-4000:]
     for r in rows:
         assert r["refusals"] == {
-            "tp_axis": True, "tp_spec": True, "dp_spec_accepted": True,
+            "tp_axis": "stepped", "tp_spec": "stepped",
+            "dp_spec_accepted": True,
             "batch_not_divisible": True, "fit_MXNET_ZERO": True,
             "fit_MXNET_PP": "stepped"}
